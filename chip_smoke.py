@@ -5,24 +5,35 @@
 
 In order, it:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds both CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
+  2. builds the CUDA kernels from `src/repro_torch/kernels/csrc` (one nvcc
      per source, started together) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
-     every shape the serving path gives it, and prints the largest error
-     beside its tolerance, then the kernel's time, the plain version's time,
-     a library yardstick's time (`torch.matmul`; `scaled_dot_product_attention`
-     on gathered K/V) and the bound (the larger of bytes / 3.35e12 B/s and
-     operations / the peak rate of their type); it also reads the
-     gpp_matmul issue-order record back and compares it with
-     `chunk_issue_schedule` for G in {1, 2, 4};
+     every shape the two serving paths give it (gpp_matmul at both models'
+     projection shapes, deepseek's f32 router included), and prints the
+     largest error beside its tolerance, then the kernel's time, the plain
+     version's time, a library yardstick's time (`torch.matmul` /
+     `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
+     rows) and the bound (the larger of bytes / 3.35e12 B/s and operations
+     / the peak rate of their type); it also reads the issue-order records
+     of gpp_matmul and gpp_matmul_grouped (at deepseek's planned decode
+     shape, 5 experts a CTA, so across expert boundaries) back and compares
+     them with `chunk_issue_schedule` for G in {1, 2, 4} (and the planned G);
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
-     `repro_torch.serving.ServingEngine`: bf16 with speculation off and on
-     (tok/s, launch counts of both kernels, which must be > 0), then float32
-     with the kernels and with their plain versions, whose greedy streams
-     must be equal;
-  5. prints {"kernels": [...]} and, last, the device line.
+     `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
+     whose greedy continuations are then appended to the prompts (so the
+     n-gram drafter finds drafts), bf16 with speculation off and on (tok/s,
+     launch counts, which must be > 0 for the path's kernels, and at least
+     one verify step), one profiled run (device time by kernel, busy
+     share), then float32 with the kernels and with their plain versions,
+     whose greedy streams must be equal;
+  5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
+     depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
+     check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
+     since full depth in f32 is 62.8 GB of weights;
+  6. prints {"kernels": [...]} and, last, the device line.
 
-Any failed check raises, so the exit code is not 0.  Without CUDA it exits
+Any failed check raises, so the exit code is not 0.  Without CUDA, or
+outside a checkout of the repo (no `src/repro_torch` beside it), it exits
 with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -44,9 +55,27 @@ L2_BYTES = 50 * 1024 * 1024
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 
 D, F, H, HD = 1024, 2816, 16, 64      # qwen1.5-0.5b widths
+DS_D, DS_F, DS_E, DS_H = 2048, 1408, 64, 16      # deepseek-v2-lite widths
+DS_R, DS_RR, DS_NOPE, DS_F0 = 512, 64, 128, 10944  # kv_lora, rope, layer 0
 SLOTS, MAX_LEN, BS, CHUNK, DRAFT = 4, 128, 16, 32, 4
-PROJ = {"qkvo": (D, D), "gate_up": (D, F), "down": (F, D)}
 PHASE_M = {"decode": SLOTS, "prefill": CHUNK, "verify": SLOTS * (DRAFT + 1)}
+BOTH = ("bfloat16", "float32")
+# gpp_matmul's (K, N, dtypes) on each serving path.  deepseek: MLA q, the
+# kv down-projection (latent + rope), o; the router, f32 in every model
+# dtype; the 2 shared experts (2 x 1408 wide); layer 0's dense MLP.
+GPP_SHAPES = {
+    "qwen1.5-0.5b": {"qkvo": (D, D, BOTH), "gate_up": (D, F, BOTH),
+                     "down": (F, D, BOTH)},
+    "deepseek-v2-lite-16b": {
+        "q": (DS_D, DS_H * (DS_NOPE + DS_RR), BOTH),
+        "dkv": (DS_D, DS_R + DS_RR, BOTH),
+        "o": (DS_H * DS_NOPE, DS_D, BOTH),
+        "router": (DS_D, DS_E, ("float32",)),
+        "shared_gate_up": (DS_D, 2 * DS_F, BOTH),
+        "shared_down": (2 * DS_F, DS_D, BOTH),
+        "dense_gate_up": (DS_D, DS_F0, BOTH),
+        "dense_down": (DS_F0, DS_D, BOTH)},
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -172,32 +201,36 @@ def check_gpp(report):
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import ACTIVATION_IDS, chunk_issue_schedule
     rows = []
-    for phase, M in PHASE_M.items():
-        for name, (K, N) in PROJ.items():
-            for dtype in ("bfloat16", "float32"):
-                err = max(gpp_case(M, K, N, dtype, G=G)
-                          for G in (None, 1, 2, 4))
-                row = {"phase": phase, "proj": name, "M": M, "K": K, "N": N,
-                       "dtype": dtype, "max_abs_err": err,
-                       "tol": TOL[dtype]}
-                if dtype == "bfloat16":
-                    row.update(gpp_time(M, K, N, dtype))
-                rows.append(row)
-                print(f"gpp_matmul {phase:7s} {name:7s} {M}x{K}x{N} {dtype}: "
-                      f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
-                      + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
-                         f" library_ms={row['library_ms']:.4f} bound_ms="
-                         f"{row['bound_ms']:.4f} ({row['bound_by']})"
-                         f" wall_ms={row['wall_ms']:.4f}"
-                         if "ms" in row else ""))
-    # epilogue variants at the path's projection shapes
+    for path, shapes in GPP_SHAPES.items():
+        for phase, M in PHASE_M.items():
+            for name, (K, N, dtypes) in shapes.items():
+                for dtype in dtypes:
+                    err = max(gpp_case(M, K, N, dtype, G=G)
+                              for G in (None, 1, 2, 4))
+                    row = {"path": path, "phase": phase, "proj": name,
+                           "M": M, "K": K, "N": N, "dtype": dtype,
+                           "max_abs_err": err, "tol": TOL[dtype]}
+                    if dtype == dtypes[0]:       # the path's own dtype
+                        row.update(gpp_time(M, K, N, dtype))
+                    rows.append(row)
+                    print(f"gpp_matmul {path} {phase:7s} {name:14s} "
+                          f"{M}x{K}x{N} {dtype}: max_abs_err={err:.3g} "
+                          f"(atol,rtol)={TOL[dtype]}"
+                          + (f" ms={row['ms']:.4f} plain_ms="
+                             f"{row['plain_ms']:.4f} library_ms="
+                             f"{row['library_ms']:.4f} bound_ms="
+                             f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                             f" wall_ms={row['wall_ms']:.4f}"
+                             if "ms" in row else ""))
+    # epilogue variants at the paths' projection shapes
     extra = []
     for act in ACTIVATION_IDS:
         if act is None:
             continue
-        for dtype in ("bfloat16", "float32"):
+        for dtype in BOTH:
             extra.append(gpp_case(SLOTS, D, F, dtype, act=act, bias=True))
-    for dtype in ("bfloat16", "float32"):
+    for dtype in BOTH:
+        extra.append(gpp_case(SLOTS, DS_D, DS_F0, dtype, act="silu"))
         extra.append(gpp_case(CHUNK, D, D, dtype, w_int8=True, act="silu"))
         extra.append(gpp_case(SLOTS, F, D, dtype, w_int8=True, G=1))
         # ragged M/K/N: 2002-byte bf16 rows take the byte-copy path
@@ -219,7 +252,7 @@ def check_gpp(report):
               "chunk_issue_schedule")
     report["gpp_matmul"] = {"shapes": rows, "extra_cases": len(extra),
                             "extra_max_abs_err": max(extra)}
-    return rows
+    return rows, max(extra)
 
 
 # ---------------------------------------------------------------------------
@@ -339,104 +372,405 @@ def check_paged(report):
 
 
 # ---------------------------------------------------------------------------
-# the main path: full-width qwen1.5-0.5b through the serving engine
+# kernel 2: gpp_matmul_grouped (deepseek-v2-lite-16b routed experts)
 # ---------------------------------------------------------------------------
 
-def serve(dtype: str, *, speculation: bool, mode: str, profile=False,
-          requests: int = 4, max_new: int = 16):
-    import numpy as np
+# rows per expert = dispatch groups x capacity (models.moe) at each phase
+DS_ROWS = {"decode": 32, "prefill": 128, "verify": 32}
+DS_PROJ = {"gate_up": (DS_D, DS_F), "down": (DS_F, DS_D)}
+
+
+def grouped_inputs(M, K, N, dtype, *, seed=0, int8=False):
+    import torch
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(DS_E, M, K, generator=g, device="cuda").to(dt)
+    if int8:
+        w = torch.randint(-127, 128, (DS_E, K, N), generator=g,
+                          device="cuda", dtype=torch.int8)
+    else:
+        w = (torch.randn(DS_E, K, N, generator=g, device="cuda")
+             * 0.02).to(dt)
+    return x, w
+
+
+def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
+                 scale=None, seed=0):
+    """One gpp_matmul_grouped comparison on the card; max abs error."""
+    import torch
+    from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
+    from repro_torch.kernels.ref import dense_grouped_ref
+    x, w = grouped_inputs(M, K, N, dtype, seed=seed, int8=scale is not None)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    sc = None
+    if scale is not None:
+        shape = {"scalar": (), "expert": (DS_E,), "column": (DS_E, N)}[scale]
+        sc = torch.rand(shape, generator=g, device="cuda") * 2e-3
+    b = (torch.randn(DS_E, N, generator=g, device="cuda") * 0.1).to(x.dtype) \
+        if bias else None
+    y = gpp_matmul_grouped(x, w, bias=b, w_scale=sc, activation=act,
+                           num_bufs=G)
+    ref = dense_grouped_ref(x, w, bias=b, w_scale=sc, activation=act)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y.float()).all()), "gpp_matmul_grouped "
+          "non-finite")
+    err = (y.float() - ref.float()).abs()
+    atol, rtol = TOL[dtype]
+    check(bool((err <= atol + rtol * ref.float().abs()).all()),
+          f"gpp_matmul_grouped {DS_E}x{M}x{K}x{N} {dtype} G={G} act={act} "
+          f"scale={scale}: max err {float(err.max())}")
+    return float(err.max())
+
+
+def grouped_time(M, K, N, dtype):
+    """Kernel / plain / torch.bmm times of one (E, M, K) @ (E, K, N) launch
+    at the path's shape, and its bound (every expert's W read once)."""
+    import torch
+    from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
+    from repro_torch.kernels.ref import dense_grouped_ref
+    es = 2 if dtype == "bfloat16" else 4
+    sets = [grouped_inputs(M, K, N, dtype, seed=i)
+            for i in range(copies_for(DS_E * K * N * es))]
+    ms, wall = measure(lambda x, w: gpp_matmul_grouped(x, w), sets,
+                       "gpp_matmul_grouped_kernel")
+    plain, plain_wall = measure(lambda x, w: dense_grouped_ref(x, w), sets)
+    lib, lib_wall = measure(lambda x, w: torch.bmm(x, w), sets)
+    b_ms, by = bound(DS_E * (M * K + K * N + M * N) * es,
+                     2.0 * DS_E * M * K * N, dtype)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": by, "wall_ms": wall, "plain_wall_ms": plain_wall,
+            "library_wall_ms": lib_wall}
+
+
+def check_grouped(report):
     import torch
     from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels.ref import chunk_issue_schedule
+    rows = []
+    timed = {}
+    for phase, M in DS_ROWS.items():
+        for name, (K, N) in DS_PROJ.items():
+            for dtype in ("bfloat16", "float32"):
+                err = max(grouped_case(M, K, N, dtype, G=G,
+                                       act="silu" if name == "gate_up"
+                                       else None)
+                          for G in (None, 1, 2, 4))
+                row = {"phase": phase, "proj": name, "E": DS_E, "M": M,
+                       "K": K, "N": N, "dtype": dtype, "max_abs_err": err,
+                       "tol": TOL[dtype]}
+                if dtype == "bfloat16":
+                    key = (M, K, N)      # verify's shape is decode's
+                    if key not in timed:
+                        timed[key] = grouped_time(M, K, N, dtype)
+                    row.update(timed[key])
+                rows.append(row)
+                print(f"gpp_matmul_grouped {phase:7s} {name:7s} "
+                      f"{DS_E}x{M}x{K}x{N} {dtype}: max_abs_err={err:.3g} "
+                      f"(atol,rtol)={TOL[dtype]}"
+                      + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                         f" library_ms={row['library_ms']:.4f} bound_ms="
+                         f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                         f" wall_ms={row['wall_ms']:.4f}"
+                         if "ms" in row else ""))
+    extra = []
+    for dtype in ("bfloat16", "float32"):
+        for scale in ("scalar", "expert", "column"):
+            extra.append(grouped_case(DS_ROWS["decode"], DS_D, DS_F, dtype,
+                                      scale=scale, act="silu"))
+        extra.append(grouped_case(7, 300, 130, dtype, bias=True, act="gelu",
+                                  G=4))
+    print(f"gpp_matmul_grouped int8/bias/ragged cases: {len(extra)} ok, "
+          f"max_abs_err={max(extra):.3g}")
+    # the ring runs across expert boundaries in the issue order of the
+    # generalized ping-pong schedule, at the path's decode gate/up shape as
+    # planned (a run of several experts a CTA)
+    x, w = grouped_inputs(DS_ROWS["decode"], DS_D, DS_F, "bfloat16")
+    for G in (None, 1, 2, 4):
+        got, steps, g_used, C, epc = gm.issue_order_grouped(x, w, G)
+        check(G is None or g_used == G, f"grouped ring depth {g_used} != {G}")
+        check(epc > 1, f"the planned run holds {epc} expert(s) a CTA")
+        check(got == chunk_issue_schedule(steps, g_used, C),
+              f"grouped issue order differs at G={G}")
+        print(f"gpp_matmul_grouped issue order G={g_used} (asked {G}) C={C} "
+              f"steps={steps} ({epc} experts of {steps // epc} k-steps): "
+              f"{sum(len(v) for v in got.values())} chunk issues == "
+              "chunk_issue_schedule")
+    report["gpp_matmul_grouped"] = {"shapes": rows, "extra_cases": len(extra),
+                                    "extra_max_abs_err": max(extra)}
+    return rows, max(extra)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3b: MLA paged attention (deepseek-v2-lite-16b latent pools)
+# ---------------------------------------------------------------------------
+
+def mla_inputs(B, S, positions, dtype, *, nb, seed=0):
+    import torch
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mb = MAX_LEN // BS
+    q = torch.randn(B, S, DS_H, DS_R + DS_RR, generator=g,
+                    device="cuda").to(dt)
+    ckv = (torch.randn(nb, BS, DS_R, generator=g, device="cuda") * 0.5
+           ).to(dt)
+    kr = (torch.randn(nb, BS, DS_RR, generator=g, device="cuda") * 0.5
+          ).to(dt)
+    perm = torch.randperm(nb - 1, generator=g, device="cuda") + 1
+    tables = torch.zeros(B, mb, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, p in enumerate(positions):
+        nblk = (p + S - 1) // BS + 1
+        tables[b, :nblk] = perm[used:used + nblk].int()
+        used += nblk
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    return q, ckv, kr, tables, pos
+
+
+def mla_work(positions, S, es):
+    """(bytes, operations) this call's data needs: each visible latent row
+    (c_kv + k_rope) read once, q / tables / positions read and the latent
+    output written once; per (query row, visible key) 2 * 576 operations
+    for q.k and 2 * 512 for p.v, for each of the 16 heads."""
+    keys = set()
+    pairs = 0
+    for b, p in enumerate(positions):
+        for s in range(S):
+            pairs += p + s + 1
+            keys.update((b, t) for t in range(p + s + 1))
+    B = len(positions)
+    nbytes = (len(keys) * (DS_R + DS_RR) * es
+              + B * S * DS_H * (DS_R + DS_RR + DS_R) * es
+              + B * (MAX_LEN // BS) * 4 + B * 4)
+    return nbytes, 2.0 * pairs * DS_H * (DS_R + DS_RR + DS_R)
+
+
+def mla_case(name, B, S, positions, dtype, *, timed=False):
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attn_ref
+    nb = SLOTS * (MAX_LEN // BS) + 1
+    q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb)
+    kw = dict(num_kv_heads=1, scale=1.0 / math.sqrt(128 + DS_RR), mla=True)
+    ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
+    errs = []
+    for G in (None, 1, 2, 4):
+        out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G, **kw)
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (B, S, DS_H, DS_R), f"{name}: shape")
+        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
+        errs.append(float((out.float() - ref.float()).abs().max()))
+    err = max(errs)
+    atol, _ = TOL[dtype]
+    check(err <= atol, f"paged_attention mla {name} {dtype}: max err {err}")
+    row = {"case": name, "B": B, "S": S, "positions": positions,
+           "dtype": dtype, "max_abs_err": err, "tol": atol}
+    if timed:
+        es = q.element_size()
+        n = copies_for(ckv.numel() * es + kr.numel() * es)
+        sets = [mla_inputs(B, S, positions, dtype, nb=nb, seed=i)
+                for i in range(n)]
+        row["ms"], row["wall_ms"] = measure(
+            lambda q, c, k, t, p: paged_attention(q, c, k, t, p, **kw), sets,
+            "paged_attention_mla_kernel")
+        row["plain_ms"], row["plain_wall_ms"] = measure(
+            lambda q, c, k, t, p: paged_attn_ref(q, c, k, t, p, **kw), sets)
+        # yardstick: SDPA over latent rows gathered beforehand, the key
+        # concat(c_kv, k_rope) and the value c_kv broadcast over 16 heads
+        T = MAX_LEN
+        kpos = torch.arange(T, device="cuda")
+        lib_sets = []
+        for q_, c_, k_, t_, p_ in sets:
+            cseq = c_[t_.long()].reshape(B, 1, T, DS_R)
+            kseq = torch.cat([cseq, k_[t_.long()].reshape(B, 1, T, DS_RR)],
+                             dim=-1)
+            qpos = p_.long()[:, None] + torch.arange(S, device="cuda")[None]
+            m = kpos[None, None, :] <= qpos[:, :, None]
+            lib_sets.append((q_.transpose(1, 2),
+                             kseq.expand(B, DS_H, T, DS_R + DS_RR),
+                             cseq.expand(B, DS_H, T, DS_R), m[:, None]))
+        row["library_ms"], row["library_wall_ms"] = measure(
+            lambda q, k, v, m: Fn.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, scale=kw["scale"]), lib_sets)
+        nbytes, ops = mla_work(positions, S, es)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
+    print(f"paged_attention mla {name:8s} {dtype}: max_abs_err={err:.3g} "
+          f"atol={atol}" + (
+              f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms="
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+              f"wall_ms={row['wall_ms']:.4f}"
+              if timed else ""))
+    return row
+
+
+def check_mla(report):
+    cases = [
+        ("decode", SLOTS, 1, [5, 17, 40, 100]),
+        ("prefill", 1, CHUNK, [37]),             # unaligned chunk start
+        ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90]),
+    ]
+    rows = []
+    for name, B, S, positions in cases:
+        for dtype in ("bfloat16", "float32"):
+            rows.append(mla_case(name, B, S, positions, dtype,
+                                 timed=dtype == "bfloat16"))
+    report["paged_attention_mla"] = {"shapes": rows}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the main paths: full-width models through the serving engine
+# ---------------------------------------------------------------------------
+
+# kernel counter -> profiler kernel name
+KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
+                "gpp_matmul_grouped": "gpp_matmul_grouped_kernel",
+                "paged_attention": "paged_attention_kernel",
+                "paged_attention_mla": "paged_attention_mla_kernel"}
+
+
+def counters():
+    from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models import registry
-    from repro_torch.models import transformer as tf
+    return {"gpp_matmul": gm.launches, "gpp_matmul_grouped":
+            gm.launches_grouped, "paged_attention": pa.launches,
+            "paged_attention_mla": pa.launches_mla}
+
+
+def random_prompts(vocab: int, requests: int = 4):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=rng.integers(4, 13)).tolist()
+            for _ in range(requests)]
+
+
+def serve(cfg, params, prompts, *, speculation: bool, mode: str,
+          profile=False, max_new: int = 16):
+    import torch
     from repro_torch.serving.engine import ServeConfig, make_engine
 
-    cfg = registry.get_config("qwen1.5-0.5b").with_(dtype=dtype)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = tf.init_params(cfg, gen, "cuda")
     engine = make_engine(cfg, params, ServeConfig(
-        slots=SLOTS, max_len=MAX_LEN, speculation=speculation,
-        draft_len=DRAFT, dense_kernel=mode, paged_attn_kernel=mode))
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, 13))
-               .tolist() for _ in range(requests)]
+        slots=SLOTS, max_len=MAX_LEN, block_size=BS, prefill_chunk=CHUNK,
+        speculation=speculation, draft_len=DRAFT, dense_kernel=mode,
+        paged_attn_kernel=mode))
     torch.cuda.synchronize()
     if profile:
         from torch.profiler import ProfilerActivity
         prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
         prof.start()
-    gm.launches.n = pa.launches.n = 0
+    for c in counters().values():
+        c.n = 0
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
     results = engine.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    counts = {k: c.n for k, c in counters().items()}
     if profile:
         prof.stop()
-        busy = {"gpp_matmul": 0.0, "paged_attention": 0.0, "other": 0.0}
+        busy = dict.fromkeys([*KERNEL_NAMES, "other"], 0.0)
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                key = next((k for k in busy if k + "_kernel" in e.name),
-                           "other")
+                key = next((k for k, v in KERNEL_NAMES.items()
+                            if v in e.name), "other")
                 busy[key] += e.time_range.elapsed_us() / 1e6
-    counts = {"gpp_matmul": gm.launches.n, "paged_attention": pa.launches.n}
     streams = [results[r] for r in rids]
     ntok = sum(len(s) for s in streams)
     check(all(len(s) == max_new for s in streams), "a request did not finish")
     check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
           "token out of range")
     shapes = engine.trace_counts
-    check(shapes["prefill_chunk"] == 1 and shapes["decode"] == 1
-          and shapes["verify"] <= 1, f"step shapes {shapes}")
-    info = {"dtype": dtype, "speculation": speculation, "mode": mode,
+    # one shape per step function (with every lane drafting, decode-phase
+    # steps all ride verify, so a speculating run may show no decode shape)
+    check(shapes["prefill_chunk"] == 1 and shapes["decode"] <= 1
+          and shapes["verify"] <= int(speculation), f"step shapes {shapes}")
+    info = {"model": cfg.name, "num_layers": cfg.num_layers,
+            "dtype": cfg.dtype, "speculation": speculation, "mode": mode,
             "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
             "steps": len(engine.metrics), "launches": counts,
             "shapes": shapes, "acceptance_rate": engine.acceptance_rate()}
     if profile:
         info["device_busy_s"] = busy
-    print(f"serve qwen1.5-0.5b {dtype} spec={speculation} mode={mode}: "
-          f"{ntok} tokens in {dt:.3f}s = {ntok / dt:.1f} tok/s, "
-          f"{len(engine.metrics)} steps, launches {counts}, shapes {shapes}, "
-          f"acceptance {engine.acceptance_rate():.2f}")
-    del engine, params
+    print(f"serve {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
+          f"spec={speculation} mode={mode}: {ntok} tokens in {dt:.3f}s = "
+          f"{ntok / dt:.1f} tok/s, {len(engine.metrics)} steps, launches "
+          f"{counts}, shapes {shapes}, acceptance "
+          f"{engine.acceptance_rate():.2f}")
+    del engine
     torch.cuda.empty_cache()
     return streams, info
 
 
-def check_serving(report):
+def check_serving(report, arch: str, path_kernels, f32_layers=None):
+    """bf16 serve (spec off, on, profiled) at full width and depth, then
+    f32 kernel vs plain greedy streams (at `f32_layers` layers if set)."""
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+
+    def model(dtype, num_layers=None):
+        cfg = registry.get_config(arch).with_(dtype=dtype)
+        if num_layers:
+            cfg = cfg.with_(num_layers=num_layers)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return cfg, tf.init_params(cfg, gen, "cuda")
+
     runs = {}
-    # one short warm-up run: library loading, kernel attributes and the
-    # caching allocator's first blocks are not the main path's cost
-    serve("bfloat16", speculation=False, mode="auto", requests=1, max_new=2)
-    plain, runs["bf16"] = serve("bfloat16", speculation=False, mode="auto")
-    spec, runs["bf16_spec"] = serve("bfloat16", speculation=True, mode="auto")
+    cfg, params = model("bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    # a warm-up run on random prompts (library loading, kernel attributes
+    # and the caching allocator's first blocks are not the main path's
+    # cost); the measured prompts then hold each one's greedy continuation,
+    # so the n-gram drafter has drafts and speculation runs verify steps
+    base = random_prompts(cfg.vocab_size)
+    first, _ = serve(cfg, params, base, speculation=False, mode="auto")
+    prompts = [p + s + p[-3:] for p, s in zip(base, first)]
+    plain, runs["bf16"] = serve(cfg, params, prompts, speculation=False,
+                                mode="auto")
+    spec, runs["bf16_spec"] = serve(cfg, params, prompts, speculation=True,
+                                    mode="auto")
     for key in ("bf16", "bf16_spec"):
-        for k, n in runs[key]["launches"].items():
-            check(n > 0, f"{k} never launched on the main path ({key})")
-    print(f"bf16 greedy streams spec on == off: {plain == spec}")
+        for k in path_kernels:
+            n = runs[key]["launches"][k]
+            check(n > 0, f"{k} never launched on the {arch} path ({key})")
+    check(runs["bf16"]["shapes"]["decode"] == 1
+          and runs["bf16_spec"]["shapes"]["verify"] == 1,
+          f"{arch}: the decode or the verify shape did not run")
+    print(f"{arch} bf16 greedy streams spec on == off: {plain == spec}")
     # the same bf16 run again under torch.profiler: device time by kernel,
     # over the wall time of the unprofiled run (same work, same shapes)
-    again, prof = serve("bfloat16", speculation=False, mode="auto",
-                        profile=True)
-    check(again == plain, "the profiled run's streams differ")
+    again, prof = serve(cfg, params, prompts, speculation=False,
+                        mode="auto", profile=True)
+    check(again == plain, f"{arch}: the profiled run's streams differ")
     busy = prof["device_busy_s"]
     share = sum(busy.values()) / runs["bf16"]["seconds"]
     runs["bf16"]["device_busy_s"] = busy
     runs["bf16"]["device_busy_share"] = share
-    print(f"bf16 decode run device time: {busy} s; busy share "
-          f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall")
-    f32_kernel, runs["f32_kernel"] = serve("float32", speculation=False,
-                                           mode="auto")
-    f32_ref, runs["f32_ref"] = serve("float32", speculation=False, mode="ref")
-    check(runs["f32_ref"]["launches"] == {"gpp_matmul": 0,
-                                          "paged_attention": 0},
+    runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    runs["bf16"]["total_params"] = cfg.total_params()
+    print(f"{arch} bf16 decode run device time: {busy} s; busy share "
+          f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall; peak memory "
+          f"{runs['bf16']['peak_mem_gb']:.1f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params = model("float32", f32_layers)
+    f32_kernel, runs["f32_kernel"] = serve(cfg, params, prompts,
+                                           speculation=False, mode="auto")
+    f32_ref, runs["f32_ref"] = serve(cfg, params, prompts,
+                                     speculation=False, mode="ref")
+    check(not any(runs["f32_ref"]["launches"].values()),
           "the plain run launched a kernel")
     check(f32_kernel == f32_ref,
-          f"f32 greedy streams differ: kernel {f32_kernel} ref {f32_ref}")
-    print("f32 greedy streams kernel == plain: True")
-    report["serving"] = runs
-    report["bf16_spec_equal"] = plain == spec
+          f"{arch} f32 greedy streams differ: kernel {f32_kernel} ref "
+          f"{f32_ref}")
+    print(f"{arch} f32 greedy streams kernel == plain: True "
+          f"({cfg.num_layers} layers)")
+    del params
+    torch.cuda.empty_cache()
+    report.setdefault("serving", {})[arch] = runs
+    report.setdefault("bf16_spec_equal", {})[arch] = plain == spec
     return runs
 
 
@@ -448,6 +782,10 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              "run it from a checkout of the repo", file=sys.stderr)
         return 2
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
@@ -466,32 +804,70 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.1f}s ({per})")
     report = {"card": smi, "build_s": build_s}
 
-    gpp_rows = check_gpp(report)
+    gpp_rows, gpp_extra = check_gpp(report)
     pa_rows = check_paged(report)
-    runs = check_serving(report)
+    grouped_rows, grouped_extra = check_grouped(report)
+    mla_rows = check_mla(report)
+    qwen = check_serving(report, "qwen1.5-0.5b",
+                         ("gpp_matmul", "paged_attention"))
+    deepseek = check_serving(report, "deepseek-v2-lite-16b",
+                             ("gpp_matmul", "gpp_matmul_grouped",
+                              "paged_attention_mla"), f32_layers=4)
 
-    g = next(r for r in gpp_rows if r["phase"] == "decode"
-             and r["proj"] == "gate_up" and r["dtype"] == "bfloat16")
+    g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
+             and r["phase"] == "decode" and r["proj"] == "gate_up"
+             and r["dtype"] == "bfloat16")
     p = next(r for r in pa_rows if r["case"] == "decode"
              and r["dtype"] == "bfloat16")
+    gg = next(r for r in grouped_rows if r["phase"] == "decode"
+              and r["proj"] == "gate_up" and r["dtype"] == "bfloat16")
+    m = next(r for r in mla_rows if r["case"] == "decode"
+             and r["dtype"] == "bfloat16")
+    numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    gpp_by_path = {"qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul"],
+                   "deepseek-v2-lite-16b":
+                       deepseek["bf16"]["launches"]["gpp_matmul"]}
     kernels = [
         {"name": "gpp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:408",
-         "launches": runs["bf16"]["launches"]["gpp_matmul"],
-         "max_abs_err": max(r["max_abs_err"] for r in gpp_rows),
-         "shape": f"decode up-projection {g['M']}x{g['K']}x{g['N']} bf16",
-         "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
-         "bound_by": g["bound_by"], "library_ms": g["library_ms"]},
+         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
+         "launches": sum(gpp_by_path.values()),
+         "launches_by_path": gpp_by_path,
+         "max_abs_err": max([gpp_extra]
+                            + [r["max_abs_err"] for r in gpp_rows]),
+         "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
+                  "bf16 (every shape of both paths: --json-out)",
+         **{k: g[k] for k in numbers}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341",
-         "launches": runs["bf16"]["launches"]["paged_attention"],
+         "path": "qwen1.5-0.5b",
+         "launches": qwen["bf16"]["launches"]["paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in pa_rows),
          "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
                   f"{p['positions']} bf16",
-         "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-         "bound_by": p["bound_by"], "library_ms": p["library_ms"]},
+         **{k: p[k] for k in numbers}},
+        {"name": "gpp_matmul_grouped", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
+         "replaces": "src/repro/kernels/gpp_matmul.py:606",
+         "path": "deepseek-v2-lite-16b",
+         "launches": deepseek["bf16"]["launches"]["gpp_matmul_grouped"],
+         "max_abs_err": max([grouped_extra]
+                            + [r["max_abs_err"] for r in grouped_rows]),
+         "shape": f"decode gate/up {gg['E']}x{gg['M']}x{gg['K']}x{gg['N']} "
+                  "bf16",
+         **{k: gg[k] for k in numbers}},
+        {"name": "paged_attention_mla", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
+                     ":173-177)",
+         "path": "deepseek-v2-lite-16b",
+         "launches": deepseek["bf16"]["launches"]["paged_attention_mla"],
+         "max_abs_err": max(r["max_abs_err"] for r in mla_rows),
+         "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
+                  f"positions {m['positions']} bf16",
+         **{k: m[k] for k in numbers}},
     ]
     report["kernels"] = kernels
     if args.json_out:

@@ -102,13 +102,28 @@ class ModelConfig:
         d, f, hd = self.d_model, self.d_ff, self.resolved_head_dim
         H, KV = self.num_heads, self.num_kv_heads
         base = kind.split(":")[0]
-        if base not in ("dense", "shared_attn"):
+        if base not in ("dense", "shared_attn", "moe"):
             raise ValueError(f"{kind!r} blocks are not part of this port yet")
         n_mlp = d * f * (3 if self.act == "swiglu" else 2)
-        return d * H * hd + 2 * d * KV * hd + H * hd * d + n_mlp
+        if self.kv_lora_rank:
+            r, rr = self.kv_lora_rank, self.rope_head_dim
+            a = d * (r + rr) + r * H * hd * 2 + H * hd * d
+            if self.q_lora_rank:
+                a += d * self.q_lora_rank + self.q_lora_rank * H * (hd + rr)
+            else:
+                a += d * H * (hd + rr)
+        else:
+            a = d * H * hd + 2 * d * KV * hd + H * hd * d
+        if base == "moe":
+            fm = self.moe_d_ff or f
+            ffn = d * fm * (3 if self.act == "swiglu" else 2)
+            return (a + self.experts_per_token * ffn
+                    + self.num_shared_experts * ffn + d * self.num_experts)
+        return a + n_mlp
 
     def active_params(self) -> int:
-        """Per-token parameter count (embedding + every layer's weights)."""
+        """Per-token parameter count (embedding + every layer's weights;
+        MoE counts the top-k experts)."""
         n = sum(self._block_params(k) for k in self.prefix_pattern)
         n += sum(self._block_params(k) * self.num_superblocks
                  for k in self.pattern)
@@ -117,3 +132,15 @@ class ModelConfig:
         if not self.tie_embeddings:
             n += self.vocab_size * self.d_model
         return n
+
+    def total_params(self) -> int:
+        """Total parameter count (MoE counts all experts)."""
+        if not self.num_experts:
+            return self.active_params()
+        fm = self.moe_d_ff or self.d_ff
+        ffn = self.d_model * fm * (3 if self.act == "swiglu" else 2)
+        n_moe = (sum(k.startswith("moe") for k in self.pattern)
+                 * self.num_superblocks
+                 + sum(k.startswith("moe") for k in self.prefix_pattern))
+        return self.active_params() + n_moe * (
+            self.num_experts - self.experts_per_token) * ffn

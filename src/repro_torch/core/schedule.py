@@ -3,8 +3,9 @@
 `round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
 `tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
-over; in their place `plan_matmul_sm90` and `plan_paged_attn_sm90` pick the
-tile sizes and the shared-memory ring depth G of the two CUDA kernels:
+over; in their place `plan_matmul_sm90`, `plan_grouped_sm90` and
+`plan_paged_attn_sm90` pick the tile sizes and the shared-memory ring depth
+G of the CUDA kernels:
 
   * G comes from `plan_stream` at the H100's rates (989e12 bf16 FLOP/s,
     3.35e12 B/s): G = ceil(t_transfer / t_compute) + 1, so a DMA-bound tile
@@ -24,6 +25,7 @@ import statistics
 # NVIDIA H100 SXM data sheet (dense, 700 W)
 H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
+H100_SMS = 132
 SMEM_BUDGET_BYTES = 232_448          # 227 KB dynamic shared memory per block
 MAX_RING = 8
 
@@ -146,12 +148,15 @@ def _ring_depth(block_bytes: float, flops: float, flops_per_s: float) -> int:
 
 def plan_matmul_sm90(M: int, K: int, N: int, *, w_itemsize: int,
                      num_bufs: "int | None" = None,
-                     smem_budget: int = SMEM_BUDGET_BYTES) -> MatmulPlan:
+                     smem_budget: int = SMEM_BUDGET_BYTES,
+                     runs: int = 1) -> MatmulPlan:
     """Tiles + ring depth for `gpp_matmul` on an H100 (module docstring).
 
     A planned ring shrinks to fit the shared-memory budget, down to
     ping-pong; a pinned `num_bufs` is kept and the tile's k rows halve
-    instead.  Raises when even 16 rows a step do not fit."""
+    instead.  Raises when even 16 rows a step do not fit.  `runs` is the
+    number of k-walks one CTA makes back to back on one ring (experts per
+    CTA in the grouped kernel), which bounds how deep a ring can fill."""
     if min(M, K, N) < 1:
         raise ValueError(f"empty matmul {M}x{K}x{N}")
     if num_bufs is not None and num_bufs < 1:
@@ -167,7 +172,7 @@ def plan_matmul_sm90(M: int, K: int, N: int, *, w_itemsize: int,
         num_k = -(-K // bk)
         G = num_bufs if num_bufs is not None else _ring_depth(
             bk * bn * w_itemsize, 2.0 * bm * bk * bn, H100_BF16_FLOPS)
-        G = min(G, max(1, num_k))   # a ring deeper than the step count idles
+        G = min(G, max(1, runs * num_k))   # deeper than the steps idles
         if num_bufs is None:
             while G > 2 and gpp_smem_bytes(bm, bn, bk, G,
                                            w_itemsize) > smem_budget:
@@ -181,7 +186,43 @@ def plan_matmul_sm90(M: int, K: int, N: int, *, w_itemsize: int,
         bk //= 2
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """`gpp_matmul_grouped`: each CTA owns one (block_m, block_n) tile
+    position for `experts_per_cta` consecutive experts and walks their
+    k-steps expert-major on one ring, so expert e+1's first W tiles stream
+    while expert e's last ones compute (the reference's expert-outermost
+    global step order)."""
+
+    tile: MatmulPlan
+    experts_per_cta: int
+
+    def grid(self, E: int, M: int, N: int) -> "tuple[int, int, int]":
+        """CUDA grid (n tiles, m tiles, expert runs)."""
+        return (-(-N // self.tile.block_n), -(-M // self.tile.block_m),
+                -(-E // self.experts_per_cta))
+
+
+def plan_grouped_sm90(E: int, M: int, K: int, N: int, *, w_itemsize: int,
+                      num_bufs: "int | None" = None,
+                      smem_budget: int = SMEM_BUDGET_BYTES) -> GroupedPlan:
+    """Plan for `gpp_matmul_grouped`: the flat kernel's tiles per expert,
+    and experts per CTA so that the grid keeps about two CTAs per SM (more
+    experts a CTA means fewer ring fills, fewer means more CTAs)."""
+    if E < 1:
+        raise ValueError("E >= 1")
+    bm = plan_matmul_sm90(M, K, N, w_itemsize=w_itemsize,
+                          num_bufs=num_bufs, smem_budget=smem_budget).block_m
+    per_expert = -(-M // bm) * -(-N // GPP_BLOCK_N)
+    epc = max(1, min(E, per_expert * E // (2 * H100_SMS)))
+    tile = plan_matmul_sm90(M, K, N, w_itemsize=w_itemsize,
+                            num_bufs=num_bufs, smem_budget=smem_budget,
+                            runs=epc)
+    return GroupedPlan(tile, epc)
+
+
 PA_ROWS_PER_CTA = 32     # query rows (rep * S) one CTA holds
+PA_MLA_ROWS_PER_CTA = 16  # MLA: one query's 16 heads (f32 q, acc 576/512 wide)
 PA_MAX_HEAD_DIM = 256
 
 
@@ -205,36 +246,52 @@ def paged_attn_row_bytes(head_dim: int, kv_itemsize: int) -> int:
 
 
 def paged_attn_smem_bytes(G: int, bs: int, head_dim: int, kv_itemsize: int,
-                          rows: int) -> int:
-    """K and V rings + f32 q, acc (rows x hd), p (rows x bs), m/l/corr."""
-    ring = 2 * G * bs * paged_attn_row_bytes(head_dim, kv_itemsize)
-    return ring + rows * head_dim * 4 * 2 + rows * bs * 4 + 3 * rows * 4
+                          rows: int, rope_dim: int = 0) -> int:
+    """Two rings + f32 q (rows x dk), acc (rows x dv), p (rows x bs),
+    m/l/corr.  GQA (rope_dim 0): K and V rings of head_dim, dk = dv =
+    head_dim.  MLA: a c_kv ring of head_dim (the latent width, which is
+    also the value) and a k_rope ring of rope_dim; dk = head_dim +
+    rope_dim, dv = head_dim."""
+    db = rope_dim or head_dim
+    dk, dv = (head_dim + rope_dim, head_dim) if rope_dim else \
+        (head_dim, head_dim)
+    ring = G * bs * (paged_attn_row_bytes(head_dim, kv_itemsize)
+                     + paged_attn_row_bytes(db, kv_itemsize))
+    return ring + rows * (dk + dv) * 4 + rows * bs * 4 + 3 * rows * 4
 
 
 def plan_paged_attn_sm90(*, rows: int, block_size: int, head_dim: int,
                          kv_itemsize: int, max_blocks: int,
-                         num_bufs: "int | None" = None,
+                         num_bufs: "int | None" = None, rope_dim: int = 0,
                          smem_budget: int = SMEM_BUDGET_BYTES) -> PagedAttnPlan:
-    """Ring depth for the paged-attention kernel: one KV block (K + V rows
-    of one head) is the streamed tile, the flash step over the CTA's query
-    rows is the compute."""
-    if head_dim > PA_MAX_HEAD_DIM:
+    """Ring depth for the paged-attention kernel: one KV block (both
+    rings' rows) is the streamed tile, the flash step over the CTA's query
+    rows is the compute.  rope_dim > 0 plans the MLA form (head_dim is then
+    the latent width): 16 query rows a CTA, since its f32 q and acc rows
+    are 576 and 512 wide."""
+    if not rope_dim and head_dim > PA_MAX_HEAD_DIM:
         raise ValueError(f"head_dim {head_dim} > {PA_MAX_HEAD_DIM}")
-    rt = min(rows, PA_ROWS_PER_CTA)
+    rt = min(rows, PA_MLA_ROWS_PER_CTA if rope_dim else PA_ROWS_PER_CTA)
     splits = -(-rows // rt)
+    dk = head_dim + rope_dim
+    dv = head_dim
     G = num_bufs if num_bufs is not None else _ring_depth(
-        2 * block_size * head_dim * kv_itemsize,
-        2.0 * rt * block_size * 2 * head_dim, H100_BF16_FLOPS)
+        block_size * (head_dim + (rope_dim or head_dim)) * kv_itemsize,
+        2.0 * rt * block_size * (dk + dv), H100_BF16_FLOPS)
     if G < 1:
         raise ValueError("num_bufs >= 1")
     G = min(G, max(1, max_blocks))
-    while G > 1 and paged_attn_smem_bytes(
-            G, block_size, head_dim, kv_itemsize, rt) > smem_budget:
+
+    def smem_of(g):
+        return paged_attn_smem_bytes(g, block_size, head_dim, kv_itemsize,
+                                     rt, rope_dim)
+
+    while G > 1 and smem_of(G) > smem_budget:
         if num_bufs is not None:
             raise ValueError(f"ring of {num_bufs} exceeds the shared-memory "
                              f"budget of {smem_budget} bytes")
         G -= 1
-    smem = paged_attn_smem_bytes(G, block_size, head_dim, kv_itemsize, rt)
+    smem = smem_of(G)
     if smem > smem_budget:
         raise ValueError(f"paged attention needs {smem} bytes of shared "
                          f"memory (budget {smem_budget})")

@@ -1,16 +1,19 @@
-"""Model-facing entry points for the kernels: `dense` and `paged_attn`.
+"""Model-facing entry points for the kernels: `dense`, `dense_grouped` and
+`paged_attn`.
 
 Copies of `repro.kernels.ops.dense` (with its einsum-shaped `contract_dims`
-adapter) and `repro.kernels.ops.paged_attn`, routed by mode:
+adapter), `dense_grouped` and `paged_attn` (GQA, window and MLA), routed by
+mode:
 
   auto    the CUDA kernel for a CUDA tensor, the plain path for a CPU tensor
   kernel  the CUDA kernel; raises on a CPU tensor
   ref     the plain PyTorch path, for tests and kernel-vs-plain comparisons
 
-The plain path of both is the kernel's plain version (`kernels.ref`):
-`dense_ref` accumulates in f32 and runs the epilogue in f32, as the kernel
-does.  (The reference's own CPU path, `_dense_ref_path`, multiplies in the
-ambient dtype, so the two agree tightly at f32 and loosely at bf16.)  The
+The plain path of each is the kernel's plain version (`kernels.ref`):
+`dense_ref` / `dense_grouped_ref` accumulate in f32 and run the epilogue in
+f32, as the kernels do.  (The reference's own CPU paths, `_dense_ref_path`
+and `dense_grouped`'s einsum, multiply in the ambient dtype, so the two
+agree tightly at f32 and loosely at bf16.)  The
 reference's 1 MiB size threshold is not copied: on a CUDA tensor every
 projection runs the kernel.
 """
@@ -20,9 +23,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.gpp_matmul import gpp_matmul
+from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.ref import ACTIVATIONS, dense_ref, paged_attn_ref
+from repro_torch.kernels.ref import (ACTIVATIONS, dense_grouped_ref,
+                                     dense_ref, paged_attn_ref)
 
 DENSE_MODES = ("auto", "ref", "kernel")
 
@@ -75,20 +79,50 @@ def dense(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
     return y2.reshape(*lead, *out_dims)
 
 
+def dense_grouped(x: torch.Tensor, w: torch.Tensor, *, bias=None,
+                  w_scale=None, activation: "str | None" = None,
+                  mode: str = "auto") -> torch.Tensor:
+    """Per-expert act(x[e] @ w[e] [* w_scale[e]] [+ bias[e]]):
+    (E, C, D) @ (E, D, F) -> (E, C, F).  w_scale: scalar, (E,) or (E, F)
+    (int8 dequant, applied to the f32 accumulator); bias: (E, F).  "kernel"
+    launches the CUDA `gpp_matmul_grouped`, "ref" its plain version."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"dense_grouped wants (E,C,D) @ (E,D,F), got "
+                         f"x{tuple(x.shape)} w{tuple(w.shape)}")
+    if x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
+        raise ValueError(f"grouped shape mismatch: x{tuple(x.shape)} @ "
+                         f"w{tuple(w.shape)}")
+    if resolve_mode(mode, x) == "ref":
+        return dense_grouped_ref(x, w, bias=bias, w_scale=w_scale,
+                                 activation=activation)
+    return gpp_matmul_grouped(x.contiguous(), w, bias=bias, w_scale=w_scale,
+                              activation=activation)
+
+
+# the reference's name for the paged-attention resolver: the same rule as
+# `dense` ("kernel" on a CUDA q, "ref", the gather + `_sdpa` math, on a CPU q)
+resolve_paged_attn_mode = resolve_mode
+
+
 def paged_attn(q, pool_a, pool_b, tables, positions, *, num_kv_heads: int,
-               scale: float, window: "int | None" = None, mode: str = "auto",
+               scale: float, window: "int | None" = None, mla: bool = False,
+               mode: str = "auto",
                num_bufs: "int | None" = None) -> torch.Tensor:
     """Paged attention over shared block pools, routed like `dense`.
 
-    q: (B, S, H, hd); pools: (nb, bs, KVH, hd); tables: (B, MB) int32 block
-    table (0 = null block); positions: (B,) int32 per-lane query start
-    positions.  "ref" gathers through the tables and runs the exact
-    `_sdpa` math (`kernels.ref.paged_attn_ref`).
+    q: (B, S, H, dk); tables: (B, MB) int32 block table (0 = null block);
+    positions: (B,) int32 per-lane query start positions.  GQA: pools are
+    k / v (nb, bs, KVH, hd).  MLA (`mla`): pools are c_kv / k_rope, q is
+    already absorbed through w_uk (dk = kv_lora + rope) and the result is
+    the latent output for the caller to up-project.  "ref" gathers through
+    the tables and runs the exact `_sdpa` math (`kernels.ref.paged_attn_ref`).
     """
-    if resolve_mode(mode, q) == "ref":
+    if resolve_paged_attn_mode(mode, q) == "ref":
         return paged_attn_ref(q, pool_a, pool_b, tables, positions,
                               num_kv_heads=num_kv_heads, scale=scale,
-                              window=window)
+                              window=window, mla=mla)
     return paged_attention(q, pool_a, pool_b, tables, positions,
                            num_kv_heads=num_kv_heads, scale=scale,
-                           window=window, num_bufs=num_bufs)
+                           window=window, mla=mla, num_bufs=num_bufs)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the two CUDA kernels, and the chunk-schedule
+"""Plain PyTorch versions of the CUDA kernels, and the chunk-schedule
 oracle.
 
-`dense_ref` and `paged_attn_ref` are copies of `repro.kernels.ref` in torch:
+`dense_ref`, `dense_grouped_ref` and `paged_attn_ref` (GQA, window and MLA)
+are copies of `repro.kernels.ref` in torch:
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
 against them on the card.  `chunk_issue_schedule` is a copy of the
 reference's pure-Python replay of the generalized ping-pong issue order
@@ -48,22 +49,51 @@ def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
     return ACTIVATIONS[activation](acc).to(x.dtype)
 
 
+def dense_grouped_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None,
+                      w_scale=None,
+                      activation: "str | None" = None) -> torch.Tensor:
+    """Plain version of `gpp_matmul_grouped`'s fused epilogue: per expert
+    y[e] = act(x[e] @ w[e] [* w_scale[e]] [+ bias[e]]) with f32
+    accumulation, the dequant scale (scalar, (E,) or (E, N)) applied after
+    accumulation, cast to x.dtype."""
+    E = x.shape[0]
+    acc = torch.bmm(x.float(), w.float())
+    if w_scale is not None:
+        sc = torch.as_tensor(w_scale, dtype=torch.float32, device=acc.device)
+        acc = acc * (sc if sc.dim() == 0 else sc.reshape(E, 1, -1))
+    if bias is not None:
+        acc = acc + bias.float()[:, None, :]
+    return ACTIVATIONS[activation](acc).to(x.dtype)
+
+
 def paged_attn_ref(q, pool_a, pool_b, tables, positions, *, num_kv_heads,
-                   scale, window=None) -> torch.Tensor:
+                   scale, window=None, mla: bool = False) -> torch.Tensor:
     """Plain version of the paged-attention kernel: gather the pools
     through the block tables into each lane's (MB*bs, ...) sequence, then
     the reference's `_sdpa` math over a dense position mask (same casts,
     f32 accumulation, -1e30 masking).
 
-    q: (B, S, H, hd); pools: (nb, bs, KVH, hd); tables: (B, MB) int32;
-    positions: (B,) int32 per-lane start positions.  Returns (B, S, H, hd)
-    in q.dtype.
+    q: (B, S, H, dk); tables: (B, MB) int32; positions: (B,) int32 per-lane
+    start positions.  GQA: pools k / v (nb, bs, KVH, hd).  MLA (`mla`):
+    pools c_kv (nb, bs, kv_lora) / k_rope (nb, bs, rope), q absorbed
+    (dk = kv_lora + rope), one shared KV head whose key is
+    concat(c_kv, k_rope) and whose value is c_kv.  Returns (B, S, H, dv) in
+    q.dtype (dv = hd, or kv_lora under `mla`).
     """
     B, S, H, dk = q.shape
-    kvh = num_kv_heads
     t = tables.long()
-    kseq = pool_a[t].reshape(B, -1, *pool_a.shape[2:])     # (B, T, KVH, hd)
-    vseq = pool_b[t].reshape(B, -1, *pool_b.shape[2:])
+
+    def gather(pool):
+        return pool[t].reshape(B, -1, *pool.shape[2:])
+
+    if mla:
+        kseq = torch.cat([gather(pool_a), gather(pool_b)], dim=-1)[:, :, None]
+        vseq = gather(pool_a)[:, :, None]
+        kvh = 1
+    else:
+        kvh = num_kv_heads
+        kseq = gather(pool_a)                              # (B, T, KVH, hd)
+        vseq = gather(pool_b)
     T = kseq.shape[1]
     dev = q.device
     qpos = (positions.long()[:, None, None]

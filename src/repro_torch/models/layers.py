@@ -51,6 +51,11 @@ def embed_specs(vocab: int, d: int, dtype) -> dict:
     return {"embedding": Spec((vocab, d), dtype)}
 
 
+# elements drawn per slice: the f32 temporaries of one draw (uniforms,
+# erfinv, the scaled copy) stay near 256 MB each
+INIT_SLICE_ELEMS = 1 << 26
+
+
 def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2] (inverse-CDF sampling)."""
     lo, hi = (0.5 * (1.0 + torch.erf(torch.tensor(v / 2 ** 0.5)))
@@ -58,6 +63,19 @@ def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=device)
     x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * 2 ** 0.5
     return x.clamp_(-2.0, 2.0)
+
+
+def _fill_trunc_normal(out: torch.Tensor, generator: torch.Generator,
+                       scale: float) -> torch.Tensor:
+    """Fill `out` (already in its target dtype) with truncated-normal *
+    scale, drawn in slices of INIT_SLICE_ELEMS along its flattened leading
+    dims, so a 4.8 G-element expert stack never has a whole-leaf f32
+    temporary."""
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), INIT_SLICE_ELEMS):
+        n = min(INIT_SLICE_ELEMS, flat.numel() - i)
+        flat[i:i + n] = _trunc_normal((n,), generator, out.device) * scale
+    return out
 
 
 def init_from_specs(specs, generator: torch.Generator, device,
@@ -72,8 +90,8 @@ def init_from_specs(specs, generator: torch.Generator, device,
             return torch.ones(s.shape, dtype=s.dtype, device=device)
         if "bias" in name or len(s.shape) < 2:
             return torch.zeros(s.shape, dtype=s.dtype, device=device)
-        w = _trunc_normal(s.shape, generator, device)
-        return (w * scale).to(s.dtype)
+        out = torch.empty(s.shape, dtype=s.dtype, device=device)
+        return _fill_trunc_normal(out, generator, scale)
     return map_specs(leaf, specs)
 
 

@@ -7,6 +7,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,5 +1,6 @@
-"""Backbone for paged serving: the dense GQA slice of
-`repro.models.transformer`.
+"""Backbone for paged serving: the paged slice of
+`repro.models.transformer` — dense and MoE blocks over GQA or MLA
+attention.
 
 Parameters and pools keep the reference's tree layout: stacked superblock
 leaves carry a leading (num_superblocks, ...) dim, so `pool[i]` / `w[i]` is
@@ -20,12 +21,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Spec, embed, embed_specs,
                                        init_from_specs, map_specs, mlp,
                                        mlp_specs, rmsnorm, rmsnorm_specs,
                                        stack_specs, unembed)
 
-PAGED_BLOCK_KINDS = ("dense",)
+PAGED_BLOCK_KINDS = ("dense", "moe")
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> attn.AttnConfig:
@@ -34,33 +36,47 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> attn.AttnConfig:
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, window=window,
-        dtype=cfg.torch_dtype, dense_mode=cfg.dense_kernel,
-        paged_mode=cfg.paged_attn_kernel)
+        kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank,
+        rope_head_dim=cfg.rope_head_dim, dtype=cfg.torch_dtype,
+        dense_mode=cfg.dense_kernel, paged_mode=cfg.paged_attn_kernel)
+
+
+def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoeConfig:
+    return moe_mod.MoeConfig(
+        d_model=cfg.d_model, d_ff=cfg.moe_d_ff or cfg.d_ff,
+        num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
+        num_shared_experts=cfg.num_shared_experts,
+        capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+        dtype=cfg.torch_dtype, dense_kernel=cfg.dense_kernel)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
     kinds = tuple(cfg.prefix_pattern) + tuple(cfg.pattern)
-    return (cfg.input_mode == "tokens" and cfg.kv_lora_rank is None
-            and not cfg.num_experts
+    return (cfg.input_mode == "tokens"
             and all(k.split(":")[0] in PAGED_BLOCK_KINDS for k in kinds))
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if not supports_paged(cfg):
         raise ValueError(
-            f"{cfg.name}: this port serves dense GQA token models; "
-            f"kinds {tuple(cfg.prefix_pattern) + tuple(cfg.pattern)} are "
-            "not ported yet")
+            f"{cfg.name}: this port serves token models of "
+            f"{PAGED_BLOCK_KINDS} blocks; kinds "
+            f"{tuple(cfg.prefix_pattern) + tuple(cfg.pattern)} are not "
+            "ported yet")
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     d, dt = cfg.d_model, cfg.torch_dtype
-    return {
+    sp = {
         "ln1": rmsnorm_specs(d, dt),
         "attn": attn.attn_specs(_attn_cfg(cfg, kind)),
         "ln2": rmsnorm_specs(d, dt),
-        "mlp": mlp_specs(d, cfg.d_ff, dt, cfg.act),
     }
+    if kind.split(":")[0] == "moe":
+        sp["moe"] = moe_mod.moe_specs(_moe_cfg(cfg))
+    else:
+        sp["mlp"] = mlp_specs(d, cfg.d_ff, dt, cfg.act)
+    return sp
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -86,14 +102,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """A shallow copy of `params` for serving: with tied embeddings in a
-    narrow dtype it carries one f32 copy of the embedding table, made here
-    once, which the f32 logits head reads every step."""
+    """A shallow copy of `params` for serving: in a narrow dtype it carries
+    one f32 copy of the logits head's table — the tied embedding or the
+    untied `lm_head.w_out` — made here once, which the f32 logits head
+    reads every step."""
     out = dict(params)
-    if cfg.tie_embeddings and params["embed"]["embedding"].dtype != \
-            torch.float32:
-        out["embed"] = dict(params["embed"])
-        out["embed"]["embedding_f32"] = params["embed"]["embedding"].float()
+    if cfg.tie_embeddings:
+        table = params["embed"]["embedding"]
+        if table.dtype != torch.float32:
+            out["embed"] = dict(params["embed"])
+            out["embed"]["embedding_f32"] = table.float()
+    elif params["lm_head"]["w_out"].dtype != torch.float32:
+        out["lm_head"] = dict(params["lm_head"])
+        out["lm_head"]["w_out_f32"] = params["lm_head"]["w_out"].float()
     return out
 
 
@@ -189,10 +210,15 @@ def _layers(params: dict, caches: dict, cfg: ModelConfig):
 
 
 def _block(cfg: ModelConfig, kind: str, p, x, attend):
-    h, _ = attend(p["attn"], _attn_cfg(cfg, kind), rmsnorm(p["ln1"], x))
+    """One block: attention (`attend(attn_cfg, params, h)` runs the step's
+    GQA or MLA function, as the config says), then the MoE or the MLP."""
+    h, _ = attend(_attn_cfg(cfg, kind), p["attn"], rmsnorm(p["ln1"], x))
     x = x + h
-    h = mlp(p["mlp"], rmsnorm(p["ln2"], x), cfg.act,
-            dense_mode=cfg.dense_kernel)
+    h = rmsnorm(p["ln2"], x)
+    if kind.split(":")[0] == "moe":
+        h = moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h)
+    else:
+        h = mlp(p["mlp"], h, cfg.act, dense_mode=cfg.dense_kernel)
     return x + h
 
 
@@ -208,7 +234,11 @@ def _logits_head(params, cfg: ModelConfig, x):
     x = rmsnorm(params["final_norm"], x)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
-    return x.float() @ params["lm_head"]["w_out"].float().t()
+    head = params["lm_head"]
+    table = head.get("w_out_f32")
+    if table is None:
+        table = head["w_out"].float()
+    return x.float() @ table.t()
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,
@@ -220,8 +250,9 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         row = _group_table(cfg, kind, table_row)
-        x = _block(cfg, kind, p, x, lambda pa, ac, h, c=c, row=row:
-                   attn.gqa_prefill_paged(pa, ac, h, c, row, start_pos))
+        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, row=row: (
+            attn.mla_prefill_paged if ac.is_mla else attn.gqa_prefill_paged)(
+                pa, ac, h, c, row, start_pos))
     logits = _logits_head(params, cfg, x[:, last_idx:last_idx + 1])
     return logits[:, 0], caches
 
@@ -235,8 +266,9 @@ def decode_step_paged(params: dict, cfg: ModelConfig, tokens, caches,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         tb = _group_table(cfg, kind, tables)
-        x = _block(cfg, kind, p, x, lambda pa, ac, h, c=c, tb=tb:
-                   attn.gqa_decode_paged(pa, ac, h, c, tb, positions, active))
+        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
+            attn.mla_decode_paged if ac.is_mla else attn.gqa_decode_paged)(
+                pa, ac, h, c, tb, positions, active))
     return _logits_head(params, cfg, x), caches
 
 
@@ -249,7 +281,7 @@ def verify_step_paged(params: dict, cfg: ModelConfig, tokens, caches,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         tb = _group_table(cfg, kind, tables)
-        x = _block(cfg, kind, p, x, lambda pa, ac, h, c=c, tb=tb:
-                   attn.gqa_verify_paged(pa, ac, h, c, tb, positions, active,
-                                         nvalid))
+        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
+            attn.mla_verify_paged if ac.is_mla else attn.gqa_verify_paged)(
+                pa, ac, h, c, tb, positions, active, nvalid))
     return _logits_head(params, cfg, x), caches

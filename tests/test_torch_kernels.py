@@ -1,9 +1,12 @@
 """The port's kernel entry points against the JAX package on the CPU.
 
-On a CPU tensor `repro_torch.kernels.ops.dense` / `paged_attn` run the
-kernels' plain versions; here they are held against the JAX functions on
-the same numpy inputs — `gpp_matmul` and `paged_attention` in Pallas
-interpret mode at tiny shapes, as the JAX package's own tests run them.
+On a CPU tensor `repro_torch.kernels.ops.dense` / `dense_grouped` /
+`paged_attn` run the kernels' plain versions (`kernels.ref`); here they are
+held against the JAX functions on the same numpy inputs — `gpp_matmul`,
+`gpp_matmul_grouped` and `paged_attention` in Pallas interpret mode at tiny
+shapes, as the JAX package's own tests run them.  The kernel wrappers
+themselves take CUDA tensors only (tests/test_torch_cuda.py runs them on
+the card); here they must refuse a CPU tensor.
 
 Tolerances: float32 1e-5 (same f32 maths, another summation order); bf16
 outputs 2e-2 (one bf16 rounding of two f32 sums that differ in order).
@@ -19,9 +22,10 @@ from repro.kernels import ops as jops
 from repro.kernels.paged_attention import paged_attention as j_paged_attention
 from repro_torch.core import schedule as sched
 from repro_torch.kernels import ops
-from repro_torch.kernels.gpp_matmul import gpp_matmul
+from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.ref import chunk_issue_schedule
+from repro_torch.kernels.ref import (chunk_issue_schedule, dense_ref,
+                                     paged_attn_ref)
 
 from _torch_parity import np32, t
 
@@ -50,7 +54,9 @@ class TestDenseParity:
         want = jgm.gpp_matmul(jnp.asarray(x), jnp.asarray(w),
                               bias=jnp.asarray(b), block_n=128, num_bufs=G,
                               interpret=True)
-        got = gpp_matmul(t(x), t(w), bias=t(b), num_bufs=G)
+        # the ring depth is the kernel's schedule, not its arithmetic: the
+        # plain version gives every G's result
+        got = dense_ref(t(x), t(w), bias=t(b))
         np.testing.assert_allclose(np32(got), np32(want), **F32)
 
     @pytest.mark.parametrize("act", ("relu", "gelu", "silu", "tanh",
@@ -81,7 +87,7 @@ class TestDenseParity:
                               w_scale=jnp.asarray(scale), block_m=16,
                               block_n=128, block_k=128, num_bufs=2,
                               interpret=True)
-        got = gpp_matmul(t(x), t(w), w_scale=torch.as_tensor(scale))
+        got = dense_ref(t(x), t(w), w_scale=torch.as_tensor(scale))
         np.testing.assert_allclose(np32(got), np32(want), rtol=1e-5,
                                    atol=1e-4)
 
@@ -90,7 +96,7 @@ class TestDenseParity:
         xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
         want = jgm.gpp_matmul(xb, wb, block_m=16, block_n=128, block_k=128,
                               num_bufs=3, interpret=True)
-        got = gpp_matmul(t(xb), t(wb))
+        got = ops.dense(t(xb), t(wb), mode="ref")
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(np32(got), np32(want), **BF16)
 
@@ -122,6 +128,23 @@ class TestDenseParity:
                         mode="ref")
         np.testing.assert_allclose(np32(got), np32(want), rtol=1e-5,
                                    atol=1e-4)
+
+    def test_kernel_wrappers_refuse_cpu_tensors(self):
+        x, w = torch.zeros(4, 8), torch.zeros(8, 16)
+        with pytest.raises(ValueError, match="CUDA"):
+            gpp_matmul(x, w)
+        with pytest.raises(ValueError, match="CUDA"):
+            gpp_matmul_grouped(x[None], w[None])
+        q = torch.zeros(1, 1, 4, 16)
+        k = torch.zeros(3, 8, 2, 16)
+        tb = torch.zeros(1, 2, dtype=torch.int32)
+        pos = torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            paged_attention(q, k, k, tb, pos, num_kv_heads=2, scale=1.0)
+        ckv, kr = torch.zeros(3, 8, 12), torch.zeros(3, 8, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            paged_attention(q, ckv, kr, tb, pos, num_kv_heads=1, scale=1.0,
+                            mla=True)
 
     def test_modes(self):
         x = torch.zeros(2, 8)
@@ -193,6 +216,40 @@ class TestSm90Planner:
                                             head_dim=64, kv_itemsize=2,
                                             max_blocks=8, num_bufs=2)
         assert pinned.num_bufs == 2 and pinned.chunks == 1
+
+    def test_grouped_plan_keeps_two_ctas_per_sm(self):
+        # deepseek decode gate/up: 22 n-tiles x 64 experts, 5 experts a CTA
+        plan = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=2)
+        assert plan.experts_per_cta == 5
+        assert plan.grid(64, 32, 1408) == (22, 1, 13)
+        assert plan.tile.smem_bytes <= sched.SMEM_BUDGET_BYTES
+        # the ring may span the expert boundary: deeper than one expert's
+        # 2 k-steps when the CTA walks several experts
+        one = sched.plan_grouped_sm90(1, 4, 512, 1408, w_itemsize=2)
+        five = sched.plan_grouped_sm90(64, 4, 512, 1408, w_itemsize=2)
+        assert (one.experts_per_cta, one.tile.num_bufs) == (1, 2)
+        assert five.experts_per_cta == 5 and five.tile.num_bufs > 2
+        # a pinned ring keeps the planned run of experts
+        pinned = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=2,
+                                         num_bufs=4)
+        assert (pinned.tile.num_bufs, pinned.experts_per_cta) == (4, 5)
+
+    def test_mla_plan_rows_and_budget(self):
+        for rows, es in ((16, 2), (80, 2), (512, 4)):
+            plan = sched.plan_paged_attn_sm90(rows=rows, block_size=16,
+                                              head_dim=512, rope_dim=64,
+                                              kv_itemsize=es, max_blocks=8)
+            assert plan.rows_per_cta == 16
+            assert plan.row_splits == -(-rows // 16)
+            assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
+        # two rings of different widths, f32 q (576) and acc (512) rows
+        assert sched.paged_attn_smem_bytes(1, 16, 512, 2, 16, rope_dim=64) \
+            == 16 * (1040 + 144) + 16 * (576 + 512) * 4 + 16 * 16 * 4 \
+            + 3 * 16 * 4
+        with pytest.raises(ValueError):
+            sched.plan_paged_attn_sm90(rows=16, block_size=16, head_dim=512,
+                                       rope_dim=64, kv_itemsize=4,
+                                       max_blocks=8, num_bufs=8)
 
     def test_stream_plan_matches_reference(self):
         from repro.core import schedule as jsched
@@ -267,8 +324,8 @@ class TestPagedAttnParity:
         pos = jnp.asarray(positions, jnp.int32)
         want = j_paged_attention(qb, kb, vb, tb, pos, num_kv_heads=2,
                                  scale=0.25, interpret=True)
-        got = paged_attention(t(qb), t(kb), t(vb), t(tb), t(pos),
-                              num_kv_heads=2, scale=0.25)
+        got = paged_attn_ref(t(qb), t(kb), t(vb), t(tb), t(pos),
+                             num_kv_heads=2, scale=0.25)
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(np32(got), np32(want), **BF16)
 

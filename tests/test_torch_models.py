@@ -1,15 +1,18 @@
 """The port's layers, paged GQA attention and paged step functions against
 the JAX package on the CPU, on the same numpy inputs and parameters (JAX's
-`init_params` / `init_from_specs`, carried over by `repro_torch.bridge`).
+`init_params` / `init_from_specs`, carried over by `repro_torch.bridge`):
+qwen1.5-0.5b SMOKE (GQA + MLP) and deepseek-v2-lite-16b SMOKE (MLA + MoE,
+a dense first layer, an untied LM head).
 The JAX side reads the paged pools through its `kernels/ref.py` oracle
 (`paged_mode="ref"`); the interpret-mode kernel is held against the port in
 test_torch_kernels.py.
 
 Tolerances: float32 1e-4 at the attention and layer level, 1e-4 on the
-qwen1.5-0.5b SMOKE logits (same f32 maths in another summation order).
-bf16 logits 0.1: the JAX CPU path multiplies in bf16 and adds the bias in
-bf16 (`_dense_ref_path`), the port accumulates in f32 and rounds once (the
-kernel's numerics), so the two drift by bf16 ulps through the layers.
+SMOKE logits (same f32 maths in another summation order).  bf16 logits
+0.1: the JAX CPU path multiplies in bf16 and adds the bias in bf16
+(`_dense_ref_path`, the `dense_grouped` einsum), the port accumulates in
+f32 and rounds once (the kernels' numerics), so the two drift by bf16 ulps
+through the layers.
 """
 import numpy as np
 import pytest
@@ -176,8 +179,8 @@ class TestAttentionParity:
 # the paged step functions on qwen1.5-0.5b SMOKE
 # ---------------------------------------------------------------------------
 
-def _smoke(dtype):
-    jcfg = jregistry.get_config("qwen1.5-0.5b", smoke=True).with_(dtype=dtype)
+def _smoke(dtype, arch="qwen1.5-0.5b"):
+    jcfg = jregistry.get_config(arch, smoke=True).with_(dtype=dtype)
     return jcfg, config_from_reference(jcfg)
 
 
@@ -248,12 +251,22 @@ def _port_steps(cfg, params):
     return prefill, decode, verify
 
 
+STEP_TOLS = (("float32", F32), ("bfloat16", dict(rtol=0.1, atol=0.1)))
+
+
 class TestStepFunctionParity:
-    @pytest.mark.parametrize("dtype,tol", (("float32", F32),
-                                           ("bfloat16", dict(rtol=0.1,
-                                                             atol=0.1))))
+    @pytest.mark.parametrize("dtype,tol", STEP_TOLS)
     def test_prefill_decode_verify_logits(self, dtype, tol):
-        jcfg, cfg = _smoke(dtype)
+        self._check(dtype, tol, "qwen1.5-0.5b")
+
+    @pytest.mark.parametrize("dtype,tol", STEP_TOLS)
+    def test_deepseek_prefill_decode_verify_logits(self, dtype, tol):
+        """MLA on the plain read path, MoE on the grouped plain product."""
+        self._check(dtype, tol, "deepseek-v2-lite-16b")
+
+    @staticmethod
+    def _check(dtype, tol, arch):
+        jcfg, cfg = _smoke(dtype, arch)
         jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
         params = tf.serving_params(tree_to_torch(jparams), cfg)
         specs = jtf.paged_cache_specs(jcfg, num_blocks=5, block_size=8)
@@ -268,7 +281,34 @@ class TestStepFunctionParity:
 
 class TestParamsAndBridge:
     def test_specs_match_reference_tree(self):
-        jcfg, cfg = _smoke("bfloat16")
+        self._check_specs("qwen1.5-0.5b")
+
+    def test_deepseek_specs_match_reference_tree(self):
+        self._check_specs("deepseek-v2-lite-16b")
+        jcfg, cfg = _smoke("bfloat16", "deepseek-v2-lite-16b")
+        sp = tf.param_specs(cfg)
+        assert set(sp["blocks"]["b0"]["moe"]) == {
+            "router", "w_gate", "w_up", "w_down", "shared"}
+        assert tuple(sp["blocks"]["b0"]["moe"]["w_gate"].shape) == (2, 8, 64,
+                                                                   32)
+        assert "mlp" in sp["prefix"][0] and "w_dkv" in sp["prefix"][0]["attn"]
+
+    def test_bridge_carries_moe_and_mla_leaves(self):
+        jcfg, cfg = _smoke("float32", "deepseek-v2-lite-16b")
+        jparams = jtf.init_params(jcfg, jax.random.PRNGKey(1))
+        params = tree_to_torch(jparams)
+        paths = []
+        L.map_specs(lambda path, s: paths.append(path), tf.param_specs(cfg))
+        for path in paths:
+            got, want = params, jparams
+            for k in path:
+                got, want = got[k], want[k]
+            np.testing.assert_array_equal(np32(got), np32(want))
+        assert "w_out" in params["lm_head"]
+
+    @staticmethod
+    def _check_specs(arch):
+        jcfg, cfg = _smoke("bfloat16", arch)
         jspecs = jtf.param_specs(jcfg)
         pspecs = tf.param_specs(cfg)
         flat = {}
@@ -292,6 +332,42 @@ class TestParamsAndBridge:
         w = p1["blocks"]["b0"]["mlp"]["w_up"]
         assert float(w.abs().max()) <= 0.04 + 1e-6       # truncated at 2 sd
         assert abs(float(w.std()) - 0.02 * 0.88) < 3e-3  # trunc-normal sd
+
+    def test_init_draws_large_leaves_in_slices(self, monkeypatch):
+        """A leaf bigger than one slice is drawn slice by slice straight
+        into its target dtype, with the same rule and determinism."""
+        monkeypatch.setattr(L, "INIT_SLICE_ELEMS", 1000)
+        sizes = []
+        draw = L._trunc_normal
+
+        def spy(shape, generator, device):
+            sizes.append(shape[0])
+            return draw(shape, generator, device)
+
+        monkeypatch.setattr(L, "_trunc_normal", spy)
+        specs = {"w": L.Spec((3, 50, 70), torch.bfloat16),
+                 "kv_norm": L.Spec((8,), torch.bfloat16),
+                 "scale": L.Spec((2, 8), torch.bfloat16)}
+        a = L.init_from_specs(specs, torch.Generator().manual_seed(4), "cpu")
+        b = L.init_from_specs(specs, torch.Generator().manual_seed(4), "cpu")
+        assert max(sizes) == 1000 and sum(sizes) == 2 * 3 * 50 * 70
+        assert a["w"].dtype == torch.bfloat16 and torch.equal(a["w"], b["w"])
+        assert float(a["w"].float().abs().max()) <= 0.04 + 1e-3
+        assert abs(float(a["w"].float().std()) - 0.02 * 0.88) < 2e-3
+        assert torch.equal(a["kv_norm"], torch.zeros(8, dtype=torch.bfloat16))
+        assert torch.equal(a["scale"], torch.ones(2, 8, dtype=torch.bfloat16))
+
+    def test_untied_lm_head_f32_copy_is_cached(self):
+        jcfg, cfg = _smoke("bfloat16", "deepseek-v2-lite-16b")
+        params = tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+        sp = tf.serving_params(params, cfg)
+        w = params["lm_head"]["w_out"]
+        assert sp["lm_head"]["w_out_f32"].dtype == torch.float32
+        assert torch.equal(sp["lm_head"]["w_out_f32"], w.float())
+        assert "w_out_f32" not in params["lm_head"]      # a shallow copy
+        x = torch.randn(2, 1, cfg.d_model).to(torch.bfloat16)
+        assert torch.equal(tf._logits_head(sp, cfg, x),
+                           tf._logits_head(params, cfg, x))
 
     def test_config_from_reference(self):
         jcfg = jregistry.get_config("qwen1.5-0.5b")

@@ -1,7 +1,8 @@
 """The port's paged serving engine and CLI against the JAX package's on the
-CPU: greedy token streams at float32 on qwen1.5-0.5b SMOKE, with the same
-parameters (JAX `init_params`, carried over by `repro_torch.bridge`) and
-the same requests.  Greedy streams must be equal token for token."""
+CPU: greedy token streams at float32 on qwen1.5-0.5b SMOKE and on
+deepseek-v2-lite-16b SMOKE (MLA + MoE), with the same parameters (JAX
+`init_params`, carried over by `repro_torch.bridge`) and the same requests.
+Greedy streams must be equal token for token."""
 import subprocess
 import sys
 from pathlib import Path
@@ -123,6 +124,42 @@ class TestEngineParity:
             ServingEngine(cfg, params, ServeConfig())
 
 
+@pytest.fixture(scope="module")
+def deepseek():
+    jcfg = jregistry.get_config("deepseek-v2-lite-16b", smoke=True).with_(
+        dtype="float32")
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, jparams, config_from_reference(jcfg), tree_to_torch(jparams)
+
+
+@pytest.fixture(scope="module")
+def deepseek_prompts(deepseek):
+    """Prompts that hold the continuation the model will produce, so the
+    n-gram drafter finds drafts: prompt + its greedy stream + its tail."""
+    jcfg, jparams, _, _ = deepseek
+    base = _prompts(jcfg.vocab_size)
+    outs = _run(JServingEngine(jcfg, jparams, JServeConfig(**SERVE)), base)
+    return [b + o + b[-3:] for b, o in zip(base, outs)]
+
+
+class TestDeepseekEngineParity:
+    @pytest.mark.parametrize("spec", (False, True))
+    def test_greedy_streams_match_jax(self, deepseek, deepseek_prompts,
+                                      spec):
+        jcfg, jparams, cfg, params = deepseek
+        prompts = deepseek_prompts
+        want = _run(JServingEngine(jcfg, jparams, JServeConfig(
+            speculation=spec, **SERVE)), prompts)
+        eng = ServingEngine(cfg, params, ServeConfig(
+            speculation=spec, device="cpu", **SERVE))
+        assert _run(eng, prompts) == want
+        if spec:
+            assert eng.metrics.total("drafted_tokens") > 0
+        assert eng.trace_counts["prefill_chunk"] == 1
+        assert eng.trace_counts["decode"] <= 1
+        assert eng.trace_counts["verify"] == (1 if spec else 0)
+
+
 class TestSampling:
     def test_temperature_draws_are_keyed_not_stateful(self):
         serve = ServeConfig(temperature=0.8, seed=3)
@@ -135,17 +172,25 @@ class TestSampling:
 
 
 class TestCli:
-    def _cli(self, *args):
+    def _cli(self, *args, arch="qwen1.5-0.5b"):
         env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
                "JAX_PLATFORMS": "cpu"}
         return subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve",
-             "--arch", "qwen1.5-0.5b", "--smoke", *args],
+             "--arch", arch, "--smoke", *args],
             capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
 
     def test_serve_runs_on_cpu_when_asked(self):
         r = self._cli("--device", "cpu", "--requests", "3", "--max-new", "4",
                       "--slots", "2", "--max-len", "64", "--speculation")
+        assert r.returncode == 0, r.stderr
+        assert "3 requests, 12 tokens" in r.stdout
+        assert "'prefill_chunk': 1" in r.stdout
+
+    def test_deepseek_serves_on_cpu_when_asked(self):
+        r = self._cli("--device", "cpu", "--requests", "3", "--max-new", "4",
+                      "--slots", "2", "--max-len", "64", "--speculation",
+                      arch="deepseek-v2-lite-16b")
         assert r.returncode == 0, r.stderr
         assert "3 requests, 12 tokens" in r.stdout
         assert "'prefill_chunk': 1" in r.stdout
