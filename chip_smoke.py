@@ -9,23 +9,31 @@ In order, it:
      per source, started together) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
      every shape the two serving paths give it (gpp_matmul at both models'
-     projection shapes, deepseek's f32 router included), and prints the
-     largest error beside its tolerance, then the kernel's time, the plain
-     version's time, a library yardstick's time (`torch.matmul` /
-     `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
-     rows) and the bound (the larger of bytes / 3.35e12 B/s and operations
-     / the peak rate of their type); it also reads the issue-order records
-     of gpp_matmul and gpp_matmul_grouped (at deepseek's planned decode
-     shape, 5 experts a CTA, so across expert boundaries) back and compares
-     them with `chunk_issue_schedule` for G in {1, 2, 4} (and the planned G);
+     projection shapes, deepseek's f32 router included; gpp_matmul_grouped
+     on both routes, bf16 x and W on its tensor-core kernel, f32 and int8
+     on its FMA kernel), and prints the largest error beside its
+     tolerance, then the kernel's time, the plain version's time, a
+     library yardstick's time (`torch.matmul` / `torch.bmm`;
+     `scaled_dot_product_attention` on gathered K/V or latent rows) and
+     the bound (the larger of bytes / 3.35e12 B/s and operations / the
+     peak rate of their type); it also reads the issue-order records of
+     gpp_matmul and gpp_matmul_grouped back (the tensor-core route at
+     deepseek's decode shape, across n-tiles, and at one n-tile an expert,
+     across experts; the FMA route at the decode shape in f32, 5 experts a
+     CTA) and compares them with `chunk_issue_schedule` for G in {1, 2, 4}
+     and the planned G, checks that the card holds the CTAs an SM the
+     tensor-core plan assumes, and runs one full-width deepseek MoE layer
+     in bf16 with the kernels against the plain versions (decode and
+     prefill inputs, relative error <= 1e-2);
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
      n-gram drafter finds drafts), bf16 with speculation off and on (tok/s,
-     launch counts, which must be > 0 for the path's kernels, and at least
-     one verify step), one profiled run (device time by kernel, busy
-     share), then float32 with the kernels and with their plain versions,
-     whose greedy streams must be equal;
+     launch counts, which must be > 0 for the path's kernels and 0 for the
+     others, and at least one verify step), one profiled run (device time
+     by kernel, again only under the path's kernels, busy share), then
+     float32 with the kernels and with their plain versions, whose greedy
+     streams must be equal;
   5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
      depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
@@ -396,9 +404,11 @@ def grouped_inputs(M, K, N, dtype, *, seed=0, int8=False):
 
 def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
                  scale=None, seed=0):
-    """One gpp_matmul_grouped comparison on the card; max abs error."""
+    """One gpp_matmul_grouped comparison on the card; max abs error.  bf16
+    x and W must launch the tensor-core kernel, anything else the FMA
+    kernel."""
     import torch
-    from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
+    from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import dense_grouped_ref
     x, w = grouped_inputs(M, K, N, dtype, seed=seed, int8=scale is not None)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -408,8 +418,14 @@ def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
         sc = torch.rand(shape, generator=g, device="cuda") * 2e-3
     b = (torch.randn(DS_E, N, generator=g, device="cuda") * 0.1).to(x.dtype) \
         if bias else None
-    y = gpp_matmul_grouped(x, w, bias=b, w_scale=sc, activation=act,
-                           num_bufs=G)
+    route = gm.grouped_route(x.dtype, w.dtype)
+    before = (gm.launches_grouped_tc.n, gm.launches_grouped.n)
+    y = gm.gpp_matmul_grouped(x, w, bias=b, w_scale=sc, activation=act,
+                              num_bufs=G)
+    ran = (gm.launches_grouped_tc.n - before[0],
+           gm.launches_grouped.n - before[1])
+    check(ran == ((1, 0) if route == "tc" else (0, 1)),
+          f"gpp_matmul_grouped {dtype} x {w.dtype} W took the wrong kernel")
     ref = dense_grouped_ref(x, w, bias=b, w_scale=sc, activation=act)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(y.float()).all()), "gpp_matmul_grouped "
@@ -424,28 +440,47 @@ def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
 
 def grouped_time(M, K, N, dtype):
     """Kernel / plain / torch.bmm times of one (E, M, K) @ (E, K, N) launch
-    at the path's shape, and its bound (every expert's W read once)."""
+    at the path's shape, and its bound (every expert's W read once).  bf16
+    times the tensor-core kernel, f32 the FMA kernel."""
     import torch
     from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
     from repro_torch.kernels.ref import dense_grouped_ref
     es = 2 if dtype == "bfloat16" else 4
     sets = [grouped_inputs(M, K, N, dtype, seed=i)
             for i in range(copies_for(DS_E * K * N * es))]
-    ms, wall = measure(lambda x, w: gpp_matmul_grouped(x, w), sets,
-                       "gpp_matmul_grouped_kernel")
+    name = KERNEL_NAMES["gpp_matmul_grouped_tc" if dtype == "bfloat16"
+                        else "gpp_matmul_grouped"]
+    ms, wall = measure(lambda x, w: gpp_matmul_grouped(x, w), sets, name)
     plain, plain_wall = measure(lambda x, w: dense_grouped_ref(x, w), sets)
     lib, lib_wall = measure(lambda x, w: torch.bmm(x, w), sets)
     b_ms, by = bound(DS_E * (M * K + K * N + M * N) * es,
                      2.0 * DS_E * M * K * N, dtype)
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
             "bound_by": by, "wall_ms": wall, "plain_wall_ms": plain_wall,
-            "library_wall_ms": lib_wall}
+            "library_wall_ms": lib_wall, "kernel": name}
+
+
+def grouped_issue_order(x, w, G, what):
+    """Read the first CTA's issue-order record back and compare it with
+    `chunk_issue_schedule`; returns (G used, work items in the run)."""
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels.ref import chunk_issue_schedule
+    got, steps, g_used, C, items = gm.issue_order_grouped(x, w, G)
+    check(G is None or g_used == G, f"{what}: ring depth {g_used} != {G}")
+    check(items > 1, f"{what}: the first CTA's run holds {items} item(s)")
+    check(got == chunk_issue_schedule(steps, g_used, C),
+          f"{what}: issue order differs at G={G}")
+    print(f"gpp_matmul_grouped issue order {what} G={g_used} (asked {G}) "
+          f"C={C} steps={steps} over {items} work items: "
+          f"{sum(len(v) for v in got.values())} chunk issues == "
+          "chunk_issue_schedule")
+    return g_used, items
 
 
 def check_grouped(report):
     import torch
+    from repro_torch.core.schedule import plan_grouped_tc_sm90
     from repro_torch.kernels import gpp_matmul as gm
-    from repro_torch.kernels.ref import chunk_issue_schedule
     rows = []
     timed = {}
     for phase, M in DS_ROWS.items():
@@ -457,47 +492,121 @@ def check_grouped(report):
                           for G in (None, 1, 2, 4))
                 row = {"phase": phase, "proj": name, "E": DS_E, "M": M,
                        "K": K, "N": N, "dtype": dtype, "max_abs_err": err,
-                       "tol": TOL[dtype]}
-                if dtype == "bfloat16":
-                    key = (M, K, N)      # verify's shape is decode's
+                       "tol": TOL[dtype],
+                       "route": "tc" if dtype == "bfloat16" else "fma"}
+                key = (M, K, N, dtype)       # verify's shape is decode's
+                if dtype == "bfloat16" or (phase, name) == ("decode",
+                                                            "gate_up"):
                     if key not in timed:
                         timed[key] = grouped_time(M, K, N, dtype)
                     row.update(timed[key])
+                if dtype == "bfloat16":      # the card holds the plan
+                    plan = plan_grouped_tc_sm90(DS_E, M, K, N)
+                    row["ctas_per_sm"] = gm.grouped_tc_ctas_per_sm(plan)
+                    check(row["ctas_per_sm"] == plan.ctas_per_sm,
+                          f"{row['ctas_per_sm']} CTAs an SM, planned "
+                          f"{plan.ctas_per_sm}")
+                    row["plan"] = {"block_m": plan.block_m,
+                                   "block_k": plan.block_k,
+                                   "num_bufs": plan.num_bufs,
+                                   "grid": plan.grid}
                 rows.append(row)
                 print(f"gpp_matmul_grouped {phase:7s} {name:7s} "
-                      f"{DS_E}x{M}x{K}x{N} {dtype}: max_abs_err={err:.3g} "
-                      f"(atol,rtol)={TOL[dtype]}"
+                      f"{DS_E}x{M}x{K}x{N} {dtype} ({row['route']}): "
+                      f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
                       + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
                          f" library_ms={row['library_ms']:.4f} bound_ms="
                          f"{row['bound_ms']:.4f} ({row['bound_by']})"
                          f" wall_ms={row['wall_ms']:.4f}"
-                         if "ms" in row else ""))
-    extra = []
-    for dtype in ("bfloat16", "float32"):
+                         if "ms" in row else "")
+                      + (f" plan={row['plan']} ctas/SM="
+                         f"{row['ctas_per_sm']}" if "plan" in row else ""))
+    extra = {"tc": [], "fma": []}
+    for dtype in ("bfloat16", "float32"):      # int8 W: the FMA route
         for scale in ("scalar", "expert", "column"):
-            extra.append(grouped_case(DS_ROWS["decode"], DS_D, DS_F, dtype,
-                                      scale=scale, act="silu"))
-        extra.append(grouped_case(7, 300, 130, dtype, bias=True, act="gelu",
-                                  G=4))
-    print(f"gpp_matmul_grouped int8/bias/ragged cases: {len(extra)} ok, "
-          f"max_abs_err={max(extra):.3g}")
-    # the ring runs across expert boundaries in the issue order of the
-    # generalized ping-pong schedule, at the path's decode gate/up shape as
-    # planned (a run of several experts a CTA)
+            extra["fma"].append(grouped_case(DS_ROWS["decode"], DS_D, DS_F,
+                                             dtype, scale=scale, act="silu"))
+    for G in (None, 1, 2, 4):                  # ragged M, K, N
+        extra["tc"].append(grouped_case(7, 300, 130, "bfloat16", bias=True,
+                                        act="gelu", G=G))
+    extra["fma"].append(grouped_case(7, 300, 130, "float32", bias=True,
+                                     act="gelu", G=4))
+    print("gpp_matmul_grouped int8/bias/ragged cases: "
+          + ", ".join(f"{r} {len(v)} ok, max_abs_err={max(v):.3g}"
+                      for r, v in extra.items()))
+    # the ring runs across work boundaries in the issue order of the
+    # generalized ping-pong schedule: the tensor-core route at the path's
+    # decode gate/up shape (n-tile boundaries) and at one n-tile an expert
+    # (expert boundaries), the FMA route at the decode shape in f32
+    orders = []
     x, w = grouped_inputs(DS_ROWS["decode"], DS_D, DS_F, "bfloat16")
     for G in (None, 1, 2, 4):
-        got, steps, g_used, C, epc = gm.issue_order_grouped(x, w, G)
-        check(G is None or g_used == G, f"grouped ring depth {g_used} != {G}")
-        check(epc > 1, f"the planned run holds {epc} expert(s) a CTA")
-        check(got == chunk_issue_schedule(steps, g_used, C),
-              f"grouped issue order differs at G={G}")
-        print(f"gpp_matmul_grouped issue order G={g_used} (asked {G}) C={C} "
-              f"steps={steps} ({epc} experts of {steps // epc} k-steps): "
-              f"{sum(len(v) for v in got.values())} chunk issues == "
-              "chunk_issue_schedule")
-    report["gpp_matmul_grouped"] = {"shapes": rows, "extra_cases": len(extra),
-                                    "extra_max_abs_err": max(extra)}
-    return rows, max(extra)
+        orders.append(grouped_issue_order(x, w, G, "tc 64x32x2048x1408"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(600, 16, 512, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(600, 512, 64, generator=g, device="cuda")
+         * 0.02).bfloat16()
+    plan = plan_grouped_tc_sm90(600, 16, 512, 64)
+    check([plan.unit(u)[0] for u in plan.cta_units(0)] == [0, 1],
+          "the first CTA's run does not cross an expert boundary")
+    for G in (None, 1, 2, 4):
+        orders.append(grouped_issue_order(x, w, G, "tc 600x16x512x64"))
+    x, w = grouped_inputs(DS_ROWS["decode"], DS_D, DS_F, "float32")
+    for G in (None, 1, 2, 4):
+        orders.append(grouped_issue_order(x, w, G, "fma f32 64x32x2048x1408"))
+    del x, w
+    torch.cuda.empty_cache()
+    err = {r: max(v + [row["max_abs_err"] for row in rows
+                       if row["route"] == r]) for r, v in extra.items()}
+    report["gpp_matmul_grouped"] = {
+        "shapes": rows, "extra_cases": sum(map(len, extra.values())),
+        "max_abs_err_by_route": err, "issue_orders": len(orders)}
+    return rows, err
+
+
+def check_moe_layer(report):
+    """One full-width deepseek-v2-lite-16b MoE layer in bf16 (random
+    weights from a seed), decode inputs (4 tokens) and prefill inputs (32):
+    mode "auto" (the routed experts on the tensor-core kernel) against mode
+    "ref" (the plain versions), relative error of the layer's output."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import init_from_specs
+    cfg = registry.get_config("deepseek-v2-lite-16b").with_(dtype="bfloat16")
+    mc = tf._moe_cfg(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = init_from_specs(moe_mod.moe_specs(mc), gen,
+                             torch.device("cuda"))
+    out = {}
+    for phase, (B, S) in (("decode", (SLOTS, 1)), ("prefill", (1, CHUNK))):
+        x = torch.randn(B, S, DS_D, generator=gen, device="cuda").bfloat16()
+        tc = gm.launches_grouped_tc.n
+        auto = moe_mod.moe_apply(params, mc, x)
+        ran = gm.launches_grouped_tc.n - tc
+        ref = moe_mod.moe_apply(
+            params, dataclasses.replace(mc, dense_kernel="ref"), x)
+        torch.cuda.synchronize()
+        check(tuple(auto.shape) == (B, S, DS_D)
+              and bool(torch.isfinite(auto.float()).all()),
+              f"MoE layer {phase}: shape or non-finite")
+        rel = float((auto.float() - ref.float()).norm()
+                    / ref.float().norm())
+        check(ran == 3, f"MoE layer {phase}: {ran} tensor-core launches")
+        check(rel <= 1e-2, f"MoE layer {phase}: |auto - ref| / |ref| = "
+                           f"{rel:.3g} > 1e-2")
+        out[phase] = {"tokens": B * S, "rel_err": rel, "tc_launches": ran}
+        print(f"MoE layer {phase} ({B * S} tokens, deepseek widths, bf16): "
+              f"|auto - ref| / |ref| = {rel:.3g} (limit 1e-2), {ran} "
+              "tensor-core launches")
+    del params
+    torch.cuda.empty_cache()
+    report["moe_layer"] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -626,6 +735,7 @@ def check_mla(report):
 # kernel counter -> profiler kernel name
 KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
                 "gpp_matmul_grouped": "gpp_matmul_grouped_kernel",
+                "gpp_matmul_grouped_tc": "gpp_matmul_grouped_tc_kernel",
                 "paged_attention": "paged_attention_kernel",
                 "paged_attention_mla": "paged_attention_mla_kernel"}
 
@@ -634,7 +744,8 @@ def counters():
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels import paged_attention as pa
     return {"gpp_matmul": gm.launches, "gpp_matmul_grouped":
-            gm.launches_grouped, "paged_attention": pa.launches,
+            gm.launches_grouped, "gpp_matmul_grouped_tc":
+            gm.launches_grouped_tc, "paged_attention": pa.launches,
             "paged_attention_mla": pa.launches_mla}
 
 
@@ -702,9 +813,13 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
     return streams, info
 
 
-def check_serving(report, arch: str, path_kernels, f32_layers=None):
+def check_serving(report, arch: str, path_kernels, f32_kernels,
+                  f32_layers=None):
     """bf16 serve (spec off, on, profiled) at full width and depth, then
-    f32 kernel vs plain greedy streams (at `f32_layers` layers if set)."""
+    f32 kernel vs plain greedy streams (at `f32_layers` layers if set).
+    Every kernel in `path_kernels` must launch in the bf16 runs and no
+    other (with device time under the path's names only); every kernel in
+    `f32_kernels` must launch in the f32 kernel run."""
     import torch
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
@@ -731,9 +846,9 @@ def check_serving(report, arch: str, path_kernels, f32_layers=None):
     spec, runs["bf16_spec"] = serve(cfg, params, prompts, speculation=True,
                                     mode="auto")
     for key in ("bf16", "bf16_spec"):
-        for k in path_kernels:
-            n = runs[key]["launches"][k]
-            check(n > 0, f"{k} never launched on the {arch} path ({key})")
+        for k, n in runs[key]["launches"].items():
+            check((n > 0) == (k in path_kernels),
+                  f"{k} launched {n} times on the {arch} path ({key})")
     check(runs["bf16"]["shapes"]["decode"] == 1
           and runs["bf16_spec"]["shapes"]["verify"] == 1,
           f"{arch}: the decode or the verify shape did not run")
@@ -744,6 +859,9 @@ def check_serving(report, arch: str, path_kernels, f32_layers=None):
                         mode="auto", profile=True)
     check(again == plain, f"{arch}: the profiled run's streams differ")
     busy = prof["device_busy_s"]
+    for k in KERNEL_NAMES:
+        check((busy[k] > 0) == (k in path_kernels),
+              f"{arch}: {busy[k]} s of device time under {KERNEL_NAMES[k]}")
     share = sum(busy.values()) / runs["bf16"]["seconds"]
     runs["bf16"]["device_busy_s"] = busy
     runs["bf16"]["device_busy_share"] = share
@@ -762,6 +880,9 @@ def check_serving(report, arch: str, path_kernels, f32_layers=None):
                                      speculation=False, mode="ref")
     check(not any(runs["f32_ref"]["launches"].values()),
           "the plain run launched a kernel")
+    for k in f32_kernels:
+        check(runs["f32_kernel"]["launches"][k] > 0,
+              f"{k} never launched on the {arch} f32 kernel run")
     check(f32_kernel == f32_ref,
           f"{arch} f32 greedy streams differ: kernel {f32_kernel} ref "
           f"{f32_ref}")
@@ -806,11 +927,15 @@ def main(argv=None) -> int:
 
     gpp_rows, gpp_extra = check_gpp(report)
     pa_rows = check_paged(report)
-    grouped_rows, grouped_extra = check_grouped(report)
+    grouped_rows, grouped_err = check_grouped(report)
+    check_moe_layer(report)
     mla_rows = check_mla(report)
     qwen = check_serving(report, "qwen1.5-0.5b",
+                         ("gpp_matmul", "paged_attention"),
                          ("gpp_matmul", "paged_attention"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
+                             ("gpp_matmul", "gpp_matmul_grouped_tc",
+                              "paged_attention_mla"),
                              ("gpp_matmul", "gpp_matmul_grouped",
                               "paged_attention_mla"), f32_layers=4)
 
@@ -821,6 +946,8 @@ def main(argv=None) -> int:
              and r["dtype"] == "bfloat16")
     gg = next(r for r in grouped_rows if r["phase"] == "decode"
               and r["proj"] == "gate_up" and r["dtype"] == "bfloat16")
+    gf = next(r for r in grouped_rows if r["phase"] == "decode"
+              and r["proj"] == "gate_up" and r["dtype"] == "float32")
     m = next(r for r in mla_rows if r["case"] == "decode"
              and r["dtype"] == "bfloat16")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -851,13 +978,25 @@ def main(argv=None) -> int:
         {"name": "gpp_matmul_grouped", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:606",
+         "kernel": "gpp_matmul_grouped_tc_kernel (bf16 x and W)",
          "path": "deepseek-v2-lite-16b",
-         "launches": deepseek["bf16"]["launches"]["gpp_matmul_grouped"],
-         "max_abs_err": max([grouped_extra]
-                            + [r["max_abs_err"] for r in grouped_rows]),
+         "launches": deepseek["bf16"]["launches"]["gpp_matmul_grouped_tc"],
+         "max_abs_err": grouped_err["tc"],
          "shape": f"decode gate/up {gg['E']}x{gg['M']}x{gg['K']}x{gg['N']} "
                   "bf16",
          **{k: gg[k] for k in numbers}},
+        {"name": "gpp_matmul_grouped_fma", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
+         "replaces": "src/repro/kernels/gpp_matmul.py:606",
+         "kernel": "gpp_matmul_grouped_kernel (f32 x, or f32 / int8 W)",
+         "path": "deepseek-v2-lite-16b in f32 "
+                 f"({deepseek['f32_kernel']['num_layers']} layers)",
+         "launches":
+             deepseek["f32_kernel"]["launches"]["gpp_matmul_grouped"],
+         "max_abs_err": grouped_err["fma"],
+         "shape": f"decode gate/up {gf['E']}x{gf['M']}x{gf['K']}x{gf['N']} "
+                  "f32",
+         **{k: gf[k] for k in numbers}},
         {"name": "paged_attention_mla", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "

@@ -3,9 +3,10 @@
 `round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
 `tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
-over; in their place `plan_matmul_sm90`, `plan_grouped_sm90` and
-`plan_paged_attn_sm90` pick the tile sizes and the shared-memory ring depth
-G of the CUDA kernels:
+over; in their place `plan_matmul_sm90`, `plan_grouped_sm90` (the FMA
+route of the grouped kernel), `plan_grouped_tc_sm90` (its tensor-core
+route) and `plan_paged_attn_sm90` pick the tile sizes and the
+shared-memory ring depth G of the CUDA kernels:
 
   * G comes from `plan_stream` at the H100's rates (989e12 bf16 FLOP/s,
     3.35e12 B/s): G = ceil(t_transfer / t_compute) + 1, so a DMA-bound tile
@@ -219,6 +220,117 @@ def plan_grouped_sm90(E: int, M: int, K: int, N: int, *, w_itemsize: int,
                             num_bufs=num_bufs, smem_budget=smem_budget,
                             runs=epc)
     return GroupedPlan(tile, epc)
+
+
+GPP_TC_BLOCK_N = 128         # output columns of one tensor-core unit
+GPP_TC_BLOCK_KS = (128, 64)  # k rows a step, largest first
+GPP_TC_MAX_BLOCK_M = 128     # rows of a unit: an expert's rows up to 128
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedTcPlan:
+    """`gpp_matmul_grouped`'s tensor-core route (bf16 x and W).  A unit is
+    one (expert, n-tile, m-tile), numbered expert-major with the m-tile
+    innermost; `grid` persistent CTAs (`ctas_per_sm` to an SM) each walk
+    a contiguous run of units, `cta_units(i)`, and stream the (block_k,
+    block_n) W tiles of the run's k-steps through one num_bufs-slot ring
+    in `chunks` chunks, the x tile of each step beside it in two slots."""
+
+    E: int
+    M: int
+    K: int
+    N: int
+    block_m: int
+    block_n: int
+    block_k: int
+    num_bufs: int
+    chunks: int
+    ctas_per_sm: int
+    smem_bytes: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.M // self.block_m)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.N // self.block_n)
+
+    @property
+    def num_k(self) -> int:
+        return -(-self.K // self.block_k)
+
+    @property
+    def units(self) -> int:
+        return self.E * self.n_tiles * self.m_tiles
+
+    @property
+    def grid(self) -> int:
+        return min(self.units, self.ctas_per_sm * H100_SMS)
+
+    def cta_units(self, i: int) -> range:
+        """The units CTA i walks: [floor(i*U/P), floor((i+1)*U/P))."""
+        U, P = self.units, self.grid
+        return range(i * U // P, (i + 1) * U // P)
+
+    def cta_steps(self, i: int) -> int:
+        return len(self.cta_units(i)) * self.num_k
+
+    def unit(self, u: int) -> "tuple[int, int, int]":
+        """(expert, n-tile, m-tile) of unit u."""
+        e, r = divmod(u, self.n_tiles * self.m_tiles)
+        return (e, *divmod(r, self.m_tiles))
+
+
+def grouped_tc_smem_bytes(bm: int, bk: int, G: int) -> int:
+    """G-slot bf16 W ring of (bk, 128) tiles + two bf16 (bm, bk) x slots;
+    rows are swizzled, not padded (gpp_matmul_grouped.cu)."""
+    return G * bk * GPP_TC_BLOCK_N * 2 + 2 * bm * bk * 2
+
+
+def plan_grouped_tc_sm90(E: int, M: int, K: int, N: int, *,
+                         num_bufs: "int | None" = None,
+                         smem_budget: int = SMEM_BUDGET_BYTES
+                         ) -> GroupedTcPlan:
+    """Plan for the tensor-core route of `gpp_matmul_grouped`.
+
+    block_m is the smallest of 16, 32, 64, 128 that covers M (so each W
+    tile streams once a call for M <= 128).  Each step issues one (block_k,
+    128) W tile (and its x tile) and the ring's per-step wait drains
+    everything issued the step before, so a deeper ring adds no bytes in
+    flight: tile bytes a step do.  The plan takes two CTAs an SM (they
+    also overlap each other's waits) and the largest block_k whose ring
+    fits half the budget, with G from `plan_stream` shrunk to fit, down to
+    in-situ: decode (32 rows) keeps 128-row tiles on a G = 3 ring, prefill
+    (128 rows, whose x tiles take half the room) 128-row tiles in situ
+    (PERF.md).  A pinned `num_bufs` is kept (clamped to the steps a
+    CTA walks, as `plan_matmul_sm90` does) and the tile or the CTAs an SM
+    give way."""
+    if min(E, M, K, N) < 1:
+        raise ValueError(f"empty grouped matmul {E}x{M}x{K}x{N}")
+    if num_bufs is not None and num_bufs < 1:
+        raise ValueError("num_bufs >= 1")
+    bm = 16
+    while bm < min(M, GPP_TC_MAX_BLOCK_M):
+        bm *= 2
+    bn = GPP_TC_BLOCK_N
+    units = E * -(-N // bn) * -(-M // bm)
+    for ctas in (2, 1):
+        budget = smem_budget // ctas
+        for bk in GPP_TC_BLOCK_KS:
+            shortest = units // min(units, ctas * H100_SMS) * -(-K // bk)
+            G = num_bufs if num_bufs is not None else _ring_depth(
+                bk * bn * 2, 2.0 * bm * bk * bn, H100_BF16_FLOPS)
+            G = min(G, max(1, shortest))   # deeper than the steps idles
+            if num_bufs is None:
+                while G > 1 and grouped_tc_smem_bytes(bm, bk, G) > budget:
+                    G -= 1
+            smem = grouped_tc_smem_bytes(bm, bk, G)
+            if smem <= budget:
+                return GroupedTcPlan(E, M, K, N, bm, bn, bk, G,
+                                     max(1, min(G - 1, bk)), ctas, smem)
+    raise ValueError(f"gpp_matmul_grouped tensor-core ring of {num_bufs} "
+                     f"does not fit {smem_budget} bytes of shared memory")
 
 
 PA_ROWS_PER_CTA = 32     # query rows (rep * S) one CTA holds

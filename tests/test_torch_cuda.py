@@ -12,6 +12,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_grouped_ref,
@@ -98,6 +99,7 @@ def test_paged_attention_matches_plain(cuda, dtype, case):
 @pytest.mark.parametrize("shape", ((64, 32, 2048, 1408), (64, 128, 1408, 2048),
                                    (5, 7, 300, 130)))
 def test_gpp_matmul_grouped_matches_plain(cuda, dtype, G, shape):
+    # f32 runs the FMA kernel, bf16 the tensor-core kernel
     E, M, K, N = shape
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(E, M, K, generator=g, device=cuda).to(dtype)
@@ -124,14 +126,76 @@ def test_gpp_matmul_grouped_int8_with_scale(cuda, scale_shape):
 
 @pytest.mark.parametrize("G", (None, 1, 2, 4))
 def test_gpp_grouped_issue_order_crosses_experts(cuda, G):
-    # deepseek-v2-lite decode gate/up as planned: 5 experts of 8 k-steps a
-    # CTA, so CTA (0, 0, 0)'s record crosses four expert boundaries
-    x = torch.randn(64, 32, 2048, device=cuda).bfloat16()
-    w = (torch.randn(64, 2048, 1408, device=cuda) * 0.02).bfloat16()
-    got, steps, g_used, C, epc = gm.issue_order_grouped(x, w, G)
-    assert epc == 5 and steps == 40
+    # bf16: the tensor-core route; one n-tile an expert and more units
+    # than CTAs, so CTA 0 walks experts 0 and 1 on one ring
+    x = torch.randn(600, 16, 512, device=cuda).bfloat16()
+    w = (torch.randn(600, 512, 64, device=cuda) * 0.02).bfloat16()
+    got, steps, g_used, C, units = gm.issue_order_grouped(x, w, G)
+    plan = sched.plan_grouped_tc_sm90(600, 16, 512, 64, num_bufs=G)
+    assert [plan.unit(u)[0] for u in plan.cta_units(0)] == [0, 1]
+    assert units == 2 and steps == plan.cta_steps(0)
     assert G is None or g_used == G
     assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+def test_gpp_grouped_tc_issue_order_at_decode(cuda, G):
+    # deepseek-v2-lite decode gate/up: CTA 0 walks two n-tiles of expert 0
+    x = torch.randn(64, 32, 2048, device=cuda).bfloat16()
+    w = (torch.randn(64, 2048, 1408, device=cuda) * 0.02).bfloat16()
+    got, steps, g_used, C, units = gm.issue_order_grouped(x, w, G)
+    assert units == 2
+    assert G is None or g_used == G
+    assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+def test_gpp_grouped_fma_issue_order_crosses_experts(cuda, G):
+    # f32: the FMA route at deepseek-v2-lite decode gate/up as planned,
+    # 5 experts a CTA, so CTA (0, 0, 0)'s record crosses four expert
+    # boundaries (8 k-steps an expert; 16 where a pinned ring of 4 halves
+    # the tile's rows to fit)
+    x = torch.randn(64, 32, 2048, device=cuda)
+    w = torch.randn(64, 2048, 1408, device=cuda) * 0.02
+    got, steps, g_used, C, epc = gm.issue_order_grouped(x, w, G)
+    tile = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=4,
+                                   num_bufs=G).tile
+    assert epc == 5 and steps == 5 * tile.grid(32, 1408, 2048)[2]
+    assert steps == (80 if G == 4 else 40)
+    assert G is None or g_used == G
+    assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+@pytest.mark.parametrize("shape", ((64, 32, 2048, 1408), (64, 32, 1408, 2048),
+                                   (64, 128, 2048, 1408),
+                                   (64, 128, 1408, 2048), (64, 7, 300, 130),
+                                   (3, 200, 256, 256), (2, 33, 999, 1001)))
+def test_gpp_grouped_tc_route_matches_plain(cuda, shape, G):
+    # bf16 x and W launch the tensor-core kernel, never the FMA one
+    E, M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(E, M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(E, K, N, generator=g, device=cuda) * 0.02).bfloat16()
+    b = torch.randn(E, N, generator=g, device=cuda)
+    tc, fma = gm.launches_grouped_tc.n, gm.launches_grouped.n
+    for act, bias in (("silu", None), ("gelu", b)):
+        y = gm.gpp_matmul_grouped(x, w, bias=bias, activation=act,
+                                  num_bufs=G)
+        ref = dense_grouped_ref(x, w, bias=bias, activation=act)
+        torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert (gm.launches_grouped_tc.n - tc, gm.launches_grouped.n - fma) \
+        == (2, 0)
+
+
+@pytest.mark.parametrize("shape,G", (((64, 32, 2048, 1408), None),
+                                     ((64, 128, 1408, 2048), None),
+                                     ((64, 32, 2048, 1408), 4)))
+def test_gpp_grouped_tc_occupancy_is_planned(cuda, shape, G):
+    # the card holds as many CTAs an SM as the planner assumed
+    plan = sched.plan_grouped_tc_sm90(*shape, num_bufs=G)
+    assert gm.grouped_tc_ctas_per_sm(plan) == plan.ctas_per_sm
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
