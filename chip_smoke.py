@@ -24,7 +24,12 @@ In order, it:
      and the planned G, checks that the card holds the CTAs an SM the
      tensor-core plan assumes, and runs one full-width deepseek MoE layer
      in bf16 with the kernels against the plain versions (decode and
-     prefill inputs, relative error <= 1e-2);
+     prefill inputs, relative error <= 1e-2); MLA paged attention runs its
+     tensor-core kernel in bf16 (split-KV, kv_splits planned, 1, 2, 8) and
+     its FMA kernel in f32, is timed in both at decode (bf16 also at
+     prefill and verify, and by CUDA events over a CUDA graph of launches),
+     and the tensor-core kernel's issue-order record and occupancy are
+     checked;
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
@@ -109,11 +114,12 @@ def time_ms(fn, argsets, iters: int = 100) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(fn, argsets, name: "str | None" = None, iters: int = 50):
+def device_ms(fn, argsets, name=None, iters: int = 50):
     """Device time per call: the summed duration of the kernels the calls
-    ran (only those whose name contains `name`, if given), from a
-    torch.profiler (CUPTI) trace.  None when the trace holds no device
-    events; the caller then keeps the CUDA-event time."""
+    ran (only those whose name contains `name`, or one of the names of a
+    tuple, if given), from a torch.profiler (CUPTI) trace.  None when the
+    trace holds no device events; the caller then keeps the CUDA-event
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for a in argsets[:2]:
@@ -123,19 +129,47 @@ def device_ms(fn, argsets, name: "str | None" = None, iters: int = 50):
         for i in range(iters):
             fn(*argsets[i % len(argsets)])
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and (name is None or name in e.name))
+             and (names is None or any(n in e.name for n in names)))
     return us / iters / 1e3 if us > 0 else None
 
 
-def measure(fn, argsets, name: "str | None" = None) -> "tuple[float, float]":
+def measure(fn, argsets, name=None) -> "tuple[float, float]":
     """(device ms, wall ms) per call.  The wall time (CUDA events around
     back-to-back calls) includes the host's launch cost where that is the
     larger; the device time is what the card spent."""
     wall = time_ms(fn, argsets)
     dev = device_ms(fn, argsets, name)
     return (dev if dev is not None else wall), wall
+
+
+def graph_ms(fn, argsets, iters: int = 50) -> float:
+    """Mean ms per call from CUDA events around the replay of a CUDA graph
+    of `iters` calls: the card's time for the calls and the gaps between
+    them, without the host's launch cost (which, for a kernel of a few
+    microseconds, is what back-to-back calls from Python measure)."""
+    import torch
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):       # warm-up: attributes, scratch
+        for a in argsets:
+            fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            fn(*argsets[i % len(argsets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(4):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (4 * iters)
 
 
 def copies_for(nbytes: int) -> int:
@@ -654,34 +688,81 @@ def mla_work(positions, S, es):
 
 
 def mla_case(name, B, S, positions, dtype, *, timed=False):
+    """One MLA comparison on the card, at every ring depth (and, in bf16,
+    kv_splits planned, 1, 2 and 8): bf16 must launch the tensor-core kernel,
+    f32 the FMA kernel.  `timed` adds the kernel's device time (its merge
+    included), the plain version's, SDPA's on gathered rows, the bound and
+    the CUDA-event time of a graph of launches."""
     import torch
     import torch.nn.functional as Fn
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
     nb = SLOTS * (MAX_LEN // BS) + 1
     q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb)
     kw = dict(num_kv_heads=1, scale=1.0 / math.sqrt(128 + DS_RR), mla=True)
     ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
+    tc = dtype == "bfloat16"
     errs = []
     for G in (None, 1, 2, 4):
-        out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G, **kw)
-        torch.cuda.synchronize()
-        check(tuple(out.shape) == (B, S, DS_H, DS_R), f"{name}: shape")
-        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
-        errs.append(float((out.float() - ref.float()).abs().max()))
+        for ks in ((None, 1, 2, MAX_LEN // BS) if tc else (None,)):
+            before = (pa.launches_mla_tc.n, pa.launches_mla.n)
+            out = pa.paged_attention(q, ckv, kr, tables, pos, num_bufs=G,
+                                     kv_splits=ks, **kw)
+            torch.cuda.synchronize()
+            ran = (pa.launches_mla_tc.n - before[0],
+                   pa.launches_mla.n - before[1])
+            check(ran == ((1, 0) if tc else (0, 1)),
+                  f"mla {name} {dtype} took the wrong kernel")
+            if tc and ks is None and G is None:   # the partials' merge
+                merge_err = mla_merge_case(q, ckv, kr, tables, pos, kw)
+            check(tuple(out.shape) == (B, S, DS_H, DS_R), f"{name}: shape")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"{name}: non-finite")
+            errs.append(float((out.float() - ref.float()).abs().max()))
     err = max(errs)
     atol, _ = TOL[dtype]
     check(err <= atol, f"paged_attention mla {name} {dtype}: max err {err}")
     row = {"case": name, "B": B, "S": S, "positions": positions,
-           "dtype": dtype, "max_abs_err": err, "tol": atol}
+           "dtype": dtype, "max_abs_err": err, "tol": atol,
+           "kernel": (KERNEL_NAMES["paged_attention_mla_tc"],
+                      KERNEL_NAMES["paged_attention_mla_merge"]) if tc
+           else KERNEL_NAMES["paged_attention_mla"]}
+    if tc:
+        row["merge_max_abs_err"] = merge_err
+    if tc:
+        plan = plan_paged_attn_mla_tc_sm90(
+            batch=B, rows=DS_H * S, block_size=BS, max_blocks=MAX_LEN // BS,
+            latent=DS_R, rope=DS_RR)
+        row["plan"] = {"kv_splits": plan.kv_splits, "num_bufs":
+                       plan.num_bufs, "ctas": plan.ctas,
+                       "ctas_per_sm": plan.ctas_per_sm}
+        row["ctas_per_sm"] = pa.mla_tc_ctas_per_sm(plan, DS_R, DS_RR)
+        check(row["ctas_per_sm"] >= plan.ctas_per_sm,
+              f"mla {name}: the card holds {row['ctas_per_sm']} CTAs an SM, "
+              f"planned {plan.ctas_per_sm}")
     if timed:
         es = q.element_size()
         n = copies_for(ckv.numel() * es + kr.numel() * es)
         sets = [mla_inputs(B, S, positions, dtype, nb=nb, seed=i)
                 for i in range(n)]
+        # (bf16: the tensor-core kernel and its merge, summed)
         row["ms"], row["wall_ms"] = measure(
-            lambda q, c, k, t, p: paged_attention(q, c, k, t, p, **kw), sets,
-            "paged_attention_mla_kernel")
+            lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
+            sets, row["kernel"])
+        if tc:
+            row["kernel_ms"] = device_ms(
+                lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
+                sets, KERNEL_NAMES["paged_attention_mla_tc"])
+            row["merge_ms"] = device_ms(
+                lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
+                sets, KERNEL_NAMES["paged_attention_mla_merge"])
+            # the launches alone, on pre-scaled q rows
+            row["graph_ms"] = graph_ms(
+                lambda q2, c, k, t, p: pa._launch_mla_tc(
+                    q2, c, k, t, p, plan, S=S, window=None),
+                [(pa._q_rows(q_, kw["scale"], 1, q_.dtype), c_, k_, t_, p_)
+                 for q_, c_, k_, t_, p_ in sets])
         row["plain_ms"], row["plain_wall_ms"] = measure(
             lambda q, c, k, t, p: paged_attn_ref(q, c, k, t, p, **kw), sets)
         # yardstick: SDPA over latent rows gathered beforehand, the key
@@ -709,8 +790,72 @@ def mla_case(name, B, S, positions, dtype, *, timed=False):
               f"library_ms={row['library_ms']:.4f} bound_ms="
               f"{row['bound_ms']:.5f} ({row['bound_by']}) "
               f"wall_ms={row['wall_ms']:.4f}"
-              if timed else ""))
+              + (f" graph_ms={row['graph_ms']:.4f} (kernel "
+                 f"{row['kernel_ms']:.4f} + merge {row['merge_ms']:.4f})"
+                 if tc else "")
+              if timed else "")
+          + (f" plan={row['plan']} ctas/SM={row['ctas_per_sm']}"
+             if tc else ""))
     return row
+
+
+def mla_merge_case(q, ckv, kr, tables, pos, kw):
+    """The merge kernel against its plain version on the partials the
+    tensor-core kernel leaves at these inputs (as planned: kv_splits > 1 at
+    every path shape); max abs error (bf16 output, f32 plain)."""
+    import torch
+    from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import mla_merge_ref
+    B, S = q.shape[:2]
+    plan = plan_paged_attn_mla_tc_sm90(
+        batch=B, rows=DS_H * S, block_size=BS, max_blocks=MAX_LEN // BS,
+        latent=DS_R, rope=DS_RR)
+    check(plan.kv_splits > 1, "the planned MLA call does not split")
+    ws = torch.empty(plan.workspace_floats(DS_R), device="cuda")
+    out = torch.empty((B, 1, DS_H * S, DS_R), dtype=torch.bfloat16,
+                      device="cuda")
+    pa._launch_mla_split(pa._q_rows(q, kw["scale"], 1, q.dtype), ckv, kr,
+                         tables, pos, plan, out, ws, S=S, window=None)
+    merged = pa.launches_mla_merge.n
+    pa._launch_mla_merge(ws, out, plan, DS_R)
+    check(pa.launches_mla_merge.n == merged + 1, "the merge did not count")
+    ref = mla_merge_ref(ws, batch=B, row_tiles=plan.row_tiles,
+                        kv_splits=plan.kv_splits, latent=DS_R,
+                        rows=DS_H * S)
+    torch.cuda.synchronize()
+    e = float((out.reshape(B, -1, DS_R).float() - ref).abs().max())
+    check(e <= TOL["bfloat16"][0], f"mla merge: max err {e}")
+    return e
+
+
+def mla_issue_order(report):
+    """The tensor-core MLA kernel's issue-order record against
+    `chunk_issue_schedule`, for the first run of >= 4 live blocks at the
+    decode inputs: kv_splits 1 (lane 3's 7 live blocks in one run) and 2
+    (its first run, 4 live blocks)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import chunk_issue_schedule
+    nb = SLOTS * (MAX_LEN // BS) + 1
+    q, ckv, kr, tables, pos = mla_inputs(SLOTS, 1, [5, 17, 40, 100],
+                                         "bfloat16", nb=nb)
+    n = 0
+    for ks in (1, 2):
+        for G in (None, 1, 2, 4):
+            got, steps, g_used, C, cta = pa.issue_order_mla(
+                q, ckv, kr, tables, pos, scale=0.05, num_bufs=G,
+                kv_splits=ks)
+            check(steps >= 4, f"mla issue order: {steps} steps recorded")
+            check(G is None or g_used == G,
+                  f"mla ring depth {g_used} != {G}")
+            check(got == chunk_issue_schedule(steps, g_used, C),
+                  f"mla issue order differs at G={G} kv_splits={ks}")
+            n += 1
+            print(f"paged_attention_mla_tc issue order kv_splits={ks} "
+                  f"G={g_used} (asked {G}) C={C} CTA {cta} steps={steps}: "
+                  f"{sum(len(v) for v in got.values())} chunk issues == "
+                  "chunk_issue_schedule")
+    report["paged_attention_mla_issue_orders"] = n
 
 
 def check_mla(report):
@@ -723,9 +868,54 @@ def check_mla(report):
     for name, B, S, positions in cases:
         for dtype in ("bfloat16", "float32"):
             rows.append(mla_case(name, B, S, positions, dtype,
-                                 timed=dtype == "bfloat16"))
+                                 timed=dtype == "bfloat16"
+                                 or name == "decode"))
+    mla_issue_order(report)
     report["paged_attention_mla"] = {"shapes": rows}
     return rows
+
+
+def mla_merge_time(row):
+    """The merge kernel alone at the decode shape (its inputs, the
+    partials, are L2-hot on the path: the tensor-core kernel has just
+    written them), beside its plain version and its bound (the live
+    partials' acc and every (m, l) read once, the output written once).
+    No one PyTorch call merges split-softmax partials: library_ms null."""
+    import torch
+    from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import mla_merge_ref
+    B, S, positions = row["B"], row["S"], row["positions"]
+    plan = plan_paged_attn_mla_tc_sm90(
+        batch=B, rows=DS_H * S, block_size=BS, max_blocks=MAX_LEN // BS,
+        latent=DS_R, rope=DS_RR)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ws = torch.randn(plan.workspace_floats(DS_R), generator=g,
+                     device="cuda")
+    ml = ws[plan.ctas * 16 * DS_R:].view(B, plan.row_tiles,
+                                         plan.kv_splits, 16, 2)
+    ml[..., 1].abs_().add_(1.0)            # l > 0
+    live_runs = 0
+    for b, p in enumerate(positions):      # empty runs: m = -inf, l = 0
+        for s_ in range(plan.kv_splits):
+            if not any(j * BS <= p + S - 1 for j in plan.run(s_)):
+                ml[b, :, s_, :, 0] = float("-inf")
+                ml[b, :, s_, :, 1] = 0.0
+            else:
+                live_runs += plan.row_tiles
+    out = torch.empty((B, 1, DS_H * S, DS_R), dtype=torch.bfloat16,
+                      device="cuda")
+    kw = dict(batch=B, row_tiles=plan.row_tiles, kv_splits=plan.kv_splits,
+              latent=DS_R, rows=DS_H * S)
+    ms, wall = measure(lambda w: pa._launch_mla_merge(w, out, plan, DS_R),
+                       [(ws,)], KERNEL_NAMES["paged_attention_mla_merge"])
+    plain, plain_wall = measure(lambda w: mla_merge_ref(w, **kw), [(ws,)])
+    nbytes = (live_runs * 16 * DS_R * 4 + plan.ctas * 16 * 8
+              + B * DS_H * S * DS_R * 2)
+    b_ms, by = bound(nbytes, 3.0 * live_runs * 16 * DS_R, "float32")
+    return {"ms": ms, "wall_ms": wall, "plain_ms": plain,
+            "plain_wall_ms": plain_wall, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "kv_splits": plan.kv_splits}
 
 
 # ---------------------------------------------------------------------------
@@ -737,7 +927,10 @@ KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
                 "gpp_matmul_grouped": "gpp_matmul_grouped_kernel",
                 "gpp_matmul_grouped_tc": "gpp_matmul_grouped_tc_kernel",
                 "paged_attention": "paged_attention_kernel",
-                "paged_attention_mla": "paged_attention_mla_kernel"}
+                "paged_attention_mla": "paged_attention_mla_kernel",
+                "paged_attention_mla_tc": "paged_attention_mla_tc_kernel",
+                "paged_attention_mla_merge":
+                    "paged_attention_mla_merge_kernel"}
 
 
 def counters():
@@ -746,7 +939,9 @@ def counters():
     return {"gpp_matmul": gm.launches, "gpp_matmul_grouped":
             gm.launches_grouped, "gpp_matmul_grouped_tc":
             gm.launches_grouped_tc, "paged_attention": pa.launches,
-            "paged_attention_mla": pa.launches_mla}
+            "paged_attention_mla": pa.launches_mla,
+            "paged_attention_mla_tc": pa.launches_mla_tc,
+            "paged_attention_mla_merge": pa.launches_mla_merge}
 
 
 def random_prompts(vocab: int, requests: int = 4):
@@ -935,7 +1130,8 @@ def main(argv=None) -> int:
                          ("gpp_matmul", "paged_attention"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
                              ("gpp_matmul", "gpp_matmul_grouped_tc",
-                              "paged_attention_mla"),
+                              "paged_attention_mla_tc",
+                              "paged_attention_mla_merge"),
                              ("gpp_matmul", "gpp_matmul_grouped",
                               "paged_attention_mla"), f32_layers=4)
 
@@ -950,6 +1146,14 @@ def main(argv=None) -> int:
               and r["proj"] == "gate_up" and r["dtype"] == "float32")
     m = next(r for r in mla_rows if r["case"] == "decode"
              and r["dtype"] == "bfloat16")
+    mf = next(r for r in mla_rows if r["case"] == "decode"
+              and r["dtype"] == "float32")
+    mm = mla_merge_time(m)
+    report["paged_attention_mla_merge"] = mm
+    print(f"paged_attention_mla_merge decode (kv_splits {mm['kv_splits']}):"
+          f" ms={mm['ms']:.4f} plain_ms={mm['plain_ms']:.4f} bound_ms="
+          f"{mm['bound_ms']:.5f} ({mm['bound_by']}) wall_ms="
+          f"{mm['wall_ms']:.4f}")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     gpp_by_path = {"qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul"],
                    "deepseek-v2-lite-16b":
@@ -997,16 +1201,46 @@ def main(argv=None) -> int:
          "shape": f"decode gate/up {gf['E']}x{gf['M']}x{gf['K']}x{gf['N']} "
                   "f32",
          **{k: gf[k] for k in numbers}},
+        {"name": "paged_attention_mla_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
+                     ":173-177)",
+         "kernel": "paged_attention_mla_tc_kernel (bf16, split-KV; ms "
+                   "includes its merge kernel's)",
+         "path": "deepseek-v2-lite-16b",
+         "launches": deepseek["bf16"]["launches"]["paged_attention_mla_tc"],
+         "max_abs_err": max(r["max_abs_err"] for r in mla_rows
+                            if r["dtype"] == "bfloat16"),
+         "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
+                  f"positions {m['positions']} bf16",
+         **{k: m[k] for k in numbers}},
+        {"name": "paged_attention_mla_merge", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
+                     ":173-177; the split walk's merge)",
+         "kernel": "paged_attention_mla_merge_kernel (f32 partials -> bf16)",
+         "path": "deepseek-v2-lite-16b",
+         "launches":
+             deepseek["bf16"]["launches"]["paged_attention_mla_merge"],
+         "max_abs_err": max(r["merge_max_abs_err"] for r in mla_rows
+                            if r["dtype"] == "bfloat16"),
+         "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}, "
+                  f"{mm['kv_splits']} partials a row (alone; its time is "
+                  "also inside paged_attention_mla_tc's)",
+         **{k: mm[k] for k in numbers}},
         {"name": "paged_attention_mla", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
                      ":173-177)",
-         "path": "deepseek-v2-lite-16b",
-         "launches": deepseek["bf16"]["launches"]["paged_attention_mla"],
-         "max_abs_err": max(r["max_abs_err"] for r in mla_rows),
+         "kernel": "paged_attention_mla_kernel (f32, FMA)",
+         "path": "deepseek-v2-lite-16b in f32 "
+                 f"({deepseek['f32_kernel']['num_layers']} layers)",
+         "launches": deepseek["f32_kernel"]["launches"]["paged_attention_mla"],
+         "max_abs_err": max(r["max_abs_err"] for r in mla_rows
+                            if r["dtype"] == "float32"),
          "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
-                  f"positions {m['positions']} bf16",
-         **{k: m[k] for k in numbers}},
+                  f"positions {mf['positions']} f32",
+         **{k: mf[k] for k in numbers}},
     ]
     report["kernels"] = kernels
     if args.json_out:

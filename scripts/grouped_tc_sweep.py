@@ -36,16 +36,16 @@ SHAPES = {"decode gate_up": (64, 32, 2048, 1408),
           "prefill gate_up": (64, 128, 2048, 1408),
           "prefill down": (64, 128, 1408, 2048)}
 L2_BYTES = 50 * 1024 * 1024
-_MMA = ('  asm volatile(\n      "mma.sync',
+_MMA = ("mma.cuh", '  asm volatile(\n      "mma.sync',
         '  if (false) asm volatile(\n      "mma.sync')
-_COPY_W = ("    copy_rows_vec<kRowBytesW>(",
+_COPY_W = ("gpp_matmul_grouped.cu", "    copy_rows_vec<kRowBytesW>(",
            "    if (false) copy_rows_vec<kRowBytesW>(")
-_COPY_X = ("      copy_rows_vec<kXRow>(",
+_COPY_X = ("gpp_matmul_grouped.cu", "      copy_rows_vec<kXRow>(",
            "      if (false) copy_rows_vec<kXRow>(")
 ABLATIONS = {
-    "no_mma": (_MMA,),               # copies, waits and ldmatrix only
-    "no_copy": (_COPY_W, _COPY_X),   # ldmatrix, mma and the ring's waits
-    "no_x_copy": (_COPY_X,),         # everything but the x tiles' copies
+    "no_mma": [_MMA],                # copies, waits and ldmatrix only
+    "no_copy": [_COPY_W, _COPY_X],   # ldmatrix, mma and the ring's waits
+    "no_x_copy": [_COPY_X],          # everything but the x tiles' copies
 }
 
 
@@ -90,33 +90,12 @@ def time_ms(call, sets, iters=40):
 
 
 def build_ablations(names):
-    """Compile each ablated copy of the kernel source (one nvcc each, all
-    started together) into the kernels' build directory."""
+    """Compile each ablated copy of the kernel sources (one nvcc each, all
+    started together) under the kernels' build directory."""
     from repro_torch.kernels import build
-    out = build.BUILD_DIR / "sweep"
-    out.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / "gpp_matmul_grouped.cu").read_text()
-    for f in build.CSRC.glob("*.cuh"):
-        (out / f.name).write_text(f.read_text())
-    procs = {}
-    for n in names:
-        text = src
-        for old, new in ABLATIONS[n]:
-            if old not in text:
-                raise RuntimeError(f"ablation {n}: the kernel source changed")
-            text = text.replace(old, new)
-        (out / f"{n}.cu").write_text(text)
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-               str(out / f"lib{n}.so"), str(out / f"{n}.cu")]
-        procs[n] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for n, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"ablation {n} failed to build:\n{log}")
-        libs[n] = launcher(out / f"lib{n}.so")[0]
-    return libs
+    paths = build.build_variants("gpp_matmul_grouped",
+                                 {n: ABLATIONS[n] for n in names})
+    return {n: launcher(path)[0] for n, path in paths.items()}
 
 
 def main(argv=None) -> int:

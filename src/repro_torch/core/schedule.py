@@ -408,3 +408,147 @@ def plan_paged_attn_sm90(*, rows: int, block_size: int, head_dim: int,
         raise ValueError(f"paged attention needs {smem} bytes of shared "
                          f"memory (budget {smem_budget})")
     return PagedAttnPlan(rt, splits, G, max(1, min(G - 1, block_size)), smem)
+
+
+PA_MLA_TC_ROWS = 16          # query rows of a tile: one mma m16 tile
+PA_MLA_TC_WARPS = 4          # 512 latent columns: 128 a warp
+PA_MLA_TC_MAX_LATENT = 512
+PA_MLA_TC_MAX_BLOCK = 64
+PA_MLA_TC_MAX_CTAS_PER_SM = 4
+PA_MLA_TC_CTAS_PER_SM = 2    # the split aims for two CTAs an SM (sweep)
+
+
+def kv_runs(max_blocks: int, kv_splits: int) -> "list[range]":
+    """The runs of logical blocks the split-KV MLA kernel's CTAs walk:
+    run s is [s * MB // ks, (s + 1) * MB // ks), so runs differ by at most
+    one block and together cover [0, MB) once."""
+    if not 1 <= kv_splits <= max_blocks:
+        raise ValueError(f"kv_splits {kv_splits} not in [1, {max_blocks}]")
+    return [range(s * max_blocks // kv_splits,
+                  (s + 1) * max_blocks // kv_splits)
+            for s in range(kv_splits)]
+
+
+def mla_tc_row_bytes(latent: int, rope: int) -> int:
+    """Shared-memory bytes of one key (or q) row of the tensor-core MLA
+    kernel: the latent zero-padded to a multiple of 128 columns, then the
+    rope part to one of 64, in bf16 — a whole number of 128-byte swizzle
+    groups (1152 bytes at 512 + 64, no padding)."""
+    return (round_up(latent, 128) + round_up(rope, 64)) * 2
+
+
+def mla_tc_smem_bytes(block_size: int, latent: int, rope: int, G: int,
+                      warps: int) -> int:
+    """The q tile, the G-slot ring of key rows and the warps' partial
+    logits (f32, 16 x block_size each) (csrc/paged_attention.cu,
+    mla_tc::smem_bytes)."""
+    rb = mla_tc_row_bytes(latent, rope)
+    return (PA_MLA_TC_ROWS * rb + G * block_size * rb
+            + warps * PA_MLA_TC_ROWS * block_size * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaTcPlan:
+    """The tensor-core MLA paged-attention kernel (bf16): grid (kv_splits,
+    row_tiles, batch); CTA (s, t, b) owns lane b's 16 query rows
+    [16 t, 16 t + 16) and the logical blocks of run s (`run`), whose live
+    blocks stream through a num_bufs-slot ring in `chunks` chunks.  With
+    kv_splits > 1 its partial goes to a workspace of `workspace_floats`
+    f32, which the merge kernel reads."""
+
+    batch: int
+    rows: int
+    max_blocks: int
+    block_size: int
+    row_tiles: int
+    kv_splits: int
+    num_bufs: int
+    chunks: int
+    warps: int
+    ctas_per_sm: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> "tuple[int, int, int]":
+        return (self.kv_splits, self.row_tiles, self.batch)
+
+    @property
+    def ctas(self) -> int:
+        return self.kv_splits * self.row_tiles * self.batch
+
+    def run(self, split: int) -> range:
+        return kv_runs(self.max_blocks, self.kv_splits)[split]
+
+    def cta(self, lane: int, tile: int, split: int) -> int:
+        """The kernel's linear CTA index (its issue-order record key)."""
+        return (lane * self.row_tiles + tile) * self.kv_splits + split
+
+    def workspace_floats(self, latent: int) -> int:
+        if self.kv_splits == 1:
+            return 0
+        return (self.batch * self.row_tiles * self.kv_splits
+                * PA_MLA_TC_ROWS * (latent + 2))
+
+
+def plan_paged_attn_mla_tc_sm90(*, batch: int, rows: int, block_size: int,
+                                max_blocks: int, latent: int, rope: int,
+                                num_bufs: "int | None" = None,
+                                kv_splits: "int | None" = None,
+                                warps: int = PA_MLA_TC_WARPS,
+                                smem_budget: int = SMEM_BUDGET_BYTES
+                                ) -> MlaTcPlan:
+    """Plan for the tensor-core MLA kernel (csrc/paged_attention.cu).
+
+    rows = heads x queries a lane (16 S), cut into 16-row tiles.  With
+    units = batch x row tiles, kv_splits = min(MB, ceil(2 * 132 / units))
+    runs a unit give two CTAs an SM where the blocks allow: on deepseek's
+    path (MB = 8) every phase splits into 8 runs of one block (32 / 256 /
+    160 CTAs at decode / prefill / verify), which the sweep found fastest
+    or within 5% of it (PERF.md).  The ring depth comes from `plan_stream`
+    (deep: a block is 18 KB of bytes against a few hundred FLOPs) clamped
+    to the longest run, so a run's blocks are all in flight from its first
+    step; then it shrinks so that ceil(CTAs / 132) CTAs (at most 4) share
+    an SM's shared memory.  A pinned num_bufs or kv_splits is kept (the
+    CTAs an SM then give way); raises when it cannot fit."""
+    if min(batch, rows, max_blocks) < 1:
+        raise ValueError(f"empty MLA attention: batch {batch}, rows {rows}, "
+                         f"max_blocks {max_blocks}")
+    if block_size % 16 or not 16 <= block_size <= PA_MLA_TC_MAX_BLOCK:
+        raise ValueError(f"the tensor-core MLA kernel takes block sizes of "
+                         f"16, 32, 48 or 64 tokens, got {block_size}")
+    if latent % 8 or rope % 8 or not 8 <= latent <= PA_MLA_TC_MAX_LATENT \
+            or rope < 0:
+        raise ValueError(f"latent {latent} / rope {rope}: multiples of 8, "
+                         f"latent <= {PA_MLA_TC_MAX_LATENT}")
+    if warps not in (4, 8):
+        raise ValueError("warps is 4 or 8")
+    if num_bufs is not None and num_bufs < 1:
+        raise ValueError("num_bufs >= 1")
+    row_tiles = -(-rows // PA_MLA_TC_ROWS)
+    units = batch * row_tiles
+    ks = kv_splits if kv_splits is not None else \
+        min(max_blocks,
+            max(1, -(-PA_MLA_TC_CTAS_PER_SM * H100_SMS // units)))
+    longest = max(len(r) for r in kv_runs(max_blocks, ks))
+    ctas = units * ks
+    rb = mla_tc_row_bytes(latent, rope)
+    G = num_bufs if num_bufs is not None else _ring_depth(
+        block_size * rb,
+        2.0 * PA_MLA_TC_ROWS * block_size * (latent + rope + latent),
+        H100_BF16_FLOPS)
+    G = min(G, max(1, longest))        # deeper than the run idles
+
+    def smem_of(g):
+        return mla_tc_smem_bytes(block_size, latent, rope, g, warps)
+
+    per_sm = min(PA_MLA_TC_MAX_CTAS_PER_SM, -(-ctas // H100_SMS))
+    if num_bufs is None:
+        while G > 1 and smem_of(G) > smem_budget // per_sm:
+            G -= 1
+    smem = smem_of(G)
+    per_sm = min(per_sm, smem_budget // smem)
+    if per_sm < 1:
+        raise ValueError(f"tensor-core MLA ring of {G} needs {smem} bytes of "
+                         f"shared memory (budget {smem_budget})")
+    return MlaTcPlan(batch, rows, max_blocks, block_size, row_tiles, ks, G,
+                     max(1, min(G - 1, block_size)), warps, per_sm, smem)

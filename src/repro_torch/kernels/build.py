@@ -89,6 +89,42 @@ def build_all(names: "tuple[str, ...]" = KERNELS) -> "dict[str, float]":
     return seconds
 
 
+def build_variants(name: str, variants: "dict[str, list[tuple[str, str, str]]]"
+                   ) -> "dict[str, Path]":
+    """Compile edited copies of library `name` (for ablations): variant
+    `tag` copies every source of `csrc/` into `_build/variants/<tag>/`,
+    replaces `old` by `new` in `file` for each (file, old, new) edit, and
+    builds it there, one nvcc per variant, all started together.  Raises
+    when an edit's text is not in its file.  Returns {tag: library path}."""
+    nvcc = find_nvcc()
+    procs = {}
+    for tag, edits in variants.items():
+        d = BUILD_DIR / "variants" / tag
+        d.mkdir(parents=True, exist_ok=True)
+        texts = {f.name: f.read_text() for f in CSRC.iterdir()
+                 if f.suffix in (".cu", ".cuh")}
+        for file, old, new in edits:
+            if old not in texts[file]:
+                raise RuntimeError(f"variant {tag}: {file} no longer holds "
+                                   f"{old!r}")
+            texts[file] = texts[file].replace(old, new)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
+        out = d / f"lib{name}.so"
+        procs[tag] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(out), str(d / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    libs, failed = {}, []
+    for tag, (p, out) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{tag}: nvcc exited {p.returncode}\n{log}")
+        libs[tag] = out
+    if failed:
+        raise RuntimeError("variant build failed:\n" + "\n".join(failed))
+    return libs
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built on first use."""
     lib = _LIBS.get(name)
@@ -112,3 +148,14 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = getattr(lib, f"{what}_error_string")(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
+
+
+def read_issue_record(rec) -> "dict[tuple[int, int], list[int]]":
+    """An issue-order record (int32 (step, chunk, issue_step) triples, -1
+    where unwritten) as {(step, chunk): [issue_steps]}, the structure
+    `kernels.ref.chunk_issue_schedule` returns."""
+    order: "dict[tuple[int, int], list[int]]" = {}
+    for step, chunk, at in rec.view(-1, 3).tolist():
+        if step >= 0:
+            order.setdefault((step, chunk), []).append(at)
+    return order

@@ -28,7 +28,8 @@
 //     registers; A (x) through ldmatrix, B (W, row-major (K, N) in the
 //     ring) through ldmatrix.trans.  Shared-memory rows are XOR-swizzled in
 //     16-byte chunks (chunk j of row r at j ^ (r & 7)), so the 8 rows of an
-//     ldmatrix phase hit 8 distinct bank groups with no padding bytes.
+//     ldmatrix phase hit 8 distinct bank groups with no padding bytes
+//     (the helpers are mma.cuh's, shared with paged_attention.cu).
 //  2. One W read per call: block_m covers all of an expert's rows up to 128
 //     (decode and verify 32, prefill 128), so each W tile streams once.
 //  3. Persistent, balanced CTAs: grid = min(units, ctas_per_sm * 132), a
@@ -61,9 +62,15 @@
 // it issues across its run of steps.
 #define GPP_KERNEL gpp_matmul_grouped_kernel
 #include "gpp_matmul.cuh"
+#include "mma.cuh"
 
 namespace gpp_tc {
 namespace {
+
+using gpp_mma::ldmatrix_x4;
+using gpp_mma::ldmatrix_x4_trans;
+using gpp_mma::mma_bf16;
+using gpp_mma::swizzle;
 
 constexpr int kThreads = 256;                 // 8 warps
 constexpr int kBlockN = 128;                  // output columns of a unit
@@ -95,12 +102,6 @@ struct Warps {
 
 __host__ __device__ constexpr size_t smem_bytes(int bm, int bk, int G) {
   return (size_t)G * bk * kRowBytesW + 2 * (size_t)bm * bk * 2;
-}
-
-// byte offset of byte `off` of row r: 16-byte chunk j sits at j ^ (r & 7)
-__device__ __forceinline__ int swizzle(int r, int off) {
-  const int j = off >> 4;
-  return ((j & ~7) | ((j ^ r) & 7)) << 4 | (off & 15);
 }
 
 // Copy rows [lo, hi) of a tile (ROW_BYTES a row in shared memory, swizzled)
@@ -188,34 +189,6 @@ __device__ __forceinline__ void advance(Cursor& c, int d, int num_k,
       }
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int BM, int BK>

@@ -248,7 +248,7 @@ def issue_order(x: torch.Tensor, w: torch.Tensor, num_bufs: int):
     rec = torch.full((3 * num_k * plan.chunks,), -1, dtype=torch.int32,
                      device=x.device)
     gpp_matmul(x, w, num_bufs=num_bufs, record=rec)
-    return _read_record(rec), num_k, plan.num_bufs, plan.chunks
+    return build.read_issue_record(rec), num_k, plan.num_bufs, plan.chunks
 
 
 def issue_order_grouped(x: torch.Tensor, w: torch.Tensor, num_bufs: int):
@@ -263,12 +263,5 @@ def issue_order_grouped(x: torch.Tensor, w: torch.Tensor, num_bufs: int):
     rec = torch.full((3 * p.steps * p.chunks,), -1, dtype=torch.int32,
                      device=x.device)
     gpp_matmul_grouped(x, w, num_bufs=num_bufs, record=rec)
-    return _read_record(rec), p.steps, p.num_bufs, p.chunks, p.items
-
-
-def _read_record(rec: torch.Tensor) -> "dict[tuple[int, int], list[int]]":
-    order: "dict[tuple[int, int], list[int]]" = {}
-    for step, chunk, at in rec.view(-1, 3).tolist():
-        if step >= 0:
-            order.setdefault((step, chunk), []).append(at)
-    return order
+    return (build.read_issue_record(rec), p.steps, p.num_bufs, p.chunks,
+            p.items)

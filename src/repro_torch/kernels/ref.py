@@ -4,7 +4,10 @@ oracle.
 `dense_ref`, `dense_grouped_ref` and `paged_attn_ref` (GQA, window and MLA)
 are copies of `repro.kernels.ref` in torch:
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
-against them on the card.  `chunk_issue_schedule` is a copy of the
+against them on the card.  `mla_merge_ref` is the plain version of the
+bf16 MLA kernel's merge; `paged_attn_mla_split_ref` replays that kernel's
+split-KV walk and merge for the tests (nothing on the main path calls
+either).  `chunk_issue_schedule` is a copy of the
 reference's pure-Python replay of the generalized ping-pong issue order
 (`repro/kernels/gpp_matmul.py:78`); the CUDA ring (`csrc/ring.cuh`) issues
 chunks in exactly this order, which the kernel's issue-order record shows.
@@ -110,6 +113,100 @@ def paged_attn_ref(q, pool_a, pool_b, tables, positions, *, num_kv_heads,
     out = torch.einsum("bgrst,btgh->bsgrh", probs.to(vseq.dtype).float(),
                        vseq.float())
     return out.reshape(B, S, H, vseq.shape[-1]).to(q.dtype)
+
+
+def mla_merge_ref(ws: torch.Tensor, *, batch: int, row_tiles: int,
+                  kv_splits: int, latent: int, rows: int) -> torch.Tensor:
+    """Plain version of `paged_attention_mla_merge_kernel`: merge the split
+    partials in the tensor-core MLA kernel's workspace — per (lane, 16-row
+    tile) unit and split, 16 rows of f32 acc (latent wide), then the (m, l)
+    pairs — as m = max m_i, w_i = exp(m_i - m) (0 for an empty run, whose
+    acc is never read), out = sum w_i acc_i / max(sum w_i l_i, 1e-30).
+    Returns (batch, rows, latent) in f32 (the kernel rounds it to
+    bf16)."""
+    units = batch * row_tiles
+    n_acc = units * kv_splits * 16 * latent
+    acc = ws[:n_acc].view(units, kv_splits, 16, latent)
+    ml = ws[n_acc:n_acc + units * kv_splits * 32].view(units, kv_splits,
+                                                        16, 2)
+    m, l = ml[..., 0], ml[..., 1]
+    top = m.max(dim=1, keepdim=True).values
+    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - top))
+    live = (w != 0)[..., None]
+    tot = (torch.where(live, acc, 0.0) * w[..., None]).sum(dim=1)
+    out = tot / torch.clamp((w * l).sum(dim=1), min=1e-30)[..., None]
+    return out.reshape(batch, row_tiles * 16, latent)[:, :rows]
+
+
+def paged_attn_mla_split_ref(q, c_kv, k_rope, tables, positions, *,
+                             scale: float, kv_splits: int,
+                             window=None) -> torch.Tensor:
+    """Plain replay of the tensor-core MLA kernel's split-KV walk and merge
+    (csrc/paged_attention.cu), for tests.
+
+    Each lane's logical blocks are cut into the planner's runs
+    (`core.schedule.kv_runs`); each run walks its live blocks with the TPU
+    kernel's online-softmax step (f32 m / l / acc, masked logits -inf, p
+    cast to the KV dtype before p . c_kv) and leaves its partial (m, l,
+    acc) in the kernel's workspace layout; with more than one run the
+    partials merge as `mla_merge_ref` does, else the run's acc / max(l,
+    1e-30) is the output.
+    Shapes as `paged_attn_ref(mla=True)`; the result is in q.dtype."""
+    from repro_torch.core.schedule import kv_runs
+    B, S, H, dk = q.shape
+    kd = c_kv.dtype
+    bs, MB = c_kv.shape[1], tables.shape[1]
+    da = c_kv.shape[2]
+    rows = H * S
+    rt = -(-rows // 16)
+    neg = float("-inf")
+    qr = (q.float() * scale).to(kd).float().permute(0, 2, 1, 3) \
+        .reshape(B, rows, dk)                      # rows h * S + s
+    rq = torch.arange(rows) % S
+    acc_ws = torch.zeros(B, rt * 16, kv_splits, da)
+    ml_ws = torch.zeros(B, rt * 16, kv_splits, 2)
+    for b in range(B):
+        pos = int(positions[b])
+        for i, run in enumerate(kv_runs(MB, kv_splits)):
+            m = torch.full((rows,), neg)
+            l = torch.zeros(rows)
+            acc = torch.zeros(rows, da)
+            for j in run:
+                if j * bs > pos + S - 1 or (
+                        window and (j + 1) * bs - 1 <= pos - window):
+                    continue                        # dead: neither read
+                phys = int(tables[b, j])
+                ckv = c_kv[phys].float()
+                key = torch.cat([ckv, k_rope[phys].float()], dim=-1)
+                logits = qr[b] @ key.T
+                kpos = j * bs + torch.arange(bs)
+                valid = kpos[None, :] <= pos + rq[:, None]
+                if window:
+                    valid &= kpos[None, :] > pos + rq[:, None] - window
+                logits = logits.masked_fill(~valid, neg)
+                m_new = torch.maximum(m, logits.max(dim=-1).values)
+                m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+                p = torch.exp(logits - m_safe[:, None])
+                corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[:, None] + p.to(kd).float() @ ckv
+                m = m_new
+            acc_ws[b, :rows, i] = acc
+            ml_ws[b, :rows, i, 0] = m
+            ml_ws[b, :rows, i, 1] = l
+    if kv_splits == 1:
+        out = acc_ws[:, :rows, 0] / torch.clamp(ml_ws[:, :rows, 0, 1:],
+                                                min=1e-30)
+    else:   # the kernel's layout: (unit, split, row, ...)
+        ws = torch.cat([
+            acc_ws.reshape(B, rt, 16, kv_splits, da).transpose(2, 3)
+            .reshape(-1),
+            ml_ws.reshape(B, rt, 16, kv_splits, 2).transpose(2, 3)
+            .reshape(-1)])
+        out = mla_merge_ref(ws, batch=B, row_tiles=rt, kv_splits=kv_splits,
+                            latent=da, rows=rows)
+    return (out.reshape(B, H, S, da).permute(0, 2, 1, 3)
+            .to(q.dtype))
 
 
 def chunk_issue_schedule(num_steps: int, G: int,

@@ -14,9 +14,10 @@ import torch
 
 from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_grouped_ref,
-                                     dense_ref, paged_attn_ref)
+                                     dense_ref, mla_merge_ref, paged_attn_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -198,27 +199,95 @@ def test_gpp_grouped_tc_occupancy_is_planned(cuda, shape, G):
     assert gm.grouped_tc_ctas_per_sm(plan) == plan.ctas_per_sm
 
 
-@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
-@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
-def test_mla_paged_attention_matches_plain(cuda, dtype, case):
-    B, S, positions = {
-        "decode": (4, 1, [5, 17, 40, 100]),
-        "prefill": (1, 32, [37]),
-        "verify": (4, 5, [3, 30, 64, 90]),
-    }[case]
+MLA_CASES = {"decode": (4, 1, [5, 17, 40, 100]),
+             "prefill": (1, 32, [37]),
+             "verify": (4, 5, [3, 30, 64, 90])}
+
+
+def _mla_inputs(cuda, dtype, case, seed=3):
+    B, S, positions = MLA_CASES[case]
     H, r, rr, bs, mb, nb = 16, 512, 64, 16, 8, 33
-    g = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn(B, S, H, r + rr, generator=g, device=cuda).to(dtype)
     ckv = (torch.randn(nb, bs, r, generator=g, device=cuda) * 0.5).to(dtype)
     kr = (torch.randn(nb, bs, rr, generator=g, device=cuda) * 0.5).to(dtype)
     tables = torch.randint(1, nb, (B, mb), generator=g, device=cuda,
                            dtype=torch.int32)
     pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
-    kw = dict(num_kv_heads=1, scale=1 / math.sqrt(r + rr), mla=True)
+    return q, ckv, kr, tables, pos
+
+
+@pytest.mark.parametrize("kv_splits", (None, 1, 2, 8))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_mla_paged_attention_matches_plain(cuda, dtype, case, kv_splits):
+    # bf16 runs the tensor-core kernel (kv_splits pinned or planned), f32
+    # the FMA kernel (which has no splits: pinning them raises)
+    q, ckv, kr, tables, pos = _mla_inputs(cuda, dtype, case)
+    B, S, H, _ = q.shape
+    kw = dict(num_kv_heads=1, scale=1 / math.sqrt(576), mla=True)
     ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
+    if dtype == torch.float32 and kv_splits is not None:
+        with pytest.raises(ValueError, match="kv_splits"):
+            paged_attention(q, ckv, kr, tables, pos, kv_splits=kv_splits,
+                            **kw)
+        return
+    counts = (pa.launches_mla_tc, pa.launches_mla_merge, pa.launches_mla)
+    before = [c.n for c in counts]
     for G in (None, 1, 2, 4):
-        out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G, **kw)
-        assert out.shape == (B, S, H, r)
+        out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G,
+                              kv_splits=kv_splits, **kw)
+        assert out.shape == (B, S, H, 512)
         tol = 2e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+    ran = tuple(c.n - n for c, n in zip(counts, before))
+    # the planned split is > 1 at every path shape: the merge runs
+    merges = 0 if kv_splits == 1 else 4
+    assert ran == ((4, merges, 0) if dtype == torch.bfloat16 else (0, 0, 4))
+
+
+@pytest.mark.parametrize("kv_splits", (2, 8))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_mla_merge_matches_plain(cuda, case, kv_splits):
+    # the merge kernel against its plain version on the tensor-core
+    # kernel's own partials (empty runs among them)
+    q, ckv, kr, tables, pos = _mla_inputs(cuda, torch.bfloat16, case)
+    B, S, H, _ = q.shape
+    plan = sched.plan_paged_attn_mla_tc_sm90(
+        batch=B, rows=H * S, block_size=16, max_blocks=8, latent=512,
+        rope=64, kv_splits=kv_splits)
+    ws = torch.empty(plan.workspace_floats(512), device=cuda)
+    out = torch.empty((B, 1, H * S, 512), dtype=torch.bfloat16, device=cuda)
+    pa._launch_mla_split(pa._q_rows(q, 1 / math.sqrt(576), 1, q.dtype), ckv,
+                         kr, tables, pos, plan, out, ws, S=S, window=None)
+    pa._launch_mla_merge(ws, out, plan, 512)
+    ref = mla_merge_ref(ws, batch=B, row_tiles=plan.row_tiles,
+                        kv_splits=kv_splits, latent=512, rows=H * S)
+    torch.testing.assert_close(out.reshape(B, H * S, 512).float(), ref,
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_mla_tc_occupancy_is_planned(cuda, case):
+    # the card holds at least the CTAs an SM the planner assumed
+    B, S, _ = MLA_CASES[case]
+    plan = sched.plan_paged_attn_mla_tc_sm90(
+        batch=B, rows=16 * S, block_size=16, max_blocks=8, latent=512,
+        rope=64)
+    assert pa.mla_tc_ctas_per_sm(plan, 512, 64) >= plan.ctas_per_sm
+
+
+@pytest.mark.parametrize("kv_splits", (1, 2))
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+def test_mla_tc_issue_order_is_the_chunk_schedule(cuda, G, kv_splits):
+    # decode lane 3 (position 100) holds 7 live blocks: one run of 7 at
+    # kv_splits 1, runs of 4 and 3 at 2; the first run of >= 4 records
+    q, ckv, kr, tables, pos = _mla_inputs(cuda, torch.bfloat16, "decode")
+    got, steps, g_used, C, cta = pa.issue_order_mla(
+        q, ckv, kr, tables, pos, scale=0.05, num_bufs=G,
+        kv_splits=kv_splits)
+    assert steps == (7 if kv_splits == 1 else 4)
+    assert cta == 3 * kv_splits
+    assert G is None or g_used == min(G, 8 // kv_splits)
+    assert got == chunk_issue_schedule(steps, g_used, C)

@@ -24,6 +24,8 @@ from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
 from repro_torch.kernels.ref import chunk_issue_schedule
 
+from _torch_parity import ring_replay
+
 pytestmark = pytest.mark.tier1
 
 # (E, M, K, N): deepseek-v2-lite-16b decode / verify gate-up and down,
@@ -33,46 +35,6 @@ PATH_SHAPES = [(64, 32, 2048, 1408), (64, 32, 1408, 2048),
                (64, 128, 2048, 1408), (64, 128, 1408, 2048)]
 RAGGED_SHAPES = [(5, 7, 300, 130), (64, 7, 300, 130), (3, 200, 256, 256),
                  (2, 33, 999, 1001), (600, 16, 512, 64)]
-
-
-def ring_replay(S: int, G: int, C: int):
-    """Run `gpp::run_chunk_schedule` for steps 0..S-1 as the kernel does,
-    with the kernel's issue callback (which adds the step's x tile to the
-    call that issues its chunk C-1).  Returns ({(step, chunk):
-    [issue_steps]}, {step: (step issuing its x tile, group index)},
-    {step: group index each W chunk of the step went out in},
-    {step: the number of groups landed at its wait})."""
-    order, x_at, chunk_groups, landed = {}, {}, {}, {}
-    groups = 0                         # commit groups so far
-
-    def issue(s, t, c):
-        order.setdefault((t, c), []).append(s)
-        chunk_groups.setdefault(t, []).append(groups)
-        if c == C - 1:
-            x_at[t] = (s, groups)
-
-    for s in range(S):
-        if G == 1:
-            issue(s, s, 0)
-            groups += 1
-            landed[s] = groups         # wait_group 0
-            continue
-        if s == 0:
-            for c in range(C):
-                issue(s, 0, c)
-        groups += 1                    # the step's own tile
-        if s == 0:
-            for d in range(1, C):
-                if d < S:
-                    for c in range(C - d):
-                        issue(s, d, c)
-        for d in range(1, G):
-            c = C - d
-            if c >= 0 and s + d < S:
-                issue(s, s + d, c)
-        groups += 1                    # chunks of later steps
-        landed[s] = groups - 1         # wait_group 1: all but the newest
-    return order, x_at, chunk_groups, landed
 
 
 @pytest.mark.parametrize("shape", PATH_SHAPES + RAGGED_SHAPES)
