@@ -9,40 +9,51 @@ In order, it:
      per source, started together) and prints the build seconds;
   3. holds each kernel against its plain PyTorch version on the card, at
      every shape the two serving paths give it (gpp_matmul at both models'
-     projection shapes, deepseek's f32 router included; gpp_matmul_grouped
-     on both routes, bf16 x and W on its tensor-core kernel, f32 and int8
-     on its FMA kernel), and prints the largest error beside its
-     tolerance, then the kernel's time, the plain version's time, a
-     library yardstick's time (`torch.matmul` / `torch.bmm`;
-     `scaled_dot_product_attention` on gathered K/V or latent rows) and
-     the bound (the larger of bytes / 3.35e12 B/s and operations / the
-     peak rate of their type); it also reads the issue-order records of
-     gpp_matmul and gpp_matmul_grouped back (the tensor-core route at
-     deepseek's decode shape, across n-tiles, and at one n-tile an expert,
-     across experts; the FMA route at the decode shape in f32, 5 experts a
-     CTA) and compares them with `chunk_issue_schedule` for G in {1, 2, 4}
-     and the planned G, checks that the card holds the CTAs an SM the
-     tensor-core plan assumes, and runs one full-width deepseek MoE layer
-     in bf16 with the kernels against the plain versions (decode and
+     projection shapes: bf16 x and W on its tensor-core kernel, with G in
+     {None, 1, 2, 3, 4} and the FMA kernel pinned beside it, deepseek's f32
+     router on the FMA kernel; gpp_matmul_grouped on both routes, bf16 x
+     and W on its tensor-core kernel, f32 and int8 on its FMA kernel), and
+     prints the largest error beside its tolerance, then the kernel's
+     time (for bf16 gpp_matmul also the pinned FMA kernel's), the plain
+     version's time, a library yardstick's time (`torch.matmul` /
+     `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
+     rows) and the bound (the larger of bytes / 3.35e12 B/s and operations
+     / the peak rate of their type); it checks that the tensor-core
+     gpp_matmul repeats bit for bit, reads the issue-order records of
+     gpp_matmul (FMA: one tile's k-steps; tensor cores: CTA 0's run across
+     a tile boundary and a k-split) and gpp_matmul_grouped back (the
+     tensor-core route at deepseek's decode shape, across n-tiles, and at
+     one n-tile an expert, across experts; the FMA route at the decode
+     shape in f32, 5 experts a CTA) and compares them with
+     `chunk_issue_schedule` for G in {1, 2, 4} (3 too on the tensor-core
+     gpp_matmul) and the planned G, checks that the card holds the CTAs an
+     SM the tensor-core plans assume, and runs one full-width deepseek MoE
+     layer in bf16 with the kernels against the plain versions (decode and
      prefill inputs, relative error <= 1e-2); MLA paged attention runs its
      tensor-core kernel in bf16 (split-KV, kv_splits planned, 1, 2, 8) and
      its FMA kernel in f32, is timed in both at decode (bf16 also at
      prefill and verify, and by CUDA events over a CUDA graph of launches),
      and the tensor-core kernel's issue-order record and occupancy are
-     checked;
+     checked; bf16 MLA at 8- and 128-token blocks (the FMA kernel's bf16
+     instance) is held against the plain version at the three shapes and
+     timed at decode;
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
      n-gram drafter finds drafts), bf16 with speculation off and on (tok/s,
      launch counts, which must be > 0 for the path's kernels and 0 for the
-     others, and at least one verify step), one profiled run (device time
-     by kernel, again only under the path's kernels, busy share), then
-     float32 with the kernels and with their plain versions, whose greedy
-     streams must be equal;
+     others: bf16 projections on the tensor-core gpp_matmul, the FMA one
+     only for deepseek's f32 router, one a MoE layer), one profiled run
+     (device time by kernel, again only under the path's kernels, busy
+     share, the time under gpp_matmul), then float32 with the kernels and
+     with their plain versions, whose greedy streams must be equal;
   5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
      depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
-     since full depth in f32 is 62.8 GB of weights;
+     since full depth in f32 is 62.8 GB of weights; then, at 4 layers, it
+     serves bf16 with 8- and 128-token KV blocks (the FMA MLA kernel's
+     bf16 instance, counted on its own) and f32 with 8-token blocks, whose
+     greedy streams must equal the plain run's;
   6. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -187,10 +198,12 @@ def bound(nbytes: float, ops: float, dtype: str) -> "tuple[float, str]":
 # ---------------------------------------------------------------------------
 
 def gpp_case(M, K, N, dtype, *, act=None, bias=False, w_int8=False, G=None,
-             seed=0):
-    """One gpp_matmul comparison on the card; returns the max abs error."""
+             route=None, seed=0):
+    """One gpp_matmul comparison on the card; returns the max abs error.
+    bf16 x and W must launch the tensor-core kernel (unless `route` pins
+    the FMA one), anything else the FMA kernel."""
     import torch
-    from repro_torch.kernels.gpp_matmul import gpp_matmul
+    from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import dense_ref
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -204,7 +217,13 @@ def gpp_case(M, K, N, dtype, *, act=None, bias=False, w_int8=False, G=None,
         scale = None
     b = (torch.randn(N, generator=g, device="cuda") * 0.1).to(dt) \
         if bias else None
-    y = gpp_matmul(x, w, bias=b, w_scale=scale, activation=act, num_bufs=G)
+    want = route or gm.gpp_route(x.dtype, w.dtype)
+    before = (gm.launches_tc.n, gm.launches.n)
+    y = gm.gpp_matmul(x, w, bias=b, w_scale=scale, activation=act,
+                      num_bufs=G, route=route)
+    ran = (gm.launches_tc.n - before[0], gm.launches.n - before[1])
+    check(ran == ((1, 0) if want == "tc" else (0, 1)),
+          f"gpp_matmul {dtype} x {w.dtype} W took the wrong kernel {ran}")
     ref = dense_ref(x, w, bias=b, w_scale=scale, activation=act)
     torch.cuda.synchronize()
     err = (y.float() - ref.float()).abs()
@@ -212,13 +231,16 @@ def gpp_case(M, K, N, dtype, *, act=None, bias=False, w_int8=False, G=None,
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
     check(bool(torch.isfinite(y.float()).all()), "gpp_matmul non-finite")
     check(ok, f"gpp_matmul {M}x{K}x{N} {dtype} act={act} bias={bias} "
-              f"int8={w_int8} G={G}: max err {float(err.max())}")
+              f"int8={w_int8} G={G} route={want}: max err "
+              f"{float(err.max())}")
     return float(err.max())
 
 
 def gpp_time(M, K, N, dtype):
     """Kernel / plain / torch.matmul times of an (M,K)@(K,N) product with
-    no bias or activation (the up projection), and its bound."""
+    no bias or activation (the up projection), and its bound.  bf16 times
+    the tensor-core route and, in the same call, the FMA route pinned;
+    f32 the FMA route."""
     import torch
     from repro_torch.kernels.gpp_matmul import gpp_matmul
     from repro_torch.kernels.ref import dense_ref
@@ -229,17 +251,29 @@ def gpp_time(M, K, N, dtype):
     sets = [((torch.randn(M, K, generator=g, device="cuda")).to(dt),
              (torch.randn(K, N, generator=g, device="cuda") * 0.02).to(dt))
             for _ in range(n)]
-    ms, wall = measure(lambda x, w: gpp_matmul(x, w), sets,
-                       "gpp_matmul_kernel")
-    plain, plain_wall = measure(lambda x, w: dense_ref(x, w), sets)
-    lib, lib_wall = measure(lambda x, w: torch.matmul(x, w), sets)
-    b_ms, by = bound((M * K + K * N + M * N) * es, 2.0 * M * K * N, dtype)
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-            "bound_by": by, "wall_ms": wall, "plain_wall_ms": plain_wall,
-            "library_wall_ms": lib_wall}
+    out = {}
+    if dtype == "bfloat16":
+        out["ms"], out["wall_ms"] = measure(
+            lambda x, w: gpp_matmul(x, w), sets,
+            KERNEL_NAMES["gpp_matmul_tc"])
+        out["fma_ms"], out["fma_wall_ms"] = measure(
+            lambda x, w: gpp_matmul(x, w, route="fma"), sets,
+            KERNEL_NAMES["gpp_matmul"])
+    else:
+        out["ms"], out["wall_ms"] = measure(
+            lambda x, w: gpp_matmul(x, w), sets, KERNEL_NAMES["gpp_matmul"])
+    out["plain_ms"], out["plain_wall_ms"] = measure(
+        lambda x, w: dense_ref(x, w), sets)
+    out["library_ms"], out["library_wall_ms"] = measure(
+        lambda x, w: torch.matmul(x, w), sets)
+    out["bound_ms"], out["bound_by"] = bound((M * K + K * N + M * N) * es,
+                                             2.0 * M * K * N, dtype)
+    return out
 
 
 def check_gpp(report):
+    import torch
+    from repro_torch.core.schedule import plan_matmul_tc_sm90
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import ACTIVATION_IDS, chunk_issue_schedule
     rows = []
@@ -247,54 +281,122 @@ def check_gpp(report):
         for phase, M in PHASE_M.items():
             for name, (K, N, dtypes) in shapes.items():
                 for dtype in dtypes:
+                    bf16 = dtype == "bfloat16"
                     err = max(gpp_case(M, K, N, dtype, G=G)
-                              for G in (None, 1, 2, 4))
+                              for G in ((None, 1, 2, 3, 4) if bf16
+                                        else (None, 1, 2, 4)))
                     row = {"path": path, "phase": phase, "proj": name,
                            "M": M, "K": K, "N": N, "dtype": dtype,
-                           "max_abs_err": err, "tol": TOL[dtype]}
+                           "max_abs_err": err, "tol": TOL[dtype],
+                           "route": "tc" if bf16 else "fma"}
+                    if bf16:    # the FMA route still takes bf16 (pinned)
+                        row["fma_max_abs_err"] = gpp_case(M, K, N, dtype,
+                                                          route="fma")
+                        plan = plan_matmul_tc_sm90(M, K, N)
+                        row["plan"] = {
+                            "block_m": plan.block_m,
+                            "block_k": plan.block_k,
+                            "num_bufs": plan.num_bufs, "grid": plan.grid,
+                            "max_segs": plan.max_segs}
+                        row["ctas_per_sm"] = gm.tc_ctas_per_sm(plan)
+                        check(row["ctas_per_sm"] == plan.ctas_per_sm,
+                              f"gpp_matmul_tc {M}x{K}x{N}: the card holds "
+                              f"{row['ctas_per_sm']} CTAs an SM, planned "
+                              f"{plan.ctas_per_sm}")
                     if dtype == dtypes[0]:       # the path's own dtype
                         row.update(gpp_time(M, K, N, dtype))
                     rows.append(row)
                     print(f"gpp_matmul {path} {phase:7s} {name:14s} "
-                          f"{M}x{K}x{N} {dtype}: max_abs_err={err:.3g} "
-                          f"(atol,rtol)={TOL[dtype]}"
-                          + (f" ms={row['ms']:.4f} plain_ms="
-                             f"{row['plain_ms']:.4f} library_ms="
+                          f"{M}x{K}x{N} {dtype} ({row['route']}): "
+                          f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
+                          + (f" ms={row['ms']:.4f}"
+                             + (f" fma_ms={row['fma_ms']:.4f}" if bf16
+                                else "")
+                             + f" plain_ms={row['plain_ms']:.4f} library_ms="
                              f"{row['library_ms']:.4f} bound_ms="
                              f"{row['bound_ms']:.4f} ({row['bound_by']})"
                              f" wall_ms={row['wall_ms']:.4f}"
-                             if "ms" in row else ""))
-    # epilogue variants at the paths' projection shapes
-    extra = []
+                             if "ms" in row else "")
+                          + (f" plan={row['plan']}" if bf16 else ""),
+                          flush=True)
+    # epilogue variants at the paths' projection shapes, by route (bf16 x
+    # and W: tensor cores; f32, or int8 W: FMA)
+    extra = {"tc": [], "fma": []}
     for act in ACTIVATION_IDS:
         if act is None:
             continue
         for dtype in BOTH:
-            extra.append(gpp_case(SLOTS, D, F, dtype, act=act, bias=True))
+            r = "tc" if dtype == "bfloat16" else "fma"
+            extra[r].append(gpp_case(SLOTS, D, F, dtype, act=act, bias=True))
+            extra[r].append(gpp_case(CHUNK, DS_F0, DS_D, dtype, act=act,
+                                     bias=True))
     for dtype in BOTH:
-        extra.append(gpp_case(SLOTS, DS_D, DS_F0, dtype, act="silu"))
-        extra.append(gpp_case(CHUNK, D, D, dtype, w_int8=True, act="silu"))
-        extra.append(gpp_case(SLOTS, F, D, dtype, w_int8=True, G=1))
-        # ragged M/K/N: 2002-byte bf16 rows take the byte-copy path
-        extra.append(gpp_case(7, 1000, 1001, dtype, bias=True, act="gelu"))
-        extra.append(gpp_case(37, 333, 130, dtype, G=4))
-    print(f"gpp_matmul epilogue/int8/ragged cases: {len(extra)} ok, "
-          f"max_abs_err={max(extra):.3g}")
-    # the generalized ping-pong issue order survived the port
-    import torch
+        r = "tc" if dtype == "bfloat16" else "fma"
+        extra[r].append(gpp_case(SLOTS, DS_D, DS_F0, dtype, act="silu"))
+        extra["fma"].append(gpp_case(CHUNK, D, D, dtype, w_int8=True,
+                                     act="silu"))
+        extra["fma"].append(gpp_case(SLOTS, F, D, dtype, w_int8=True, G=1))
+        # ragged M/K/N: 2002-byte bf16 rows take the narrower copies
+        extra[r].append(gpp_case(7, 1000, 1001, dtype, bias=True,
+                                 act="gelu"))
+        extra[r].append(gpp_case(37, 333, 130, dtype, G=4))
+        extra[r].append(gpp_case(200, 1000, 1001, dtype, G=3, act="tanh"))
+    print("gpp_matmul epilogue/int8/ragged cases: "
+          + ", ".join(f"{r} {len(v)} ok, max_abs_err={max(v):.3g}"
+                      for r, v in extra.items()))
+    # split tiles are summed in a fixed order: bf16 repeats bit for bit
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for M, K, N in ((SLOTS, F, D), (CHUNK, DS_F0, DS_D)):
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).bfloat16()
+        first = gm.gpp_matmul(x, w, activation="silu")
+        check(all(torch.equal(gm.gpp_matmul(x, w, activation="silu"), first)
+                  for _ in range(3)),
+              f"gpp_matmul_tc {M}x{K}x{N} is not bitwise repeatable")
+    print("gpp_matmul_tc bitwise repeatable over 4 runs at "
+          f"{SLOTS}x{F}x{D} and {CHUNK}x{DS_F0}x{DS_D}")
+    # the generalized ping-pong issue order survived the port: the FMA
+    # route (pinned) at one tile's k-steps, the tensor-core route over CTA
+    # 0's run across a tile boundary (5 CTAs pinned) and a k-split (layer
+    # 0's down projection as planned)
+    orders = 0
     x = torch.randn(SLOTS, D, device="cuda").bfloat16()
     w = (torch.randn(D, D, device="cuda") * 0.02).bfloat16()
     for G in (1, 2, 4):
-        got, num_k, g_used, C = gm.issue_order(x, w, G)
+        got, num_k, g_used, C = gm.issue_order(x, w, G, route="fma")
         check(g_used == G, f"ring depth {g_used} != {G}")
-        want = chunk_issue_schedule(num_k, G, C)
-        check(got == want, f"issue order differs at G={G}")
-        print(f"gpp_matmul issue order G={G} C={C} steps={num_k}: "
+        check(got == chunk_issue_schedule(num_k, G, C),
+              f"fma issue order differs at G={G}")
+        orders += 1
+        print(f"gpp_matmul (fma) issue order G={G} C={C} steps={num_k}: "
               f"{sum(len(v) for v in got.values())} chunk issues == "
               "chunk_issue_schedule")
-    report["gpp_matmul"] = {"shapes": rows, "extra_cases": len(extra),
-                            "extra_max_abs_err": max(extra)}
-    return rows, max(extra)
+    for (M, K, N), grid in (((SLOTS, 2048, 1024), 5),
+                            ((SLOTS, DS_F0, DS_D), None)):
+        x = torch.randn(M, K, device="cuda").bfloat16()
+        w = (torch.randn(K, N, device="cuda") * 0.02).bfloat16()
+        for G in (None, 1, 2, 3, 4):
+            got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
+            plan = plan_matmul_tc_sm90(M, K, N, num_bufs=G, grid=grid)
+            tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
+            check(steps >= 5 and len(plan.segments(max(tiles))) > 1
+                  and len(tiles) == (2 if grid else 1),
+                  "the tc record's run crosses no tile or split boundary")
+            check(G is None or g_used == G, f"ring depth {g_used} != {G}")
+            check(got == chunk_issue_schedule(steps, g_used, C),
+                  f"tc issue order differs at {M}x{K}x{N} G={G}")
+            orders += 1
+            print(f"gpp_matmul_tc issue order {M}x{K}x{N} grid={plan.grid} "
+                  f"G={g_used} (asked {G}) C={C} steps={steps} over tiles "
+                  f"{sorted(tiles)}: {sum(len(v) for v in got.values())} "
+                  "chunk issues == chunk_issue_schedule")
+    err = {r: max(v + [row["max_abs_err"] for row in rows
+                       if row["route"] == r]) for r, v in extra.items()}
+    report["gpp_matmul"] = {"shapes": rows,
+                            "extra_cases": sum(map(len, extra.values())),
+                            "max_abs_err_by_route": err,
+                            "issue_orders": orders}
+    return rows, err
 
 
 # ---------------------------------------------------------------------------
@@ -647,29 +749,29 @@ def check_moe_layer(report):
 # kernel 3b: MLA paged attention (deepseek-v2-lite-16b latent pools)
 # ---------------------------------------------------------------------------
 
-def mla_inputs(B, S, positions, dtype, *, nb, seed=0):
+def mla_inputs(B, S, positions, dtype, *, nb, seed=0, bs=BS):
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mb = MAX_LEN // BS
+    mb = MAX_LEN // bs
     q = torch.randn(B, S, DS_H, DS_R + DS_RR, generator=g,
                     device="cuda").to(dt)
-    ckv = (torch.randn(nb, BS, DS_R, generator=g, device="cuda") * 0.5
+    ckv = (torch.randn(nb, bs, DS_R, generator=g, device="cuda") * 0.5
            ).to(dt)
-    kr = (torch.randn(nb, BS, DS_RR, generator=g, device="cuda") * 0.5
+    kr = (torch.randn(nb, bs, DS_RR, generator=g, device="cuda") * 0.5
           ).to(dt)
     perm = torch.randperm(nb - 1, generator=g, device="cuda") + 1
     tables = torch.zeros(B, mb, dtype=torch.int32, device="cuda")
     used = 0
     for b, p in enumerate(positions):
-        nblk = (p + S - 1) // BS + 1
+        nblk = (p + S - 1) // bs + 1
         tables[b, :nblk] = perm[used:used + nblk].int()
         used += nblk
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     return q, ckv, kr, tables, pos
 
 
-def mla_work(positions, S, es):
+def mla_work(positions, S, es, bs=BS):
     """(bytes, operations) this call's data needs: each visible latent row
     (c_kv + k_rope) read once, q / tables / positions read and the latent
     output written once; per (query row, visible key) 2 * 576 operations
@@ -683,37 +785,44 @@ def mla_work(positions, S, es):
     B = len(positions)
     nbytes = (len(keys) * (DS_R + DS_RR) * es
               + B * S * DS_H * (DS_R + DS_RR + DS_R) * es
-              + B * (MAX_LEN // BS) * 4 + B * 4)
+              + B * (MAX_LEN // bs) * 4 + B * 4)
     return nbytes, 2.0 * pairs * DS_H * (DS_R + DS_RR + DS_R)
 
 
-def mla_case(name, B, S, positions, dtype, *, timed=False):
-    """One MLA comparison on the card, at every ring depth (and, in bf16,
-    kv_splits planned, 1, 2 and 8): bf16 must launch the tensor-core kernel,
-    f32 the FMA kernel.  `timed` adds the kernel's device time (its merge
-    included), the plain version's, SDPA's on gathered rows, the bound and
-    the CUDA-event time of a graph of launches."""
+def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
+    """One MLA comparison on the card, at every ring depth (and, on the
+    tensor-core kernel, kv_splits planned, 1, 2 and 8): bf16 at `bs`-token
+    blocks of 16-64 must launch the tensor-core kernel, bf16 at other
+    block sizes the FMA kernel's bf16 instance, f32 the FMA kernel.
+    `timed` adds the kernel's device time (its merge included), the plain
+    version's, SDPA's on gathered rows, the bound and, on the tensor-core
+    kernel, the CUDA-event time of a graph of launches."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
-    nb = SLOTS * (MAX_LEN // BS) + 1
-    q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb)
+    mb = MAX_LEN // bs
+    nb = SLOTS * mb + 1
+    q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb,
+                                         bs=bs)
     kw = dict(num_kv_heads=1, scale=1.0 / math.sqrt(128 + DS_RR), mla=True)
     ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
-    tc = dtype == "bfloat16"
+    route = pa.attention_route(q.dtype, True, bs, DS_R, DS_RR)
+    tc = route == "mla_tc"
+    counts = (pa.launches_mla_tc, pa.launches_mla, pa.launches_mla_bf16)
+    want = (1, 0, 0) if tc else (0, 0, 1) if dtype == "bfloat16" \
+        else (0, 1, 0)
     errs = []
-    for G in (None, 1, 2, 4):
-        for ks in ((None, 1, 2, MAX_LEN // BS) if tc else (None,)):
-            before = (pa.launches_mla_tc.n, pa.launches_mla.n)
+    for G in ((None, 1, 2, 4) if bs == BS else (None, 1, 2)):
+        for ks in ((None, 1, 2, mb) if tc else (None,)):
+            before = [c.n for c in counts]
             out = pa.paged_attention(q, ckv, kr, tables, pos, num_bufs=G,
                                      kv_splits=ks, **kw)
             torch.cuda.synchronize()
-            ran = (pa.launches_mla_tc.n - before[0],
-                   pa.launches_mla.n - before[1])
-            check(ran == ((1, 0) if tc else (0, 1)),
-                  f"mla {name} {dtype} took the wrong kernel")
+            ran = tuple(c.n - n for c, n in zip(counts, before))
+            check(ran == want, f"mla {name} {dtype} block {bs} took the "
+                               f"wrong kernel: {ran}")
             if tc and ks is None and G is None:   # the partials' merge
                 merge_err = mla_merge_case(q, ckv, kr, tables, pos, kw)
             check(tuple(out.shape) == (B, S, DS_H, DS_R), f"{name}: shape")
@@ -722,9 +831,11 @@ def mla_case(name, B, S, positions, dtype, *, timed=False):
             errs.append(float((out.float() - ref.float()).abs().max()))
     err = max(errs)
     atol, _ = TOL[dtype]
-    check(err <= atol, f"paged_attention mla {name} {dtype}: max err {err}")
+    check(err <= atol, f"paged_attention mla {name} {dtype} block {bs}: "
+                       f"max err {err}")
     row = {"case": name, "B": B, "S": S, "positions": positions,
-           "dtype": dtype, "max_abs_err": err, "tol": atol,
+           "dtype": dtype, "block_size": bs, "route": route,
+           "max_abs_err": err, "tol": atol,
            "kernel": (KERNEL_NAMES["paged_attention_mla_tc"],
                       KERNEL_NAMES["paged_attention_mla_merge"]) if tc
            else KERNEL_NAMES["paged_attention_mla"]}
@@ -744,7 +855,7 @@ def mla_case(name, B, S, positions, dtype, *, timed=False):
     if timed:
         es = q.element_size()
         n = copies_for(ckv.numel() * es + kr.numel() * es)
-        sets = [mla_inputs(B, S, positions, dtype, nb=nb, seed=i)
+        sets = [mla_inputs(B, S, positions, dtype, nb=nb, seed=i, bs=bs)
                 for i in range(n)]
         # (bf16: the tensor-core kernel and its merge, summed)
         row["ms"], row["wall_ms"] = measure(
@@ -782,9 +893,10 @@ def mla_case(name, B, S, positions, dtype, *, timed=False):
         row["library_ms"], row["library_wall_ms"] = measure(
             lambda q, k, v, m: Fn.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, scale=kw["scale"]), lib_sets)
-        nbytes, ops = mla_work(positions, S, es)
+        nbytes, ops = mla_work(positions, S, es, bs)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
-    print(f"paged_attention mla {name:8s} {dtype}: max_abs_err={err:.3g} "
+    print(f"paged_attention mla {name:8s} {dtype} block {bs} ({route}): "
+          f"max_abs_err={err:.3g} "
           f"atol={atol}" + (
               f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} bound_ms="
@@ -875,6 +987,27 @@ def check_mla(report):
     return rows
 
 
+def check_mla_blocks(report):
+    """bf16 MLA at the 8- and 128-token KV blocks the block-size serving
+    phase runs (`check_mla_block_sizes`), which the tensor-core kernel does
+    not take: the FMA kernel's bf16 instance at the decode, prefill (a
+    chunk of max(32, block size) tokens, as the engine cuts it) and verify
+    shapes, held against the plain version (bf16 tolerance), each call
+    counted on `launches_mla_bf16` alone; timed at decode."""
+    rows = []
+    for bs in (8, 128):
+        chunk = max(CHUNK, bs)
+        for name, B, S, positions in (
+                ("decode", SLOTS, 1, [5, 17, 40, 100]),
+                ("prefill", 1, chunk, [37] if 37 + chunk <= MAX_LEN
+                 else [0]),
+                ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90])):
+            rows.append(mla_case(name, B, S, positions, "bfloat16",
+                                 timed=name == "decode", bs=bs))
+    report["paged_attention_mla_bf16"] = {"shapes": rows}
+    return rows
+
+
 def mla_merge_time(row):
     """The merge kernel alone at the decode shape (its inputs, the
     partials, are L2-hot on the path: the tensor-core kernel has just
@@ -924,6 +1057,7 @@ def mla_merge_time(row):
 
 # kernel counter -> profiler kernel name
 KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
+                "gpp_matmul_tc": "gpp_matmul_tc_kernel",
                 "gpp_matmul_grouped": "gpp_matmul_grouped_kernel",
                 "gpp_matmul_grouped_tc": "gpp_matmul_grouped_tc_kernel",
                 "paged_attention": "paged_attention_kernel",
@@ -936,10 +1070,12 @@ KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
 def counters():
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels import paged_attention as pa
-    return {"gpp_matmul": gm.launches, "gpp_matmul_grouped":
-            gm.launches_grouped, "gpp_matmul_grouped_tc":
-            gm.launches_grouped_tc, "paged_attention": pa.launches,
+    return {"gpp_matmul": gm.launches, "gpp_matmul_tc": gm.launches_tc,
+            "gpp_matmul_grouped": gm.launches_grouped,
+            "gpp_matmul_grouped_tc": gm.launches_grouped_tc,
+            "paged_attention": pa.launches,
             "paged_attention_mla": pa.launches_mla,
+            "paged_attention_mla_bf16": pa.launches_mla_bf16,
             "paged_attention_mla_tc": pa.launches_mla_tc,
             "paged_attention_mla_merge": pa.launches_mla_merge}
 
@@ -952,12 +1088,13 @@ def random_prompts(vocab: int, requests: int = 4):
 
 
 def serve(cfg, params, prompts, *, speculation: bool, mode: str,
-          profile=False, max_new: int = 16):
+          profile=False, max_new: int = 16, block_size: int = BS):
     import torch
     from repro_torch.serving.engine import ServeConfig, make_engine
 
     engine = make_engine(cfg, params, ServeConfig(
-        slots=SLOTS, max_len=MAX_LEN, block_size=BS, prefill_chunk=CHUNK,
+        slots=SLOTS, max_len=MAX_LEN, block_size=block_size,
+        prefill_chunk=max(CHUNK, block_size),   # a whole number of blocks
         speculation=speculation, draft_len=DRAFT, dense_kernel=mode,
         paged_attn_kernel=mode))
     torch.cuda.synchronize()
@@ -993,13 +1130,15 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
           and shapes["verify"] <= int(speculation), f"step shapes {shapes}")
     info = {"model": cfg.name, "num_layers": cfg.num_layers,
             "dtype": cfg.dtype, "speculation": speculation, "mode": mode,
+            "block_size": block_size,
             "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
             "steps": len(engine.metrics), "launches": counts,
             "shapes": shapes, "acceptance_rate": engine.acceptance_rate()}
     if profile:
         info["device_busy_s"] = busy
     print(f"serve {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
-          f"spec={speculation} mode={mode}: {ntok} tokens in {dt:.3f}s = "
+          f"spec={speculation} mode={mode} block={block_size}: {ntok} "
+          f"tokens in {dt:.3f}s = "
           f"{ntok / dt:.1f} tok/s, {len(engine.metrics)} steps, launches "
           f"{counts}, shapes {shapes}, acceptance "
           f"{engine.acceptance_rate():.2f}")
@@ -1041,9 +1180,16 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     spec, runs["bf16_spec"] = serve(cfg, params, prompts, speculation=True,
                                     mode="auto")
     for key in ("bf16", "bf16_spec"):
-        for k, n in runs[key]["launches"].items():
+        counts = runs[key]["launches"]
+        for k, n in counts.items():
             check((n > 0) == (k in path_kernels),
                   f"{k} launched {n} times on the {arch} path ({key})")
+        # bf16 projections run the tensor-core gpp_matmul; the FMA one runs
+        # only deepseek's f32 router, one a MoE layer (three grouped
+        # launches)
+        check(counts["gpp_matmul"] * 3 == counts["gpp_matmul_grouped_tc"],
+              f"{arch} ({key}): {counts['gpp_matmul']} FMA gpp_matmul "
+              f"launches for {counts['gpp_matmul_grouped_tc']} grouped ones")
     check(runs["bf16"]["shapes"]["decode"] == 1
           and runs["bf16_spec"]["shapes"]["verify"] == 1,
           f"{arch}: the decode or the verify shape did not run")
@@ -1059,10 +1205,13 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
               f"{arch}: {busy[k]} s of device time under {KERNEL_NAMES[k]}")
     share = sum(busy.values()) / runs["bf16"]["seconds"]
     runs["bf16"]["device_busy_s"] = busy
+    runs["bf16"]["gpp_matmul_device_s"] = busy["gpp_matmul"] + \
+        busy["gpp_matmul_tc"]
     runs["bf16"]["device_busy_share"] = share
     runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     runs["bf16"]["total_params"] = cfg.total_params()
-    print(f"{arch} bf16 decode run device time: {busy} s; busy share "
+    print(f"{arch} bf16 decode run device time: {busy} s; under gpp_matmul "
+          f"{runs['bf16']['gpp_matmul_device_s']:.4f} s; busy share "
           f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall; peak memory "
           f"{runs['bf16']['peak_mem_gb']:.1f} GB")
     del params
@@ -1088,6 +1237,55 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     report.setdefault("serving", {})[arch] = runs
     report.setdefault("bf16_spec_equal", {})[arch] = plain == spec
     return runs
+
+
+def check_mla_block_sizes(report):
+    """deepseek-v2-lite-16b at full width, 4 of its 27 layers (1 dense + 3
+    MoE), served with 8- and 128-token KV blocks, which the tensor-core MLA
+    kernel does not take: bf16 must run the FMA MLA kernel's bf16 instance
+    (its own count) and neither tensor-core MLA kernel; f32 at 8-token
+    blocks (its ring of one 128-token block does not fit the shared
+    memory) must give the plain run's greedy streams.  The bf16 streams
+    are set beside the plain bf16 run's, not gated (bf16 rounds
+    differently in the two)."""
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    arch = "deepseek-v2-lite-16b"
+    out = {}
+    for dtype, sizes in (("bfloat16", (8, 128)), ("float32", (8,))):
+        cfg = registry.get_config(arch).with_(dtype=dtype, num_layers=4)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tf.init_params(cfg, gen, "cuda")
+        prompts = random_prompts(cfg.vocab_size)
+        mla = ("paged_attention_mla_bf16" if dtype == "bfloat16"
+               else "paged_attention_mla")
+        for bs in sizes:
+            streams, info = serve(cfg, params, prompts, speculation=False,
+                                  mode="auto", block_size=bs)
+            c = info["launches"]
+            check(c[mla] > 0 and all(
+                c[k] == 0 for k in ("paged_attention_mla_tc",
+                                    "paged_attention_mla_merge",
+                                    "paged_attention_mla",
+                                    "paged_attention_mla_bf16") if k != mla),
+                  f"{arch} {dtype} block {bs}: MLA launches {c}")
+            plain, _ = serve(cfg, params, prompts, speculation=False,
+                             mode="ref", block_size=bs)
+            equal = streams == plain
+            if dtype == "float32":
+                check(equal, f"{arch} f32 block {bs}: kernel streams "
+                             f"{streams} differ from plain {plain}")
+            out[f"{dtype} block {bs}"] = {
+                "launches": c, "tok_s": info["tok_s"],
+                "streams_equal_plain": equal}
+            print(f"{arch} (4 layers) {dtype} block {bs}: {c[mla]} {mla} "
+                  f"launches, greedy streams == plain: {equal}"
+                  + ("" if dtype == "float32" else " (bf16: not gated)"))
+        del params
+        torch.cuda.empty_cache()
+    report["mla_block_sizes"] = out
+    return out
 
 
 def main(argv=None) -> int:
@@ -1120,24 +1318,29 @@ def main(argv=None) -> int:
     print(f"kernel build: {build_s:.1f}s ({per})")
     report = {"card": smi, "build_s": build_s}
 
-    gpp_rows, gpp_extra = check_gpp(report)
+    gpp_rows, gpp_err = check_gpp(report)
     pa_rows = check_paged(report)
     grouped_rows, grouped_err = check_grouped(report)
     check_moe_layer(report)
     mla_rows = check_mla(report)
+    mla_bf16_rows = check_mla_blocks(report)
     qwen = check_serving(report, "qwen1.5-0.5b",
-                         ("gpp_matmul", "paged_attention"),
+                         ("gpp_matmul_tc", "paged_attention"),
                          ("gpp_matmul", "paged_attention"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
-                             ("gpp_matmul", "gpp_matmul_grouped_tc",
+                             ("gpp_matmul_tc", "gpp_matmul",
+                              "gpp_matmul_grouped_tc",
                               "paged_attention_mla_tc",
                               "paged_attention_mla_merge"),
                              ("gpp_matmul", "gpp_matmul_grouped",
                               "paged_attention_mla"), f32_layers=4)
+    blocks = check_mla_block_sizes(report)
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
              and r["dtype"] == "bfloat16")
+    gr = next(r for r in gpp_rows if r["proj"] == "router"
+              and r["phase"] == "decode")
     p = next(r for r in pa_rows if r["case"] == "decode"
              and r["dtype"] == "bfloat16")
     gg = next(r for r in grouped_rows if r["phase"] == "decode"
@@ -1148,6 +1351,8 @@ def main(argv=None) -> int:
              and r["dtype"] == "bfloat16")
     mf = next(r for r in mla_rows if r["case"] == "decode"
               and r["dtype"] == "float32")
+    mb8 = next(r for r in mla_bf16_rows if r["case"] == "decode"
+               and r["block_size"] == 8)
     mm = mla_merge_time(m)
     report["paged_attention_mla_merge"] = mm
     print(f"paged_attention_mla_merge decode (kv_splits {mm['kv_splits']}):"
@@ -1155,21 +1360,43 @@ def main(argv=None) -> int:
           f"{mm['bound_ms']:.5f} ({mm['bound_by']}) wall_ms="
           f"{mm['wall_ms']:.4f}")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    gpp_by_path = {"qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul"],
-                   "deepseek-v2-lite-16b":
-                       deepseek["bf16"]["launches"]["gpp_matmul"]}
+    tc_by_path = {
+        "qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul_tc"],
+        "deepseek-v2-lite-16b": deepseek["bf16"]["launches"]["gpp_matmul_tc"]}
+    fma_by_path = {
+        "deepseek-v2-lite-16b (f32 router)":
+            deepseek["bf16"]["launches"]["gpp_matmul"],
+        "qwen1.5-0.5b in f32": qwen["f32_kernel"]["launches"]["gpp_matmul"],
+        "deepseek-v2-lite-16b in f32 (4 layers)":
+            deepseek["f32_kernel"]["launches"]["gpp_matmul"]}
     kernels = [
+        {"name": "gpp_matmul_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
+         "replaces": "src/repro/kernels/gpp_matmul.py:408",
+         "kernel": "gpp_matmul_tc_kernel (bf16 x and W; stream-K, split "
+                   "tiles summed by their last CTA)",
+         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
+         "launches": sum(tc_by_path.values()),
+         "launches_by_path": tc_by_path,
+         "max_abs_err": gpp_err["tc"],
+         "tol": "atol 2e-2 + rtol 2e-2 x |plain| (bf16)",
+         "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
+                  "bf16 (every shape of both paths: --json-out)",
+         "fma_ms": g["fma_ms"],
+         **{k: g[k] for k in numbers}},
         {"name": "gpp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:408",
-         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
-         "launches": sum(gpp_by_path.values()),
-         "launches_by_path": gpp_by_path,
-         "max_abs_err": max([gpp_extra]
-                            + [r["max_abs_err"] for r in gpp_rows]),
-         "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
-                  "bf16 (every shape of both paths: --json-out)",
-         **{k: g[k] for k in numbers}},
+         "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; FMA)",
+         "path": "deepseek-v2-lite-16b (its f32 router); f32 runs",
+         "launches": deepseek["bf16"]["launches"]["gpp_matmul"],
+         "launches_by_path": fma_by_path,
+         "max_abs_err": gpp_err["fma"],
+         "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 and int8 W as "
+                "bf16",
+         "shape": f"deepseek decode router {gr['M']}x{gr['K']}x{gr['N']} "
+                  "f32",
+         **{k: gr[k] for k in numbers}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341",
@@ -1241,6 +1468,27 @@ def main(argv=None) -> int:
          "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
                   f"positions {mf['positions']} f32",
          **{k: mf[k] for k in numbers}},
+        {"name": "paged_attention_mla_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
+                     ":173-177)",
+         "kernel": "paged_attention_mla_kernel, bf16 instance (FMA; bf16 "
+                   "MLA at block sizes the tensor-core kernel does not "
+                   "take)",
+         "path": "deepseek-v2-lite-16b (4 layers) at 8- and 128-token KV "
+                 "blocks",
+         "launches": sum(v["launches"]["paged_attention_mla_bf16"]
+                         for k, v in blocks.items()
+                         if k.startswith("bfloat16")),
+         "launches_by_block": {
+             k: v["launches"]["paged_attention_mla_bf16"]
+             for k, v in blocks.items() if k.startswith("bfloat16")},
+         "max_abs_err": max(r["max_abs_err"] for r in mla_bf16_rows),
+         "tol": "atol 2e-2 (bf16), decode / prefill / verify at blocks of "
+                "8 and 128",
+         "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
+                  f"positions {mb8['positions']} bf16, 8-token blocks",
+         **{k: mb8[k] for k in numbers}},
     ]
     report["kernels"] = kernels
     if args.json_out:

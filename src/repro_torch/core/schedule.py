@@ -3,10 +3,11 @@
 `round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
 `tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
-over; in their place `plan_matmul_sm90`, `plan_grouped_sm90` (the FMA
-route of the grouped kernel), `plan_grouped_tc_sm90` (its tensor-core
-route) and `plan_paged_attn_sm90` pick the tile sizes and the
-shared-memory ring depth G of the CUDA kernels:
+over; in their place `plan_matmul_sm90` (the FMA route of `gpp_matmul`),
+`plan_matmul_tc_sm90` (its tensor-core route), `plan_grouped_sm90` and
+`plan_grouped_tc_sm90` (the grouped kernel's two routes),
+`plan_paged_attn_sm90` and `plan_paged_attn_mla_tc_sm90` pick the tile
+sizes and the shared-memory ring depth G of the CUDA kernels:
 
   * G comes from `plan_stream` at the H100's rates (989e12 bf16 FLOP/s,
     3.35e12 B/s): G = ceil(t_transfer / t_compute) + 1, so a DMA-bound tile
@@ -20,6 +21,7 @@ The shared-memory formulas here are the ones the CUDA sources lay out
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import statistics
 
@@ -296,9 +298,10 @@ def plan_grouped_tc_sm90(E: int, M: int, K: int, N: int, *,
 
     block_m is the smallest of 16, 32, 64, 128 that covers M (so each W
     tile streams once a call for M <= 128).  Each step issues one (block_k,
-    128) W tile (and its x tile) and the ring's per-step wait drains
-    everything issued the step before, so a deeper ring adds no bytes in
-    flight: tile bytes a step do.  The plan takes two CTAs an SM (they
+    128) W tile (and its x tile); the ring's wait forces a tile's last
+    chunk one step after its issue and the others two (csrc/ring.cuh), so
+    tile bytes a step, and up to two steps of them at G >= 3, are what is
+    in flight.  The plan takes two CTAs an SM (they
     also overlap each other's waits) and the largest block_k whose ring
     fits half the budget, with G from `plan_stream` shrunk to fit, down to
     in-situ: decode (32 rows) keeps 128-row tiles on a G = 3 ring, prefill
@@ -331,6 +334,163 @@ def plan_grouped_tc_sm90(E: int, M: int, K: int, N: int, *,
                                      max(1, min(G - 1, bk)), ctas, smem)
     raise ValueError(f"gpp_matmul_grouped tensor-core ring of {num_bufs} "
                      f"does not fit {smem_budget} bytes of shared memory")
+
+
+GPP_MM_TC_BLOCK_KS = (256, 128)   # gpp_matmul tensor-core k rows a step,
+                                   # largest (planned) first; 128 only
+                                   # where a pinned ring needs it
+GPP_MM_TC_MAX_RING = 2           # planned rings deeper than ping-pong ran
+                                 # slower on the card (PERF.md)
+SM_SMEM_BYTES = 233_472          # an SM's shared memory for its CTAs
+CTA_SMEM_RESERVED = 1_024        # the system's share of it, per CTA
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulTcPlan:
+    """`gpp_matmul`'s tensor-core route (bf16 x and W), stream-K.  A tile is
+    one (n-tile, m-tile) of block_m x block_n outputs, numbered n-major with
+    the m-tile innermost; a unit is one (tile, k-step), numbered tile-major
+    with the k-step inner.  `grid` persistent CTAs each walk a contiguous
+    run of units, `cta_units(i)`, streaming the (block_k, block_n) W tile
+    of each step through one num_bufs-slot ring in `chunks` chunks, the x
+    tile beside it in two slots.  The CTAs that share a tile are its
+    segments, `segments(t)`; a split tile's f32 partials go to workspace
+    slot (tile, segment), `max_segs` slots a tile."""
+
+    M: int
+    K: int
+    N: int
+    block_m: int
+    block_n: int
+    block_k: int
+    num_bufs: int
+    chunks: int
+    ctas_per_sm: int
+    grid: int
+    smem_bytes: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.M // self.block_m)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.N // self.block_n)
+
+    @property
+    def num_k(self) -> int:
+        return -(-self.K // self.block_k)
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.num_k
+
+    def tile(self, t: int) -> "tuple[int, int]":
+        """(n-tile, m-tile) of tile t."""
+        return divmod(t, self.m_tiles)
+
+    def unit(self, u: int) -> "tuple[int, int]":
+        """(tile, k-step) of unit u."""
+        return divmod(u, self.num_k)
+
+    def cta_units(self, i: int) -> range:
+        """The units CTA i walks: [floor(i*U/P), floor((i+1)*U/P))."""
+        U, P = self.units, self.grid
+        return range(i * U // P, (i + 1) * U // P)
+
+    def cta_steps(self, i: int) -> int:
+        return len(self.cta_units(i))
+
+    def owner(self, u: int) -> int:
+        """The CTA whose run holds unit u (the kernel's `owner`)."""
+        U, P = self.units, self.grid
+        return ((u + 1) * P + U - 1) // U - 1
+
+    def segments(self, t: int) -> range:
+        """The CTAs that share tile t, in segment (= k) order."""
+        u = t * self.num_k
+        return range(self.owner(u), self.owner(u + self.num_k - 1) + 1)
+
+    @functools.cached_property
+    def max_segs(self) -> int:
+        """Workspace slots a tile: the most CTAs that share one."""
+        return max(len(self.segments(t)) for t in range(self.tiles))
+
+    @property
+    def workspace_floats(self) -> int:
+        """f32 of the partials' workspace: 0 when no tile is split."""
+        segs = self.max_segs
+        if segs == 1:
+            return 0
+        return self.tiles * segs * self.block_m * self.block_n
+
+
+def matmul_tc_smem_bytes(bm: int, bk: int, G: int) -> int:
+    """G-slot bf16 W ring of (bk, 128) tiles + two bf16 (bm, bk) x slots;
+    rows swizzled, not padded (csrc/gpp_matmul.cu, smem_bytes)."""
+    return G * bk * GPP_TC_BLOCK_N * 2 + 2 * bm * bk * 2
+
+
+def plan_matmul_tc_sm90(M: int, K: int, N: int, *,
+                        num_bufs: "int | None" = None,
+                        block_k: "int | None" = None,
+                        grid: "int | None" = None,
+                        smem_budget: int = SMEM_BUDGET_BYTES) -> MatmulTcPlan:
+    """Plan for the tensor-core route of `gpp_matmul` (stream-K).
+
+    block_m is the smallest of 16, 32, 64, 128 that covers M (M rounded up
+    to 16 at every path shape, so each W tile streams once a launch);
+    block_n 128; block_k 256; grid = min(units, 132): one CTA an SM, each
+    with a run of whole 64 KB W tiles.  The sweep (scripts/gpp_tc_sweep.py,
+    PERF.md) found this within 3% of the best tile and grid summed over the
+    paths' decode and prefill shapes: at these few-MB weights a launch is a
+    handful of round trips, and fewer, larger steps and fewer segments a
+    tile (each a partial the fix-up reads) beat two CTAs an SM of 16 KB
+    steps.  G comes from `plan_stream` at H100 rates (deep: at 16 rows a
+    tile's bytes take ~18x its FLOPs' time), clamped to the longest run and
+    to GPP_MM_TC_MAX_RING (the same sweep: G = 3 and 4 slower than 2 at
+    every run length, up to 47%), then shrunk until the ring fits the
+    shared memory, down to in-situ.  A
+    pinned `num_bufs` is kept and block_k halves until it fits; `block_k`
+    and `grid` pins are for tests and sweeps.  `ctas_per_sm` is what the
+    shared memory lets an SM hold (at most 2: 256 threads of <= 128
+    registers).  Raises when nothing fits."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"empty matmul {M}x{K}x{N}")
+    if num_bufs is not None and num_bufs < 1:
+        raise ValueError("num_bufs >= 1")
+    if block_k is not None and block_k not in GPP_MM_TC_BLOCK_KS:
+        raise ValueError(f"block_k is one of {GPP_MM_TC_BLOCK_KS}, got "
+                         f"{block_k}")
+    if grid is not None and grid < 1:
+        raise ValueError("grid >= 1")
+    bm = 16
+    while bm < min(M, GPP_TC_MAX_BLOCK_M):
+        bm *= 2
+    bn = GPP_TC_BLOCK_N
+    tiles = -(-M // bm) * -(-N // bn)
+    bks = (block_k,) if block_k is not None else GPP_MM_TC_BLOCK_KS
+    for bk in bks:
+        units = tiles * -(-K // bk)
+        P = min(units, grid if grid is not None else H100_SMS)
+        G = num_bufs if num_bufs is not None else min(
+            _ring_depth(bk * bn * 2, 2.0 * bm * bk * bn, H100_BF16_FLOPS),
+            -(-units // P),                # deeper than a run idles
+            GPP_MM_TC_MAX_RING)
+        if num_bufs is None:
+            while G > 1 and matmul_tc_smem_bytes(bm, bk, G) > smem_budget:
+                G -= 1
+        smem = matmul_tc_smem_bytes(bm, bk, G)
+        if smem <= smem_budget:
+            ctas = min(2, SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED))
+            return MatmulTcPlan(M, K, N, bm, bn, bk, G,
+                                max(1, min(G - 1, bk)), ctas, P, smem)
+    raise ValueError(f"gpp_matmul tensor-core ring of {num_bufs} does not "
+                     f"fit {smem_budget} bytes of shared memory")
 
 
 PA_ROWS_PER_CTA = 32     # query rows (rep * S) one CTA holds
@@ -405,8 +565,9 @@ def plan_paged_attn_sm90(*, rows: int, block_size: int, head_dim: int,
         G -= 1
     smem = smem_of(G)
     if smem > smem_budget:
-        raise ValueError(f"paged attention needs {smem} bytes of shared "
-                         f"memory (budget {smem_budget})")
+        raise ValueError(f"paged attention at block size {block_size} needs "
+                         f"{smem} bytes of shared memory (budget "
+                         f"{smem_budget})")
     return PagedAttnPlan(rt, splits, G, max(1, min(G - 1, block_size)), smem)
 
 
@@ -445,6 +606,25 @@ def mla_tc_smem_bytes(block_size: int, latent: int, rope: int, G: int,
     rb = mla_tc_row_bytes(latent, rope)
     return (PA_MLA_TC_ROWS * rb + G * block_size * rb
             + warps * PA_MLA_TC_ROWS * block_size * 4)
+
+
+def mla_tc_takes(block_size: int, latent: int, rope: int) -> bool:
+    """Whether the tensor-core MLA kernel takes this pool shape: blocks of
+    16, 32, 48 or 64 tokens (whole m16 / n8 tiles, at most 64 keys a ring
+    slot), latent and rope widths in multiples of 8 (16-byte copies),
+    latent <= 512 (four warps of 128 columns)."""
+    return (block_size % 16 == 0 and 16 <= block_size <= PA_MLA_TC_MAX_BLOCK
+            and latent % 8 == 0 and rope % 8 == 0 and rope >= 0
+            and 8 <= latent <= PA_MLA_TC_MAX_LATENT)
+
+
+def mla_fma_takes(block_size: int, latent: int, rope: int,
+                  kv_itemsize: int) -> bool:
+    """Whether the FMA MLA kernel's in-situ ring fits the shared memory
+    with a full tile of query rows: 229,568 of 232,448 bytes at deepseek's
+    512 + 64 in bf16 at block size 128; block size 256 does not fit."""
+    return paged_attn_smem_bytes(1, block_size, latent, kv_itemsize,
+                                 PA_MLA_ROWS_PER_CTA, rope) <= SMEM_BUDGET_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -513,13 +693,12 @@ def plan_paged_attn_mla_tc_sm90(*, batch: int, rows: int, block_size: int,
     if min(batch, rows, max_blocks) < 1:
         raise ValueError(f"empty MLA attention: batch {batch}, rows {rows}, "
                          f"max_blocks {max_blocks}")
-    if block_size % 16 or not 16 <= block_size <= PA_MLA_TC_MAX_BLOCK:
+    if not mla_tc_takes(block_size, latent, rope):
         raise ValueError(f"the tensor-core MLA kernel takes block sizes of "
-                         f"16, 32, 48 or 64 tokens, got {block_size}")
-    if latent % 8 or rope % 8 or not 8 <= latent <= PA_MLA_TC_MAX_LATENT \
-            or rope < 0:
-        raise ValueError(f"latent {latent} / rope {rope}: multiples of 8, "
-                         f"latent <= {PA_MLA_TC_MAX_LATENT}")
+                         f"16, 32, 48 or 64 tokens and latent / rope widths "
+                         f"that are multiples of 8 (latent <= "
+                         f"{PA_MLA_TC_MAX_LATENT}), got block size "
+                         f"{block_size}, latent {latent}, rope {rope}")
     if warps not in (4, 8):
         raise ValueError("warps is 4 or 8")
     if num_bufs is not None and num_bufs < 1:

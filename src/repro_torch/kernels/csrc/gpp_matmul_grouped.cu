@@ -46,9 +46,9 @@
 //     chunk's commit group, so the ring's own wait covers it and costs no
 //     extra round trip.  The issue-order record holds W chunks only.
 //  5. Sizes from bytes in flight: each step issues one (block_k x 128) W
-//     tile, and the ring's per-step wait drains what the step before
-//     issued, so tile bytes a step, not ring depth, set the bytes in flight
-//     (a G > 2 ring holds no more than ping-pong).  The planner
+//     tile.  The ring's wait forces a tile's last chunk one step after its
+//     issue and every other chunk two steps after (ring.cuh), so a ring of
+//     G >= 3 keeps up to two steps' issue in flight.  The planner
 //     (core.schedule.plan_grouped_tc_sm90) takes two CTAs an SM, which also
 //     overlap each other's waits, and the largest block_k that fits: 32 KB
 //     W tiles on a G = 3 ring at decode, 32 KB W + 32 KB x tiles in situ
@@ -67,6 +67,7 @@
 namespace gpp_tc {
 namespace {
 
+using gpp_mma::copy_rows_vec;
 using gpp_mma::ldmatrix_x4;
 using gpp_mma::ldmatrix_x4_trans;
 using gpp_mma::mma_bf16;
@@ -102,72 +103,6 @@ struct Warps {
 
 __host__ __device__ constexpr size_t smem_bytes(int bm, int bk, int G) {
   return (size_t)G * bk * kRowBytesW + 2 * (size_t)bm * bk * 2;
-}
-
-// Copy rows [lo, hi) of a tile (ROW_BYTES a row in shared memory, swizzled)
-// from src + r * src_stride bytes.  Row r exists for r < rows_valid, with
-// its first valid_bytes bytes; the rest is zero-filled.  With 16-byte
-// copies each thread owns one column chunk and strides rows by a multiple
-// of 8, so its swizzled column and its pointer steps are fixed; VEC == 1
-// is a synchronous byte copy for rows with no cp.async width.
-template <int ROW_BYTES, int VEC>
-__device__ __forceinline__ void copy_rows(char* dst, const char* src,
-                                          size_t src_stride, int lo, int hi,
-                                          int rows_valid, int valid_bytes) {
-  constexpr int kPerRow = ROW_BYTES / VEC;
-  if constexpr (VEC == 16) {
-    constexpr int kRowStep = kThreads / kPerRow;
-    static_assert(kRowStep % 8 == 0, "the swizzle repeats every 8 rows");
-    const int j = threadIdx.x % kPerRow;
-    const bool col_ok = j * 16 < valid_bytes;
-    int r = lo + threadIdx.x / kPerRow;
-    char* d = dst + r * ROW_BYTES + swizzle(r, j * 16);
-    const char* s = src + r * src_stride + j * 16;
-    for (; r < hi; r += kRowStep) {
-      const bool ok = col_ok && r < rows_valid;
-      gpp::cp_async<16>(d, ok ? s : src, ok);
-      d += kRowStep * ROW_BYTES;
-      s += kRowStep * src_stride;
-    }
-  } else {
-    for (int i = threadIdx.x; i < (hi - lo) * kPerRow; i += kThreads) {
-      const int r = lo + i / kPerRow;
-      const int off = (i % kPerRow) * VEC;
-      const bool ok = r < rows_valid && off < valid_bytes;
-      const char* s = src + r * src_stride + off;
-      char* d = dst + r * ROW_BYTES + swizzle(r, off);
-      if constexpr (VEC == 1) {
-        *d = ok ? *s : 0;
-      } else {
-        gpp::cp_async<VEC>(d, ok ? s : src, ok);
-      }
-    }
-  }
-}
-
-template <int ROW_BYTES>
-__device__ __forceinline__ void copy_rows_vec(int vec, char* dst,
-                                              const char* src,
-                                              size_t src_stride, int lo,
-                                              int hi, int rows_valid,
-                                              int valid_bytes) {
-  switch (vec) {
-    case 16:
-      copy_rows<ROW_BYTES, 16>(dst, src, src_stride, lo, hi, rows_valid,
-                               valid_bytes);
-      break;
-    case 8:
-      copy_rows<ROW_BYTES, 8>(dst, src, src_stride, lo, hi, rows_valid,
-                              valid_bytes);
-      break;
-    case 4:
-      copy_rows<ROW_BYTES, 4>(dst, src, src_stride, lo, hi, rows_valid,
-                              valid_bytes);
-      break;
-    default:
-      copy_rows<ROW_BYTES, 1>(dst, src, src_stride, lo, hi, rows_valid,
-                              valid_bytes);
-  }
 }
 
 // where a step of the CTA's run is: unit (expert e, n-tile nt, m-tile mt,

@@ -1,20 +1,38 @@
-// Generalized ping-pong (GPP) shared-memory ring, shared by gpp_matmul.cu and
-// paged_attention.cu — the CUDA counterpart of the reference's
-// `_make_chunk_ops` / `_run_chunk_schedule` (repro/kernels/gpp_matmul.py:192,
-// :210).
+// Generalized ping-pong (GPP) shared-memory ring, shared by gpp_matmul.cu,
+// gpp_matmul_grouped.cu and paged_attention.cu — the CUDA counterpart of
+// the reference's `_make_chunk_ops` / `_run_chunk_schedule`
+// (repro/kernels/gpp_matmul.py:192, :210).
 //
 // A CTA walks its own sequence of steps s = 0..S-1; the tile consumed at step
 // s lives in ring slot s % G.  The tile's rows are split into C = G-1 chunks
 // (chunk_bounds), and chunk c of step s's tile is issued at step s-C+c (steps
 // < 0 fold into the step-0 prologue), so every step issues one tile's worth
 // of bytes and the copies of C later tiles are in flight while step s
-// computes.  G == 1 is in-situ (issue, wait, compute), G == 2 naive ping-pong.
-// The order is exactly `chunk_issue_schedule` in repro_torch/kernels/ref.py.
+// computes.  G == 1 is in-situ, G == 2 naive ping-pong.  The order is
+// exactly `chunk_issue_schedule` in repro_torch/kernels/ref.py.
 //
-// Copies are cp.async (16/8/4 bytes, zero-filled at ragged edges) grouped
-// per step: one commit group for the step's own tile (non-empty only at
-// step 0) and one for the chunks of later steps; `cp.async.wait_group 1`
-// then guarantees every chunk of the current tile has landed.
+// Copies are cp.async (16/8/4 bytes, zero-filled at ragged edges).  cp.async
+// commit groups complete in order, so what a wait forces is set by how the
+// chunks are grouped.  For G >= 2, step s commits, in issue order:
+//   A  (step 0 only) tile 0's chunks, with any copy issued before the loop
+//      (the MLA kernel's q tile);
+//   P  (step 0 only) the prologue's folded chunks of steps 1..C-1;
+//   B  chunk C-1 of tile s+1 alone (the grouped and one-product tensor-core
+//      kernels' x tile of step s+1 rides with it);
+//   R  chunk C-d of tile s+d for d = 2..G-1;
+// B and R even when empty, and then waits with `cp.async.wait_group 3`.  At
+// step 0 the three groups after A are P, B(0), R(0); at step s >= 1 they are
+// R(s-1), B(s), R(s).  So the wait forces every chunk of tile s — chunk C-1
+// is in B(s-1), chunks c < C-1 in R(<= s-2) or P — and nothing that step s-1
+// issued for a later tile (at step 1, P's chunks of tiles 2..C-1 land with
+// tile 1's: the issue order puts them ahead of B(0)).  A steady-state chunk c
+// gets min(C-c, 2) steps to land: at G = 3 exactly the reference's per-slot
+// wait (`sems.at[slot]`, C-c steps), at G >= 4 two steps for every chunk
+// but a tile's last.  That is the limit of in-order cp.async groups; the
+// exact per-slot ring needs TMA bulk copies on per-slot mbarriers
+// (complete_tx), later work.  A host-side replay of this grouping
+// (tests/_torch_parity.py::ring_replay, tests/test_torch_ring.py) checks
+// these claims over G = 1..6 and S = 1..9.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,11 +131,11 @@ __device__ __forceinline__ void copy_rows_vec(int vec, char* dst,
 }
 
 // Step s of S on the GPP chunk schedule: issue this step's chunks through
-// issue(step, chunk), then wait until every chunk of step s's own tile has
-// landed and make it visible to the whole CTA.  `issue` may decline a chunk
-// (a dead tile): it must then decline it at every step, which a predicate
-// pure in (step) guarantees — the wait below needs no predicate because an
-// empty copy completes at once.
+// issue(step, chunk), in the commit groups of the header, then wait until
+// every chunk of step s's own tile has landed and make it visible to the
+// whole CTA.  `issue` may decline a chunk (a dead tile): it must then
+// decline it at every step, which a predicate pure in (step) guarantees —
+// the wait needs no predicate because an empty copy completes at once.
 template <typename Issue>
 __device__ __forceinline__ void run_chunk_schedule(int s, int S, int G, int C,
                                                    Issue issue) {
@@ -126,23 +144,22 @@ __device__ __forceinline__ void run_chunk_schedule(int s, int S, int G, int C,
     cp_async_commit();
     cp_async_wait<0>();
   } else {
-    if (s == 0) {                      // step 0 computes at once
+    if (s == 0) {
       for (int c = 0; c < C; ++c) issue(0, c);
-    }
-    cp_async_commit();                 // the step's own tile (step 0 only)
-    if (s == 0) {                      // steps 1..C-1: folded chunks
-      for (int d = 1; d < C; ++d) {
-        if (d < S) {
-          for (int c = 0; c < C - d; ++c) issue(d, c);
-        }
+      cp_async_commit();               // A: tile 0 (step 0 computes at once)
+      for (int d = 1; d < C && d < S; ++d) {
+        for (int c = 0; c < C - d; ++c) issue(d, c);
       }
+      cp_async_commit();               // P: folded chunks of steps 1..C-1
     }
-    for (int d = 1; d < G; ++d) {      // steady state: chunk C-d of step s+d
+    if (s + 1 < S) issue(s + 1, C - 1);
+    cp_async_commit();                 // B: the next tile's last chunk
+    for (int d = 2; d < G; ++d) {      // R: chunk C-d of step s+d
       const int c = C - d;
       if (c >= 0 && s + d < S) issue(s + d, c);
     }
-    cp_async_commit();                 // chunks of later steps
-    cp_async_wait<1>();                // everything but that newest group
+    cp_async_commit();
+    cp_async_wait<3>();                // all but R(s-1), B(s), R(s)
   }
   __syncthreads();
 }

@@ -10,14 +10,16 @@ exactly the reference's wrapper — then launches one of the kernels of
     head, row split) streams the lane's live K and V blocks through two
     G-slot shared-memory rings on the chunk schedule and runs one
     online-softmax step per block;
-  * "mla": `paged_attention_mla_kernel` (f32 MLA), the same walk over the
-    latent pools: latent MQA, one shared KV head whose key is
-    concat(c_kv, k_rope) and whose value is the c_kv row;
-  * "mla_tc": `paged_attention_mla_tc_kernel` (bf16 MLA): the same function
-    on the tensor cores with the KV walk split over CTAs (runs of logical
-    blocks, `core.schedule.plan_paged_attn_mla_tc_sm90`), then, with more
-    than one run, `paged_attention_mla_merge_kernel` merges the runs'
-    partials into the output.
+  * "mla": `paged_attention_mla_kernel` (f32 MLA, and bf16 MLA at block
+    sizes the tensor-core kernel does not take, such as 8 or 128), the
+    same walk over the latent pools: latent MQA, one shared KV head whose
+    key is concat(c_kv, k_rope) and whose value is the c_kv row;
+  * "mla_tc": `paged_attention_mla_tc_kernel` (bf16 MLA at block sizes 16,
+    32, 48 and 64): the same function on the tensor cores with the KV walk
+    split over CTAs (runs of logical blocks,
+    `core.schedule.plan_paged_attn_mla_tc_sm90`), then, with more than one
+    run, `paged_attention_mla_merge_kernel` merges the runs' partials into
+    the output.
 
 CUDA tensors only: a CPU tensor, or a CUDA tensor the kernel cannot take,
 raises (the plain version is `kernels.ref.paged_attn_ref`, which
@@ -34,7 +36,8 @@ import ctypes
 
 import torch
 
-from repro_torch.core.schedule import (MlaTcPlan, paged_attn_row_bytes,
+from repro_torch.core.schedule import (MlaTcPlan, mla_fma_takes,
+                                      mla_tc_takes, paged_attn_row_bytes,
                                       plan_paged_attn_mla_tc_sm90,
                                       plan_paged_attn_sm90)
 from repro_torch.kernels import build
@@ -43,6 +46,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter()            # GQA / window form
 launches_mla = build.LaunchCounter()        # MLA form, f32 (FMA kernel)
+launches_mla_bf16 = build.LaunchCounter()   # MLA form, bf16 (FMA kernel)
 launches_mla_tc = build.LaunchCounter()     # MLA form, bf16 (tensor cores)
 launches_mla_merge = build.LaunchCounter()  # its merge of split partials
 
@@ -65,13 +69,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def attention_route(dtype: torch.dtype, mla: bool) -> str:
-    """Which kernel `paged_attention` launches: "gqa" (the GQA / window
-    kernel), "mla" (the f32 MLA kernel) or "mla_tc" (bf16 MLA on the tensor
-    cores)."""
+def attention_route(dtype: torch.dtype, mla: bool, block_size: int,
+                    latent: int, rope: int) -> str:
+    """Which kernel `paged_attention` launches, from the form, the dtype
+    and the pool shape alone: "gqa" (the GQA / window kernel; the widths
+    are not read), "mla_tc" (bf16 MLA on the tensor cores, where that
+    kernel takes the shape: `core.schedule.mla_tc_takes`) or "mla" (the
+    FMA MLA kernel: f32, and bf16 at other block sizes).  Raises on an MLA
+    shape neither MLA kernel's shared memory holds (block size 256)."""
     if not mla:
         return "gqa"
-    return "mla_tc" if dtype == torch.bfloat16 else "mla"
+    if dtype == torch.bfloat16 and mla_tc_takes(block_size, latent, rope):
+        return "mla_tc"
+    if not mla_fma_takes(block_size, latent, rope, dtype.itemsize):
+        raise ValueError(
+            f"no MLA kernel takes {dtype} pools of {block_size}-token blocks "
+            f"at latent {latent} + rope {rope}: the tensor-core kernel "
+            f"(bf16) takes blocks of 16, 32, 48 or 64 tokens, and the FMA "
+            f"kernel's in-situ ring of one block does not fit the shared "
+            f"memory")
+    return "mla"
 
 
 def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
@@ -141,7 +158,7 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
     rep = H // kvh
     rS = rep * S
     dv = da if mla else db
-    route = attention_route(kd, mla)
+    route = attention_route(kd, mla, bs, da, db)
     if kv_splits is not None and route != "mla_tc":
         raise ValueError(f"kv_splits applies to the bf16 MLA kernel only, "
                          f"not the {route!r} route")
@@ -171,7 +188,12 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
             paged_attn_row_bytes(db, es), DTYPES[kd],
             torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch(lib, err, "paged_attention")
-        (launches_mla if mla else launches).n += 1
+        if not mla:
+            launches.n += 1
+        elif kd == torch.bfloat16:
+            launches_mla_bf16.n += 1
+        else:
+            launches_mla.n += 1
     return (out.reshape(B, kvh, rep, S, dv).permute(0, 3, 1, 2, 4)
             .reshape(B, S, H, dv))
 

@@ -4,7 +4,8 @@ oracle.
 `dense_ref`, `dense_grouped_ref` and `paged_attn_ref` (GQA, window and MLA)
 are copies of `repro.kernels.ref` in torch:
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
-against them on the card.  `mla_merge_ref` is the plain version of the
+against them on the card.  `dense_split_ref` replays the tensor-core
+`gpp_matmul`'s stream-K split and its fixed-order fix-up for the tests.  `mla_merge_ref` is the plain version of the
 bf16 MLA kernel's merge; `paged_attn_mla_split_ref` replays that kernel's
 split-KV walk and merge for the tests (nothing on the main path calls
 either).  `chunk_issue_schedule` is a copy of the
@@ -44,6 +45,40 @@ def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
     then per-column dequant scale, bias and activation, all in f32, cast to
     x.dtype."""
     acc = x.float() @ w.float()
+    if w_scale is not None:
+        acc = acc * torch.as_tensor(w_scale, dtype=torch.float32,
+                                    device=acc.device).reshape(1, -1)
+    if bias is not None:
+        acc = acc + bias.float().reshape(1, -1)
+    return ACTIVATIONS[activation](acc).to(x.dtype)
+
+
+def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
+                    w_scale=None,
+                    activation: "str | None" = None) -> torch.Tensor:
+    """Plain replay of `gpp_matmul`'s tensor-core route (stream-K), for
+    tests: for each (block_m x block_n) tile of `plan`
+    (`core.schedule.plan_matmul_tc_sm90`), each CTA that shares it
+    (`plan.segments(t)`) computes an f32 partial over its run's k-steps of
+    the tile; the partials are summed in segment order, then the epilogue
+    runs as in `dense_ref` (f32 scale, bias, activation), cast to
+    x.dtype."""
+    M, K = x.shape
+    N = w.shape[1]
+    bm, bn, bk = plan.block_m, plan.block_n, plan.block_k
+    acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
+    for t in range(plan.tiles):
+        nt, mt = plan.tile(t)
+        rows = slice(mt * bm, min(M, (mt + 1) * bm))
+        cols = slice(nt * bn, min(N, (nt + 1) * bn))
+        total = None
+        for i in plan.segments(t):
+            ks = [plan.unit(u)[1] for u in plan.cta_units(i)
+                  if plan.unit(u)[0] == t]
+            k0, k1 = ks[0] * bk, min(K, (ks[-1] + 1) * bk)
+            part = x[rows, k0:k1].float() @ w[k0:k1, cols].float()
+            total = part if total is None else total + part
+        acc[rows, cols] = total
     if w_scale is not None:
         acc = acc * torch.as_tensor(w_scale, dtype=torch.float32,
                                     device=acc.device).reshape(1, -1)

@@ -48,11 +48,158 @@ def test_gpp_matmul_matches_plain(cuda, dtype, G, shape):
 
 @pytest.mark.parametrize("G", (1, 2, 4))
 def test_gpp_issue_order_is_the_chunk_schedule(cuda, G):
+    # the FMA route (pinned: bf16 x and W route to the tensor cores)
     x = torch.randn(4, 1024, device=cuda).bfloat16()
     w = torch.randn(1024, 512, device=cuda).bfloat16()
-    got, num_k, g_used, C = gm.issue_order(x, w, G)
+    got, num_k, g_used, C = gm.issue_order(x, w, G, route="fma")
     assert g_used == G
     assert got == chunk_issue_schedule(num_k, G, C)
+
+
+# every bf16 projection of the two serving paths, (M, K, N): M = 4 / 32 /
+# 20 rows at decode / prefill / verify
+GPP_PROJ = ((1024, 1024), (1024, 2816), (2816, 1024), (2048, 3072),
+            (2048, 576), (2048, 2048), (2048, 2816), (2816, 2048),
+            (2048, 10944), (10944, 2048))
+GPP_PATH = [(M, K, N) for M in (4, 32, 20) for K, N in GPP_PROJ]
+
+
+@pytest.mark.parametrize("shape", GPP_PATH + [(7, 1000, 1001), (37, 333, 130),
+                                              (200, 1000, 1001)])
+def test_gpp_tc_route_matches_plain(cuda, shape):
+    # bf16 x and W launch the tensor-core kernel, never the FMA one, at
+    # every ring depth; ragged shapes take the narrower copies
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
+    b = torch.randn(N, generator=g, device=cuda)
+    s = torch.rand(N, generator=g, device=cuda) + 0.5
+    tc, fma = gm.launches_tc.n, gm.launches.n
+    for G in (None, 1, 2, 3, 4):
+        for act, bias, scale in (("silu", None, None), ("gelu", b, s)):
+            y = gm.gpp_matmul(x, w, bias=bias, w_scale=scale,
+                              activation=act, num_bufs=G)
+            ref = dense_ref(x, w, bias=bias, w_scale=scale, activation=act)
+            torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+    assert (gm.launches_tc.n - tc, gm.launches.n - fma) == (10, 0)
+
+
+@pytest.mark.parametrize("shape", ((4, 2816, 1024), (32, 10944, 2048),
+                                   (20, 2048, 576), (7, 1000, 1001)))
+def test_gpp_tc_route_is_deterministic(cuda, shape):
+    # split tiles are summed in segment order, whatever order their CTAs
+    # arrive in: two runs agree bit for bit
+    M, K, N = shape
+    plan = sched.plan_matmul_tc_sm90(M, K, N)
+    assert plan.max_segs > 1
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
+    first = gm.gpp_matmul(x, w, activation="silu")
+    for _ in range(3):
+        assert torch.equal(gm.gpp_matmul(x, w, activation="silu"), first)
+
+
+@pytest.mark.parametrize("KN", GPP_PROJ)
+def test_gpp_tc_rows_do_not_depend_on_the_batch(cuda, KN):
+    # decode (4 rows), verify (20) and prefill (32) plan the same tiles'
+    # k-steps and split, so a row's output is the same bits whichever
+    # batch it rides in, at every projection of both paths
+    K, N = KN
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(32, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
+    a, b, c = (sched.plan_matmul_tc_sm90(M, K, N) for M in (4, 20, 32))
+    assert (a.block_k, a.grid) == (b.block_k, b.grid) == (c.block_k, c.grid)
+    y4 = gm.gpp_matmul(x[:4], w)
+    assert torch.equal(gm.gpp_matmul(x[:20], w)[:4], y4)
+    assert torch.equal(gm.gpp_matmul(x, w)[:4], y4)
+
+
+@pytest.mark.parametrize("shape", ((4, 2048, 576), (20, 10944, 2048)))
+def test_gpp_tc_two_streams_at_once(cuda, shape):
+    # a split tile's partials and arrival counters are its launch's own:
+    # launches on two streams at once, and a CUDA graph replayed beside
+    # eager launches, each sum their own tiles
+    M, K, N = shape
+    assert sched.plan_matmul_tc_sm90(M, K, N).max_segs > 1
+    g = torch.Generator(device=cuda).manual_seed(11)
+    xs = [torch.randn(M, K, generator=g, device=cuda).bfloat16()
+          for _ in range(2)]
+    ws = [(torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
+          for _ in range(2)]
+    want = [gm.gpp_matmul(x, w) for x, w in zip(xs, ws)]
+    for y, x, w in zip(want, xs, ws):
+        torch.testing.assert_close(y.float(), dense_ref(x, w).float(),
+                                   rtol=2e-2, atol=2e-2)
+    streams = [torch.cuda.Stream(device=cuda) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(30):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(gm.gpp_matmul(xs[i], ws[i]))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(streams[0]):
+        with torch.cuda.graph(graph):
+            yg = gm.gpp_matmul(xs[0], ws[0])
+    for _ in range(30):
+        with torch.cuda.stream(streams[0]):
+            graph.replay()
+            outs[0].append(yg.clone())
+        with torch.cuda.stream(streams[1]):
+            outs[1].append(gm.gpp_matmul(xs[1], ws[1]))
+    torch.cuda.synchronize(cuda)
+    for i in range(2):
+        for y in outs[i]:
+            assert torch.equal(y, want[i])
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 3, 4))
+@pytest.mark.parametrize("shape,grid", (((4, 2048, 1024), 5),
+                                        ((4, 10944, 2048), None)))
+def test_gpp_tc_issue_order_crosses_tiles_and_splits(cuda, shape, grid, G):
+    # 4x2048x1024 on 5 CTAs: CTA 0 walks tile 0's 8 k-steps and 4 of tile
+    # 1's (which CTA 1 finishes); layer 0's down projection as planned: 5
+    # of tile 0's 43 k-steps
+    M, K, N = shape
+    x = torch.randn(M, K, device=cuda).bfloat16()
+    w = (torch.randn(K, N, device=cuda) * 0.02).bfloat16()
+    got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
+    plan = sched.plan_matmul_tc_sm90(M, K, N, num_bufs=G, grid=grid)
+    assert steps == plan.cta_steps(0) >= 5
+    # the run crosses a tile boundary (pinned grid) or ends inside a tile
+    # that the next CTA finishes (planned)
+    tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
+    assert len(tiles) == (2 if grid else 1)
+    assert len(plan.segments(max(tiles))) > 1
+    assert G is None or g_used == G
+    assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("shape,G", (((4, 1024, 2816), None),
+                                     ((32, 10944, 2048), None),
+                                     ((20, 2048, 3072), None),
+                                     ((4, 2048, 10944), 4)))
+def test_gpp_tc_occupancy_is_planned(cuda, shape, G):
+    plan = sched.plan_matmul_tc_sm90(*shape, num_bufs=G)
+    assert gm.tc_ctas_per_sm(plan) == plan.ctas_per_sm
+
+
+def test_gpp_fma_route_pinned_on_bf16(cuda):
+    # the sweeps' comparison: the FMA kernel still takes bf16
+    x = torch.randn(4, 1024, device=cuda).bfloat16()
+    w = (torch.randn(1024, 2816, device=cuda) * 0.02).bfloat16()
+    fma = gm.launches.n
+    y = gm.gpp_matmul(x, w, activation="silu", route="fma")
+    assert gm.launches.n == fma + 1
+    torch.testing.assert_close(y.float(), dense_ref(x, w, activation="silu")
+                               .float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(TypeError, match="bf16"):
+        gm.gpp_matmul(x.float(), w, route="tc")
 
 
 def test_gpp_int8_with_scale(cuda):
@@ -291,3 +438,43 @@ def test_mla_tc_issue_order_is_the_chunk_schedule(cuda, G, kv_splits):
     assert cta == 3 * kv_splits
     assert G is None or g_used == min(G, 8 // kv_splits)
     assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("block_size", (8, 128))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_mla_bf16_block_sizes_take_the_fma_kernel(cuda, case, block_size):
+    # bf16 MLA at block sizes the tensor-core plan does not take runs the
+    # FMA kernel's bf16 instance, counted apart from its f32 launches
+    B, S, positions = MLA_CASES[case]
+    H, r, rr = 16, 512, 64
+    mb = -(-128 // block_size)
+    nb = B * mb + 1
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(B, S, H, r + rr, generator=g, device=cuda).bfloat16()
+    ckv = (torch.randn(nb, block_size, r, generator=g, device=cuda)
+           * 0.5).bfloat16()
+    kr = (torch.randn(nb, block_size, rr, generator=g, device=cuda)
+          * 0.5).bfloat16()
+    tables = torch.randint(1, nb, (B, mb), generator=g, device=cuda,
+                           dtype=torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    kw = dict(num_kv_heads=1, scale=1 / math.sqrt(576), mla=True)
+    ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
+    counts = (pa.launches_mla_bf16, pa.launches_mla_tc, pa.launches_mla)
+    before = [c.n for c in counts]
+    for G in (None, 1, 2):
+        out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert tuple(c.n - n for c, n in zip(counts, before)) == (3, 0, 0)
+
+
+def test_mla_block_size_256_raises(cuda):
+    q = torch.zeros(1, 1, 16, 576, device=cuda).bfloat16()
+    ckv = torch.zeros(3, 256, 512, device=cuda).bfloat16()
+    kr = torch.zeros(3, 256, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="256-token"):
+        paged_attention(q, ckv, kr, torch.ones(1, 1, dtype=torch.int32,
+                                               device=cuda),
+                        torch.zeros(1, dtype=torch.int32, device=cuda),
+                        num_kv_heads=1, scale=0.05, mla=True)

@@ -233,7 +233,8 @@ def test_empty_runs_really_are_empty():
     (torch.bfloat16, True, "mla_tc"), (torch.float32, True, "mla"),
     (torch.bfloat16, False, "gqa"), (torch.float32, False, "gqa")])
 def test_route(dtype, mla, route):
-    assert pa.attention_route(dtype, mla) == route
+    # deepseek's pools: 16-token blocks of latent 512 + rope 64
+    assert pa.attention_route(dtype, mla, 16, R, RR) == route
     # no kernel for a CPU tensor, on any route
     q = torch.zeros(1, 1, 16, R + RR if mla else 64, dtype=dtype)
     if mla:
@@ -245,3 +246,35 @@ def test_route(dtype, mla, route):
         pa.paged_attention(q, *pools, torch.zeros(1, 2, dtype=torch.int32),
                            torch.zeros(1, dtype=torch.int32),
                            num_kv_heads=16, scale=1.0, mla=mla)
+
+
+LAT, ROPE = DS["latent"], DS["rope"]
+
+
+@pytest.mark.parametrize("block_size,bf16,f32", [
+    (8, "mla", "mla"), (16, "mla_tc", "mla"), (64, "mla_tc", "mla"),
+    (128, "mla", None), (256, None, None)])
+def test_route_by_block_size(block_size, bf16, f32):
+    # deepseek's widths; bf16 takes the tensor-core kernel where its plan can (blocks of 16-64
+    # tokens) and the FMA kernel's bf16 instance elsewhere; a shape neither
+    # kernel's shared memory holds raises, naming the block size (None)
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+        if want is None:
+            with pytest.raises(ValueError, match=f"{block_size}-token"):
+                pa.attention_route(dtype, True, block_size, LAT, ROPE)
+            continue
+        assert pa.attention_route(dtype, True, block_size, LAT, ROPE) == want
+        # the route's kernel plans this shape (a pure function of it)
+        if want == "mla_tc":
+            sched.plan_paged_attn_mla_tc_sm90(
+                batch=4, rows=16, block_size=block_size, max_blocks=2,
+                latent=LAT, rope=ROPE)
+        else:
+            sched.plan_paged_attn_sm90(
+                rows=16, block_size=block_size, head_dim=LAT, rope_dim=ROPE,
+                kv_itemsize=dtype.itemsize, max_blocks=2)
+    # the GQA route does not read the widths
+    assert pa.attention_route(torch.bfloat16, False, 256, 64, 64) == "gqa"
+    # at block size 128 the FMA kernel's bf16 ring fills all but 2,880 of
+    # the 232,448 bytes (one block in situ, 16 query rows)
+    assert sched.paged_attn_smem_bytes(1, 128, LAT, 2, 16, ROPE) == 229_568
