@@ -17,36 +17,48 @@ In order, it:
      time (for bf16 gpp_matmul also the pinned FMA kernel's), the plain
      version's time, a library yardstick's time (`torch.matmul` /
      `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
-     rows) and the bound (the larger of bytes / 3.35e12 B/s and operations
-     / the peak rate of their type); it checks that the tensor-core
-     gpp_matmul repeats bit for bit, reads the issue-order records of
-     gpp_matmul (FMA: one tile's k-steps; tensor cores: CTA 0's run across
-     a tile boundary and a k-split) and gpp_matmul_grouped back (the
+     rows; `F.rms_norm`) and the bound (the larger of bytes / 3.35e12 B/s
+     and operations / the peak rate of their type); it checks that the
+     tensor-core gpp_matmul repeats bit for bit, reads the issue-order
+     records of gpp_matmul (FMA: one tile's k-steps; tensor cores: CTA 0's
+     run across a tile boundary and a k-split), gpp_matmul_grouped (the
      tensor-core route at deepseek's decode shape, across n-tiles, and at
      one n-tile an expert, across experts; the FMA route at the decode
-     shape in f32, 5 experts a CTA) and compares them with
-     `chunk_issue_schedule` for G in {1, 2, 4} (3 too on the tensor-core
-     gpp_matmul) and the planned G, checks that the card holds the CTAs an
-     SM the tensor-core plans assume, and runs one full-width deepseek MoE
-     layer in bf16 with the kernels against the plain versions (decode and
-     prefill inputs, relative error <= 1e-2); MLA paged attention runs its
-     tensor-core kernel in bf16 (split-KV, kv_splits planned, 1, 2, 8) and
-     its FMA kernel in f32, is timed in both at decode (bf16 also at
-     prefill and verify, and by CUDA events over a CUDA graph of launches),
-     and the tensor-core kernel's issue-order record and occupancy are
-     checked; bf16 MLA at 8- and 128-token blocks (the FMA kernel's bf16
-     instance) is held against the plain version at the three shapes and
-     timed at decode;
+     shape in f32, 5 experts a CTA) and both tensor-core attention kernels
+     back and compares them with `chunk_issue_schedule` for G in {1, 2, 4}
+     (3 too on the tensor-core gpp_matmul) and the planned G, checks that
+     the card holds the CTAs an SM the tensor-core plans assume, and runs
+     one full-width deepseek MoE layer in bf16 with the kernels against
+     the plain versions (decode and prefill inputs, relative error <=
+     1e-2); GQA / window paged attention runs its tensor-core kernel in
+     bf16 (split-KV, kv_splits planned, 1, 2; head_dim 64 at qwen's three
+     shapes with and without a 32-token window, 128 and 256 at decode and
+     verify), the FMA kernel's bf16 instance pinned, and its FMA kernel in
+     f32, timed at every bf16 shape (also by CUDA events over CUDA graphs
+     at kv_splits 1, 2, 4 and planned) and at f32 decode; MLA paged
+     attention runs its tensor-core kernel in bf16 (split-KV, kv_splits
+     planned, 1, 2, 8) and its FMA kernel in f32, is timed in both at
+     decode (bf16 also at prefill and verify, and by CUDA events over a
+     CUDA graph of launches); the merge kernel both share is held against
+     its plain version on each one's partials; bf16 MLA at 8- and
+     128-token blocks (the FMA kernel's bf16 instance) is held against the
+     plain version at the three shapes and timed at decode; RMSNorm runs
+     its row-invariant kernel at the paths' widths (512-2048, f32 and bf16,
+     1-32 rows, strided rows), whose rows must be the same bits at 1, 5 and
+     32 rows, at any place in the batch and at decode and verify layouts;
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
-     n-gram drafter finds drafts), bf16 with speculation off and on (tok/s,
-     launch counts, which must be > 0 for the path's kernels and 0 for the
-     others: bf16 projections on the tensor-core gpp_matmul, the FMA one
-     only for deepseek's f32 router, one a MoE layer), one profiled run
-     (device time by kernel, again only under the path's kernels, busy
-     share, the time under gpp_matmul), then float32 with the kernels and
-     with their plain versions, whose greedy streams must be equal;
+     n-gram drafter finds drafts), bf16 with speculation off and on at
+     three prompt seeds, whose greedy streams must be equal (tok/s and
+     launch counts from seed 0, which must be > 0 for the path's kernels
+     and 0 for the others: bf16 projections on the tensor-core gpp_matmul,
+     the FMA one only for deepseek's f32 router, one a MoE layer; GQA on
+     the tensor-core kernel and its merge; RMSNorm on its kernel), one
+     profiled run (device time by kernel, again only under the path's
+     kernels, busy share, the time under gpp_matmul and paged attention),
+     then float32 with the kernels and with their plain versions, whose
+     greedy streams must be equal;
   5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
      depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
@@ -403,14 +415,16 @@ def check_gpp(report):
 # kernel 2: paged attention
 # ---------------------------------------------------------------------------
 
-def pa_inputs(B, S, positions, dtype, *, nb, seed=0):
+def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H):
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     mb = MAX_LEN // BS
-    q = torch.randn(B, S, H, HD, generator=g, device="cuda").to(dt)
-    k = (torch.randn(nb, BS, H, HD, generator=g, device="cuda") * 0.5).to(dt)
-    v = (torch.randn(nb, BS, H, HD, generator=g, device="cuda") * 0.5).to(dt)
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    k = (torch.randn(nb, BS, kvh, hd, generator=g, device="cuda") * 0.5
+         ).to(dt)
+    v = (torch.randn(nb, BS, kvh, hd, generator=g, device="cuda") * 0.5
+         ).to(dt)
     perm = torch.randperm(nb - 1, generator=g, device="cuda") + 1
     tables = torch.zeros(B, mb, dtype=torch.int32, device="cuda")
     used = 0
@@ -440,35 +454,116 @@ def pa_work(positions, S, window, es):
     return nbytes, 4.0 * pairs * H * HD
 
 
-def pa_case(name, B, S, positions, dtype, *, window=None, timed=False):
+PA_CASES = [
+    ("decode", SLOTS, 1, [5, 17, 40, 100]),
+    ("prefill", 1, CHUNK, [37]),             # unaligned chunk start
+    ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90]),
+]
+
+
+def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
+            hd=HD, kvh=H):
+    """One GQA / window comparison on the card, at every ring depth: bf16
+    must launch the tensor-core kernel (kv_splits planned, 1 and 2; its
+    merge with more than one run), f32 the FMA kernel; bf16 also holds the
+    FMA kernel's bf16 instance (pinned) and the merge kernel alone against
+    their plain versions.  `timed` adds the kernel's device time (bf16: the
+    tensor-core kernel and its merge, and the FMA kernel pinned beside
+    it), the plain version's, SDPA's on gathered K/V, the bound and, on
+    the tensor-core kernel, the CUDA-event time of a graph of launches at
+    kv_splits 1, 2, 4 and planned."""
     import torch
     import torch.nn.functional as Fn
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.core.schedule import plan_paged_attn_gqa_tc_sm90
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
     nb = SLOTS * (MAX_LEN // BS) + 1
-    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb)
-    kw = dict(num_kv_heads=H, scale=1.0 / math.sqrt(HD), window=window)
+    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb, hd=hd,
+                                     kvh=kvh)
+    kw = dict(num_kv_heads=kvh, scale=1.0 / math.sqrt(hd), window=window)
     ref = paged_attn_ref(q, k, v, tables, pos, **kw)
+    route = pa.attention_route(q.dtype, False, BS, hd, hd)
+    tc = route == "gqa_tc"
+    check(tc == (dtype == "bfloat16"), f"gqa {name} {dtype}: route {route}")
+    counts = (pa.launches_tc, pa.launches, pa.launches_bf16)
     errs = []
-    for G in (None, 1, 2, 4):
-        out = paged_attention(q, k, v, tables, pos, num_bufs=G, **kw)
+
+    def run(want, **extra):
+        before = [c.n for c in counts]
+        out = pa.paged_attention(q, k, v, tables, pos, **kw, **extra)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite")
-        errs.append(float((out.float() - ref.float()).abs().max()))
+        ran = tuple(c.n - n for c, n in zip(counts, before))
+        check(ran == want, f"gqa {name} {dtype} {extra} took the wrong "
+                           f"kernel: {ran}")
+        check(tuple(out.shape) == (B, S, H, hd), f"gqa {name}: shape")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"gqa {name}: non-finite")
+        return float((out.float() - ref.float()).abs().max())
+
+    for G in (None, 1, 2, 4):
+        for ks in ((None, 1, 2) if tc else (None,)):
+            errs.append(run((1, 0, 0) if tc else (0, 1, 0), num_bufs=G,
+                            kv_splits=ks))
     err = max(errs)
     atol, _ = TOL[dtype]
-    check(err <= atol, f"paged_attention {name} {dtype}: max err {err}")
+    check(err <= atol, f"paged_attention {name} {dtype} hd {hd}: max err "
+                       f"{err}")
     row = {"case": name, "B": B, "S": S, "positions": positions,
-           "window": window, "dtype": dtype, "max_abs_err": err,
+           "window": window, "dtype": dtype, "head_dim": hd,
+           "kv_heads": kvh, "route": route, "max_abs_err": err,
            "tol": atol}
+    if tc:
+        row["fma_max_abs_err"] = run((0, 0, 1), route="gqa")
+        check(row["fma_max_abs_err"] <= atol,
+              f"gqa {name}: the FMA kernel's bf16 instance, max err "
+              f"{row['fma_max_abs_err']}")
+        plan = plan_paged_attn_gqa_tc_sm90(
+            batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
+            max_blocks=MAX_LEN // BS, head_dim=hd)
+        row["merge_max_abs_err"] = gqa_merge_case(q, k, v, tables, pos, kw,
+                                                  plan)
+        row["plan"] = {"kv_splits": plan.kv_splits, "num_bufs":
+                       plan.num_bufs, "ctas": plan.ctas,
+                       "ctas_per_sm": plan.ctas_per_sm}
+        row["ctas_per_sm"] = pa.gqa_tc_ctas_per_sm(plan)
+        check(row["ctas_per_sm"] >= plan.ctas_per_sm,
+              f"gqa {name}: the card holds {row['ctas_per_sm']} CTAs an SM, "
+              f"planned {plan.ctas_per_sm}")
     if timed:
         es = q.element_size()
         n = copies_for(2 * k.numel() * es)
-        sets = [pa_inputs(B, S, positions, dtype, nb=nb, seed=i)
-                for i in range(n)]
-        row["ms"], row["wall_ms"] = measure(
-            lambda q, k, v, t, p: paged_attention(q, k, v, t, p, **kw), sets,
-            "paged_attention_kernel")
+        sets = [pa_inputs(B, S, positions, dtype, nb=nb, seed=i, hd=hd,
+                          kvh=kvh) for i in range(n)]
+
+        def call(**extra):
+            return lambda q, k, v, t, p: pa.paged_attention(
+                q, k, v, t, p, **kw, **extra)
+
+        if tc:
+            names = (KERNEL_NAMES["paged_attention_tc"],
+                     KERNEL_NAMES["paged_attention_merge"])
+            row["ms"], row["wall_ms"] = measure(call(), sets, names)
+            row["kernel_ms"] = device_ms(call(), sets, names[0])
+            row["merge_ms"] = (device_ms(call(), sets, names[1])
+                               if plan.kv_splits > 1 else 0.0)
+            row["fma_ms"], row["fma_wall_ms"] = measure(
+                call(route="gqa"), sets, KERNEL_NAMES["paged_attention"])
+            rows_q = [(pa._q_rows(q_, kw["scale"], kvh, q_.dtype), k_, v_,
+                       t_, p_) for q_, k_, v_, t_, p_ in sets]
+            row["graph_ms_by_splits"] = {}
+            for ks in (1, 2, 4, None):
+                p_ks = plan_paged_attn_gqa_tc_sm90(
+                    batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
+                    max_blocks=MAX_LEN // BS, head_dim=hd, kv_splits=ks)
+                row["graph_ms_by_splits"][
+                    "planned" if ks is None else str(ks)] = graph_ms(
+                    lambda q2, k_, v_, t_, p_, p_ks=p_ks: pa._launch_gqa_tc(
+                        q2, k_, v_, t_, p_, p_ks, S=S, window=window),
+                    rows_q)
+            row["graph_ms"] = row["graph_ms_by_splits"]["planned"]
+        else:
+            row["ms"], row["wall_ms"] = measure(
+                call(), sets, KERNEL_NAMES["paged_attention"])
         row["plain_ms"], row["plain_wall_ms"] = measure(
             lambda q, k, v, t, p: paged_attn_ref(q, k, v, t, p, **kw), sets)
         # yardstick: SDPA over K/V gathered through the tables beforehand
@@ -488,29 +583,105 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False):
                 q, k, v, attn_mask=m, scale=kw["scale"]), lib_sets)
         nbytes, ops = pa_work(positions, S, window, es)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
-    print(f"paged_attention {name:14s} {dtype}: max_abs_err={err:.3g} "
-          f"atol={atol}" + (
-              f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms="
-              f"{row['bound_ms']:.5f} ({row['bound_by']}) "
-              f"wall_ms={row['wall_ms']:.4f}"
-              if timed else ""))
+    print(f"paged_attention {name:14s} {dtype} hd {hd} ({route}): "
+          f"max_abs_err={err:.3g} atol={atol}"
+          + (f" fma_err={row['fma_max_abs_err']:.3g} merge_err="
+             f"{row['merge_max_abs_err']:.3g}" if tc else "")
+          + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+             f"library_ms={row['library_ms']:.4f} bound_ms="
+             f"{row['bound_ms']:.5f} ({row['bound_by']}) "
+             f"wall_ms={row['wall_ms']:.4f}"
+             + (f" (kernel {row['kernel_ms']:.4f} + merge "
+                f"{row['merge_ms']:.4f}) fma_ms={row['fma_ms']:.4f} "
+                f"graph_ms by kv_splits {row['graph_ms_by_splits']}"
+                if tc else "")
+             if timed else "")
+          + (f" plan={row['plan']} ctas/SM={row['ctas_per_sm']}"
+             if tc else ""), flush=True)
     return row
 
 
+def gqa_merge_case(q, k, v, tables, pos, kw, plan):
+    """The merge kernel against its plain version on the partials the
+    tensor-core GQA kernel leaves at these inputs (as planned: kv_splits >
+    1 at every path shape); max abs error (bf16 output, f32 plain)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import mla_merge_ref
+    B, S, H_, hd = q.shape
+    kvh = kw["num_kv_heads"]
+    check(plan.kv_splits > 1, "the planned GQA call does not split")
+    q2 = pa._q_rows(q, kw["scale"], kvh, q.dtype)
+    ws = torch.empty(plan.workspace_floats(), device="cuda")
+    out = torch.empty(q2.shape, dtype=torch.bfloat16, device="cuda")
+    pa._launch_gqa_split(q2, k, v, tables, pos, plan, out, ws, S=S,
+                         window=kw["window"])
+    merged = pa.launches_merge.n
+    pa._launch_merge(ws, out, plan.units, plan.row_tiles, plan.kv_splits,
+                     hd, plan.rows)
+    check(pa.launches_merge.n == merged + 1, "the merge did not count")
+    ref = mla_merge_ref(ws, batch=B * kvh, row_tiles=plan.row_tiles,
+                        kv_splits=plan.kv_splits, latent=hd, rows=plan.rows)
+    torch.cuda.synchronize()
+    e = float((out.reshape(B * kvh, plan.rows, hd).float() - ref).abs()
+              .max())
+    check(e <= TOL["bfloat16"][0], f"gqa merge: max err {e}")
+    return e
+
+
+def gqa_issue_order(report):
+    """The tensor-core GQA kernel's issue-order record against
+    `chunk_issue_schedule`, for the first run of >= 4 live blocks at the
+    decode inputs: kv_splits 1 (lane 3's 7 live blocks in one run) and 2
+    (its first run, 4 live blocks), G in {None, 1, 2, 4}."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import chunk_issue_schedule
+    nb = SLOTS * (MAX_LEN // BS) + 1
+    q, k, v, tables, pos = pa_inputs(SLOTS, 1, [5, 17, 40, 100], "bfloat16",
+                                     nb=nb)
+    n = 0
+    for ks in (1, 2):
+        for G in (None, 1, 2, 4):
+            got, steps, g_used, C, cta = pa.issue_order_gqa(
+                q, k, v, tables, pos, num_kv_heads=H, scale=0.125,
+                num_bufs=G, kv_splits=ks)
+            check(steps == (7 if ks == 1 else 4),
+                  f"gqa issue order: {steps} steps recorded")
+            check(G is None or g_used == min(G, 8 // ks),
+                  f"gqa ring depth {g_used} != {G}")
+            check(got == chunk_issue_schedule(steps, g_used, C),
+                  f"gqa issue order differs at G={G} kv_splits={ks}")
+            n += 1
+            print(f"paged_attention_tc issue order kv_splits={ks} "
+                  f"G={g_used} (asked {G}) C={C} CTA {cta} steps={steps}: "
+                  f"{sum(len(v) for v in got.values())} chunk issues == "
+                  "chunk_issue_schedule")
+    report["paged_attention_issue_orders"] = n
+
+
 def check_paged(report):
-    cases = [
-        ("decode", SLOTS, 1, [5, 17, 40, 100]),
-        ("prefill", 1, CHUNK, [37]),             # unaligned chunk start
-        ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90]),
-    ]
+    """qwen1.5-0.5b's GQA paged attention at its three step shapes: bf16
+    (the tensor-core kernel) with and without a 32-token window, f32 (the
+    FMA kernel), all timed but f32 prefill and verify; then the
+    tensor-core plan's other head dims (128 and 256, fewer KV heads) at
+    decode and verify, and its issue order."""
     rows = []
-    for name, B, S, positions in cases:
-        for dtype in ("bfloat16", "float32"):
+    for name, B, S, positions in PA_CASES:
+        for dtype in BOTH:
             rows.append(pa_case(name, B, S, positions, dtype,
-                                timed=dtype == "bfloat16"))
+                                timed=dtype == "bfloat16"
+                                or name == "decode"))
         rows.append(pa_case(name + "+window", B, S, positions, "bfloat16",
-                            window=32))
+                            window=32, timed=True))
+    for hd, kvh in ((128, 4), (256, 8)):
+        for name, B, S, positions in PA_CASES:
+            if name != "prefill":
+                for window in (None, 32):
+                    rows.append(pa_case(
+                        f"{name}{'+window' if window else ''}", B, S,
+                        positions, "bfloat16", window=window, hd=hd,
+                        kvh=kvh))
+    gqa_issue_order(report)
     report["paged_attention"] = {"shapes": rows}
     return rows
 
@@ -837,7 +1008,7 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
            "dtype": dtype, "block_size": bs, "route": route,
            "max_abs_err": err, "tol": atol,
            "kernel": (KERNEL_NAMES["paged_attention_mla_tc"],
-                      KERNEL_NAMES["paged_attention_mla_merge"]) if tc
+                      KERNEL_NAMES["paged_attention_merge"]) if tc
            else KERNEL_NAMES["paged_attention_mla"]}
     if tc:
         row["merge_max_abs_err"] = merge_err
@@ -867,7 +1038,7 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
                 sets, KERNEL_NAMES["paged_attention_mla_tc"])
             row["merge_ms"] = device_ms(
                 lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
-                sets, KERNEL_NAMES["paged_attention_mla_merge"])
+                sets, KERNEL_NAMES["paged_attention_merge"])
             # the launches alone, on pre-scaled q rows
             row["graph_ms"] = graph_ms(
                 lambda q2, c, k, t, p: pa._launch_mla_tc(
@@ -929,9 +1100,10 @@ def mla_merge_case(q, ckv, kr, tables, pos, kw):
                       device="cuda")
     pa._launch_mla_split(pa._q_rows(q, kw["scale"], 1, q.dtype), ckv, kr,
                          tables, pos, plan, out, ws, S=S, window=None)
-    merged = pa.launches_mla_merge.n
-    pa._launch_mla_merge(ws, out, plan, DS_R)
-    check(pa.launches_mla_merge.n == merged + 1, "the merge did not count")
+    merged = pa.launches_merge.n
+    pa._launch_merge(ws, out, B * plan.row_tiles, plan.row_tiles,
+                     plan.kv_splits, DS_R, plan.rows)
+    check(pa.launches_merge.n == merged + 1, "the merge did not count")
     ref = mla_merge_ref(ws, batch=B, row_tiles=plan.row_tiles,
                         kv_splits=plan.kv_splits, latent=DS_R,
                         rows=DS_H * S)
@@ -1040,8 +1212,9 @@ def mla_merge_time(row):
                       device="cuda")
     kw = dict(batch=B, row_tiles=plan.row_tiles, kv_splits=plan.kv_splits,
               latent=DS_R, rows=DS_H * S)
-    ms, wall = measure(lambda w: pa._launch_mla_merge(w, out, plan, DS_R),
-                       [(ws,)], KERNEL_NAMES["paged_attention_mla_merge"])
+    ms, wall = measure(lambda w: pa._launch_merge(
+        w, out, B * plan.row_tiles, plan.row_tiles, plan.kv_splits, DS_R,
+        plan.rows), [(ws,)], KERNEL_NAMES["paged_attention_merge"])
     plain, plain_wall = measure(lambda w: mla_merge_ref(w, **kw), [(ws,)])
     nbytes = (live_runs * 16 * DS_R * 4 + plan.ctas * 16 * 8
               + B * DS_H * S * DS_R * 2)
@@ -1052,37 +1225,168 @@ def mla_merge_time(row):
 
 
 # ---------------------------------------------------------------------------
+# RMSNorm (a kernel of the port alone: the reference leaves it to XLA)
+# ---------------------------------------------------------------------------
+
+RMS_WIDTHS = (DS_R, D, 1536, DS_D)   # kv_norm, qwen, a q_norm, deepseek
+RMS_ROWS = (1, 4, 5, 20, 32)         # rows a step brings (decode .. prefill)
+RMS_EPS = 1e-6
+
+
+def rms_err(y, ref, dtype) -> "tuple[float, bool]":
+    """(max abs error, within tolerance): f32 1e-5 + 1e-5 x |plain| (the
+    sum's order and rsqrtf's rounding); bf16 one bf16 step of the plain
+    value (2^(floor(log2 |plain|) - 7))."""
+    import torch
+    d = (y.float() - ref.float()).abs()
+    r = ref.float().abs()
+    if dtype == "float32":
+        tol = 1e-5 + 1e-5 * r
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(r.clamp(min=2.0 ** -126)))
+                         - 7)
+    return float(d.max()), bool((d <= tol).all())
+
+
+def check_rmsnorm(report):
+    """The RMSNorm kernel against its plain version at the paths' widths,
+    1-32 rows, f32 and bf16, and its row invariance: a row's output bits
+    are the same at 1, 5 and 32 rows, at any place in the batch, laid out
+    as decode (4 lanes x 1) or verify (4 lanes x 5) steps, and as a strided
+    slice of a wider row (MLA's c_kv).  Timed at both paths' decode shape
+    (4 rows, bf16)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+    rows = []
+    for width in RMS_WIDTHS:
+        for dtype in BOTH:
+            dt = getattr(torch, dtype)
+            g = torch.Generator(device="cuda").manual_seed(11)
+            wide = (torch.randn(32, width + 64, generator=g, device="cuda")
+                    * 2).to(dt)
+            x = wide[:, :width]                # strided rows
+            xc = x.contiguous()
+            scale = (1 + 0.1 * torch.randn(width, generator=g,
+                                           device="cuda")).to(dt)
+            before = rn.launches_rmsnorm.n
+            err, ok = 0.0, True
+            for n in RMS_ROWS:
+                e, o = rms_err(rn.rmsnorm(xc[:n], scale, RMS_EPS),
+                               rmsnorm_ref(xc[:n], scale, RMS_EPS), dtype)
+                err, ok = max(err, e), ok and o
+            check(ok, f"rmsnorm width {width} {dtype}: max err {err}")
+            full = rn.rmsnorm(xc, scale, RMS_EPS)
+            perm = torch.randperm(32, generator=g, device="cuda")
+            lanes = xc[:20].reshape(4, 5, width)
+            same = {
+                "strided": torch.equal(rn.rmsnorm(x, scale, RMS_EPS), full),
+                "permuted": torch.equal(rn.rmsnorm(xc[perm], scale,
+                                                   RMS_EPS), full[perm]),
+                "alone": all(torch.equal(
+                    rn.rmsnorm(xc[i:i + 1], scale, RMS_EPS), full[i:i + 1])
+                    for i in (0, 7, 31)),
+                "five": torch.equal(rn.rmsnorm(xc[:5], scale, RMS_EPS),
+                                    full[:5]),
+                "decode_verify": torch.equal(
+                    rn.rmsnorm(lanes[:, :1].contiguous(), scale,
+                               RMS_EPS)[:, 0],
+                    rn.rmsnorm(lanes, scale, RMS_EPS)[:, 0])}
+            torch.cuda.synchronize()
+            check(all(same.values()), f"rmsnorm width {width} {dtype}: a "
+                                      f"row's bits depend on the batch "
+                                      f"{same}")
+            ran = rn.launches_rmsnorm.n - before
+            check(ran == len(RMS_ROWS) + 9, f"rmsnorm: {ran} launches")
+            row = {"width": width, "dtype": dtype, "rows": list(RMS_ROWS),
+                   "max_abs_err": err,
+                   "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step",
+                   "row_invariant": same}
+            if dtype == "bfloat16" and width in (D, DS_D):
+                row.update(rms_time(SLOTS, width))
+            rows.append(row)
+            print(f"rmsnorm width {width} {dtype}: max_abs_err={err:.3g}, "
+                  f"a row's bits the same "
+                  f"at 1 / 5 / 32 rows, permuted, strided, decode vs "
+                  f"verify: {all(same.values())}"
+                  + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                     f"library_ms={row['library_ms']} bound_ms="
+                     f"{row['bound_ms']:.5f} ({row['bound_by']}) wall_ms="
+                     f"{row['wall_ms']:.4f}" if "ms" in row else ""),
+                  flush=True)
+    report["rmsnorm"] = {"shapes": rows}
+    return rows
+
+
+def rms_time(M, d):
+    """Kernel / plain / F.rms_norm times of M rows of width d (bf16), and
+    the bound (each row read once and written once, the scale read
+    once)."""
+    import torch
+    import torch.nn.functional as Fn
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sets = [((torch.randn(M, d, generator=g, device="cuda")).bfloat16(),
+             (1 + 0.1 * torch.randn(d, generator=g, device="cuda"))
+             .bfloat16()) for _ in range(64)]
+    out = {}
+    out["ms"], out["wall_ms"] = measure(
+        lambda x, s: rn.rmsnorm(x, s, RMS_EPS), sets,
+        KERNEL_NAMES["rmsnorm"])
+    out["plain_ms"], out["plain_wall_ms"] = measure(
+        lambda x, s: rmsnorm_ref(x, s, RMS_EPS), sets)
+    lib = getattr(Fn, "rms_norm", None)
+    out["library_ms"] = None if lib is None else measure(
+        lambda x, s: lib(x, (d,), s, RMS_EPS), sets)[0]
+    out["bound_ms"], out["bound_by"] = bound((2 * M * d + d) * 2,
+                                             4.0 * M * d, "float32")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the main paths: full-width models through the serving engine
 # ---------------------------------------------------------------------------
 
-# kernel counter -> profiler kernel name
+# kernel counter -> profiler kernel name (the FMA kernels' bf16 instances
+# share their f32 names and are told apart by their launch counters)
 KERNEL_NAMES = {"gpp_matmul": "gpp_matmul_kernel",
                 "gpp_matmul_tc": "gpp_matmul_tc_kernel",
                 "gpp_matmul_grouped": "gpp_matmul_grouped_kernel",
                 "gpp_matmul_grouped_tc": "gpp_matmul_grouped_tc_kernel",
                 "paged_attention": "paged_attention_kernel",
+                "paged_attention_tc": "paged_attention_tc_kernel",
                 "paged_attention_mla": "paged_attention_mla_kernel",
                 "paged_attention_mla_tc": "paged_attention_mla_tc_kernel",
-                "paged_attention_mla_merge":
-                    "paged_attention_mla_merge_kernel"}
+                "paged_attention_merge": "paged_attention_merge_kernel",
+                "rmsnorm": "rmsnorm_kernel"}
 
 
 def counters():
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
     return {"gpp_matmul": gm.launches, "gpp_matmul_tc": gm.launches_tc,
             "gpp_matmul_grouped": gm.launches_grouped,
             "gpp_matmul_grouped_tc": gm.launches_grouped_tc,
             "paged_attention": pa.launches,
+            "paged_attention_bf16": pa.launches_bf16,
+            "paged_attention_tc": pa.launches_tc,
             "paged_attention_mla": pa.launches_mla,
             "paged_attention_mla_bf16": pa.launches_mla_bf16,
             "paged_attention_mla_tc": pa.launches_mla_tc,
-            "paged_attention_mla_merge": pa.launches_mla_merge}
+            "paged_attention_merge": pa.launches_merge,
+            "rmsnorm": rn.launches_rmsnorm}
 
 
-def random_prompts(vocab: int, requests: int = 4):
+# prompt seeds of the gated bf16 spec-on == spec-off comparison, fixed
+# before any run
+SPEC_SEEDS = (0, 1, 2)
+
+
+def random_prompts(vocab: int, requests: int = 4, seed: int = 0):
     import numpy as np
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, size=rng.integers(4, 13)).tolist()
             for _ in range(requests)]
 
@@ -1153,7 +1457,10 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     f32 kernel vs plain greedy streams (at `f32_layers` layers if set).
     Every kernel in `path_kernels` must launch in the bf16 runs and no
     other (with device time under the path's names only); every kernel in
-    `f32_kernels` must launch in the f32 kernel run."""
+    `f32_kernels` must launch in the f32 kernel run.  bf16 greedy streams
+    with speculation on must equal those with it off, at every prompt seed
+    of SPEC_SEEDS (the reference guarantees it: a token's row is the same
+    bits in a decode step and in a verify step)."""
     import torch
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
@@ -1172,13 +1479,20 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     # and the caching allocator's first blocks are not the main path's
     # cost); the measured prompts then hold each one's greedy continuation,
     # so the n-gram drafter has drafts and speculation runs verify steps
-    base = random_prompts(cfg.vocab_size)
-    first, _ = serve(cfg, params, base, speculation=False, mode="auto")
-    prompts = [p + s + p[-3:] for p, s in zip(base, first)]
-    plain, runs["bf16"] = serve(cfg, params, prompts, speculation=False,
-                                mode="auto")
-    spec, runs["bf16_spec"] = serve(cfg, params, prompts, speculation=True,
-                                    mode="auto")
+    spec_equal = {}
+    for seed in SPEC_SEEDS:
+        base = random_prompts(cfg.vocab_size, seed=seed)
+        first, _ = serve(cfg, params, base, speculation=False, mode="auto")
+        seeded = [p + s + p[-3:] for p, s in zip(base, first)]
+        off, r_off = serve(cfg, params, seeded, speculation=False,
+                           mode="auto")
+        on, r_on = serve(cfg, params, seeded, speculation=True, mode="auto")
+        spec_equal[seed] = off == on
+        print(f"{arch} bf16 greedy streams spec on == off, prompt seed "
+              f"{seed}: {off == on}", flush=True)
+        if seed == 0:
+            prompts, plain = seeded, off
+            runs["bf16"], runs["bf16_spec"] = r_off, r_on
     for key in ("bf16", "bf16_spec"):
         counts = runs[key]["launches"]
         for k, n in counts.items():
@@ -1193,7 +1507,10 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     check(runs["bf16"]["shapes"]["decode"] == 1
           and runs["bf16_spec"]["shapes"]["verify"] == 1,
           f"{arch}: the decode or the verify shape did not run")
-    print(f"{arch} bf16 greedy streams spec on == off: {plain == spec}")
+    check(all(spec_equal.values()),
+          f"{arch}: bf16 greedy streams with speculation on differ from "
+          f"those with it off at prompt seeds "
+          f"{[k for k, v in spec_equal.items() if not v]}")
     # the same bf16 run again under torch.profiler: device time by kernel,
     # over the wall time of the unprofiled run (same work, same shapes)
     again, prof = serve(cfg, params, prompts, speculation=False,
@@ -1207,11 +1524,14 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     runs["bf16"]["device_busy_s"] = busy
     runs["bf16"]["gpp_matmul_device_s"] = busy["gpp_matmul"] + \
         busy["gpp_matmul_tc"]
+    runs["bf16"]["attention_device_s"] = sum(
+        v for k, v in busy.items() if k.startswith("paged_attention"))
     runs["bf16"]["device_busy_share"] = share
     runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     runs["bf16"]["total_params"] = cfg.total_params()
     print(f"{arch} bf16 decode run device time: {busy} s; under gpp_matmul "
-          f"{runs['bf16']['gpp_matmul_device_s']:.4f} s; busy share "
+          f"{runs['bf16']['gpp_matmul_device_s']:.4f} s, paged attention "
+          f"{runs['bf16']['attention_device_s']:.4f} s; busy share "
           f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall; peak memory "
           f"{runs['bf16']['peak_mem_gb']:.1f} GB")
     del params
@@ -1235,7 +1555,7 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     del params
     torch.cuda.empty_cache()
     report.setdefault("serving", {})[arch] = runs
-    report.setdefault("bf16_spec_equal", {})[arch] = plain == spec
+    report.setdefault("bf16_spec_equal", {})[arch] = spec_equal
     return runs
 
 
@@ -1266,7 +1586,7 @@ def check_mla_block_sizes(report):
             c = info["launches"]
             check(c[mla] > 0 and all(
                 c[k] == 0 for k in ("paged_attention_mla_tc",
-                                    "paged_attention_mla_merge",
+                                    "paged_attention_merge",
                                     "paged_attention_mla",
                                     "paged_attention_mla_bf16") if k != mla),
                   f"{arch} {dtype} block {bs}: MLA launches {c}")
@@ -1320,20 +1640,23 @@ def main(argv=None) -> int:
 
     gpp_rows, gpp_err = check_gpp(report)
     pa_rows = check_paged(report)
+    rms_rows = check_rmsnorm(report)
     grouped_rows, grouped_err = check_grouped(report)
     check_moe_layer(report)
     mla_rows = check_mla(report)
     mla_bf16_rows = check_mla_blocks(report)
     qwen = check_serving(report, "qwen1.5-0.5b",
-                         ("gpp_matmul_tc", "paged_attention"),
-                         ("gpp_matmul", "paged_attention"))
+                         ("gpp_matmul_tc", "paged_attention_tc",
+                          "paged_attention_merge", "rmsnorm"),
+                         ("gpp_matmul", "paged_attention", "rmsnorm"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
                              ("gpp_matmul_tc", "gpp_matmul",
                               "gpp_matmul_grouped_tc",
                               "paged_attention_mla_tc",
-                              "paged_attention_mla_merge"),
+                              "paged_attention_merge", "rmsnorm"),
                              ("gpp_matmul", "gpp_matmul_grouped",
-                              "paged_attention_mla"), f32_layers=4)
+                              "paged_attention_mla", "rmsnorm"),
+                             f32_layers=4)
     blocks = check_mla_block_sizes(report)
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
@@ -1342,7 +1665,11 @@ def main(argv=None) -> int:
     gr = next(r for r in gpp_rows if r["proj"] == "router"
               and r["phase"] == "decode")
     p = next(r for r in pa_rows if r["case"] == "decode"
-             and r["dtype"] == "bfloat16")
+             and r["dtype"] == "bfloat16" and r["head_dim"] == HD)
+    pf = next(r for r in pa_rows if r["case"] == "decode"
+              and r["dtype"] == "float32")
+    rq = next(r for r in rms_rows if r["width"] == D
+              and r["dtype"] == "bfloat16")
     gg = next(r for r in grouped_rows if r["phase"] == "decode"
               and r["proj"] == "gate_up" and r["dtype"] == "bfloat16")
     gf = next(r for r in grouped_rows if r["phase"] == "decode"
@@ -1354,8 +1681,8 @@ def main(argv=None) -> int:
     mb8 = next(r for r in mla_bf16_rows if r["case"] == "decode"
                and r["block_size"] == 8)
     mm = mla_merge_time(m)
-    report["paged_attention_mla_merge"] = mm
-    print(f"paged_attention_mla_merge decode (kv_splits {mm['kv_splits']}):"
+    report["paged_attention_merge"] = mm
+    print(f"paged_attention_merge MLA decode (kv_splits {mm['kv_splits']}):"
           f" ms={mm['ms']:.4f} plain_ms={mm['plain_ms']:.4f} bound_ms="
           f"{mm['bound_ms']:.5f} ({mm['bound_by']}) wall_ms="
           f"{mm['wall_ms']:.4f}")
@@ -1397,15 +1724,50 @@ def main(argv=None) -> int:
          "shape": f"deepseek decode router {gr['M']}x{gr['K']}x{gr['N']} "
                   "f32",
          **{k: gr[k] for k in numbers}},
+        {"name": "paged_attention_tc", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341",
+         "kernel": "paged_attention_tc_kernel (bf16 GQA / window, split-KV "
+                   "over fixed block runs; ms includes its merge kernel's)",
+         "path": "qwen1.5-0.5b",
+         "launches": qwen["bf16"]["launches"]["paged_attention_tc"],
+         "max_abs_err": max(r["max_abs_err"] for r in pa_rows
+                            if r["route"] == "gqa_tc"),
+         "tol": "atol 2e-2 (bf16); decode / prefill / verify, window 32 or "
+                "none, head_dim 64 / 128 / 256",
+         "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
+                  f"{p['positions']} bf16",
+         "fma_ms": p["fma_ms"],
+         **{k: p[k] for k in numbers}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341",
-         "path": "qwen1.5-0.5b",
-         "launches": qwen["bf16"]["launches"]["paged_attention"],
-         "max_abs_err": max(r["max_abs_err"] for r in pa_rows),
+         "kernel": "paged_attention_kernel (f32 GQA / window, FMA)",
+         "path": "qwen1.5-0.5b in f32",
+         "launches": qwen["f32_kernel"]["launches"]["paged_attention"],
+         "max_abs_err": max(r["max_abs_err"] for r in pa_rows
+                            if r["route"] == "gqa"),
          "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
-                  f"{p['positions']} bf16",
-         **{k: p[k] for k in numbers}},
+                  f"{pf['positions']} f32",
+         **{k: pf[k] for k in numbers}},
+        {"name": "rmsnorm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "none: a kernel of the port alone (the reference's "
+                     "RMSNorm, src/repro/models/layers.py:60, is XLA's)",
+         "kernel": "rmsnorm_kernel (row-invariant: a CTA a row, threads "
+                   "from the width)",
+         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
+         "launches": qwen["bf16"]["launches"]["rmsnorm"]
+         + deepseek["bf16"]["launches"]["rmsnorm"],
+         "launches_by_path": {
+             "qwen1.5-0.5b": qwen["bf16"]["launches"]["rmsnorm"],
+             "deepseek-v2-lite-16b":
+                 deepseek["bf16"]["launches"]["rmsnorm"]},
+         "max_abs_err": max(r["max_abs_err"] for r in rms_rows),
+         "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step",
+         "shape": f"qwen decode {SLOTS}x{D} bf16 (widths 512-2048, 1-32 "
+                  "rows: --json-out)",
+         **{k: rq[k] for k in numbers}},
         {"name": "gpp_matmul_grouped", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:606",
@@ -1441,19 +1803,25 @@ def main(argv=None) -> int:
          "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
                   f"positions {m['positions']} bf16",
          **{k: m[k] for k in numbers}},
-        {"name": "paged_attention_mla_merge", "route": "cuda",
+        {"name": "paged_attention_merge", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
-                     ":173-177; the split walk's merge)",
-         "kernel": "paged_attention_mla_merge_kernel (f32 partials -> bf16)",
-         "path": "deepseek-v2-lite-16b",
-         "launches":
-             deepseek["bf16"]["launches"]["paged_attention_mla_merge"],
-         "max_abs_err": max(r["merge_max_abs_err"] for r in mla_rows
-                            if r["dtype"] == "bfloat16"),
-         "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}, "
+         "replaces": "src/repro/kernels/paged_attention.py:341 (the split "
+                     "walks' merge, for mla=True and GQA)",
+         "kernel": "paged_attention_merge_kernel (f32 partials -> bf16)",
+         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
+         "launches": qwen["bf16"]["launches"]["paged_attention_merge"]
+         + deepseek["bf16"]["launches"]["paged_attention_merge"],
+         "launches_by_path": {
+             "qwen1.5-0.5b": qwen["bf16"]["launches"]["paged_attention_merge"],
+             "deepseek-v2-lite-16b":
+                 deepseek["bf16"]["launches"]["paged_attention_merge"]},
+         "max_abs_err": max(r["merge_max_abs_err"] for r in mla_rows + pa_rows
+                            if "merge_max_abs_err" in r),
+         "shape": f"MLA decode B={SLOTS} H={DS_H} latent {DS_R}, "
                   f"{mm['kv_splits']} partials a row (alone; its time is "
-                  "also inside paged_attention_mla_tc's)",
+                  "also inside paged_attention_mla_tc's and, as "
+                  "gqa_merge_ms, paged_attention_tc's)",
+         "gqa_merge_ms": p["merge_ms"],
          **{k: mm[k] for k in numbers}},
         {"name": "paged_attention_mla", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -89,7 +89,7 @@ def launcher(lib_path: Path):
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    merge = lib.paged_attention_mla_merge_launch
+    merge = lib.paged_attention_merge_launch
     merge.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
     merge.restype = ctypes.c_int
@@ -230,7 +230,8 @@ def main(argv=None) -> int:
                                      plan.kv_splits, plan.num_bufs,
                                      plan.chunks, 0, plan.warps, -1, st)
                         if merge and not err and plan.kv_splits > 1:
-                            err = mfn(ws.data_ptr(), out.data_ptr(), B,
+                            err = mfn(ws.data_ptr(), out.data_ptr(),
+                                      B * plan.row_tiles,
                                       plan.row_tiles, plan.kv_splits, R,
                                       H * S, st)
                         if err:

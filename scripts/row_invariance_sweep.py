@@ -15,11 +15,13 @@ where they part:
      serving paths: x of 32 rows against its first 20 and its first 4 (the
      prefill, verify and decode row counts) — are the first 4 output rows
      the same bits?
-  2. the port's RMSNorm (`models.layers.rmsnorm`, a torch.mean over the
-     row) at the paths' widths on bf16 rows: 4 lanes of one row against 4
-     lanes of 5 rows (decode against verify), 200 random draws — how often
-     is a lane's first row's f32 mean, and its bf16 output, not the same
-     bits?
+  2. RMSNorm at the paths' widths on bf16 rows: 4 lanes of one row
+     against 4 lanes of 5 rows (decode against verify), 200 random draws —
+     how often is a lane's first row's f32 mean (torch.mean), its bf16
+     output from the plain version (`kernels.ref.rmsnorm_ref`, a torch.sum
+     over the row), and its bf16 output from the model's route
+     (`models.layers.rmsnorm`: the row-invariant `rmsnorm_kernel`) not the
+     same bits?
   3. the model at full width (random weights from seed 0; `--layers` of
      its depth) runs one decode step and one verify step (5 tokens a lane)
      on copies of one paged cache, the verify step's first token in each
@@ -97,13 +99,14 @@ def gpp_rows(report):
 
 def norm_rows(report, draws: int = 200):
     import torch
+    from repro_torch.kernels.ref import rmsnorm_ref
     from repro_torch.models.layers import rmsnorm
     out = []
     for width in (512, 1024, 2048):          # kv_norm, qwen, deepseek
         g = torch.Generator(device="cuda").manual_seed(12)
         p = {"scale": (1 + 0.1 * torch.randn(width, generator=g,
                                              device="cuda")).bfloat16()}
-        var_diff = out_diff = 0
+        var_diff = plain_diff = kernel_diff = 0
         for _ in range(draws):
             x = (torch.randn(4, 5, width, generator=g, device="cuda")
                  * 2).bfloat16()
@@ -111,14 +114,19 @@ def norm_rows(report, draws: int = 200):
             v5 = torch.mean(x.float() ** 2, dim=-1)[:, 0]
             v1 = torch.mean(x1.float() ** 2, dim=-1)[:, 0]
             var_diff += int((v5 != v1).sum())
-            out_diff += int((rmsnorm(p, x)[:, 0] != rmsnorm(p, x1)[:, 0])
-                            .any(-1).sum())
+            plain_diff += int((rmsnorm_ref(x, p["scale"])[:, 0]
+                               != rmsnorm_ref(x1, p["scale"])[:, 0])
+                              .any(-1).sum())
+            kernel_diff += int((rmsnorm(p, x)[:, 0] != rmsnorm(p, x1)[:, 0])
+                               .any(-1).sum())
         row = {"width": width, "rows": 4 * draws,
-               "mean_differs": var_diff, "output_differs": out_diff}
+               "mean_differs": var_diff, "plain_output_differs": plain_diff,
+               "kernel_output_differs": kernel_diff}
         out.append(row)
-        print(f"rmsnorm width {width}: of {4 * draws} lane rows, the f32 "
-              f"mean differs at 1 and 5 rows a lane in {var_diff}, the bf16 "
-              f"output in {out_diff}", flush=True)
+        print(f"rmsnorm width {width}: of {4 * draws} lane rows at 1 and 5 "
+              f"rows a lane, torch.mean's f32 mean differs in {var_diff}, "
+              f"the plain version's bf16 output in {plain_diff}, the "
+              f"kernel's (the model's route) in {kernel_diff}", flush=True)
     report["rmsnorm_rows"] = out
 
 

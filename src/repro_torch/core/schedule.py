@@ -731,3 +731,142 @@ def plan_paged_attn_mla_tc_sm90(*, batch: int, rows: int, block_size: int,
                          f"shared memory (budget {smem_budget})")
     return MlaTcPlan(batch, rows, max_blocks, block_size, row_tiles, ks, G,
                      max(1, min(G - 1, block_size)), warps, per_sm, smem)
+
+
+PA_GQA_TC_ROWS = 16           # query rows of a tile: one mma m16 tile
+PA_GQA_TC_WARPS = 4           # q.k k-steps and p.v columns split over them
+PA_GQA_TC_HEAD_DIMS = (64, 128, 256)
+PA_GQA_TC_MAX_BLOCK = 64
+PA_GQA_TC_MAX_SPLITS = 8      # runs a lane's blocks are cut into, at most
+PA_GQA_TC_MAX_CTAS_PER_SM = 4
+
+
+def gqa_tc_takes(block_size: int, head_dim: int) -> bool:
+    """Whether the tensor-core GQA / window kernel takes this pool shape:
+    head_dim 64, 128 or 256 (whole k16 steps over four warps, rows of whole
+    128-byte swizzle groups) and blocks of 16, 32, 48 or 64 tokens (whole
+    m16 / n8 tiles, at most 64 keys a ring slot)."""
+    return (head_dim in PA_GQA_TC_HEAD_DIMS and block_size % 16 == 0
+            and 16 <= block_size <= PA_GQA_TC_MAX_BLOCK)
+
+
+def gqa_tc_splits(max_blocks: int) -> int:
+    """The runs the tensor-core GQA kernel cuts a lane's logical blocks
+    into (`kv_runs`): min(MB, 8), from the table width alone, so a row
+    meets the same runs, and rounds the same bits, at decode, verify and
+    prefill whatever the batch (one block a run at qwen's MB = 8)."""
+    return max(1, min(max_blocks, PA_GQA_TC_MAX_SPLITS))
+
+
+def gqa_tc_smem_bytes(block_size: int, head_dim: int, G: int) -> int:
+    """The q tile, the G-slot ring (a slot: the block's K rows, then its V
+    rows, head_dim bf16 each) and the warps' partial logits (f32, 16 x
+    block_size each) (csrc/paged_attention.cu, gqa_tc::smem_bytes)."""
+    rb = head_dim * 2
+    return (PA_GQA_TC_ROWS * rb + G * 2 * block_size * rb
+            + PA_GQA_TC_WARPS * PA_GQA_TC_ROWS * block_size * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class GqaTcPlan:
+    """The tensor-core GQA / window paged-attention kernel (bf16): grid
+    (kv_splits, row_tiles, batch x kv_heads); CTA (s, t, b * KVH + h) owns
+    lane b's KV head h, its 16 query rows [16 t, 16 t + 16) of the rep x S
+    (head-major) and the logical blocks of run s (`run`), whose live
+    blocks stream through a num_bufs-slot ring in `chunks` chunks.  With
+    kv_splits > 1 its partial goes to a workspace of `workspace_floats`
+    f32, which the merge kernel reads."""
+
+    batch: int
+    kv_heads: int
+    rows: int
+    max_blocks: int
+    block_size: int
+    head_dim: int
+    row_tiles: int
+    kv_splits: int
+    num_bufs: int
+    chunks: int
+    ctas_per_sm: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> "tuple[int, int, int]":
+        return (self.kv_splits, self.row_tiles, self.batch * self.kv_heads)
+
+    @property
+    def units(self) -> int:
+        """(lane, KV head, row tile) units: the merge kernel's."""
+        return self.batch * self.kv_heads * self.row_tiles
+
+    @property
+    def ctas(self) -> int:
+        return self.units * self.kv_splits
+
+    def run(self, split: int) -> range:
+        return kv_runs(self.max_blocks, self.kv_splits)[split]
+
+    def cta(self, lane: int, head: int, tile: int, split: int) -> int:
+        """The kernel's linear CTA index (its issue-order record key)."""
+        return (((lane * self.kv_heads + head) * self.row_tiles + tile)
+                * self.kv_splits + split)
+
+    def workspace_floats(self) -> int:
+        if self.kv_splits == 1:
+            return 0
+        return self.ctas * PA_GQA_TC_ROWS * (self.head_dim + 2)
+
+
+def plan_paged_attn_gqa_tc_sm90(*, batch: int, kv_heads: int, rows: int,
+                                block_size: int, max_blocks: int,
+                                head_dim: int,
+                                num_bufs: "int | None" = None,
+                                kv_splits: "int | None" = None,
+                                smem_budget: int = SMEM_BUDGET_BYTES
+                                ) -> GqaTcPlan:
+    """Plan for the tensor-core GQA / window kernel (csrc/paged_attention.cu).
+
+    rows = rep x S query rows a (lane, KV head), cut into 16-row tiles.
+    The runs are `gqa_tc_splits(max_blocks)`: unlike the MLA planner's
+    (which grows its split with fewer units), the cut reads neither the
+    batch nor S, so a row's partials, and the bits of its output, are the
+    same at decode and verify.  The ring depth comes from `plan_stream`
+    (a block's K and V against its flash step) clamped to the longest run,
+    then shrinks so that ceil(CTAs / 132) CTAs (at most 4) share an SM's
+    shared memory; the depth changes no arithmetic.  A pinned num_bufs or
+    kv_splits is kept (the CTAs an SM then give way); raises when it
+    cannot fit or the kernel does not take the shape."""
+    if min(batch, kv_heads, rows, max_blocks) < 1:
+        raise ValueError(f"empty GQA attention: batch {batch}, kv_heads "
+                         f"{kv_heads}, rows {rows}, max_blocks {max_blocks}")
+    if not gqa_tc_takes(block_size, head_dim):
+        raise ValueError(f"the tensor-core GQA kernel takes head_dim "
+                         f"{PA_GQA_TC_HEAD_DIMS} and blocks of 16, 32, 48 or "
+                         f"64 tokens, got head_dim {head_dim}, block size "
+                         f"{block_size}")
+    if num_bufs is not None and num_bufs < 1:
+        raise ValueError("num_bufs >= 1")
+    row_tiles = -(-rows // PA_GQA_TC_ROWS)
+    ks = kv_splits if kv_splits is not None else gqa_tc_splits(max_blocks)
+    longest = max(len(r) for r in kv_runs(max_blocks, ks))
+    ctas = batch * kv_heads * row_tiles * ks
+    G = num_bufs if num_bufs is not None else _ring_depth(
+        block_size * head_dim * 2 * 2,
+        2.0 * PA_GQA_TC_ROWS * block_size * head_dim * 2, H100_BF16_FLOPS)
+    G = min(G, max(1, longest))        # deeper than the run idles
+
+    def smem_of(g):
+        return gqa_tc_smem_bytes(block_size, head_dim, g)
+
+    per_sm = min(PA_GQA_TC_MAX_CTAS_PER_SM, -(-ctas // H100_SMS))
+    if num_bufs is None:
+        while G > 1 and smem_of(G) > smem_budget // per_sm:
+            G -= 1
+    smem = smem_of(G)
+    per_sm = min(per_sm, smem_budget // smem)
+    if per_sm < 1:
+        raise ValueError(f"tensor-core GQA ring of {G} needs {smem} bytes of "
+                         f"shared memory (budget {smem_budget})")
+    return GqaTcPlan(batch, kv_heads, rows, max_blocks, block_size, head_dim,
+                     row_tiles, ks, G, max(1, min(G - 1, block_size)), per_sm,
+                     smem)

@@ -2,17 +2,19 @@
 //
 // Replaces repro/kernels/paged_attention.py::paged_attention (the Pallas TPU
 // kernel, pallas_call at :341, body _paged_attn_kernel :111), both its
-// GQA/window path and its `mla=True` path (:173-177).  Four kernels, three
+// GQA/window path and its `mla=True` path (:173-177).  Six kernels, five
 // C entries:
 //
 // * paged_attention_kernel / paged_attention_mla_kernel (entry
 //   paged_attention_launch): CUDA-core FMA kernels, one CTA per (lane, KV
-//   head, row split) walking all of the lane's blocks.  GQA in f32 and bf16;
-//   MLA in f32 (bf16 MLA takes the tensor-core kernel below).
+//   head, row split) walking all of the lane's blocks.  GQA in f32, and in
+//   bf16 at shapes the GQA tensor-core kernel does not take; MLA in f32,
+//   and in bf16 at block sizes the MLA tensor-core kernel does not take.
 // * paged_attention_mla_tc_kernel (entry paged_attention_mla_tc_launch)
-//   and paged_attention_mla_merge_kernel (paged_attention_mla_merge_launch):
-//   bf16 MLA on the tensor cores with the KV walk split across CTAs, and
-//   the merge of the splits' partials, after their own notes further down.
+//   and paged_attention_tc_kernel (paged_attention_tc_launch): bf16 MLA and
+//   bf16 GQA / window on the tensor cores with the KV walk split across
+//   CTAs; paged_attention_merge_kernel (paged_attention_merge_launch)
+//   merges either one's partials.  Each after its own notes further down.
 //
 // Two pools, a and b, stream through two rings.  GQA: a = K, b = V, one
 // head_dim for both.  MLA (weight-absorbed, the TPU kernel's form): a =
@@ -45,9 +47,8 @@
 // softmax step; with a few 16-row blocks per lane, as on the serving path,
 // the per-block wait and the CTA's barriers set the time, not the bytes.
 //
-// C interface (ctypes): paged_attention_launch,
-// paged_attention_mla_tc_launch and paged_attention_mla_merge_launch return
-// the launch's cudaError_t.  The kernels only read the pools.
+// C interface (ctypes): the launch entries return the launch's
+// cudaError_t.  The kernels only read the pools.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -351,13 +352,8 @@ extern "C" const char* paged_attention_error_string(int err) {
 //  4. One merged output.  With kv_splits == 1 the CTA writes the output.
 //     Otherwise each CTA writes its partial (f32 acc, m and l per row) to a
 //     workspace from the caching allocator, and a second kernel,
-//     paged_attention_mla_merge_kernel, merges each (lane, tile)'s partials
-//     over (64-column slice, unit) CTAs, a thread's loads all in flight
-//     at once: m = max m_i, w_i = exp(m_i - m) (0 for m_i = -inf), l = sum
-//     w_i l_i, out = sum w_i acc_i / max(l, 1e-30).  (A merge in the
-//     unit's last CTA, found through a device counter, was the first
-//     design: one SM then read all of a lane's partials, up to 7 x 32 KB
-//     at decode, and took half the call; PERF.md has the sweep.)
+//     paged_attention_merge_kernel (at the end of this file), merges each
+//     (lane, tile)'s partials over (64-column slice, unit) CTAs.
 // Numerics: a split rounds p to bf16 relative to its run's running max, not
 // the lane's, so the result differs from the TPU kernel's single walk at
 // bf16 rounding only (within the 2e-2 that every bf16 path shape meets
@@ -409,11 +405,6 @@ __host__ __device__ constexpr size_t smem_bytes(int bs, int row_bytes, int G,
                                                int warps) {
   return (size_t)kRows * row_bytes + (size_t)G * bs * row_bytes +
          (size_t)warps * kRows * bs * 4;
-}
-
-// the merge kernel: (m, l) pairs, weights and sums of ks partials' 16 rows
-__host__ __device__ constexpr size_t merge_smem_bytes(int kv_splits) {
-  return (size_t)kRows * (3 * kv_splits + 1) * 4;
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -711,95 +702,6 @@ __global__ void __launch_bounds__(W * 32)
   }
 }
 
-constexpr int kMergeThreads = 128;
-constexpr int kMergeCols = 64;       // latent columns a merge CTA owns
-constexpr int kMergeMaxSplits = 8;   // partials a thread loads at once
-
-// CTA (c, u) merges columns [64 c, 64 c + 64) of unit u = lane * row_tiles +
-// tile: its ks partials' 16 rows.  Thread t owns float4 column t % 16 of the
-// slice at rows t / 16 and t / 16 + 8.  Its acc loads (8 partials at a time)
-// go out before the (m, l) pairs arrive, unpredicated, so the whole merge
-// waits about one memory round trip; an empty run's acc was never written,
-// so a weight of 0 selects 0 instead of multiplying (w * NaN is NaN).
-__global__ void __launch_bounds__(kMergeThreads)
-    paged_attention_mla_merge_kernel(const float* ws, bf16* out, int units,
-                                     int row_tiles, int ks, int da, int rS) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* ml = reinterpret_cast<float2*>(smem);         // [ks][16]
-  float* wt = reinterpret_cast<float*>(ml + ks * kRows);  // [ks][16]
-  float* lsum = wt + ks * kRows;                          // [16]
-  const int u = blockIdx.y;
-  const float* wacc = ws + (size_t)u * ks * kRows * da;
-  const float2* wml = reinterpret_cast<const float2*>(
-                          ws + (size_t)units * ks * kRows * da) +
-                      (size_t)u * ks * kRows;
-  const int col = blockIdx.x * kMergeCols + (threadIdx.x % 16) * 4;
-  const int rt = threadIdx.x / 16;      // rows rt and rt + 8
-  float4 v[2][kMergeMaxSplits];
-  auto load = [&](int i0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int k = 0; k < kMergeMaxSplits; ++k) {
-        v[h][k] = col < da && i0 + k < ks
-                      ? *reinterpret_cast<const float4*>(
-                            wacc + ((size_t)(i0 + k) * kRows + rt + 8 * h) *
-                                       da + col)
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-  };
-  load(0);
-  for (int i = threadIdx.x; i < ks * kRows; i += kMergeThreads) {
-    ml[i] = wml[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    const int r = threadIdx.x;
-    float m = -INFINITY;
-    for (int i = 0; i < ks; ++i) m = fmaxf(m, ml[i * kRows + r].x);
-    float l = 0.0f;
-    for (int i = 0; i < ks; ++i) {
-      const float mi = ml[i * kRows + r].x;
-      const float w = isinf(mi) ? 0.0f : expf(mi - m);
-      wt[i * kRows + r] = w;
-      l += w * ml[i * kRows + r].y;
-    }
-    lsum[r] = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  if (col >= da) return;
-  float4 o[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f),
-                 make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
-  for (int i0 = 0; i0 < ks; i0 += kMergeMaxSplits) {
-    if (i0 > 0) load(i0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int k = 0; k < kMergeMaxSplits; ++k) {
-        const float w =
-            i0 + k < ks ? wt[(i0 + k) * kRows + rt + 8 * h] : 0.0f;
-        if (w != 0.0f) {
-          o[h].x += w * v[h][k].x;
-          o[h].y += w * v[h][k].y;
-          o[h].z += w * v[h][k].z;
-          o[h].w += w * v[h][k].w;
-        }
-      }
-  }
-  const int b = u / row_tiles, r0 = (u % row_tiles) * kRows;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = rt + 8 * h;
-    if (r0 + r >= rS) continue;
-    const float l = lsum[r];
-    bf16* dst = out + ((size_t)b * rS + r0 + r) * da + col;
-    *reinterpret_cast<__nv_bfloat162*>(dst) =
-        __floats2bfloat162_rn(o[h].x / l, o[h].y / l);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
-        __floats2bfloat162_rn(o[h].z / l, o[h].w / l);
-  }
-}
-
 // launch (grid from the args) or, with `ctas` non-null, ask how many CTAs
 // an SM holds; raises the shared-memory limit and asks for the largest
 // carveout once per instantiation
@@ -863,7 +765,7 @@ MlaTcArgs args_of(int bs, int da, int db, int G) {
 // da + db) pre-scaled bf16; c_kv (nb, bs, da) and k_rope (nb, bs, db) bf16;
 // out (B, rS, da) bf16, written here only with kv_splits == 1.  With
 // kv_splits > 1, ws receives B * row_tiles * kv_splits * 16 * (da + 2)
-// floats of partials for paged_attention_mla_merge_launch.  rec / rec_cta:
+// floats of partials for paged_attention_merge_launch.  rec / rec_cta:
 // the issue-order record (rec may be null).
 extern "C" int paged_attention_mla_tc_launch(
     const void* q, const void* c_kv, const void* k_rope, const int* tables,
@@ -891,35 +793,6 @@ extern "C" int paged_attention_mla_tc_launch(
                               static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// Merge the partials paged_attention_mla_tc_launch left in ws (kv_splits >
-// 1) into out (B, rS, da) bf16: one CTA per (64-column slice, lane x row
-// tile).
-extern "C" int paged_attention_mla_merge_launch(const float* ws, void* out,
-                                                int B, int row_tiles,
-                                                int kv_splits, int da,
-                                                int rS, void* stream) {
-  using namespace mla_tc;
-  if (ws == nullptr || B < 1 || row_tiles < 1 || kv_splits < 2 || da < 8 ||
-      da % 8 != 0 || rS < 1 || row_tiles * kRows < rS) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = merge_smem_bytes(kv_splits);
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_mla_merge_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  const dim3 grid((da + kMergeCols - 1) / kMergeCols, B * row_tiles);
-  paged_attention_mla_merge_kernel<<<grid, kMergeThreads, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      ws, static_cast<__nv_bfloat16*>(out), B * row_tiles, row_tiles,
-      kv_splits, da, rS);
-  return (int)cudaGetLastError();
-}
-
 // CTAs of the tensor-core MLA kernel one SM holds at this block size,
 // widths, ring and warps (the card's answer, after the launch's own
 // attribute settings); < 0 is minus a cudaError_t.
@@ -929,4 +802,632 @@ extern "C" int paged_attention_mla_tc_ctas_per_sm(int bs, int da, int db,
   int ctas = 0;
   const cudaError_t e = mla_tc::run_any(a, 0, warps, nullptr, &ctas);
   return e == cudaSuccess ? ctas : -(int)e;
+}
+
+// ---------------------------------------------------------------------------
+// paged_attention_tc_kernel: bf16 GQA / sliding window on the tensor cores,
+// split-KV.
+//
+// Replaces, for bf16 q and pools at head_dim 64, 128 or 256 and blocks of
+// 16-64 tokens, the TPU kernel repro/kernels/paged_attention.py::
+// paged_attention (pallas_call :341, body _paged_attn_kernel :111) on its
+// GQA / window path, which paged_attention_kernel above also ports (f32,
+// and the bf16 shapes this one does not take).  The same function:
+// logits = q . k in f32 (q pre-scaled in f32 and cast to bf16 by the
+// wrapper), -inf where kpos > qpos (qpos = pos + row % S) or the key is
+// behind the window, online softmax with f32 m / l / acc, p cast to bf16
+// before p . v, out = acc / max(l, 1e-30) in bf16.
+//
+// What bounds it on the H100: latency, not bytes.  A decode call reads
+// ~0.13 MB of K and V at qwen1.5-0.5b's widths (0.04 us at 3.35 TB/s); the
+// FMA kernel above spends 40+ us on one CTA per (lane, KV head), 64 CTAs
+// for 132 SMs, each walking the lane's blocks in order with three barriers
+// a block and a handful of threads in 16- to 64-long serial FMA chains.
+// What the design does about it:
+//  1. Split-KV over fixed runs.  A CTA owns (lane, KV head, 16-row tile of
+//     the rep x S rows, run of logical blocks); rows are head-major (row =
+//     r * S + s), as the wrapper lays q out, so at qwen's decode (rep 1) a
+//     tile holds one live row; rows past rS are neither read nor written.
+//     The runs cut [0, MB) at fixed block boundaries,
+//     [s * MB / ks, (s + 1) * MB / ks) with ks = min(MB, 8)
+//     (core.schedule.gqa_tc_splits): the cut reads neither B nor S, so a
+//     row meets the same runs at decode and at verify and its output is
+//     the same bits (a block visible to a later row of the lane but not to
+//     this one is a -inf step for it: corr = 1, p = 0, exactly nothing).
+//     Each CTA finds its run's live blocks on the device with the live
+//     predicate of the kernels above (an interval of blocks, window expiry
+//     included) and walks only those; a run with no live block leaves an
+//     empty partial (m = -inf, l = 0).
+//  2. The GPP ring inside a run: the run's live blocks are the steps of
+//     ring.cuh's chunk schedule (G slots, C = G - 1 chunks of a block's
+//     rows), G in {1, 2, >= 3} pinnable.  A slot holds the block's K rows
+//     of this head, then its V rows; they come in by 16-byte cp.async from
+//     rows strided KVH x head_dim in the pool.
+//  3. mma.sync m16n8k16 bf16 -> f32 (mma.cuh).  q . k^T: A = the 16-row q
+//     tile (loaded once, beside the ring), B = the block's K rows, which
+//     are the .col operand as stored (ldmatrix); the head_dim / 16 k-steps
+//     are split over the four warps and their partial logits summed in
+//     warp order through shared memory.  Softmax: every warp recomputes it
+//     for the 16 rows straight into the A fragment of p . v (m and l in
+//     registers).  p . v: B = the V rows (ldmatrix.trans); each warp owns
+//     head_dim / 4 output columns.  Rows are XOR-swizzled in 16-byte
+//     chunks (head_dim x 2 bytes: whole 128-byte groups, no padding).
+//  4. One merged output.  With one run (ks == 1) the CTA writes the
+//     output.  Otherwise each CTA writes its partial (f32 acc of its live
+//     rows, m and l) to a workspace from the caching allocator and
+//     paged_attention_merge_kernel (below, shared with the MLA kernel)
+//     merges the runs of each (lane, KV head, tile) unit.
+// Every choice is fixed by head_dim and MB alone (warps, k-step split,
+// runs), never by B or S: a row's bits depend on the row, its lane's
+// cache and its position only.  Numerics: a run rounds p to bf16 relative
+// to its own running max, not the lane's, so the result differs from the
+// TPU kernel's single walk at bf16 rounding only (within the 2e-2 every
+// bf16 path shape meets against kernels.ref.paged_attn_ref).
+//
+// With `rec` non-null, CTA `rec_cta` (linear index ((lane * KVH + head) *
+// row_tiles + tile) * kv_splits + split) writes one (step, chunk,
+// issue_step) triple per chunk it issues over its run's live blocks.
+namespace gqa_tc {
+namespace {
+
+using gpp_mma::ldmatrix_x4;
+using gpp_mma::ldmatrix_x4_trans;
+using gpp_mma::mma_bf16;
+using gpp_mma::swizzle;
+using mla_tc::pack_bf16;
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 16;          // query rows of a tile: one m16 tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxBlock = 64;      // tokens of a KV block
+
+struct GqaTcArgs {
+  const bf16* q;         // (B, KVH, rS, hd), pre-scaled
+  const bf16* k;         // (nb, bs, KVH, hd)
+  const bf16* v;         // (nb, bs, KVH, hd)
+  const int* tables;     // (B, MB); 0 = the null block
+  const int* positions;  // (B,): first query position of each lane
+  bf16* out;             // (B, KVH, rS, hd)
+  float* ws;             // partials (kv_splits > 1): acc, then (m, l)
+  int* rec;              // issue-order record or null
+  int rec_cta;
+  int MB, bs, kvh, hd, S, rS;
+  int row_tiles, kv_splits, G, C, window;
+};
+
+// q tile + G-slot ring (K rows, then V rows) + the warps' partial logits
+__host__ __device__ constexpr size_t smem_bytes(int bs, int hd, int G) {
+  return (size_t)kRows * hd * 2 + (size_t)G * 2 * bs * hd * 2 +
+         (size_t)kWarps * kRows * bs * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_tc_kernel(GqaTcArgs a) {
+  constexpr int RB = HD * 2;           // bytes of a q / K / V row
+  constexpr int NCH = RB / 16;         // its 16-byte chunks
+  constexpr int KSTEPS = HD / 16;      // k16 steps of q . k^T
+  constexpr int NI = HD / kWarps / 8;  // output n8 tiles a warp owns
+  constexpr int kMaxKT = kMaxBlock / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  char* qs = reinterpret_cast<char*>(smem);
+  char* ring = qs + kRows * RB;
+  const size_t slot = (size_t)2 * a.bs * RB;
+  float* lg = reinterpret_cast<float*>(ring + a.G * slot);
+
+  const int split = blockIdx.x, tile = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.kvh, head = bh % a.kvh;
+  const int r0 = tile * kRows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int* trow = a.tables + (size_t)b * a.MB;
+  const int j_lo = (int)((long long)split * a.MB / a.kv_splits);
+  const int j_hi = (int)((long long)(split + 1) * a.MB / a.kv_splits);
+
+  // the q tile and the run's table entries are wanted whatever the
+  // position says: start both before the position arrives.  The q copies
+  // join step 0's commit group (the ring's first wait covers them).
+  for (int i = threadIdx.x; i < kRows * NCH; i += kThreads) {
+    const int r = i / NCH, j = i % NCH;
+    const bool ok = r0 + r < a.rS;
+    const bf16* src = a.q + ((size_t)bh * a.rS + r0 + r) * HD + j * 8;
+    gpp::cp_async<16>(qs + r * RB + swizzle(r, j * 16), ok ? src : a.q, ok);
+  }
+  if (threadIdx.x < j_hi - j_lo) {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(trow + j_lo +
+                                                     threadIdx.x));
+  }
+  const int pos = a.positions[b];
+
+  // logical block j overlaps the lane's visible keys (pos - window,
+  // pos + S - 1]: the live predicate of the kernels above.  It holds on an
+  // interval of j, so the run's live blocks are [j0, j0 + n).
+  auto live = [&](int j) {
+    bool ok = j * a.bs <= pos + (a.S - 1);
+    if (a.window > 0) ok = ok && (j + 1) * a.bs - 1 > pos - a.window;
+    return ok;
+  };
+  int j0 = j_lo, n = 0;
+  for (int j = j_lo; j < j_hi; ++j) {
+    if (live(j)) {
+      if (n == 0) j0 = j;
+      ++n;
+    }
+  }
+
+  const int cta = (bh * a.row_tiles + tile) * a.kv_splits + split;
+  const bool recorder = a.rec != nullptr && cta == a.rec_cta &&
+                        threadIdx.x == 0;
+  int rec_n = 0;
+  int cur = 0;                      // the step now issuing
+
+  // rows [lo, hi) of chunk c of step `step`'s block: its K rows and its V
+  // rows of this head
+  auto issue = [&](int step, int c) {
+    int lo, hi;
+    gpp::chunk_bounds(a.bs, a.C, c, &lo, &hi);
+    char* kd = ring + (size_t)(step % a.G) * slot;
+    char* vd = kd + (size_t)a.bs * RB;
+    const size_t row0 = (size_t)trow[j0 + step] * a.bs;
+    for (int i = threadIdx.x; i < (hi - lo) * NCH; i += kThreads) {
+      const int t = lo + i / NCH, j = i % NCH;
+      const size_t src = ((row0 + t) * a.kvh + head) * HD + j * 8;
+      const int dst = t * RB + swizzle(t, j * 16);
+      gpp::cp_async<16>(kd + dst, a.k + src, true);
+      gpp::cp_async<16>(vd + dst, a.v + src, true);
+    }
+    if (recorder) {
+      a.rec[3 * rec_n + 0] = step;
+      a.rec[3 * rec_n + 1] = c;
+      a.rec[3 * rec_n + 2] = cur;
+      ++rec_n;
+    }
+  };
+
+  const int wn0 = warp * (HD / kWarps);  // this warp's first output column
+  const int nt = a.bs / 8;               // key n8 tiles of a block
+  int qpos[2];                           // rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = pos + (r0 + g + 8 * h) % a.S;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.0f, 0.0f};
+  float acc[NI][4];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  if (n == 0) {  // no block to walk: let the q copies land, leave
+    gpp::cp_async_commit();
+    gpp::cp_async_wait<0>();
+  } else {
+    const unsigned qb = gpp::smem_u32(qs);
+    for (int s = 0; s < n; ++s) {
+      cur = s;
+      gpp::run_chunk_schedule(s, n, a.G, a.C, issue);
+      const unsigned kb = gpp::smem_u32(ring + (size_t)(s % a.G) * slot);
+      const unsigned vb = kb + a.bs * RB;
+
+      // q . k^T over this warp's k-steps
+      float lgf[kMaxKT][4];
+#pragma unroll
+      for (int i = 0; i < kMaxKT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) lgf[i][e] = 0.0f;
+#pragma unroll
+      for (int kk = warp; kk < KSTEPS; kk += kWarps) {
+        unsigned af[4];
+        {  // lanes 0-15 rows 0-15 at k 0-7, lanes 16-31 the same at k 8-15
+          const int r = lane & 15;
+          ldmatrix_x4(af, qb + r * RB + swizzle(r, (kk * 16 + (lane >> 4) * 8)
+                                                       * 2));
+        }
+#pragma unroll
+        for (int jt = 0; jt < kMaxKT; jt += 2) {
+          if (jt < nt) {
+            // matrices (keys 0-7 | 8-15 of the pair) x (k 0-7 | 8-15):
+            // lane l addresses key (l & 7) + 8 (l >> 4) at k 8 ((l >> 3) & 1)
+            const int t = jt * 8 + (lane & 7) + ((lane >> 4) << 3);
+            const int k = kk * 16 + ((lane >> 3) & 1) * 8;
+            unsigned bfr[4];
+            ldmatrix_x4(bfr, kb + t * RB + swizzle(t, k * 2));
+            mma_bf16(lgf[jt], af, bfr[0], bfr[1]);
+            mma_bf16(lgf[jt + 1], af, bfr[2], bfr[3]);
+          }
+        }
+      }
+      {
+        float* lw = lg + warp * kRows * a.bs;
+#pragma unroll
+        for (int jt = 0; jt < kMaxKT; ++jt) {
+          if (jt < nt) {
+            const int col = jt * 8 + 2 * q4;
+            *reinterpret_cast<float2*>(lw + g * a.bs + col) =
+                make_float2(lgf[jt][0], lgf[jt][1]);
+            *reinterpret_cast<float2*>(lw + (g + 8) * a.bs + col) =
+                make_float2(lgf[jt][2], lgf[jt][3]);
+          }
+        }
+      }
+      __syncthreads();
+
+      // softmax step, every warp for all 16 rows, in the C-fragment layout
+      // (rows g / g + 8, keys jt * 8 + 2 q4 + {0, 1}); the quad of lanes
+      // 4g..4g+3 holds a whole row
+      const int kbase = (j0 + s) * a.bs;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int jt = 0; jt < kMaxKT; ++jt) {
+        if (jt < nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, col = jt * 8 + 2 * q4 + (e & 1);
+            float v = 0.0f;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) {
+              v += lg[(w * kRows + g + 8 * h) * a.bs + col];
+            }
+            const int kpos = kbase + col;
+            bool valid = kpos <= qpos[h];
+            if (a.window > 0) valid = valid && kpos > qpos[h] - a.window;
+            lgf[jt][e] = valid ? v : -INFINITY;
+            mx[h] = fmaxf(mx[h], lgf[jt][e]);
+          }
+        }
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f}, m_safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        m_safe[h] = isinf(m_new) ? 0.0f : m_new;
+        corr[h] = isinf(m_r[h]) ? 0.0f : expf(m_r[h] - m_safe[h]);
+        m_r[h] = m_new;
+      }
+#pragma unroll
+      for (int jt = 0; jt < kMaxKT; ++jt) {
+        if (jt < nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            lgf[jt][e] = expf(lgf[jt][e] - m_safe[e >> 1]);
+            sum[e >> 1] += lgf[jt][e];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_r[h] = l_r[h] * corr[h] + sum[h];
+      }
+
+      // acc = acc * corr + bf16(p) . v over this warp's output columns
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        acc[i][0] *= corr[0];
+        acc[i][1] *= corr[0];
+        acc[i][2] *= corr[1];
+        acc[i][3] *= corr[1];
+      }
+#pragma unroll
+      for (int kt = 0; kt < kMaxKT / 2; ++kt) {
+        if (2 * kt < nt) {
+          // A fragment of keys 16 kt .. 16 kt + 15 from the C fragments of
+          // key tiles 2 kt and 2 kt + 1
+          const unsigned pa[4] = {
+              pack_bf16(lgf[2 * kt][0], lgf[2 * kt][1]),
+              pack_bf16(lgf[2 * kt][2], lgf[2 * kt][3]),
+              pack_bf16(lgf[2 * kt + 1][0], lgf[2 * kt + 1][1]),
+              pack_bf16(lgf[2 * kt + 1][2], lgf[2 * kt + 1][3])};
+          const int k = kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int i = 0; i < NI; i += 2) {
+            // matrices (keys 0-7 | 8-15) x (columns 0-7 | 8-15 of the pair)
+            const int col = wn0 + i * 8 + (lane >> 4) * 8;
+            unsigned t4[4];
+            ldmatrix_x4_trans(t4, vb + k * RB + swizzle(k, col * 2));
+            mma_bf16(acc[i], pa, t4[0], t4[1]);
+            mma_bf16(acc[i + 1], pa, t4[2], t4[3]);
+          }
+        }
+      }
+      __syncthreads();  // the ring slot and the partial logits are free
+    }
+  }
+
+  if (a.kv_splits == 1) {  // the CTA's run is the whole lane
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int col = wn0 + i * 8 + 2 * q4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + g + 8 * h;
+        if (row >= a.rS) continue;
+        const float l = fmaxf(l_r[h], 1e-30f);
+        *reinterpret_cast<__nv_bfloat162*>(
+            a.out + ((size_t)bh * a.rS + row) * HD + col) =
+            __floats2bfloat162_rn(acc[i][2 * h] / l, acc[i][2 * h + 1] / l);
+      }
+    }
+    return;
+  }
+
+  // the partial: acc rows of the (lane, head, tile) unit's split, then
+  // (m, l); an empty run leaves m = -inf, l = 0 and no acc (the merge
+  // skips it), and rows past rS no acc (the merge does not read them)
+  const size_t prow = (((size_t)bh * a.row_tiles + tile) * a.kv_splits +
+                       split) * kRows;
+  if (n > 0) {
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int col = wn0 + i * 8 + 2 * q4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r0 + g + 8 * h >= a.rS) continue;
+        *reinterpret_cast<float2*>(a.ws + (prow + g + 8 * h) * HD + col) =
+            make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+      }
+    }
+  }
+  if (warp == 0 && q4 == 0) {
+    float2* ml = reinterpret_cast<float2*>(
+        a.ws + (size_t)gridDim.z * a.row_tiles * a.kv_splits * kRows * HD);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ml[prow + g + 8 * h] = make_float2(m_r[h],
+                                                                   l_r[h]);
+  }
+}
+
+// launch (grid from the args) or, with `ctas` non-null, ask how many CTAs
+// an SM holds; raises the shared-memory limit and asks for the largest
+// carveout once per instantiation
+template <int HD>
+cudaError_t run(const GqaTcArgs& a, int B, cudaStream_t stream, int* ctas) {
+  const size_t smem = smem_bytes(a.bs, HD, a.G);
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_tc_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(paged_attention_tc_kernel<HD>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  if (ctas != nullptr) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, paged_attention_tc_kernel<HD>, kThreads, smem);
+  }
+  const dim3 grid(a.kv_splits, a.row_tiles, B * a.kvh);
+  paged_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t run_any(const GqaTcArgs& a, int B, cudaStream_t stream,
+                    int* ctas) {
+  if (a.bs < 16 || a.bs > kMaxBlock || a.bs % 16 != 0 || a.G < 1 ||
+      a.C < 1 || a.C > a.bs || a.MB < 1 || a.kv_splits < 1 ||
+      a.kv_splits > a.MB || a.kvh < 1 ||
+      (ctas == nullptr &&
+       (B < 1 || a.S < 1 || a.rS < 1 || a.row_tiles * kRows < a.rS ||
+        (a.kv_splits > 1 && a.ws == nullptr)))) {
+    return cudaErrorInvalidValue;
+  }
+  switch (a.hd) {
+    case 64:
+      return run<64>(a, B, stream, ctas);
+    case 128:
+      return run<128>(a, B, stream, ctas);
+    case 256:
+      return run<256>(a, B, stream, ctas);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+GqaTcArgs args_of(int bs, int kvh, int hd, int G) {
+  GqaTcArgs a{};
+  a.bs = bs;
+  a.kvh = kvh;
+  a.hd = hd;
+  a.G = G;
+  a.C = 1;
+  a.MB = 1;
+  a.kv_splits = 1;
+  return a;
+}
+
+}  // namespace
+}  // namespace gqa_tc
+
+// ---------------------------------------------------------------------------
+// paged_attention_merge_kernel: the merge of split-KV partials, shared by
+// the two tensor-core kernels above (bf16 MLA: a unit is (lane, row tile),
+// da the latent width; bf16 GQA: a unit is (lane, KV head, row tile), da
+// the head_dim).  The workspace holds, per unit and split, 16 rows of f32
+// acc (da wide), then every (unit, split)'s 16 (m, l) pairs.
+//   m = max m_i, w_i = exp(m_i - m) (0 for m_i = -inf),
+//   l = sum w_i l_i, out = sum w_i acc_i / max(l, 1e-30), in split order.
+// (A merge in the unit's last CTA, found through a device counter, was the
+// MLA kernel's first design: one SM then read all of a lane's partials, up
+// to 7 x 32 KB at decode, and took half the call; PERF.md has the sweep.)
+namespace merge {
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 16;
+constexpr int kMergeThreads = 128;
+constexpr int kMergeCols = 64;       // columns a merge CTA owns
+constexpr int kMergeMaxSplits = 8;   // partials a thread loads at once
+
+// (m, l) pairs, weights and sums of ks partials' 16 rows
+__host__ __device__ constexpr size_t merge_smem_bytes(int kv_splits) {
+  return (size_t)kRows * (3 * kv_splits + 1) * 4;
+}
+
+// CTA (c, u) merges columns [64 c, 64 c + 64) of unit u: its ks partials'
+// 16 rows, of which rows past rS are neither read nor written.  Thread t
+// owns float4 column t % 16 of the slice at rows t / 16 and t / 16 + 8.
+// Its acc loads (8 partials at a time) go out before the (m, l) pairs
+// arrive, unpredicated by the weights, so the whole merge waits about one
+// memory round trip; an empty run's acc was never written, so a weight of
+// 0 selects 0 instead of multiplying (w * NaN is NaN).
+__global__ void __launch_bounds__(kMergeThreads)
+    paged_attention_merge_kernel(const float* ws, bf16* out, int units,
+                                 int row_tiles, int ks, int da, int rS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* ml = reinterpret_cast<float2*>(smem);         // [ks][16]
+  float* wt = reinterpret_cast<float*>(ml + ks * kRows);  // [ks][16]
+  float* lsum = wt + ks * kRows;                          // [16]
+  const int u = blockIdx.y;
+  const float* wacc = ws + (size_t)u * ks * kRows * da;
+  const float2* wml = reinterpret_cast<const float2*>(
+                          ws + (size_t)units * ks * kRows * da) +
+                      (size_t)u * ks * kRows;
+  const int col = blockIdx.x * kMergeCols + (threadIdx.x % 16) * 4;
+  const int rt = threadIdx.x / 16;      // rows rt and rt + 8
+  const int b = u / row_tiles, r0 = (u % row_tiles) * kRows;
+  float4 v[2][kMergeMaxSplits];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < kMergeMaxSplits; ++k) {
+        v[h][k] = col < da && i0 + k < ks && r0 + rt + 8 * h < rS
+                      ? *reinterpret_cast<const float4*>(
+                            wacc + ((size_t)(i0 + k) * kRows + rt + 8 * h) *
+                                       da + col)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+  };
+  load(0);
+  for (int i = threadIdx.x; i < ks * kRows; i += kMergeThreads) {
+    ml[i] = wml[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {
+    const int r = threadIdx.x;
+    float m = -INFINITY;
+    for (int i = 0; i < ks; ++i) m = fmaxf(m, ml[i * kRows + r].x);
+    float l = 0.0f;
+    for (int i = 0; i < ks; ++i) {
+      const float mi = ml[i * kRows + r].x;
+      const float w = isinf(mi) ? 0.0f : expf(mi - m);
+      wt[i * kRows + r] = w;
+      l += w * ml[i * kRows + r].y;
+    }
+    lsum[r] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  if (col >= da) return;
+  float4 o[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                 make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+  for (int i0 = 0; i0 < ks; i0 += kMergeMaxSplits) {
+    if (i0 > 0) load(i0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int k = 0; k < kMergeMaxSplits; ++k) {
+        const float w =
+            i0 + k < ks ? wt[(i0 + k) * kRows + rt + 8 * h] : 0.0f;
+        if (w != 0.0f) {
+          o[h].x += w * v[h][k].x;
+          o[h].y += w * v[h][k].y;
+          o[h].z += w * v[h][k].z;
+          o[h].w += w * v[h][k].w;
+        }
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rt + 8 * h;
+    if (r0 + r >= rS) continue;
+    const float l = lsum[r];
+    bf16* dst = out + ((size_t)b * rS + r0 + r) * da + col;
+    *reinterpret_cast<__nv_bfloat162*>(dst) =
+        __floats2bfloat162_rn(o[h].x / l, o[h].y / l);
+    *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+        __floats2bfloat162_rn(o[h].z / l, o[h].w / l);
+  }
+}
+
+}  // namespace
+}  // namespace merge
+
+// bf16 GQA / window on the tensor cores (the kernel's notes above).  q:
+// (B, KVH, rS, hd) pre-scaled bf16; k / v pools (nb, bs, KVH, hd) bf16; out
+// (B, KVH, rS, hd) bf16, written here only with kv_splits == 1.  With
+// kv_splits > 1, ws receives B * KVH * row_tiles * kv_splits * 16 * (hd +
+// 2) floats of partials for paged_attention_merge_launch.  rec / rec_cta:
+// the issue-order record (rec may be null).
+extern "C" int paged_attention_tc_launch(
+    const void* q, const void* k, const void* v, const int* tables,
+    const int* positions, void* out, float* ws, int* rec, int B, int MB,
+    int bs, int kvh, int hd, int S, int rS, int row_tiles, int kv_splits,
+    int G, int C, int window, int rec_cta, void* stream) {
+  gqa_tc::GqaTcArgs a = gqa_tc::args_of(bs, kvh, hd, G);
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.tables = tables;
+  a.positions = positions;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.ws = ws;
+  a.rec = rec;
+  a.rec_cta = rec_cta;
+  a.MB = MB;
+  a.kv_splits = kv_splits;
+  a.S = S;
+  a.rS = rS;
+  a.row_tiles = row_tiles;
+  a.C = C;
+  a.window = window;
+  return (int)gqa_tc::run_any(a, B, static_cast<cudaStream_t>(stream),
+                              nullptr);
+}
+
+// CTAs of the tensor-core GQA kernel one SM holds at this block size, head
+// dim and ring (the card's answer, after the launch's own attribute
+// settings); < 0 is minus a cudaError_t.
+extern "C" int paged_attention_tc_ctas_per_sm(int bs, int hd, int G) {
+  const gqa_tc::GqaTcArgs a = gqa_tc::args_of(bs, 1, hd, G);
+  int ctas = 0;
+  const cudaError_t e = gqa_tc::run_any(a, 0, nullptr, &ctas);
+  return e == cudaSuccess ? ctas : -(int)e;
+}
+
+// Merge the partials a tensor-core kernel left in ws (kv_splits > 1) into
+// out (units / row_tiles, rS, da) bf16: one CTA per (64-column slice,
+// unit).  `units` = lanes x row tiles (MLA), lanes x KV heads x row tiles
+// (GQA).
+extern "C" int paged_attention_merge_launch(const float* ws, void* out,
+                                            int units, int row_tiles,
+                                            int kv_splits, int da, int rS,
+                                            void* stream) {
+  using namespace merge;
+  if (ws == nullptr || units < 1 || row_tiles < 1 || units % row_tiles ||
+      kv_splits < 2 || da < 8 || da % 8 != 0 || rS < 1 ||
+      row_tiles * kRows < rS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = merge_smem_bytes(kv_splits);
+  static size_t smem_set = 0;
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_merge_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  const dim3 grid((da + kMergeCols - 1) / kMergeCols, units);
+  paged_attention_merge_kernel<<<grid, kMergeThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      ws, static_cast<__nv_bfloat16*>(out), units, row_tiles, kv_splits, da,
+      rS);
+  return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
-"""Model-facing entry points for the kernels: `dense`, `dense_grouped` and
-`paged_attn`.
+"""Model-facing entry points for the kernels: `dense`, `dense_grouped`,
+`paged_attn` and `rmsnorm`.
 
 Copies of `repro.kernels.ops.dense` (with its einsum-shaped `contract_dims`
-adapter), `dense_grouped` and `paged_attn` (GQA, window and MLA), routed by
-mode:
+adapter), `dense_grouped` and `paged_attn` (GQA, window and MLA), and the
+models' RMSNorm (which the reference leaves to XLA), routed by mode:
 
   auto    the CUDA kernel for a CUDA tensor, the plain path for a CPU tensor
   kernel  the CUDA kernel; raises on a CPU tensor
@@ -24,9 +24,10 @@ import math
 import torch
 
 from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (ACTIVATIONS, dense_grouped_ref,
-                                     dense_ref, paged_attn_ref)
+                                     dense_ref, paged_attn_ref, rmsnorm_ref)
 
 DENSE_MODES = ("auto", "ref", "kernel")
 
@@ -126,3 +127,14 @@ def paged_attn(q, pool_a, pool_b, tables, positions, *, num_kv_heads: int,
     return paged_attention(q, pool_a, pool_b, tables, positions,
                            num_kv_heads=num_kv_heads, scale=scale,
                            window=window, mla=mla, num_bufs=num_bufs)
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6,
+            mode: str = "auto") -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * p["scale"] over x's last dim in f32,
+    cast to x.dtype, routed like `dense`: "kernel" launches the CUDA
+    `rmsnorm_kernel`, whose rows are the same bits whatever rows come with
+    them, "ref" its plain version (`kernels.ref.rmsnorm_ref`)."""
+    if resolve_mode(mode, x) == "ref":
+        return rmsnorm_ref(x, p["scale"], eps)
+    return rmsnorm_kernel.rmsnorm(x, p["scale"], eps)

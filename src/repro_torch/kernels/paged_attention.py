@@ -4,12 +4,19 @@ The port of `repro/kernels/paged_attention.py::paged_attention`, both its
 GQA / sliding-window path and its `mla=True` path.  The wrapper pre-scales
 q in f32, casts it to the KV dtype and lays it out as (B, KVH, rep*S, dk) —
 exactly the reference's wrapper — then launches one of the kernels of
-`csrc/paged_attention.cu`, routed by form and dtype (`attention_route`):
+`csrc/paged_attention.cu`, routed by form, dtype and pool shape
+(`attention_route`):
 
-  * "gqa": `paged_attention_kernel` (f32 / bf16): one CTA per (lane, KV
-    head, row split) streams the lane's live K and V blocks through two
-    G-slot shared-memory rings on the chunk schedule and runs one
-    online-softmax step per block;
+  * "gqa_tc": `paged_attention_tc_kernel` (bf16 GQA / window at head_dim
+    64, 128 or 256 and blocks of 16-64 tokens: `core.schedule.
+    gqa_tc_takes`): the walk split over CTAs by fixed runs of logical
+    blocks (`core.schedule.plan_paged_attn_gqa_tc_sm90`), q.k and p.v on
+    the tensor cores, then, with more than one run,
+    `paged_attention_merge_kernel` merges the runs' partials;
+  * "gqa": `paged_attention_kernel` (f32 GQA, and bf16 at other shapes,
+    counted apart): one CTA per (lane, KV head, row split) streams the
+    lane's live K and V blocks through two G-slot shared-memory rings on
+    the chunk schedule and runs one online-softmax step per block;
   * "mla": `paged_attention_mla_kernel` (f32 MLA, and bf16 MLA at block
     sizes the tensor-core kernel does not take, such as 8 or 128), the
     same walk over the latent pools: latent MQA, one shared KV head whose
@@ -18,8 +25,7 @@ exactly the reference's wrapper — then launches one of the kernels of
     32, 48 and 64): the same function on the tensor cores with the KV walk
     split over CTAs (runs of logical blocks,
     `core.schedule.plan_paged_attn_mla_tc_sm90`), then, with more than one
-    run, `paged_attention_mla_merge_kernel` merges the runs' partials into
-    the output.
+    run, the same merge kernel.
 
 CUDA tensors only: a CPU tensor, or a CUDA tensor the kernel cannot take,
 raises (the plain version is `kernels.ref.paged_attn_ref`, which
@@ -36,19 +42,23 @@ import ctypes
 
 import torch
 
-from repro_torch.core.schedule import (MlaTcPlan, mla_fma_takes,
-                                      mla_tc_takes, paged_attn_row_bytes,
+from repro_torch.core.schedule import (GqaTcPlan, MlaTcPlan, gqa_tc_takes,
+                                      mla_fma_takes, mla_tc_takes,
+                                      paged_attn_row_bytes,
+                                      plan_paged_attn_gqa_tc_sm90,
                                       plan_paged_attn_mla_tc_sm90,
                                       plan_paged_attn_sm90)
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = build.LaunchCounter()            # GQA / window form
+launches = build.LaunchCounter()            # GQA / window, f32 (FMA kernel)
+launches_bf16 = build.LaunchCounter()       # GQA / window, bf16 (FMA kernel)
+launches_tc = build.LaunchCounter()         # GQA / window, bf16 (tensor cores)
 launches_mla = build.LaunchCounter()        # MLA form, f32 (FMA kernel)
 launches_mla_bf16 = build.LaunchCounter()   # MLA form, bf16 (FMA kernel)
 launches_mla_tc = build.LaunchCounter()     # MLA form, bf16 (tensor cores)
-launches_mla_merge = build.LaunchCounter()  # its merge of split partials
+launches_merge = build.LaunchCounter()      # the two tc kernels' merge
 
 
 def _lib() -> ctypes.CDLL:
@@ -59,10 +69,14 @@ def _lib() -> ctypes.CDLL:
         lib.paged_attention_launch.restype = i
         lib.paged_attention_mla_tc_launch.argtypes = [p] * 8 + [i] * 14 + [p]
         lib.paged_attention_mla_tc_launch.restype = i
-        lib.paged_attention_mla_merge_launch.argtypes = [p] * 2 + [i] * 5 + [p]
-        lib.paged_attention_mla_merge_launch.restype = i
+        lib.paged_attention_tc_launch.argtypes = [p] * 8 + [i] * 13 + [p]
+        lib.paged_attention_tc_launch.restype = i
+        lib.paged_attention_merge_launch.argtypes = [p] * 2 + [i] * 5 + [p]
+        lib.paged_attention_merge_launch.restype = i
         lib.paged_attention_mla_tc_ctas_per_sm.argtypes = [i] * 5
         lib.paged_attention_mla_tc_ctas_per_sm.restype = i
+        lib.paged_attention_tc_ctas_per_sm.argtypes = [i] * 3
+        lib.paged_attention_tc_ctas_per_sm.restype = i
         lib.paged_attention_error_string.argtypes = [i]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -70,21 +84,27 @@ def _lib() -> ctypes.CDLL:
 
 
 def attention_route(dtype: torch.dtype, mla: bool, block_size: int,
-                    latent: int, rope: int) -> str:
+                    width: int, rope: int) -> str:
     """Which kernel `paged_attention` launches, from the form, the dtype
-    and the pool shape alone: "gqa" (the GQA / window kernel; the widths
-    are not read), "mla_tc" (bf16 MLA on the tensor cores, where that
-    kernel takes the shape: `core.schedule.mla_tc_takes`) or "mla" (the
-    FMA MLA kernel: f32, and bf16 at other block sizes).  Raises on an MLA
-    shape neither MLA kernel's shared memory holds (block size 256)."""
+    and the pool shape alone (`width`: the head_dim for GQA, the latent
+    for MLA; `rope`: MLA's rope width, not read for GQA): "gqa_tc" (bf16
+    GQA / window on the tensor cores, where that kernel takes the shape:
+    `core.schedule.gqa_tc_takes`), "gqa" (the FMA GQA / window kernel: f32,
+    and bf16 at other shapes), "mla_tc" (bf16 MLA on the tensor cores,
+    where that kernel takes the shape: `core.schedule.mla_tc_takes`) or
+    "mla" (the FMA MLA kernel: f32, and bf16 at other block sizes).
+    Raises on an MLA shape neither MLA kernel's shared memory holds (block
+    size 256)."""
     if not mla:
+        if dtype == torch.bfloat16 and gqa_tc_takes(block_size, width):
+            return "gqa_tc"
         return "gqa"
-    if dtype == torch.bfloat16 and mla_tc_takes(block_size, latent, rope):
+    if dtype == torch.bfloat16 and mla_tc_takes(block_size, width, rope):
         return "mla_tc"
-    if not mla_fma_takes(block_size, latent, rope, dtype.itemsize):
+    if not mla_fma_takes(block_size, width, rope, dtype.itemsize):
         raise ValueError(
             f"no MLA kernel takes {dtype} pools of {block_size}-token blocks "
-            f"at latent {latent} + rope {rope}: the tensor-core kernel "
+            f"at latent {width} + rope {rope}: the tensor-core kernel "
             f"(bf16) takes blocks of 16, 32, 48 or 64 tokens, and the FMA "
             f"kernel's in-situ ring of one block does not fit the shared "
             f"memory")
@@ -97,7 +117,8 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
                     scale: float, window: "int | None" = None,
                     mla: bool = False,
                     num_bufs: "int | None" = None,
-                    kv_splits: "int | None" = None) -> torch.Tensor:
+                    kv_splits: "int | None" = None,
+                    route: "str | None" = None) -> torch.Tensor:
     """Block-table paged attention.
 
     q: (B, S, H, dk) — decode S == 1 with per-lane positions; a prefill
@@ -107,10 +128,12 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
     absorbed through w_uk (dk = kv_lora + rope), num_kv_heads ignored (one
     shared head).  tables: (B, MB) int32 (0 = null block).  positions: (B,)
     int32 first query position per lane.  window: sliding-window size.
-    num_bufs pins the ring depth G.  kv_splits pins the number of runs the
-    bf16 MLA kernel cuts each lane's blocks into (1 .. MB; None plans it;
-    any other route raises).  Returns (B, S, H, dv) in q.dtype (dv = hd, or
-    kv_lora under `mla`).
+    num_bufs pins the ring depth G.  kv_splits pins the number of runs a
+    tensor-core kernel (bf16 MLA, bf16 GQA) cuts each lane's blocks into
+    (1 .. MB; None plans it; an FMA route raises).  route pins the FMA
+    kernel of the form ("gqa" or "mla") where `attention_route` would take
+    a tensor-core one, to set the two side by side; None routes by shape.
+    Returns (B, S, H, dv) in q.dtype (dv = hd, or kv_lora under `mla`).
     """
     B, S, H, dk = q.shape
     if tables.dim() != 2 or tables.shape[0] != B \
@@ -158,12 +181,22 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
     rep = H // kvh
     rS = rep * S
     dv = da if mla else db
-    route = attention_route(kd, mla, bs, da, db)
-    if kv_splits is not None and route != "mla_tc":
-        raise ValueError(f"kv_splits applies to the bf16 MLA kernel only, "
-                         f"not the {route!r} route")
+    planned = attention_route(kd, mla, bs, da, db)
+    if route not in (None, planned, "mla" if mla else "gqa"):
+        raise ValueError(f"route {route!r}: this call takes {planned!r} or "
+                         f"its FMA kernel's")
+    route = route or planned
+    if kv_splits is not None and route not in ("mla_tc", "gqa_tc"):
+        raise ValueError(f"kv_splits applies to the tensor-core kernels "
+                         f"only, not the {route!r} route")
     q2 = _q_rows(q, scale, kvh, kd)
-    if route == "mla_tc":
+    if route == "gqa_tc":
+        plan = plan_paged_attn_gqa_tc_sm90(
+            batch=B, kv_heads=kvh, rows=rS, block_size=bs, max_blocks=MB,
+            head_dim=dk, num_bufs=num_bufs, kv_splits=kv_splits)
+        out = _launch_gqa_tc(q2, pool_a, pool_b, tables, positions, plan,
+                             S=S, window=window)
+    elif route == "mla_tc":
         plan = plan_paged_attn_mla_tc_sm90(
             batch=B, rows=rS, block_size=bs, max_blocks=MB, latent=da,
             rope=db, num_bufs=num_bufs, kv_splits=kv_splits)
@@ -189,7 +222,7 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch(lib, err, "paged_attention")
         if not mla:
-            launches.n += 1
+            (launches_bf16 if kd == torch.bfloat16 else launches).n += 1
         elif kd == torch.bfloat16:
             launches_mla_bf16.n += 1
         else:
@@ -228,7 +261,8 @@ def _launch_mla_tc(q2: torch.Tensor, c_kv: torch.Tensor,
     _launch_mla_split(q2, c_kv, k_rope, tables, positions, plan, out, ws,
                       S=S, window=window, record=record, rec_cta=rec_cta)
     if ws is not None:
-        _launch_mla_merge(ws, out, plan, da)
+        _launch_merge(ws, out, plan.batch * plan.row_tiles, plan.row_tiles,
+                      plan.kv_splits, da, plan.rows)
     return out
 
 
@@ -261,18 +295,114 @@ def _launch_mla_split(q2: torch.Tensor, c_kv: torch.Tensor,
     launches_mla_tc.n += 1
 
 
-def _launch_mla_merge(ws: torch.Tensor, out: torch.Tensor, plan: MlaTcPlan,
-                      latent: int) -> None:
-    """Merge the partials the tensor-core MLA kernel left in `ws` into
-    `out` (B, 1, rows, latent) bf16 (plain version:
-    `kernels.ref.mla_merge_ref`)."""
+def _launch_merge(ws: torch.Tensor, out: torch.Tensor, units: int,
+                  row_tiles: int, kv_splits: int, width: int,
+                  rows: int) -> None:
+    """Merge the partials a tensor-core kernel left in `ws` into `out`
+    (units / row_tiles, rows, width) bf16 (plain version:
+    `kernels.ref.mla_merge_ref`): units = lanes x row tiles (MLA), lanes x
+    KV heads x row tiles (GQA)."""
     lib = _lib()
-    err = lib.paged_attention_mla_merge_launch(
-        ws.data_ptr(), out.data_ptr(), plan.batch, plan.row_tiles,
-        plan.kv_splits, latent, plan.rows,
-        torch.cuda.current_stream(ws.device).cuda_stream)
+    err = lib.paged_attention_merge_launch(
+        ws.data_ptr(), out.data_ptr(), units, row_tiles, kv_splits, width,
+        rows, torch.cuda.current_stream(ws.device).cuda_stream)
     build.check_launch(lib, err, "paged_attention")
-    launches_mla_merge.n += 1
+    launches_merge.n += 1
+
+
+def _launch_gqa_tc(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   tables: torch.Tensor, positions: torch.Tensor,
+                   plan: GqaTcPlan, *, S: int, window: "int | None",
+                   record: "torch.Tensor | None" = None,
+                   rec_cta: int = -1) -> torch.Tensor:
+    """The bf16 GQA / window route on pre-scaled rows q2 (B, KVH, rS, hd):
+    the tensor-core kernel, then the merge kernel when the plan splits the
+    blocks; returns (B, KVH, rS, hd).  The partials' workspace comes from
+    the caching allocator; nothing syncs."""
+    out = torch.empty(q2.shape, dtype=torch.bfloat16, device=q2.device)
+    ws = None
+    if plan.kv_splits > 1:
+        ws = torch.empty(plan.workspace_floats(), dtype=torch.float32,
+                         device=q2.device)
+    _launch_gqa_split(q2, k, v, tables, positions, plan, out, ws, S=S,
+                      window=window, record=record, rec_cta=rec_cta)
+    if ws is not None:
+        _launch_merge(ws, out, plan.units, plan.row_tiles, plan.kv_splits,
+                      plan.head_dim, plan.rows)
+    return out
+
+
+def _launch_gqa_split(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      tables: torch.Tensor, positions: torch.Tensor,
+                      plan: GqaTcPlan, out: torch.Tensor,
+                      ws: "torch.Tensor | None", *, S: int,
+                      window: "int | None",
+                      record: "torch.Tensor | None" = None,
+                      rec_cta: int = -1) -> None:
+    """Launch `paged_attention_tc_kernel` alone: with kv_splits == 1 it
+    writes `out`, else the runs' partials into `ws`
+    (`plan.workspace_floats()` f32)."""
+    B, kvh, rS, hd = q2.shape
+    for name, t in (("q", q2), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the tensor-core GQA kernel copies 16-byte "
+                             f"pieces: {name} must be 16-byte aligned")
+    lib = _lib()
+    err = lib.paged_attention_tc_launch(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
+        positions.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if record is None else record.data_ptr(),
+        B, plan.max_blocks, plan.block_size, kvh, hd, S, rS, plan.row_tiles,
+        plan.kv_splits, plan.num_bufs, plan.chunks, window if window else 0,
+        rec_cta, torch.cuda.current_stream(q2.device).cuda_stream)
+    build.check_launch(lib, err, "paged_attention")
+    launches_tc.n += 1
+
+
+def gqa_tc_ctas_per_sm(plan: GqaTcPlan) -> int:
+    """CTAs of the tensor-core GQA kernel an SM of this card holds at
+    `plan`'s block size, head_dim and ring (the planner assumed
+    `ctas_per_sm`)."""
+    lib = _lib()
+    n = lib.paged_attention_tc_ctas_per_sm(plan.block_size, plan.head_dim,
+                                           plan.num_bufs)
+    if n < 0:
+        build.check_launch(lib, -n, "paged_attention")
+    return n
+
+
+def issue_order_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    tables: torch.Tensor, positions: torch.Tensor, *,
+                    num_kv_heads: int, scale: float,
+                    num_bufs: "int | None", kv_splits: "int | None",
+                    window: "int | None" = None):
+    """Run the bf16 GQA kernel once with the issue-order record on, for the
+    first CTA (lane-major, then KV head, row tile, split) whose run holds
+    at least 4 live blocks.  Returns ({(step, chunk): [issue_steps]},
+    steps, G, C, cta): `chunk_issue_schedule(steps, G, C)` is the order it
+    should equal (the steps are the run's live blocks).  A check, not the
+    main path: it reads positions on the host."""
+    B, S, H, hd = q.shape
+    plan = plan_paged_attn_gqa_tc_sm90(
+        batch=B, kv_heads=num_kv_heads, rows=H // num_kv_heads * S,
+        block_size=k.shape[1], max_blocks=tables.shape[1], head_dim=hd,
+        num_bufs=num_bufs, kv_splits=kv_splits)
+    runs = live_blocks(plan, positions.tolist(), S, window)
+    lane, split = next(((b, s) for b in range(B)
+                        for s in range(plan.kv_splits)
+                        if len(runs[b][s]) >= 4), (None, None))
+    if lane is None:
+        raise ValueError("no run holds 4 live blocks")
+    steps = len(runs[lane][split])
+    rec = torch.full((3 * steps * plan.chunks,), -1, dtype=torch.int32,
+                     device=q.device)
+    cta = plan.cta(lane, 0, 0, split)
+    _launch_gqa_tc(_q_rows(q, scale, num_kv_heads, torch.bfloat16), k, v,
+                   tables, positions, plan, S=S, window=window, record=rec,
+                   rec_cta=cta)
+    return (build.read_issue_record(rec), steps, plan.num_bufs, plan.chunks,
+            cta)
 
 
 def mla_tc_ctas_per_sm(plan: MlaTcPlan, latent: int, rope: int) -> int:
@@ -287,15 +417,17 @@ def mla_tc_ctas_per_sm(plan: MlaTcPlan, latent: int, rope: int) -> int:
     return n
 
 
-def mla_live_blocks(plan: MlaTcPlan, positions: "list[int]",
-                    S: int) -> "list[list[list[int]]]":
-    """[lane][split] -> the logical blocks of that run the kernel walks: the
-    ones holding a key at or before the lane's last query position (the
-    kernel's live predicate with no window), host-side, for the issue-order
-    check."""
+def live_blocks(plan: "MlaTcPlan | GqaTcPlan", positions: "list[int]",
+                S: int, window: "int | None" = None
+                ) -> "list[list[list[int]]]":
+    """[lane][split] -> the logical blocks of that run a tensor-core kernel
+    walks (the kernels' live predicate: a key at or before the lane's last
+    query position and, with a window, one not expired for its first),
+    host-side, for the issue-order checks."""
     bs = plan.block_size
-    return [[[j for j in plan.run(s) if j * bs <= p + S - 1]
-             for s in range(plan.kv_splits)] for p in positions]
+    return [[[j for j in plan.run(s) if j * bs <= p + S - 1 and not (
+        window and (j + 1) * bs - 1 <= p - window)]
+        for s in range(plan.kv_splits)] for p in positions]
 
 
 def issue_order_mla(q: torch.Tensor, c_kv: torch.Tensor,
@@ -313,7 +445,7 @@ def issue_order_mla(q: torch.Tensor, c_kv: torch.Tensor,
         batch=B, rows=H * S, block_size=c_kv.shape[1],
         max_blocks=tables.shape[1], latent=c_kv.shape[2],
         rope=k_rope.shape[2], num_bufs=num_bufs, kv_splits=kv_splits)
-    runs = mla_live_blocks(plan, positions.tolist(), S)
+    runs = live_blocks(plan, positions.tolist(), S)
     lane, split = next(((b, s) for b in range(B)
                         for s in range(plan.kv_splits)
                         if len(runs[b][s]) >= 4), (None, None))

@@ -2,13 +2,16 @@
 oracle.
 
 `dense_ref`, `dense_grouped_ref` and `paged_attn_ref` (GQA, window and MLA)
-are copies of `repro.kernels.ref` in torch:
+are copies of `repro.kernels.ref` in torch, and `rmsnorm_ref` of
+`repro.models.layers.rmsnorm` (written as its steps: a sum, / d):
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
 against them on the card.  `dense_split_ref` replays the tensor-core
-`gpp_matmul`'s stream-K split and its fixed-order fix-up for the tests.  `mla_merge_ref` is the plain version of the
-bf16 MLA kernel's merge; `paged_attn_mla_split_ref` replays that kernel's
-split-KV walk and merge for the tests (nothing on the main path calls
-either).  `chunk_issue_schedule` is a copy of the
+`gpp_matmul`'s stream-K split and its fixed-order fix-up for the tests.
+`mla_merge_ref` is the plain version of the merge kernel that both
+tensor-core attention kernels share; `paged_attn_mla_split_ref` and
+`paged_attn_gqa_split_ref` replay those kernels' split-KV walks and merge
+for the tests (nothing on the main path calls them).
+`chunk_issue_schedule` is a copy of the
 reference's pure-Python replay of the generalized ping-pong issue order
 (`repro/kernels/gpp_matmul.py:78`); the CUDA ring (`csrc/ring.cuh`) issues
 chunks in exactly this order, which the kernel's issue-order record shows.
@@ -150,15 +153,28 @@ def paged_attn_ref(q, pool_a, pool_b, tables, positions, *, num_kv_heads,
     return out.reshape(B, S, H, vseq.shape[-1]).to(q.dtype)
 
 
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of `rmsnorm_kernel` (and of the reference's RMSNorm):
+    in f32, r = rsqrt(sum(x * x) / d + eps) over the last dim, then
+    (x * r) * scale, cast to x.dtype.  The sum's order is PyTorch's, which
+    may depend on the tensor's shape; the kernel's does not."""
+    xf = x.float()
+    ss = torch.sum(xf * xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(ss / x.shape[-1] + eps)
+    return (xf * r * scale.float()).to(x.dtype)
+
+
 def mla_merge_ref(ws: torch.Tensor, *, batch: int, row_tiles: int,
                   kv_splits: int, latent: int, rows: int) -> torch.Tensor:
-    """Plain version of `paged_attention_mla_merge_kernel`: merge the split
-    partials in the tensor-core MLA kernel's workspace — per (lane, 16-row
-    tile) unit and split, 16 rows of f32 acc (latent wide), then the (m, l)
-    pairs — as m = max m_i, w_i = exp(m_i - m) (0 for an empty run, whose
-    acc is never read), out = sum w_i acc_i / max(sum w_i l_i, 1e-30).
-    Returns (batch, rows, latent) in f32 (the kernel rounds it to
-    bf16)."""
+    """Plain version of `paged_attention_merge_kernel`: merge the split
+    partials in a tensor-core attention kernel's workspace — per unit
+    ((lane, 16-row tile) for MLA, (lane, KV head, tile) for GQA: `batch`
+    counts lanes, or lanes x KV heads) and split, 16 rows of f32 acc
+    (`latent` wide: the latent, or the head_dim), then the (m, l) pairs —
+    as m = max m_i, w_i = exp(m_i - m) (0 for an empty run, whose acc is
+    never read), out = sum w_i acc_i / max(sum w_i l_i, 1e-30).  Returns
+    (batch, rows, latent) in f32 (the kernel rounds it to bf16)."""
     units = batch * row_tiles
     n_acc = units * kv_splits * 16 * latent
     acc = ws[:n_acc].view(units, kv_splits, 16, latent)
@@ -242,6 +258,86 @@ def paged_attn_mla_split_ref(q, c_kv, k_rope, tables, positions, *,
                             latent=da, rows=rows)
     return (out.reshape(B, H, S, da).permute(0, 2, 1, 3)
             .to(q.dtype))
+
+
+def paged_attn_gqa_split_ref(q, k, v, tables, positions, *,
+                             num_kv_heads: int, scale: float,
+                             kv_splits: int, window=None) -> torch.Tensor:
+    """Plain replay of the tensor-core GQA / window kernel's split-KV walk
+    and merge (csrc/paged_attention.cu, `paged_attention_tc_kernel`), for
+    tests.
+
+    Each (lane, KV head)'s rows (rep x S, head-major: row = r * S + s) walk
+    each of the planner's runs (`core.schedule.kv_runs`) alone: the run's
+    live blocks (the kernel's predicate: a key at or before the lane's last
+    query position, and, with a window, one not yet expired for its first)
+    get the TPU kernel's online-softmax step (f32 m / l / acc, logits -inf
+    where masked, p cast to the KV dtype before p . v) and leave a partial
+    (m, l, acc) in the kernel's workspace layout; with more than one run
+    the partials merge as `mla_merge_ref` does, else acc / max(l, 1e-30) is
+    the output.  Each row is computed by itself (one matrix-vector product
+    of fixed shape a block), so a row's bits depend on the row alone, as
+    the kernel's do.  Shapes as `paged_attn_ref`; the result is in
+    q.dtype."""
+    from repro_torch.core.schedule import kv_runs
+    B, S, H, hd = q.shape
+    kvh = num_kv_heads
+    rep = H // kvh
+    kd = k.dtype
+    bs, MB = k.shape[1], tables.shape[1]
+    rows = rep * S
+    rt = -(-rows // 16)
+    neg = float("-inf")
+    qr = ((q.float() * scale).to(kd).float().reshape(B, S, kvh, rep, hd)
+          .permute(0, 2, 3, 1, 4).reshape(B, kvh, rows, hd))
+    acc_ws = torch.zeros(B, kvh, rt * 16, kv_splits, hd)
+    ml_ws = torch.zeros(B, kvh, rt * 16, kv_splits, 2)
+    for b in range(B):
+        pos = int(positions[b])
+        for i, run in enumerate(kv_runs(MB, kv_splits)):
+            live = [j for j in run if j * bs <= pos + S - 1 and not (
+                window and (j + 1) * bs - 1 <= pos - window)]
+            for g in range(kvh):
+                for r in range(rows):
+                    qpos = pos + r % S
+                    m = torch.tensor(neg)
+                    l = torch.tensor(0.0)
+                    acc = torch.zeros(hd)
+                    for j in live:
+                        phys = int(tables[b, j])
+                        key = k[phys, :, g].float()
+                        val = v[phys, :, g].float()
+                        logits = torch.mv(key, qr[b, g, r])
+                        kpos = j * bs + torch.arange(bs)
+                        valid = kpos <= qpos
+                        if window:
+                            valid &= kpos > qpos - window
+                        logits = logits.masked_fill(~valid, neg)
+                        m_new = torch.maximum(m, logits.max())
+                        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+                        p = torch.exp(logits - m_safe)
+                        corr = torch.where(torch.isinf(m), 0.0,
+                                           torch.exp(m - m_safe))
+                        l = l * corr + p.sum()
+                        acc = acc * corr + torch.mv(val.t(),
+                                                    p.to(kd).float())
+                        m = m_new
+                    acc_ws[b, g, r, i] = acc
+                    ml_ws[b, g, r, i, 0] = m
+                    ml_ws[b, g, r, i, 1] = l
+    if kv_splits == 1:
+        out = acc_ws[:, :, :rows, 0] / torch.clamp(
+            ml_ws[:, :, :rows, 0, 1:], min=1e-30)
+    else:   # the kernel's layout: (unit, split, row, ...)
+        ws = torch.cat([
+            acc_ws.reshape(B * kvh, rt, 16, kv_splits, hd).transpose(2, 3)
+            .reshape(-1),
+            ml_ws.reshape(B * kvh, rt, 16, kv_splits, 2).transpose(2, 3)
+            .reshape(-1)])
+        out = mla_merge_ref(ws, batch=B * kvh, row_tiles=rt,
+                            kv_splits=kv_splits, latent=hd, rows=rows)
+    return (out.reshape(B, kvh, rep, S, hd).permute(0, 3, 1, 2, 4)
+            .reshape(B, S, H, hd).to(q.dtype))
 
 
 def chunk_issue_schedule(num_steps: int, G: int,

@@ -255,7 +255,8 @@ def _mla_q(p, c: AttnConfig, x, positions):
     nope = c.head_dim
     if c.q_lora_rank:
         cq = rmsnorm({"scale": p["q_norm"]},
-                     dense(x, p["w_dq"], mode=c.dense_mode))
+                     dense(x, p["w_dq"], mode=c.dense_mode),
+                     mode=c.dense_mode)
         q = dense(cq, p["w_uq"], mode=c.dense_mode)
     else:
         q = dense(x, p["w_q"], mode=c.dense_mode)
@@ -267,7 +268,7 @@ def _mla_q(p, c: AttnConfig, x, positions):
 def _mla_latent(p, c: AttnConfig, x, positions):
     d = dense(x, p["w_dkv"], mode=c.dense_mode)
     c_kv, k_rope = d[..., :c.kv_lora_rank], d[..., c.kv_lora_rank:]
-    c_kv = rmsnorm({"scale": p["kv_norm"]}, c_kv)
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, c_kv, mode=c.dense_mode)
     k_rope = rope(k_rope[..., None, :], positions, c.rope_theta)[..., 0, :]
     return c_kv, k_rope
 

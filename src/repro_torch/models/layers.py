@@ -1,9 +1,10 @@
 """Shared layers: RMSNorm, RoPE, the MLP, embedding and the tied LM head.
 
 Copies of `repro.models.layers` in torch, on plain dicts of tensors.  Norms
-and rotary maths run in f32; every MLP projection goes through
-`kernels.ops.dense` (the CUDA gpp_matmul on the card, silu fused into the
-gate projection's epilogue).
+and rotary maths run in f32; RMSNorm goes through `kernels.ops.rmsnorm`
+(the row-invariant CUDA kernel on the card) and every MLP projection
+through `kernels.ops.dense` (the CUDA gpp_matmul on the card, silu fused
+into the gate projection's epilogue).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import dense
 
 
@@ -95,11 +97,11 @@ def init_from_specs(specs, generator: torch.Generator, device,
     return map_specs(leaf, specs)
 
 
-def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
-    return y.to(x.dtype)
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6,
+            mode: str = "auto") -> torch.Tensor:
+    """The reference's RMSNorm through `kernels.ops.rmsnorm`; `mode` is the
+    model's `dense_kernel` (auto / kernel / ref)."""
+    return ops.rmsnorm(p, x, eps, mode)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

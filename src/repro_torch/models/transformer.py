@@ -212,9 +212,10 @@ def _layers(params: dict, caches: dict, cfg: ModelConfig):
 def _block(cfg: ModelConfig, kind: str, p, x, attend):
     """One block: attention (`attend(attn_cfg, params, h)` runs the step's
     GQA or MLA function, as the config says), then the MoE or the MLP."""
-    h, _ = attend(_attn_cfg(cfg, kind), p["attn"], rmsnorm(p["ln1"], x))
+    h, _ = attend(_attn_cfg(cfg, kind), p["attn"],
+                  rmsnorm(p["ln1"], x, mode=cfg.dense_kernel))
     x = x + h
-    h = rmsnorm(p["ln2"], x)
+    h = rmsnorm(p["ln2"], x, mode=cfg.dense_kernel)
     if kind.split(":")[0] == "moe":
         h = moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h)
     else:
@@ -231,7 +232,7 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def _logits_head(params, cfg: ModelConfig, x):
-    x = rmsnorm(params["final_norm"], x)
+    x = rmsnorm(params["final_norm"], x, mode=cfg.dense_kernel)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     head = params["lm_head"]

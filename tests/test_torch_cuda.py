@@ -15,9 +15,11 @@ import torch
 from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_grouped_ref,
-                                     dense_ref, mla_merge_ref, paged_attn_ref)
+                                     dense_ref, mla_merge_ref, paged_attn_ref,
+                                     rmsnorm_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -379,7 +381,7 @@ def test_mla_paged_attention_matches_plain(cuda, dtype, case, kv_splits):
             paged_attention(q, ckv, kr, tables, pos, kv_splits=kv_splits,
                             **kw)
         return
-    counts = (pa.launches_mla_tc, pa.launches_mla_merge, pa.launches_mla)
+    counts = (pa.launches_mla_tc, pa.launches_merge, pa.launches_mla)
     before = [c.n for c in counts]
     for G in (None, 1, 2, 4):
         out = paged_attention(q, ckv, kr, tables, pos, num_bufs=G,
@@ -408,7 +410,8 @@ def test_mla_merge_matches_plain(cuda, case, kv_splits):
     out = torch.empty((B, 1, H * S, 512), dtype=torch.bfloat16, device=cuda)
     pa._launch_mla_split(pa._q_rows(q, 1 / math.sqrt(576), 1, q.dtype), ckv,
                          kr, tables, pos, plan, out, ws, S=S, window=None)
-    pa._launch_mla_merge(ws, out, plan, 512)
+    pa._launch_merge(ws, out, B * plan.row_tiles, plan.row_tiles,
+                     kv_splits, 512, H * S)
     ref = mla_merge_ref(ws, batch=B, row_tiles=plan.row_tiles,
                         kv_splits=kv_splits, latent=512, rows=H * S)
     torch.testing.assert_close(out.reshape(B, H * S, 512).float(), ref,
@@ -478,3 +481,213 @@ def test_mla_block_size_256_raises(cuda):
                                                device=cuda),
                         torch.zeros(1, dtype=torch.int32, device=cuda),
                         num_kv_heads=1, scale=0.05, mla=True)
+
+
+# ---------------------------------------------------------------------------
+# bf16 GQA / window on the tensor cores (paged_attention_tc_kernel)
+# ---------------------------------------------------------------------------
+
+GQA_CASES = {"decode": (4, 1, [5, 17, 40, 100]),
+             "prefill": (1, 32, [37]),
+             "verify": (4, 5, [3, 30, 64, 90])}
+GQA_HEADS = {64: 16, 128: 4, 256: 8}       # head_dim -> KV heads (16 heads)
+
+
+def _gqa_inputs(cuda, case, hd, seed=2, dtype=torch.bfloat16):
+    B, S, positions = GQA_CASES[case]
+    kvh, bs, mb, nb = GQA_HEADS[hd], 16, 8, 33
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, 16, hd, generator=g, device=cuda).to(dtype)
+    k = (torch.randn(nb, bs, kvh, hd, generator=g, device=cuda) * 0.5
+         ).to(dtype)
+    v = (torch.randn(nb, bs, kvh, hd, generator=g, device=cuda) * 0.5
+         ).to(dtype)
+    tables = torch.randint(1, nb, (B, mb), generator=g, device=cuda,
+                           dtype=torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    return q, k, v, tables, pos, kvh
+
+
+@pytest.mark.parametrize("window", (None, 32))
+@pytest.mark.parametrize("hd", (64, 128, 256))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_gqa_tc_matches_plain(cuda, case, hd, window):
+    # bf16 GQA takes the tensor-core kernel at every ring depth and split
+    # (its merge with more than one run), never the FMA kernel
+    q, k, v, tables, pos, kvh = _gqa_inputs(cuda, case, hd)
+    kw = dict(num_kv_heads=kvh, scale=1 / math.sqrt(hd), window=window)
+    ref = paged_attn_ref(q, k, v, tables, pos, **kw)
+    counts = (pa.launches_tc, pa.launches_merge, pa.launches,
+              pa.launches_bf16)
+    before = [c.n for c in counts]
+    for G in (None, 1, 2, 4):
+        for ks in (None, 1, 2):
+            out = paged_attention(q, k, v, tables, pos, num_bufs=G,
+                                  kv_splits=ks, **kw)
+            assert out.shape == q.shape
+            torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                       atol=2e-2)
+    # kv_splits None plans 8 runs (MB = 8): a merge; 2 runs: a merge
+    assert tuple(c.n - n for c, n in zip(counts, before)) == (12, 8, 0, 0)
+
+
+@pytest.mark.parametrize("case", ("decode", "verify"))
+def test_gqa_fma_route_pinned_on_bf16(cuda, case):
+    # the FMA kernel's bf16 instance still takes bf16 (pinned, and at the
+    # shapes the tensor-core plan does not take), counted on its own
+    q, k, v, tables, pos, kvh = _gqa_inputs(cuda, case, 64)
+    kw = dict(num_kv_heads=kvh, scale=0.125)
+    ref = paged_attn_ref(q, k, v, tables, pos, **kw)
+    before = (pa.launches_bf16.n, pa.launches_tc.n)
+    out = paged_attention(q, k, v, tables, pos, route="gqa", **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2)
+    q32 = torch.zeros(1, 1, 16, 32, device=cuda).bfloat16()   # head_dim 32
+    pools = torch.zeros(3, 16, 16, 32, device=cuda).bfloat16()
+    paged_attention(q32, pools, pools,
+                    torch.ones(1, 2, dtype=torch.int32, device=cuda),
+                    torch.zeros(1, dtype=torch.int32, device=cuda),
+                    num_kv_heads=16, scale=0.1)
+    assert (pa.launches_bf16.n - before[0], pa.launches_tc.n - before[1]) \
+        == (2, 0)
+    with pytest.raises(ValueError, match="route"):
+        paged_attention(q, k, v, tables, pos, route="mla_tc", **kw)
+
+
+@pytest.mark.parametrize("hd", (64, 256))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_gqa_merge_matches_plain(cuda, case, hd):
+    # the shared merge kernel on the GQA kernel's own partials (rows past
+    # rS never written, runs that are all dead at decode)
+    q, k, v, tables, pos, kvh = _gqa_inputs(cuda, case, hd)
+    B, S, H, _ = q.shape
+    plan = sched.plan_paged_attn_gqa_tc_sm90(
+        batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=16,
+        max_blocks=8, head_dim=hd)
+    assert plan.kv_splits == 8
+    q2 = pa._q_rows(q, 1 / math.sqrt(hd), kvh, q.dtype)
+    ws = torch.full((plan.workspace_floats(),), float("nan"), device=cuda)
+    out = torch.empty(q2.shape, dtype=torch.bfloat16, device=cuda)
+    pa._launch_gqa_split(q2, k, v, tables, pos, plan, out, ws, S=S,
+                         window=None)
+    pa._launch_merge(ws, out, plan.units, plan.row_tiles, plan.kv_splits,
+                     hd, plan.rows)
+    ref = mla_merge_ref(torch.nan_to_num(ws, nan=0.0, neginf=-math.inf),
+                        batch=B * kvh,
+                        row_tiles=plan.row_tiles, kv_splits=plan.kv_splits,
+                        latent=hd, rows=plan.rows)
+    torch.testing.assert_close(out.reshape(B * kvh, plan.rows, hd).float(),
+                               ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", (64, 128, 256))
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_gqa_tc_occupancy_is_planned(cuda, case, hd):
+    B, S, _ = GQA_CASES[case]
+    kvh = GQA_HEADS[hd]
+    plan = sched.plan_paged_attn_gqa_tc_sm90(
+        batch=B, kv_heads=kvh, rows=16 // kvh * S, block_size=16,
+        max_blocks=8, head_dim=hd)
+    assert pa.gqa_tc_ctas_per_sm(plan) >= plan.ctas_per_sm
+
+
+@pytest.mark.parametrize("kv_splits", (1, 2))
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+def test_gqa_tc_issue_order_is_the_chunk_schedule(cuda, G, kv_splits):
+    # decode lane 3 (position 100) holds 7 live blocks: one run of 7 at
+    # kv_splits 1, runs of 4 and 3 at 2; the first run of >= 4 records
+    q, k, v, tables, pos, kvh = _gqa_inputs(cuda, "decode", 64)
+    got, steps, g_used, C, cta = pa.issue_order_gqa(
+        q, k, v, tables, pos, num_kv_heads=kvh, scale=0.125, num_bufs=G,
+        kv_splits=kv_splits)
+    assert steps == (7 if kv_splits == 1 else 4)
+    assert cta == 3 * kvh * kv_splits
+    assert G is None or g_used == min(G, 8 // kv_splits)
+    assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("window", (None, 6))
+@pytest.mark.parametrize("hd", (64, 128))
+def test_gqa_tc_rows_do_not_depend_on_the_step(cuda, hd, window):
+    # a token's row is the same bits in a decode step (one row a lane) and
+    # in a verify step (5 rows a lane from an earlier position), with spans
+    # inside a block and across into the next, as speculation on == off
+    # needs; a prefill chunk (one lane of 20 rows) too
+    q, k, v, tables, pos, kvh = _gqa_inputs(cuda, "verify", hd)
+    B, S, H, _ = q.shape
+    kw = dict(num_kv_heads=kvh, scale=1 / math.sqrt(hd), window=window)
+    for start in ([3, 30, 64, 90], [13, 29, 46, 94]):
+        p0 = torch.tensor(start, dtype=torch.int32, device=cuda)
+        ver = paged_attention(q, k, v, tables, p0, **kw)
+        for s in range(S):
+            dec = paged_attention(q[:, s:s + 1].contiguous(), k, v, tables,
+                                  p0 + s, **kw)
+            assert torch.equal(dec[:, 0], ver[:, s])
+    pre = paged_attention(q.reshape(1, B * S, H, hd), k, v,
+                          tables[:1], p0[:1], **kw)
+    one = paged_attention(q.reshape(1, B * S, H, hd)[:, 7:8].contiguous(),
+                          k, v, tables[:1], p0[:1] + 7, **kw)
+    assert torch.equal(pre[:, 7], one[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (rmsnorm_kernel)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("width", (512, 1024, 1536, 2048, 104))
+def test_rmsnorm_matches_plain(cuda, width, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    wide = (torch.randn(32, width + 64, generator=g, device=cuda) * 2
+            ).to(dtype)
+    scale = (1 + 0.1 * torch.randn(width, generator=g, device=cuda)
+             ).to(dtype)
+    before = rn.launches_rmsnorm.n
+    for n in (1, 4, 5, 20, 32):
+        for x in (wide[:n, :width], wide[:n, :width].contiguous()):
+            y = rn.rmsnorm(x, scale)
+            ref = rmsnorm_ref(x, scale)
+            if dtype == torch.float32:
+                torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+            else:   # one bf16 step of the plain value
+                step = torch.exp2(torch.floor(torch.log2(
+                    ref.float().abs().clamp(min=2.0 ** -126))) - 7)
+                assert bool(((y.float() - ref.float()).abs() <= step).all())
+    assert rn.launches_rmsnorm.n - before == 10
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("width", (512, 1024, 1536, 2048))
+def test_rmsnorm_rows_do_not_depend_on_the_batch(cuda, width, dtype):
+    # a row's bits at 1, 5 and 32 rows, at any place in the batch, strided
+    g = torch.Generator(device=cuda).manual_seed(5)
+    wide = (torch.randn(32, width + 64, generator=g, device=cuda) * 2
+            ).to(dtype)
+    x = wide[:, :width].contiguous()
+    scale = (1 + 0.1 * torch.randn(width, generator=g, device=cuda)
+             ).to(dtype)
+    full = rn.rmsnorm(x, scale)
+    for i in (0, 13, 31):
+        assert torch.equal(rn.rmsnorm(x[i:i + 1], scale), full[i:i + 1])
+    assert torch.equal(rn.rmsnorm(x[:5], scale), full[:5])
+    assert torch.equal(rn.rmsnorm(wide[:, :width], scale), full)
+    perm = torch.randperm(32, generator=g, device=cuda)
+    assert torch.equal(rn.rmsnorm(x[perm], scale), full[perm])
+    lanes = x[:20].reshape(4, 5, width)
+    assert torch.equal(rn.rmsnorm(lanes[:, :1].contiguous(), scale)[:, 0],
+                       rn.rmsnorm(lanes, scale)[:, 0])
+
+
+def test_rmsnorm_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(2, 100, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        rn.rmsnorm(x, torch.ones(100, device=cuda))
+    with pytest.raises(TypeError):
+        rn.rmsnorm(torch.zeros(2, 64, device=cuda).half(),
+                   torch.ones(64, device=cuda).half())
+    with pytest.raises(TypeError):             # the scale in x's dtype
+        rn.rmsnorm(torch.zeros(2, 64, device=cuda).bfloat16(),
+                   torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match="width"):
+        rn.rmsnorm(torch.zeros(2, 64, device=cuda),
+                   torch.ones(32, device=cuda))

@@ -133,7 +133,7 @@ def test_run_replay_is_the_chunk_schedule(phase, G, kv_splits):
     plan = _plan(phase, num_bufs=G, kv_splits=kv_splits)
     positions = {"decode": [5, 17, 40, 100], "prefill": [37],
                  "verify": [3, 30, 64, 90]}[phase]
-    live = pa.mla_live_blocks(plan, positions, S)
+    live = pa.live_blocks(plan, positions, S)
     for b in range(B):
         for s in range(plan.kv_splits):
             steps = len(live[b][s])
