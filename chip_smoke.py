@@ -11,7 +11,9 @@ In order, it:
      every shape the two serving paths give it (gpp_matmul at both models'
      projection shapes: bf16 x and W on its tensor-core kernel, with G in
      {None, 1, 2, 3, 4} and the FMA kernel pinned beside it, deepseek's f32
-     router on the FMA kernel; gpp_matmul_grouped on both routes, bf16 x
+     router and every f32 shape on the split-K FMA kernel, timed at the
+     router's three shapes and every f32 decode shape beside the tile
+     kernel it replaced; gpp_matmul_grouped on both routes, bf16 x
      and W on its tensor-core kernel, f32 and int8 on its FMA kernel), and
      prints the largest error beside its tolerance, then the kernel's
      time (for bf16 gpp_matmul also the pinned FMA kernel's), the plain
@@ -19,9 +21,10 @@ In order, it:
      `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
      rows; `F.rms_norm`) and the bound (the larger of bytes / 3.35e12 B/s
      and operations / the peak rate of their type); it checks that the
-     tensor-core gpp_matmul repeats bit for bit, reads the issue-order
-     records of gpp_matmul (FMA: one tile's k-steps; tensor cores: CTA 0's
-     run across a tile boundary and a k-split), gpp_matmul_grouped (the
+     gpp_matmul repeats bit for bit on both routes and that the router's
+     rows are the same bits at 1, 4, 20 and 32 rows, reads the issue-order
+     records of gpp_matmul (CTA 0's run across a tile boundary and a
+     k-split, on both routes), gpp_matmul_grouped (the
      tensor-core route at deepseek's decode shape, across n-tiles, and at
      one n-tile an expert, across experts; the FMA route at the decode
      shape in f32, 5 experts a CTA) and both tensor-core attention kernels
@@ -252,9 +255,13 @@ def gpp_time(M, K, N, dtype):
     """Kernel / plain / torch.matmul times of an (M,K)@(K,N) product with
     no bias or activation (the up projection), and its bound.  bf16 times
     the tensor-core route and, in the same call, the FMA route pinned;
-    f32 the FMA route."""
+    f32 the split-K FMA route and, beside it, the tile kernel it replaced
+    (`gpp_matmul_grouped` at E = 1 runs it on its old plan), each also by
+    CUDA events over a CUDA graph of launches (`graph_ms`, with
+    torch.matmul's beside it): a launch of a few microseconds is shorter
+    than the host's cost of issuing one."""
     import torch
-    from repro_torch.kernels.gpp_matmul import gpp_matmul
+    from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
     from repro_torch.kernels.ref import dense_ref
     dt = getattr(torch, dtype)
     es = torch.tensor([], dtype=dt).element_size()
@@ -274,6 +281,13 @@ def gpp_time(M, K, N, dtype):
     else:
         out["ms"], out["wall_ms"] = measure(
             lambda x, w: gpp_matmul(x, w), sets, KERNEL_NAMES["gpp_matmul"])
+        out["tile_ms"], out["tile_wall_ms"] = measure(
+            lambda x, w: gpp_matmul_grouped(x[None], w[None]), sets,
+            KERNEL_NAMES["gpp_matmul_grouped"])
+        out["graph_ms"] = graph_ms(lambda x, w: gpp_matmul(x, w), sets)
+        out["tile_graph_ms"] = graph_ms(
+            lambda x, w: gpp_matmul_grouped(x[None], w[None]), sets)
+        out["library_graph_ms"] = graph_ms(torch.matmul, sets)
     out["plain_ms"], out["plain_wall_ms"] = measure(
         lambda x, w: dense_ref(x, w), sets)
     out["library_ms"], out["library_wall_ms"] = measure(
@@ -285,7 +299,8 @@ def gpp_time(M, K, N, dtype):
 
 def check_gpp(report):
     import torch
-    from repro_torch.core.schedule import plan_matmul_tc_sm90
+    from repro_torch.core.schedule import (plan_matmul_fma_sm90,
+                                           plan_matmul_tc_sm90)
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import ACTIVATION_IDS, chunk_issue_schedule
     rows = []
@@ -315,7 +330,15 @@ def check_gpp(report):
                               f"gpp_matmul_tc {M}x{K}x{N}: the card holds "
                               f"{row['ctas_per_sm']} CTAs an SM, planned "
                               f"{plan.ctas_per_sm}")
-                    if dtype == dtypes[0]:       # the path's own dtype
+                    else:
+                        plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=4)
+                        row["plan"] = {
+                            "block_m": plan.block_m,
+                            "block_k": plan.block_k,
+                            "num_bufs": plan.num_bufs, "grid": plan.grid,
+                            "max_segs": plan.max_segs}
+                    # the path's own dtype, and every f32 decode shape
+                    if dtype == dtypes[0] or phase == "decode":
                         row.update(gpp_time(M, K, N, dtype))
                     rows.append(row)
                     print(f"gpp_matmul {path} {phase:7s} {name:14s} "
@@ -323,14 +346,17 @@ def check_gpp(report):
                           f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
                           + (f" ms={row['ms']:.4f}"
                              + (f" fma_ms={row['fma_ms']:.4f}" if bf16
-                                else "")
+                                else f" tile_ms={row['tile_ms']:.4f} graph_ms"
+                                f" kernel / tile / matmul="
+                                f"{row['graph_ms']:.4f} / "
+                                f"{row['tile_graph_ms']:.4f} / "
+                                f"{row['library_graph_ms']:.4f}")
                              + f" plain_ms={row['plain_ms']:.4f} library_ms="
                              f"{row['library_ms']:.4f} bound_ms="
                              f"{row['bound_ms']:.4f} ({row['bound_by']})"
                              f" wall_ms={row['wall_ms']:.4f}"
                              if "ms" in row else "")
-                          + (f" plan={row['plan']}" if bf16 else ""),
-                          flush=True)
+                          + f" plan={row['plan']}", flush=True)
     # epilogue variants at the paths' projection shapes, by route (bf16 x
     # and W: tensor cores; f32, or int8 W: FMA)
     extra = {"tc": [], "fma": []}
@@ -356,21 +382,43 @@ def check_gpp(report):
     print("gpp_matmul epilogue/int8/ragged cases: "
           + ", ".join(f"{r} {len(v)} ok, max_abs_err={max(v):.3g}"
                       for r, v in extra.items()))
-    # split tiles are summed in a fixed order: bf16 repeats bit for bit
+    # split tiles are summed in a fixed order: bf16 (tensor cores) and f32
+    # (FMA: the router, a wide projection) repeat bit for bit
     g = torch.Generator(device="cuda").manual_seed(9)
-    for M, K, N in ((SLOTS, F, D), (CHUNK, DS_F0, DS_D)):
-        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
-        w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).bfloat16()
+    for M, K, N, dt in ((SLOTS, F, D, torch.bfloat16),
+                        (CHUNK, DS_F0, DS_D, torch.bfloat16),
+                        (SLOTS, DS_D, DS_E, torch.float32),
+                        (CHUNK, DS_F0, DS_D, torch.float32)):
+        x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+        w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).to(dt)
         first = gm.gpp_matmul(x, w, activation="silu")
         check(all(torch.equal(gm.gpp_matmul(x, w, activation="silu"), first)
                   for _ in range(3)),
-              f"gpp_matmul_tc {M}x{K}x{N} is not bitwise repeatable")
-    print("gpp_matmul_tc bitwise repeatable over 4 runs at "
-          f"{SLOTS}x{F}x{D} and {CHUNK}x{DS_F0}x{DS_D}")
+              f"gpp_matmul {M}x{K}x{N} {dt} is not bitwise repeatable")
+    print("gpp_matmul bitwise repeatable over 4 runs at "
+          f"{SLOTS}x{F}x{D} and {CHUNK}x{DS_F0}x{DS_D} (bf16, tensor cores), "
+          f"{SLOTS}x{DS_D}x{DS_E} and {CHUNK}x{DS_F0}x{DS_D} (f32, FMA)")
+    # a row's bits do not depend on the batch it rides in: the router at 1,
+    # 4 (decode), 20 (verify) and 32 (prefill) rows, its weight as stored
+    # (bf16, widened in the kernel) and as its f32 copy, which must agree
+    x = torch.randn(CHUNK, DS_D, generator=g, device="cuda")
+    w = (torch.randn(DS_D, DS_E, generator=g, device="cuda")
+         * 0.02).bfloat16()
+    rows_by_m = {M: gm.gpp_matmul(x[:M], w) for M in (1, SLOTS,
+                                                      PHASE_M["verify"],
+                                                      CHUNK)}
+    check(all(torch.equal(rows_by_m[CHUNK][:M], y)
+              for M, y in rows_by_m.items()),
+          "the router's row bits depend on the batch")
+    check(torch.equal(gm.gpp_matmul(x, w.float()), rows_by_m[CHUNK]),
+          "the router's bf16 weight does not give its f32 copy's bits")
+    print(f"gpp_matmul router {DS_D}x{DS_E}: a row's bits equal at "
+          f"{sorted(rows_by_m)} rows; bf16 W == its f32 copy")
     # the generalized ping-pong issue order survived the port: the FMA
-    # route (pinned) at one tile's k-steps, the tensor-core route over CTA
-    # 0's run across a tile boundary (5 CTAs pinned) and a k-split (layer
-    # 0's down projection as planned)
+    # route (pinned on bf16) over CTA 0's planned run, and over a run
+    # across a tile boundary (2 CTAs pinned) and at the router's k-split;
+    # the tensor-core route over CTA 0's run across a tile boundary (5 CTAs
+    # pinned) and a k-split (layer 0's down projection as planned)
     orders = 0
     x = torch.randn(SLOTS, D, device="cuda").bfloat16()
     w = (torch.randn(D, D, device="cuda") * 0.02).bfloat16()
@@ -383,6 +431,28 @@ def check_gpp(report):
         print(f"gpp_matmul (fma) issue order G={G} C={C} steps={num_k}: "
               f"{sum(len(v) for v in got.values())} chunk issues == "
               "chunk_issue_schedule")
+    for (M, K, N), grid in (((SLOTS, 512, 192), 2), ((SLOTS, DS_D, DS_E),
+                                                      None)):
+        x = torch.randn(M, K, device="cuda")
+        w = torch.randn(K, N, device="cuda") * 0.02
+        for G in (None, 1, 2, 4):
+            got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
+            plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=4, num_bufs=G,
+                                        grid=grid)
+            tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
+            check(len(plan.segments(max(tiles))) > 1
+                  and len(tiles) == (2 if grid else 1),
+                  "the fma record's run crosses no tile or split boundary")
+            check(G is None or g_used == G, f"ring depth {g_used} != {G}")
+            check(got == chunk_issue_schedule(steps, g_used, C),
+                  f"fma issue order differs at {M}x{K}x{N} G={G}")
+            orders += 1
+            print(f"gpp_matmul (fma) issue order {M}x{K}x{N} grid="
+                  f"{plan.grid} G={g_used} (asked {G}) C={C} steps={steps} "
+                  f"over tiles {sorted(tiles)}, tile {max(tiles)} in "
+                  f"{len(plan.segments(max(tiles)))} segments: "
+                  f"{sum(len(v) for v in got.values())} chunk issues == "
+                  "chunk_issue_schedule")
     for (M, K, N), grid in (((SLOTS, 2048, 1024), 5),
                             ((SLOTS, DS_F0, DS_D), None)):
         x = torch.randn(M, K, device="cuda").bfloat16()
@@ -1714,7 +1784,8 @@ def main(argv=None) -> int:
         {"name": "gpp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:408",
-         "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; FMA)",
+         "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; split-K "
+                   "FMA, split tiles summed by their last CTA)",
          "path": "deepseek-v2-lite-16b (its f32 router); f32 runs",
          "launches": deepseek["bf16"]["launches"]["gpp_matmul"],
          "launches_by_path": fma_by_path,
@@ -1722,7 +1793,13 @@ def main(argv=None) -> int:
          "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 and int8 W as "
                 "bf16",
          "shape": f"deepseek decode router {gr['M']}x{gr['K']}x{gr['N']} "
-                  "f32",
+                  "f32 (prefill / verify and every f32 decode shape: "
+                  "--json-out)",
+         "tile_ms": gr["tile_ms"],
+         "graph_ms": gr["graph_ms"],
+         "library_graph_ms": gr["library_graph_ms"],
+         "router_ms_by_phase": {r["phase"]: r["ms"] for r in gpp_rows
+                                if r["proj"] == "router"},
          **{k: gr[k] for k in numbers}},
         {"name": "paged_attention_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -3,8 +3,9 @@
 `round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
 `tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
-over; in their place `plan_matmul_sm90` (the FMA route of `gpp_matmul`),
-`plan_matmul_tc_sm90` (its tensor-core route), `plan_grouped_sm90` and
+over; in their place `plan_matmul_fma_sm90` (the FMA route of
+`gpp_matmul`), `plan_matmul_tc_sm90` (its tensor-core route),
+`plan_grouped_sm90` (with `plan_matmul_sm90`, its FMA tile) and
 `plan_grouped_tc_sm90` (the grouped kernel's two routes),
 `plan_paged_attn_sm90` and `plan_paged_attn_mla_tc_sm90` pick the tile
 sizes and the shared-memory ring depth G of the CUDA kernels:
@@ -122,7 +123,8 @@ GPP_MAX_BLOCK_M = 64     # rows per CTA: 4 row groups x <= 16 rows/thread
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
-    """Tiles and ring of one `gpp_matmul` launch.  Each CTA owns one
+    """Tiles and ring of one FMA tile-kernel launch (`gpp_matmul.cuh`, the
+    grouped kernel's FMA route, one expert's tile).  Each CTA owns one
     (block_m, block_n) output tile and walks its num_k k-steps; the W tiles
     of those steps stream through a num_bufs-slot ring in `chunks` chunks."""
 
@@ -153,7 +155,8 @@ def plan_matmul_sm90(M: int, K: int, N: int, *, w_itemsize: int,
                      num_bufs: "int | None" = None,
                      smem_budget: int = SMEM_BUDGET_BYTES,
                      runs: int = 1) -> MatmulPlan:
-    """Tiles + ring depth for `gpp_matmul` on an H100 (module docstring).
+    """Tiles + ring depth of the FMA tile kernel (`gpp_matmul.cuh`, the
+    grouped kernel's FMA route) on an H100 (module docstring).
 
     A planned ring shrinks to fit the shared-memory budget, down to
     ping-pong; a pinned `num_bufs` is kept and the tile's k rows halve
@@ -347,7 +350,9 @@ CTA_SMEM_RESERVED = 1_024        # the system's share of it, per CTA
 
 @dataclasses.dataclass(frozen=True)
 class MatmulTcPlan:
-    """`gpp_matmul`'s tensor-core route (bf16 x and W), stream-K.  A tile is
+    """`gpp_matmul`'s split over persistent CTAs: its tensor-core route
+    (bf16 x and W, stream-K, block_n 128; `plan_matmul_tc_sm90`) and, with
+    its tiles numbered m-major, its FMA route (`MatmulFmaPlan`).  A tile is
     one (n-tile, m-tile) of block_m x block_n outputs, numbered n-major with
     the m-tile innermost; a unit is one (tile, k-step), numbered tile-major
     with the k-step inner.  `grid` persistent CTAs each walk a contiguous
@@ -493,7 +498,126 @@ def plan_matmul_tc_sm90(M: int, K: int, N: int, *,
                      f"fit {smem_budget} bytes of shared memory")
 
 
-PA_ROWS_PER_CTA = 32     # query rows (rep * S) one CTA holds
+H100_F32_FLOPS = 67e12             # f32 FMA on the CUDA cores (dense)
+GPP_FMA_BLOCK_KS = (256, 128, 64, 32)   # FMA route k rows a step
+GPP_FMA_STEP_S = 1.0e-6            # a step's fixed cost: its wait for one
+                                   # memory round trip (gpp_fma_sweep.py)
+GPP_FMA_SEG_S = 0.02e-6            # a split tile's fix-up, per segment read
+
+
+def matmul_fma_smem_bytes(bm: int, bk: int, G: int, w_itemsize: int) -> int:
+    """G-slot W ring of (bk, 64) tiles in W's own dtype + one f32 (bm, bk)
+    x tile (csrc/gpp_matmul.cu, gpp_mm_fma::smem_bytes)."""
+    return G * bk * GPP_BLOCK_N * w_itemsize + bm * bk * 4
+
+
+def _fma_block_k(K: int, N: int) -> int:
+    """block_k of the FMA route, from K and N alone: the one whose
+    one-CTA-an-SM cut of an m-tile has the least modelled time, a run's
+    steps each streaming its f32 W tile at an SM's share of the memory rate
+    after a fixed wait, plus the fix-up's read of a split tile's segments.
+    Ties go to the larger block_k (fewer segments)."""
+    n_tiles = -(-N // GPP_BLOCK_N)
+    best = None
+    for bk in GPP_FMA_BLOCK_KS:
+        num_k = -(-K // bk)
+        P = min(n_tiles * num_k, H100_SMS)
+        steps = -(-n_tiles * num_k // P)
+        segs = 1 if steps >= num_k else -(-num_k // steps) + 1
+        t = steps * (bk * GPP_BLOCK_N * 4 * H100_SMS / H100_HBM_BYTES_PER_S
+                     + GPP_FMA_STEP_S) + (segs > 1) * segs * GPP_FMA_SEG_S
+        if best is None or t < best[0]:
+            best = (t, bk)
+    return best[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulFmaPlan(MatmulTcPlan):
+    """`gpp_matmul`'s FMA route (f32 x, or f32 / int8 W), split-K: the
+    units of `MatmulTcPlan` at block_n 64, with the tiles numbered m-major
+    (the m-tile outermost).  With a grid of m_tiles x P0 CTAs, CTA
+    mt * P0 + j walks m-tile mt's units exactly as CTA j walks them in the
+    one-m-tile plan (floor((mt P0 + j) U0 / P0) = mt U0 + floor(j U0 /
+    P0)), so every m-tile meets the same k-cuts and segments."""
+
+    def tile(self, t: int) -> "tuple[int, int]":
+        """(n-tile, m-tile) of tile t."""
+        mt, nt = divmod(t, self.n_tiles)
+        return nt, mt
+
+
+def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
+                         num_bufs: "int | None" = None,
+                         block_k: "int | None" = None,
+                         grid: "int | None" = None,
+                         smem_budget: int = SMEM_BUDGET_BYTES
+                         ) -> MatmulFmaPlan:
+    """Plan for the FMA route of `gpp_matmul` (f32 x, or f32 / int8 W).
+
+    block_k (256, 128, 64 or 32; `_fma_block_k`) and the P0 CTAs that cut
+    one m-tile's units (one an SM, at most 132) come from K and N alone,
+    never from M or W's dtype.  block_m (4 row groups x a power of two
+    rows a thread, 4-64) is the smallest whose m-tiles, P0 CTAs each, fit
+    132 CTAs, and
+    the grid is m_tiles x P0: at deepseek's router (P0 = 32) decode's 4
+    rows take one m-tile of 4, verify's 20 three of 8, prefill's 32 four
+    of 8, so each fix-up reads 32 partials of 1-2 KB, not of 8 KB; at the
+    wide projections (P0 = 132) block_m covers M <= 64 in one m-tile, as
+    W is then read once.  Every m-tile is cut alike (`MatmulFmaPlan`), so
+    a row meets the same k-cuts, the same segments and the same order of
+    sums at any M: decode, verify and prefill give it the same bits, and a
+    bf16 W widened in the kernel gives the bits of its f32 copy.  G comes
+    from `plan_stream` at the H100's f32 rate, clamped to the longest run
+    and to GPP_MM_TC_MAX_RING, then shrunk until the ring fits.  A pinned
+    `num_bufs` is kept and block_k shrinks until it fits; `block_k` and
+    `grid` (all CTAs) pins are for tests and sweeps.  Raises when nothing
+    fits."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"empty matmul {M}x{K}x{N}")
+    if num_bufs is not None and num_bufs < 1:
+        raise ValueError("num_bufs >= 1")
+    if block_k is not None and block_k not in GPP_FMA_BLOCK_KS:
+        raise ValueError(f"block_k is one of {GPP_FMA_BLOCK_KS}, got "
+                         f"{block_k}")
+    if grid is not None and grid < 1:
+        raise ValueError("grid >= 1")
+    if w_itemsize not in (1, 2, 4):
+        raise ValueError(f"w_itemsize is 1, 2 or 4, got {w_itemsize}")
+    bn = GPP_BLOCK_N
+    n_tiles = -(-N // bn)
+    planned_bk = _fma_block_k(K, N)
+    if block_k is not None:
+        bks = (block_k,)
+    else:       # the planned block_k, or smaller ones where a pinned ring
+        bks = [bk for bk in GPP_FMA_BLOCK_KS if bk <= planned_bk]
+    for bk in bks:
+        per_m = n_tiles * -(-K // bk)
+        P0 = min(per_m, H100_SMS)
+        bm = 4
+        while bm < GPP_MAX_BLOCK_M and -(-M // bm) * P0 > H100_SMS:
+            bm *= 2
+        m_tiles = -(-M // bm)
+        units = m_tiles * per_m
+        P = min(grid if grid is not None else m_tiles * P0, units)
+        G = num_bufs if num_bufs is not None else min(
+            _ring_depth(bk * bn * w_itemsize, 2.0 * bm * bk * bn,
+                        H100_F32_FLOPS),
+            -(-units // P),                # deeper than a run idles
+            GPP_MM_TC_MAX_RING)
+        if num_bufs is None:
+            while G > 1 and matmul_fma_smem_bytes(bm, bk, G,
+                                                  w_itemsize) > smem_budget:
+                G -= 1
+        smem = matmul_fma_smem_bytes(bm, bk, G, w_itemsize)
+        if smem <= smem_budget:
+            ctas = min(2, SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED))
+            return MatmulFmaPlan(M, K, N, bm, bn, bk, G,
+                                 max(1, min(G - 1, bk)), ctas, P, smem)
+    raise ValueError(f"gpp_matmul FMA ring of {num_bufs} does not fit "
+                     f"{smem_budget} bytes of shared memory")
+
+
+PA_ROWS_PER_CTA = 32    # query rows (rep * S) one CTA holds
 PA_MLA_ROWS_PER_CTA = 16  # MLA: one query's 16 heads (f32 q, acc 576/512 wide)
 PA_MAX_HEAD_DIM = 256
 

@@ -1,6 +1,9 @@
-// The gpp_matmul tile kernel for sm_90a, shared by gpp_matmul.cu (one
-// product) and gpp_matmul_grouped.cu (one product per expert):
+// The gpp_matmul tile kernel for sm_90a: the FMA route of
+// gpp_matmul_grouped.cu (one product per expert),
 //   y[e] = act((x[e] @ W[e]) * w_scale[e] + bias[e]), f32 accumulation.
+// gpp_matmul.cu's FMA route is its own split-K kernel and uses only the
+// helpers here (dtype widening, the activations); including the header
+// still compiles this kernel into that library, where nothing launches it.
 //
 // Each CTA owns one (block_m, 64) output tile position and walks the
 // k-steps of `epc` consecutive experts e0 .. e0+epc-1 (blockIdx.z = e0 /
@@ -12,7 +15,8 @@
 // naive ping-pong, G >= 3 generalized ping-pong with C = G-1 chunks of the
 // block_k rows.  Because the schedule runs over the CTA's whole run, the
 // first W chunks of expert e+1 are in flight while expert e's last k-steps
-// compute.  A single product is the case E = epc = 1.
+// compute.  A single product is the case E = epc = 1 (gpp_matmul_grouped
+// at E = 1 is how the split-K kernel's yardstick runs it).
 //
 // bf16 and int8 weights are copied raw and widened to f32 in registers; the
 // epilogue (per-column dequant scale, bias, one of six activations — gelu in

@@ -3,17 +3,19 @@ streaming matmuls on the H100.
 
 `gpp_matmul`: y[M, N] = act((x[M, K] @ W[K, N]) * w_scale + bias) with f32
 accumulation — the port of `repro/kernels/gpp_matmul.py::gpp_matmul`.  One
-library (`csrc/gpp_matmul.cu`), two tile kernels, routed by dtype
+library (`csrc/gpp_matmul.cu`), two kernels, routed by dtype
 (`gpp_route`):
   * "tc": bf16 x and bf16 W (every projection of both serving paths but
     deepseek's f32 router) run `gpp_matmul_tc_kernel` — mma.sync tensor
     cores, stream-K persistent CTAs each walking a balanced run of
     (tile, k-step) units on one GPP ring, split tiles summed in a fixed
     order by their last CTA (`core.schedule.plan_matmul_tc_sm90`);
-  * "fma": f32 x, or f32 / int8 W, run `gpp_matmul_kernel`: each CTA owns
-    one (block_m, 64) output tile and streams its k-steps' W tiles through
-    a G-slot shared-memory ring on the paper's chunk schedule
-    (`csrc/ring.cuh`; G from `core.schedule.plan_matmul_sm90`).
+  * "fma": f32 x, or f32 / int8 W, run `gpp_matmul_kernel` — f32 FMA on
+    the CUDA cores, split-K: persistent CTAs each walking a balanced run
+    of (64-column tile, k-step) units on one GPP ring, split tiles summed
+    in the same fixed order; block_k and each m-tile's k-cuts come from K
+    and N alone, so a row's bits do not depend on M
+    (`core.schedule.plan_matmul_fma_sm90`).
 
 `gpp_matmul_grouped`: y[e] = act((x[e] @ W[e]) * w_scale[e] + bias[e]) for
 E experts — the port of `gpp_matmul_grouped`, the MoE layer's routed-expert
@@ -40,7 +42,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.schedule import (MatmulTcPlan, plan_grouped_sm90,
-                                      plan_grouped_tc_sm90, plan_matmul_sm90,
+                                      plan_grouped_tc_sm90,
+                                      plan_matmul_fma_sm90,
                                       plan_matmul_tc_sm90)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ACTIVATION_IDS
@@ -116,30 +119,25 @@ def gpp_matmul(x: torch.Tensor, w: torch.Tensor, *,
                         f"x {x.dtype}, w {w.dtype}")
     scale = _epilogue_vector(w_scale, 1, N, x.device, "w_scale")
     b = _epilogue_vector(bias, 1, N, x.device, "bias", full=True)
-    if r == "tc":
-        return _launch_tc(x, w, _tc_plan(M, K, N, num_bufs=num_bufs), scale,
-                          b, activation, record)
-    plan = plan_matmul_sm90(M, K, N, w_itemsize=w.element_size(),
-                            num_bufs=num_bufs)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _lib("gpp_matmul", 7, 15)
-    err = lib.gpp_matmul_launch(
-        x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
-        None, None, M, K, N, X_DTYPES[x.dtype], W_DTYPES[w.dtype],
-        plan.block_m, plan.block_k, plan.num_bufs, plan.chunks,
-        ACTIVATION_IDS[activation],
-        build.copy_width(N * w.element_size(), w.data_ptr()), 0, 0, 0, 1,
-        _ptr(record), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(lib, err, "gpp_matmul")
-    launches.n += 1
-    return y
+    return _launch(x, w, _plan(r, M, K, N, w.element_size(), num_bufs),
+                   scale, b, activation, record, r)
 
 
 # each shape is planned once a process (a plan's `max_segs` walks its tiles)
 _tc_plan = functools.lru_cache(maxsize=256)(plan_matmul_tc_sm90)
+_fma_plan = functools.lru_cache(maxsize=256)(plan_matmul_fma_sm90)
 
 
-# arrival counters of the tensor-core route's split tiles, one int a tile,
+def _plan(route: str, M: int, K: int, N: int, w_itemsize: int,
+          num_bufs: "int | None", grid: "int | None" = None) -> MatmulTcPlan:
+    """The cached plan of one launch on `route`."""
+    if route == "tc":
+        return _tc_plan(M, K, N, num_bufs=num_bufs, grid=grid)
+    return _fma_plan(M, K, N, w_itemsize=w_itemsize, num_bufs=num_bufs,
+                     grid=grid)
+
+
+# arrival counters of both routes' split tiles, one int a tile,
 # zero between launches (each launch's last CTA on a tile resets its
 # counter).  Launches on one stream run in order, so each stream keeps its
 # own buffer; a launch captured into a CUDA graph takes one of its own,
@@ -159,13 +157,14 @@ def _tile_counters(dev: torch.device, stream, tiles: int) -> torch.Tensor:
     return c
 
 
-def _launch_tc(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcPlan,
-               scale, b, activation: "str | None",
-               record: "torch.Tensor | None") -> torch.Tensor:
-    """Launch `gpp_matmul_tc_kernel` on its plan.  The split tiles' f32
-    partials go to a workspace from the caching allocator (torch.empty,
-    every slot written before it is read); the tile counters are the
-    launch stream's buffer (`_tile_counters`).  Nothing syncs."""
+def _launch(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcPlan,
+            scale, b, activation: "str | None",
+            record: "torch.Tensor | None", route: str) -> torch.Tensor:
+    """Launch `route`'s kernel ("tc": `gpp_matmul_tc_kernel`, "fma":
+    `gpp_matmul_kernel`) on its plan.  The split tiles' f32 partials go to
+    a workspace from the caching allocator (torch.empty, every slot written
+    before it is read); the tile counters are the launch stream's buffer
+    (`_tile_counters`).  Nothing syncs."""
     M, K = x.shape
     N = w.shape[1]
     segs = plan.max_segs
@@ -179,13 +178,15 @@ def _launch_tc(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcPlan,
     lib = _lib("gpp_matmul", 7, 15)
     err = lib.gpp_matmul_launch(
         x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
-        _ptr(ws), _ptr(cnt), M, K, N, 1, 1, plan.block_m, plan.block_k,
-        plan.num_bufs, plan.chunks, ACTIVATION_IDS[activation],
-        build.copy_width(N * 2, w.data_ptr()), 1, plan.grid,
-        build.copy_width(K * 2, x.data_ptr()), segs, _ptr(record),
-        stream.cuda_stream)
+        _ptr(ws), _ptr(cnt), M, K, N, X_DTYPES[x.dtype], W_DTYPES[w.dtype],
+        plan.block_m, plan.block_k, plan.num_bufs, plan.chunks,
+        ACTIVATION_IDS[activation],
+        build.copy_width(N * w.element_size(), w.data_ptr()),
+        int(route == "tc"), plan.grid,
+        build.copy_width(K * x.element_size(), x.data_ptr()), segs,
+        _ptr(record), stream.cuda_stream)
     build.check_launch(lib, err, "gpp_matmul")
-    launches_tc.n += 1
+    (launches_tc if route == "tc" else launches).n += 1
     return y
 
 
@@ -340,28 +341,19 @@ def issue_order(x: torch.Tensor, w: torch.Tensor, num_bufs: "int | None",
     """Run one launch with the issue-order record on and return
     ({(step, chunk): [issue_steps]}, steps, G, C) for the first CTA — the
     structure `kernels.ref.chunk_issue_schedule(steps, G, C)` returns.  On
-    the FMA route CTA (0, 0) walks one tile's num_k k-steps; on the
-    tensor-core route CTA 0 walks its run of units,
-    `plan_matmul_tc_sm90(...).cta_units(0)`, across tile and k-split
+    either route CTA 0 walks its run of units, `plan.cta_units(0)` of
+    `plan_matmul_tc_sm90` / `plan_matmul_fma_sm90`, across tile and k-split
     boundaries (`grid` pins the CTAs, so that the run can be made to cross
     them)."""
     M, K = x.shape
     N = w.shape[1]
     r = gpp_route(x.dtype, w.dtype) if route is None else route
-    if r == "tc":
-        plan = _tc_plan(M, K, N, num_bufs=num_bufs, grid=grid)
-        steps, G, C = plan.cta_steps(0), plan.num_bufs, plan.chunks
-    else:
-        plan = plan_matmul_sm90(M, K, N, w_itemsize=w.element_size(),
-                                num_bufs=num_bufs)
-        steps, G, C = plan.grid(M, N, K)[2], plan.num_bufs, plan.chunks
+    plan = _plan(r, M, K, N, w.element_size(), num_bufs, grid)
+    steps, G, C = plan.cta_steps(0), plan.num_bufs, plan.chunks
     rec = torch.full((3 * steps * C,), -1, dtype=torch.int32,
                      device=x.device)
-    if r == "tc":
-        _check_operands("gpp_matmul", x, w, rec)
-        _launch_tc(x, w, plan, None, None, None, rec)
-    else:
-        gpp_matmul(x, w, num_bufs=num_bufs, record=rec, route="fma")
+    _check_operands("gpp_matmul", x, w, rec)
+    _launch(x, w, plan, None, None, None, rec, r)
     return build.read_issue_record(rec), steps, G, C
 
 

@@ -5,8 +5,8 @@ oracle.
 are copies of `repro.kernels.ref` in torch, and `rmsnorm_ref` of
 `repro.models.layers.rmsnorm` (written as its steps: a sum, / d):
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
-against them on the card.  `dense_split_ref` replays the tensor-core
-`gpp_matmul`'s stream-K split and its fixed-order fix-up for the tests.
+against them on the card.  `dense_split_ref` replays `gpp_matmul`'s
+split over CTAs (either route) and its fixed-order fix-up for the tests.
 `mla_merge_ref` is the plain version of the merge kernel that both
 tensor-core attention kernels share; `paged_attn_mla_split_ref` and
 `paged_attn_gqa_split_ref` replay those kernels' split-KV walks and merge
@@ -59,9 +59,10 @@ def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
 def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
                     w_scale=None,
                     activation: "str | None" = None) -> torch.Tensor:
-    """Plain replay of `gpp_matmul`'s tensor-core route (stream-K), for
-    tests: for each (block_m x block_n) tile of `plan`
-    (`core.schedule.plan_matmul_tc_sm90`), each CTA that shares it
+    """Plain replay of `gpp_matmul`'s split (stream-K on the tensor-core
+    route, split-K on the FMA route), for tests: for each (block_m x
+    block_n) tile of `plan` (`core.schedule.plan_matmul_tc_sm90` or
+    `plan_matmul_fma_sm90`), each CTA that shares it
     (`plan.segments(t)`) computes an f32 partial over its run's k-steps of
     the tile; the partials are summed in segment order, then the epilogue
     runs as in `dense_ref` (f32 scale, bias, activation), cast to

@@ -78,8 +78,14 @@ def _dispatch(p, c: MoeConfig, xt: torch.Tensor, C: int):
     token_idx, w), each (G, Tg*k), in sorted-entry order."""
     G, Tg, D = xt.shape
     k, E = c.experts_per_token, c.num_experts
-    logits = dense(xt.to(c.router_dtype), p["router"].to(c.router_dtype),
-                   mode=c.dense_kernel)
+    # the reference's `p["router"].astype(router_dtype)` is folded into the
+    # kernel's load at an f32 router: W goes in its stored dtype and is
+    # widened to f32 in registers (the plain version: w.float()), which is
+    # exact, so the logits keep their bits and no f32 copy is made a call
+    w = p["router"]
+    if c.router_dtype != torch.float32:
+        w = w.to(c.router_dtype)
+    logits = dense(xt.to(c.router_dtype), w, mode=c.dense_kernel)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)                # (G, Tg, k)
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)

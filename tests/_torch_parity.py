@@ -72,3 +72,29 @@ def ring_replay(S: int, G: int, C: int):
         groups += 1                    # R
         landed[s] = groups - 3         # wait_group 3: all but the newest 3
     return order, x_at, chunk_groups, landed
+
+
+def walk_checks(plan):
+    """What every split plan of `gpp_matmul` (`core.schedule.MatmulTcPlan`,
+    either route) must hold: each unit walked once, in order, by balanced
+    runs; the kernel's `owner`; each tile's segments covering its k-steps
+    once in segment order; units tile-major with the k-step inner, each
+    tile one (n-tile, m-tile)."""
+    walked = [u for i in range(plan.grid) for u in plan.cta_units(i)]
+    assert walked == list(range(plan.units))      # once each, in order
+    sizes = {plan.cta_steps(i) for i in range(plan.grid)}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for u in range(plan.units):                   # the kernel's owner()
+        assert u in plan.cta_units(plan.owner(u))
+    for tile in range(plan.tiles):
+        segs = plan.segments(tile)
+        assert len(segs) <= plan.max_segs
+        # the CTAs sharing a tile cover its k-steps once, in segment order
+        ks = [plan.unit(u)[1] for i in segs for u in plan.cta_units(i)
+              if plan.unit(u)[0] == tile]
+        assert ks == list(range(plan.num_k))
+    # units tile-major, the k-step inner; every (n-tile, m-tile) a tile once
+    assert [plan.unit(u) for u in range(plan.units)] == \
+        [(tl, k) for tl in range(plan.tiles) for k in range(plan.num_k)]
+    assert sorted(plan.tile(tl) for tl in range(plan.tiles)) == \
+        [(n, m) for n in range(plan.n_tiles) for m in range(plan.m_tiles)]

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.paged_attention import paged_attention
@@ -50,12 +51,142 @@ def test_gpp_matmul_matches_plain(cuda, dtype, G, shape):
 
 @pytest.mark.parametrize("G", (1, 2, 4))
 def test_gpp_issue_order_is_the_chunk_schedule(cuda, G):
-    # the FMA route (pinned: bf16 x and W route to the tensor cores)
+    # the FMA route (pinned: bf16 x and W route to the tensor cores) as
+    # planned: CTA 0 walks its run of k-steps of tile 0, which other CTAs
+    # finish
     x = torch.randn(4, 1024, device=cuda).bfloat16()
     w = torch.randn(1024, 512, device=cuda).bfloat16()
-    got, num_k, g_used, C = gm.issue_order(x, w, G, route="fma")
+    got, steps, g_used, C = gm.issue_order(x, w, G, route="fma")
+    plan = sched.plan_matmul_fma_sm90(4, 1024, 512, w_itemsize=2,
+                                      num_bufs=G)
+    assert steps == plan.cta_steps(0) and len(plan.segments(0)) > 1
     assert g_used == G
-    assert got == chunk_issue_schedule(num_k, G, C)
+    assert got == chunk_issue_schedule(steps, G, C)
+
+
+# every f32 product of the two serving paths, (K, N): deepseek's router in
+# every run, the rest in the f32 runs
+FMA_ROUTER = (2048, 64)
+FMA_PROJ = ((1024, 1024), (1024, 2816), (2816, 1024), (2048, 3072),
+            (2048, 576), (2048, 2048), FMA_ROUTER, (2048, 2816),
+            (2816, 2048), (2048, 10944), (10944, 2048))
+FMA_PATH = [(M, K, N) for M in (4, 32, 20) for K, N in FMA_PROJ]
+
+
+def _fma_inputs(cuda, M, K, N, seed, *, x_dtype=torch.float32,
+                w_dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=cuda).to(x_dtype)
+    if w_dtype == torch.int8:
+        w = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                          dtype=torch.int8)
+        s = torch.rand(N, generator=g, device=cuda) * 2e-3
+    else:
+        w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).to(w_dtype)
+        s = torch.rand(N, generator=g, device=cuda) + 0.5
+    b = torch.randn(N, generator=g, device=cuda)
+    return x, w, b, s
+
+
+@pytest.mark.parametrize("shape", FMA_PATH + [(7, 1000, 1001), (37, 333, 130),
+                                              (200, 1000, 1001), (1, 64, 8),
+                                              (65, 33, 65)])
+def test_gpp_fma_route_matches_plain(cuda, shape):
+    # f32 x and W launch the split-K FMA kernel, never the tensor-core one,
+    # at the planned ring and pinned ones, with and without an epilogue
+    M, K, N = shape
+    x, w, b, s = _fma_inputs(cuda, M, K, N, 12)
+    tc, fma = gm.launches_tc.n, gm.launches.n
+    for G in (None, 1, 2, 4):
+        for act, bias, scale in (("silu", None, None), ("gelu", b, s)):
+            y = gm.gpp_matmul(x, w, bias=bias, w_scale=scale,
+                              activation=act, num_bufs=G)
+            ref = dense_ref(x, w, bias=bias, w_scale=scale, activation=act)
+            torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+    assert (gm.launches_tc.n - tc, gm.launches.n - fma) == (0, 8)
+
+
+@pytest.mark.parametrize("act", ("relu", "gelu", "silu", "tanh", "sigmoid",
+                                 None))
+@pytest.mark.parametrize("case", ("int8", "bf16_w", "bf16_x_pinned"))
+def test_gpp_fma_route_dtypes(cuda, case, act):
+    # int8 W with its scale, a bf16 W (deepseek's router as stored) and bf16
+    # x pinned to the FMA route, at the router's split and a ragged one
+    kw = {"int8": dict(w_dtype=torch.int8),
+          "bf16_w": dict(w_dtype=torch.bfloat16),
+          "bf16_x_pinned": dict(x_dtype=torch.bfloat16,
+                                w_dtype=torch.bfloat16)}[case]
+    tol = 2e-2 if case == "bf16_x_pinned" else 2e-4
+    for M, K, N in ((4, *FMA_ROUTER), (20, 1000, 1001)):
+        x, w, b, s = _fma_inputs(cuda, M, K, N, 13, **kw)
+        scale = s if case == "int8" else None
+        fma = gm.launches.n
+        y = gm.gpp_matmul(x, w, bias=b, w_scale=scale, activation=act,
+                          route="fma")
+        assert gm.launches.n == fma + 1 and y.dtype == x.dtype
+        ref = dense_ref(x, w, bias=b, w_scale=scale, activation=act)
+        torch.testing.assert_close(y.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("shape", ((4, *FMA_ROUTER), (32, *FMA_ROUTER),
+                                   (4, 2816, 1024), (32, 10944, 2048),
+                                   (7, 1000, 1001)))
+def test_gpp_fma_route_is_deterministic(cuda, shape):
+    # split tiles are summed in segment order, whatever order their CTAs
+    # arrive in: four runs agree bit for bit
+    M, K, N = shape
+    plan = sched.plan_matmul_fma_sm90(M, K, N, w_itemsize=4)
+    assert plan.max_segs > 1
+    x, w, b, _ = _fma_inputs(cuda, M, K, N, 14)
+    first = gm.gpp_matmul(x, w, bias=b, activation="silu")
+    for _ in range(3):
+        assert torch.equal(gm.gpp_matmul(x, w, bias=b, activation="silu"),
+                           first)
+
+
+@pytest.mark.parametrize("KN", FMA_PROJ)
+def test_gpp_fma_rows_do_not_depend_on_the_batch(cuda, KN):
+    # 1, 4 (decode), 20 (verify) and 32 (prefill) rows plan the same k-cuts
+    # and segments, so a row's output is the same bits whichever batch it
+    # rides in
+    K, N = KN
+    x, w, _, _ = _fma_inputs(cuda, 32, K, N, 15)
+    y1 = gm.gpp_matmul(x[:1], w)
+    y4 = gm.gpp_matmul(x[:4], w)
+    assert torch.equal(y4[:1], y1)
+    assert torch.equal(gm.gpp_matmul(x[:20], w)[:4], y4)
+    assert torch.equal(gm.gpp_matmul(x, w)[:4], y4)
+
+
+def test_router_weight_in_its_stored_dtype(cuda):
+    # deepseek's router: f32 x against the bf16 weight as stored is the
+    # bits of f32 x against its f32 copy (the kernel widens bf16 exactly,
+    # on the same plan), at decode, verify and prefill
+    for M in (4, 20, 32):
+        x, w, _, _ = _fma_inputs(cuda, M, *FMA_ROUTER, 16,
+                                 w_dtype=torch.bfloat16)
+        assert torch.equal(ops.dense(x, w), ops.dense(x, w.float()))
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+@pytest.mark.parametrize("shape,grid", (((4, 512, 192), 2),
+                                        ((4, *FMA_ROUTER), None)))
+def test_gpp_fma_issue_order_crosses_tiles_and_splits(cuda, shape, grid, G):
+    # 4x512x192 on 2 CTAs: CTA 0 walks tile 0's k-steps and half of tile
+    # 1's (which CTA 1 finishes); the router as planned: CTA 0's one step
+    # of the tile that 31 more CTAs share
+    M, K, N = shape
+    x, w, _, _ = _fma_inputs(cuda, M, K, N, 17)
+    got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
+    plan = sched.plan_matmul_fma_sm90(M, K, N, w_itemsize=4, num_bufs=G,
+                                      grid=grid)
+    assert steps == plan.cta_steps(0)
+    tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
+    assert len(tiles) == (2 if grid else 1)
+    assert len(plan.segments(max(tiles))) > 1
+    assert G is None or g_used == G
+    assert got == chunk_issue_schedule(steps, g_used, C)
 
 
 # every bf16 projection of the two serving paths, (M, K, N): M = 4 / 32 /
@@ -127,15 +258,27 @@ def test_gpp_tc_two_streams_at_once(cuda, shape):
     # eager launches, each sum their own tiles
     M, K, N = shape
     assert sched.plan_matmul_tc_sm90(M, K, N).max_segs > 1
+    _two_streams(cuda, M, K, N, torch.bfloat16, 2e-2)
+
+
+@pytest.mark.parametrize("shape", ((4, 2048, 64), (20, 2816, 1024)))
+def test_gpp_fma_two_streams_at_once(cuda, shape):
+    # the same on the FMA route, which shares the counters' buffers
+    M, K, N = shape
+    assert sched.plan_matmul_fma_sm90(M, K, N, w_itemsize=4).max_segs > 1
+    _two_streams(cuda, M, K, N, torch.float32, 2e-4)
+
+
+def _two_streams(cuda, M, K, N, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(11)
-    xs = [torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    xs = [torch.randn(M, K, generator=g, device=cuda).to(dtype)
           for _ in range(2)]
-    ws = [(torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
+    ws = [(torch.randn(K, N, generator=g, device=cuda) * 0.02).to(dtype)
           for _ in range(2)]
     want = [gm.gpp_matmul(x, w) for x, w in zip(xs, ws)]
     for y, x, w in zip(want, xs, ws):
         torch.testing.assert_close(y.float(), dense_ref(x, w).float(),
-                                   rtol=2e-2, atol=2e-2)
+                                   rtol=tol, atol=tol)
     streams = [torch.cuda.Stream(device=cuda) for _ in range(2)]
     for st in streams:
         st.wait_stream(torch.cuda.current_stream(cuda))

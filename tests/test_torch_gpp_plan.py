@@ -32,7 +32,7 @@ from repro_torch.kernels import gpp_matmul as gm
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_ref,
                                      dense_split_ref)
 
-from _torch_parity import np32, ring_replay, t
+from _torch_parity import np32, ring_replay, t, walk_checks
 
 pytestmark = pytest.mark.tier1
 
@@ -60,27 +60,6 @@ def _fits(plan):
     assert plan.ctas_per_sm == 2 or 2 * need > sched.SM_SMEM_BYTES
 
 
-def _walk_checks(plan):
-    walked = [u for i in range(plan.grid) for u in plan.cta_units(i)]
-    assert walked == list(range(plan.units))      # once each, in order
-    sizes = {plan.cta_steps(i) for i in range(plan.grid)}
-    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
-    for u in range(plan.units):                   # the kernel's owner()
-        assert u in plan.cta_units(plan.owner(u))
-    for tile in range(plan.tiles):
-        segs = plan.segments(tile)
-        assert len(segs) <= plan.max_segs
-        # the CTAs sharing a tile cover its k-steps once, in segment order
-        ks = [plan.unit(u)[1] for i in segs for u in plan.cta_units(i)
-              if plan.unit(u)[0] == tile]
-        assert ks == list(range(plan.num_k))
-    # units tile-major (n-tile, then m-tile), the k-step inner
-    assert [plan.unit(u) for u in range(plan.units)] == \
-        [(tl, k) for tl in range(plan.tiles) for k in range(plan.num_k)]
-    assert [plan.tile(tl) for tl in range(plan.tiles)] == \
-        [(n, m) for n in range(plan.n_tiles) for m in range(plan.m_tiles)]
-
-
 @pytest.mark.parametrize("shape", PATH_SHAPES + RAGGED_SHAPES)
 def test_units_walked_once_in_balanced_runs(shape):
     M, K, N = shape
@@ -95,7 +74,10 @@ def test_units_walked_once_in_balanced_runs(shape):
     # a planned ring is no deeper than the longest run, nor than 2
     assert plan.num_bufs <= max(plan.cta_steps(i) for i in range(plan.grid))
     assert plan.num_bufs <= sched.GPP_MM_TC_MAX_RING
-    _walk_checks(plan)
+    walk_checks(plan)
+    # tiles n-major, the m-tile inner
+    assert [plan.tile(tl) for tl in range(plan.tiles)] == \
+        [(n, m) for n in range(plan.n_tiles) for m in range(plan.m_tiles)]
     # the workspace: a (block_m x 128) f32 slot per (tile, segment)
     segs = plan.max_segs
     assert plan.workspace_floats == \
@@ -133,13 +115,13 @@ def test_pinned_ring_is_kept(G):
         assert plan.num_bufs == G
         assert plan.chunks == max(1, min(G - 1, plan.block_k))
         _fits(plan)
-        _walk_checks(plan)
+        walk_checks(plan)
 
 
 def test_pins_for_sweeps():
     p = sched.plan_matmul_tc_sm90(4, 1024, 2816, block_k=256, grid=50)
     assert (p.block_k, p.grid) == (256, 50)
-    _walk_checks(p)
+    walk_checks(p)
     # a grid beyond the units is cut to them
     assert sched.plan_matmul_tc_sm90(4, 64, 128, grid=9).grid == 1
 

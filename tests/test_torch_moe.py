@@ -164,6 +164,35 @@ class TestMoeParity:
         s = meta[0][0].numpy()
         assert (np.diff(s) >= 0).all()                  # sorted by expert
 
+    def test_router_weight_goes_in_its_stored_dtype(self, monkeypatch):
+        """A bf16 model's router weight reaches `dense` as stored, with f32
+        x (the reference's astype is folded into the kernel's load, which
+        widens bf16 exactly): the logits are the bits of the f32 copy, and
+        the routing is JAX's."""
+        jc, pc, jp, pp = _moe("bfloat16", capacity_factor=0.5,
+                              dispatch_groups=1)
+        assert pp["router"].dtype == torch.bfloat16
+        seen = []
+
+        def spy(x, w, **kw):
+            seen.append((x.dtype, w.dtype, w.data_ptr()))
+            return ops.dense(x, w, **kw)
+
+        monkeypatch.setattr(M, "dense", spy)
+        x = jnp.asarray(_x(1, 40, seed=11)[0], jnp.bfloat16)
+        C = M.capacity(pc, 40)
+        _, meta = M._dispatch(pp, pc, t(x)[None], C)
+        assert seen == [(torch.float32, torch.bfloat16,
+                         pp["router"].data_ptr())]          # no copy
+        xt = t(x).float()
+        assert torch.equal(ops.dense(xt, pp["router"], mode="ref"),
+                           ops.dense(xt, pp["router"].float(), mode="ref"))
+        _, jmeta = JM._dispatch(jp, jc, x, C)
+        for name, a, b in zip(("sorted_e", "slot", "keep", "token_idx"),
+                              meta, jmeta):
+            np.testing.assert_array_equal(a[0].numpy(), np.asarray(b),
+                                          err_msg=name)
+
     def test_bf16(self):
         jc, pc, jp, pp = _moe("bfloat16")
         x = _x(4, 5, seed=8)
