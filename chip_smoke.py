@@ -37,15 +37,21 @@ In order, it:
      bf16 (split-KV, kv_splits planned, 1, 2; head_dim 64 at qwen's three
      shapes with and without a 32-token window, 128 and 256 at decode and
      verify), the FMA kernel's bf16 instance pinned, and its FMA kernel in
-     f32, timed at every bf16 shape (also by CUDA events over CUDA graphs
-     at kv_splits 1, 2, 4 and planned) and at f32 decode; MLA paged
-     attention runs its tensor-core kernel in bf16 (split-KV, kv_splits
-     planned, 1, 2, 8) and its FMA kernel in f32, is timed in both at
-     decode (bf16 also at prefill and verify, and by CUDA events over a
-     CUDA graph of launches); the merge kernel both share is held against
-     its plain version on each one's partials; bf16 MLA at 8- and
-     128-token blocks (the FMA kernel's bf16 instance) is held against the
-     plain version at the three shapes and timed at decode; RMSNorm runs
+     f32 (split-KV over fixed runs of pieces, kv_splits planned, 1, 2 and
+     one run a piece, with its merge), timed at every bf16 shape (also by
+     CUDA events over CUDA graphs at kv_splits 1, 2, 4 and planned) and at
+     f32 decode (with its plan: P, kv_splits, grid); MLA paged attention
+     runs its tensor-core kernel in bf16 (split-KV, kv_splits planned, 1,
+     2, 8) and its FMA kernel in f32 (likewise split), is timed in both at
+     decode (bf16 also at prefill and verify; both also by CUDA events over
+     a CUDA graph of launches); the merge kernel they share is held against
+     its plain version on the tensor-core kernels' partials and timed in
+     bf16 and f32; MLA on the FMA kernel at the block sizes the
+     tensor-core kernel does not take (bf16 at 8, 128 and 256 tokens, f32
+     at 128 and 256; max_len 256 for 256) is held against the plain
+     version at the three shapes and timed at decode; the FMA kernel's
+     issue order (MLA f32 / bf16, GQA f32) is read beside the tensor-core
+     kernels'; RMSNorm runs
      its row-invariant kernel at the paths' widths (512-2048, f32 and bf16,
      1-32 rows, strided rows), whose rows must be the same bits at 1, 5 and
      32 rows, at any place in the batch and at decode and verify layouts;
@@ -67,8 +73,8 @@ In order, it:
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
      since full depth in f32 is 62.8 GB of weights; then, at 4 layers, it
      serves bf16 with 8- and 128-token KV blocks (the FMA MLA kernel's
-     bf16 instance, counted on its own) and f32 with 8-token blocks, whose
-     greedy streams must equal the plain run's;
+     bf16 instance, counted on its own, and its merge) and f32 with 8- and
+     128-token blocks, whose greedy streams must equal the plain run's;
   6. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -531,20 +537,37 @@ PA_CASES = [
 ]
 
 
+def fma_times(row, fn, sets, name, plan, launch, q2_sets):
+    """The FMA route's times into `row`: the profiler's device time of the
+    kernel and its merge (summed, then each alone), the CUDA-event time of
+    a graph of launches (`launch` on pre-scaled q rows) and the plan (P,
+    kv_splits, the grid, the ring, the shared memory)."""
+    names = (name, KERNEL_NAMES["paged_attention_merge"])
+    row["ms"], row["wall_ms"] = measure(fn, sets, names)
+    row["kernel_ms"] = device_ms(fn, sets, name)
+    row["merge_ms"] = (device_ms(fn, sets, names[1])
+                       if plan.kv_splits > 1 else 0.0)
+    row["graph_ms"] = graph_ms(launch, q2_sets)
+    row["plan"] = {"piece": plan.piece, "kv_splits": plan.kv_splits,
+                   "grid": list(plan.grid), "ctas": plan.ctas,
+                   "num_bufs": plan.num_bufs, "smem_bytes": plan.smem_bytes}
+
+
 def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
             hd=HD, kvh=H):
     """One GQA / window comparison on the card, at every ring depth: bf16
     must launch the tensor-core kernel (kv_splits planned, 1 and 2; its
-    merge with more than one run), f32 the FMA kernel; bf16 also holds the
-    FMA kernel's bf16 instance (pinned) and the merge kernel alone against
-    their plain versions.  `timed` adds the kernel's device time (bf16: the
-    tensor-core kernel and its merge, and the FMA kernel pinned beside
-    it), the plain version's, SDPA's on gathered K/V, the bound and, on
-    the tensor-core kernel, the CUDA-event time of a graph of launches at
-    kv_splits 1, 2, 4 and planned."""
+    merge with more than one run), f32 the FMA kernel (kv_splits planned,
+    1, 2 and one run a piece; its merge likewise); bf16 also holds the FMA
+    kernel's bf16 instance (pinned) and the merge kernel alone against
+    their plain versions.  `timed` adds the kernel's device time (with its
+    merge; bf16 also the FMA kernel pinned beside it), the plain
+    version's, SDPA's on gathered K/V, the bound and the CUDA-event time of
+    a graph of launches (tensor cores: at kv_splits 1, 2, 4 and planned)."""
     import torch
     import torch.nn.functional as Fn
-    from repro_torch.core.schedule import plan_paged_attn_gqa_tc_sm90
+    from repro_torch.core.schedule import (plan_paged_attn_fma_sm90,
+                                           plan_paged_attn_gqa_tc_sm90)
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
     nb = SLOTS * (MAX_LEN // BS) + 1
@@ -570,8 +593,11 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
               f"gqa {name}: non-finite")
         return float((out.float() - ref.float()).abs().max())
 
+    fplan = plan_paged_attn_fma_sm90(
+        batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
+        max_blocks=MAX_LEN // BS, width=hd, kv_itemsize=q.element_size())
     for G in (None, 1, 2, 4):
-        for ks in ((None, 1, 2) if tc else (None,)):
+        for ks in ((None, 1, 2) if tc else (None, 1, 2, fplan.pieces)):
             errs.append(run((1, 0, 0) if tc else (0, 1, 0), num_bufs=G,
                             kv_splits=ks))
     err = max(errs)
@@ -617,7 +643,9 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
             row["merge_ms"] = (device_ms(call(), sets, names[1])
                                if plan.kv_splits > 1 else 0.0)
             row["fma_ms"], row["fma_wall_ms"] = measure(
-                call(route="gqa"), sets, KERNEL_NAMES["paged_attention"])
+                call(route="gqa"), sets,
+                (KERNEL_NAMES["paged_attention"],
+                 KERNEL_NAMES["paged_attention_merge"]))
             rows_q = [(pa._q_rows(q_, kw["scale"], kvh, q_.dtype), k_, v_,
                        t_, p_) for q_, k_, v_, t_, p_ in sets]
             row["graph_ms_by_splits"] = {}
@@ -632,8 +660,11 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
                     rows_q)
             row["graph_ms"] = row["graph_ms_by_splits"]["planned"]
         else:
-            row["ms"], row["wall_ms"] = measure(
-                call(), sets, KERNEL_NAMES["paged_attention"])
+            fma_times(row, call(), sets, KERNEL_NAMES["paged_attention"],
+                      fplan, lambda q2, k_, v_, t_, p_: pa._launch_fma(
+                          q2, k_, v_, t_, p_, fplan, S=S, window=window),
+                      [(pa._q_rows(q_, kw["scale"], kvh, q_.dtype), k_, v_,
+                        t_, p_) for q_, k_, v_, t_, p_ in sets])
         row["plain_ms"], row["plain_wall_ms"] = measure(
             lambda q, k, v, t, p: paged_attn_ref(q, k, v, t, p, **kw), sets)
         # yardstick: SDPA over K/V gathered through the tables beforehand
@@ -662,9 +693,10 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
              f"{row['bound_ms']:.5f} ({row['bound_by']}) "
              f"wall_ms={row['wall_ms']:.4f}"
              + (f" (kernel {row['kernel_ms']:.4f} + merge "
-                f"{row['merge_ms']:.4f}) fma_ms={row['fma_ms']:.4f} "
-                f"graph_ms by kv_splits {row['graph_ms_by_splits']}"
-                if tc else "")
+                f"{row['merge_ms']:.4f})")
+             + (f" fma_ms={row['fma_ms']:.4f} graph_ms by kv_splits "
+                f"{row['graph_ms_by_splits']}" if tc else
+                f" graph_ms={row['graph_ms']:.4f} plan={row['plan']}")
              if timed else "")
           + (f" plan={row['plan']} ctas/SM={row['ctas_per_sm']}"
              if tc else ""), flush=True)
@@ -991,10 +1023,11 @@ def check_moe_layer(report):
 # ---------------------------------------------------------------------------
 
 def mla_inputs(B, S, positions, dtype, *, nb, seed=0, bs=BS):
+    """Latent pools of `bs`-token blocks, max_len max(MAX_LEN, bs)."""
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mb = MAX_LEN // bs
+    mb = max(MAX_LEN, bs) // bs
     q = torch.randn(B, S, DS_H, DS_R + DS_RR, generator=g,
                     device="cuda").to(dt)
     ckv = (torch.randn(nb, bs, DS_R, generator=g, device="cuda") * 0.5
@@ -1026,24 +1059,26 @@ def mla_work(positions, S, es, bs=BS):
     B = len(positions)
     nbytes = (len(keys) * (DS_R + DS_RR) * es
               + B * S * DS_H * (DS_R + DS_RR + DS_R) * es
-              + B * (MAX_LEN // bs) * 4 + B * 4)
+              + B * (max(MAX_LEN, bs) // bs) * 4 + B * 4)
     return nbytes, 2.0 * pairs * DS_H * (DS_R + DS_RR + DS_R)
 
 
 def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
-    """One MLA comparison on the card, at every ring depth (and, on the
-    tensor-core kernel, kv_splits planned, 1, 2 and 8): bf16 at `bs`-token
-    blocks of 16-64 must launch the tensor-core kernel, bf16 at other
-    block sizes the FMA kernel's bf16 instance, f32 the FMA kernel.
-    `timed` adds the kernel's device time (its merge included), the plain
-    version's, SDPA's on gathered rows, the bound and, on the tensor-core
-    kernel, the CUDA-event time of a graph of launches."""
+    """One MLA comparison on the card, at every ring depth and at kv_splits
+    planned, 1, 2 and the most (a run a block, or a piece): bf16 at
+    `bs`-token blocks of 16-64 must launch the tensor-core kernel, bf16 at
+    other block sizes the FMA kernel's bf16 instance, f32 the FMA kernel.
+    `timed` adds the kernel's device time (its merge included, and each
+    alone), the plain version's, SDPA's on gathered rows, the bound and
+    the CUDA-event time of a graph of launches, with the FMA route's plan
+    (P, kv_splits, grid)."""
     import torch
     import torch.nn.functional as Fn
-    from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
+    from repro_torch.core.schedule import (plan_paged_attn_fma_sm90,
+                                           plan_paged_attn_mla_tc_sm90)
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
-    mb = MAX_LEN // bs
+    mb = max(MAX_LEN, bs) // bs
     nb = SLOTS * mb + 1
     q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb,
                                          bs=bs)
@@ -1054,9 +1089,12 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
     counts = (pa.launches_mla_tc, pa.launches_mla, pa.launches_mla_bf16)
     want = (1, 0, 0) if tc else (0, 0, 1) if dtype == "bfloat16" \
         else (0, 1, 0)
+    fplan = plan_paged_attn_fma_sm90(
+        batch=B, kv_heads=1, rows=DS_H * S, block_size=bs, max_blocks=mb,
+        width=DS_R, rope=DS_RR, mla=True, kv_itemsize=q.element_size())
     errs = []
     for G in ((None, 1, 2, 4) if bs == BS else (None, 1, 2)):
-        for ks in ((None, 1, 2, mb) if tc else (None,)):
+        for ks in (None, 1, 2, mb if tc else fplan.pieces):
             before = [c.n for c in counts]
             out = pa.paged_attention(q, ckv, kr, tables, pos, num_bufs=G,
                                      kv_splits=ks, **kw)
@@ -1080,6 +1118,9 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
            "kernel": (KERNEL_NAMES["paged_attention_mla_tc"],
                       KERNEL_NAMES["paged_attention_merge"]) if tc
            else KERNEL_NAMES["paged_attention_mla"]}
+    if not tc:
+        row["plan"] = {"piece": fplan.piece, "kv_splits": fplan.kv_splits,
+                       "grid": list(fplan.grid)}
     if tc:
         row["merge_max_abs_err"] = merge_err
     if tc:
@@ -1098,11 +1139,19 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
         n = copies_for(ckv.numel() * es + kr.numel() * es)
         sets = [mla_inputs(B, S, positions, dtype, nb=nb, seed=i, bs=bs)
                 for i in range(n)]
-        # (bf16: the tensor-core kernel and its merge, summed)
-        row["ms"], row["wall_ms"] = measure(
-            lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
-            sets, row["kernel"])
-        if tc:
+        # (the kernel and its merge, summed)
+        if not tc:
+            fma_times(row, lambda q, c, k, t, p: pa.paged_attention(
+                q, c, k, t, p, **kw), sets, row["kernel"], fplan,
+                lambda q2, c, k, t, p: pa._launch_fma(
+                    q2, c, k, t, p, fplan, S=S, window=None),
+                [(pa._q_rows(q_, kw["scale"], 1, q_.dtype), c_, k_, t_, p_)
+                 for q_, c_, k_, t_, p_ in sets])
+        else:
+            row["ms"], row["wall_ms"] = measure(
+                lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p,
+                                                         **kw),
+                sets, row["kernel"])
             row["kernel_ms"] = device_ms(
                 lambda q, c, k, t, p: pa.paged_attention(q, c, k, t, p, **kw),
                 sets, KERNEL_NAMES["paged_attention_mla_tc"])
@@ -1119,7 +1168,7 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
             lambda q, c, k, t, p: paged_attn_ref(q, c, k, t, p, **kw), sets)
         # yardstick: SDPA over latent rows gathered beforehand, the key
         # concat(c_kv, k_rope) and the value c_kv broadcast over 16 heads
-        T = MAX_LEN
+        T = mb * bs
         kpos = torch.arange(T, device="cuda")
         lib_sets = []
         for q_, c_, k_, t_, p_ in sets:
@@ -1143,12 +1192,11 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
               f"library_ms={row['library_ms']:.4f} bound_ms="
               f"{row['bound_ms']:.5f} ({row['bound_by']}) "
               f"wall_ms={row['wall_ms']:.4f}"
-              + (f" graph_ms={row['graph_ms']:.4f} (kernel "
-                 f"{row['kernel_ms']:.4f} + merge {row['merge_ms']:.4f})"
-                 if tc else "")
+              + f" graph_ms={row['graph_ms']:.4f} (kernel "
+              f"{row['kernel_ms']:.4f} + merge {row['merge_ms']:.4f})"
               if timed else "")
-          + (f" plan={row['plan']} ctas/SM={row['ctas_per_sm']}"
-             if tc else ""))
+          + f" plan={row['plan']}"
+          + (f" ctas/SM={row['ctas_per_sm']}" if tc else ""), flush=True)
     return row
 
 
@@ -1212,6 +1260,53 @@ def mla_issue_order(report):
     report["paged_attention_mla_issue_orders"] = n
 
 
+# (form, kv_splits) -> (steps, CTA) of the first run of >= 4 live pieces
+# at the decode positions: MLA's 8-token pieces put lane 2 (position 40: 6
+# live pieces) first; GQA's 16-token pieces lane 3 (100: 7, or a run of 4)
+FMA_ISSUE = {("mla", 1): (6, 2), ("mla", 2): (6, 4), ("gqa", 1): (7, 48),
+             ("gqa", 2): (4, 96)}
+
+
+def fma_issue_order(report):
+    """The FMA kernel's issue-order record against `chunk_issue_schedule`,
+    for the first run of >= 4 live pieces at the decode inputs
+    (`FMA_ISSUE`): MLA in f32 and bf16 (deepseek's latent pools) and GQA in
+    f32 (qwen's K / V), kv_splits 1 and 2, G in {None, 1, 2, 4}."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import chunk_issue_schedule
+    nb = SLOTS * (MAX_LEN // BS) + 1
+    n = 0
+    for form, dtype in (("mla", "float32"), ("mla", "bfloat16"),
+                        ("gqa", "float32")):
+        if form == "mla":
+            q, a, b, tables, pos = mla_inputs(SLOTS, 1, [5, 17, 40, 100],
+                                              dtype, nb=nb)
+        else:
+            q, a, b, tables, pos = pa_inputs(SLOTS, 1, [5, 17, 40, 100],
+                                             dtype, nb=nb)
+        for ks in (1, 2):
+            for G in (None, 1, 2, 4):
+                got, steps, g_used, C, cta = pa.issue_order_fma(
+                    q, a, b, tables, pos, num_kv_heads=1 if form == "mla"
+                    else H, scale=0.05, mla=form == "mla", num_bufs=G,
+                    kv_splits=ks)
+                check((steps, cta) == FMA_ISSUE[(form, ks)],
+                      f"fma {form} issue order: {steps} steps recorded by "
+                      f"CTA {cta}")
+                check(G is None or g_used == G,
+                      f"fma {form} ring depth {g_used} != {G}")
+                check(got == chunk_issue_schedule(steps, g_used, C),
+                      f"fma {form} {dtype} issue order differs at G={G} "
+                      f"kv_splits={ks}")
+                n += 1
+                print(f"paged_attention fma {form} {dtype} issue order "
+                      f"kv_splits={ks} G={g_used} (asked {G}) C={C} CTA "
+                      f"{cta} steps={steps}: "
+                      f"{sum(len(v) for v in got.values())} chunk issues == "
+                      "chunk_issue_schedule")
+    report["paged_attention_fma_issue_orders"] = n
+
+
 def check_mla(report):
     cases = [
         ("decode", SLOTS, 1, [5, 17, 40, 100]),
@@ -1225,69 +1320,83 @@ def check_mla(report):
                                  timed=dtype == "bfloat16"
                                  or name == "decode"))
     mla_issue_order(report)
+    fma_issue_order(report)
     report["paged_attention_mla"] = {"shapes": rows}
     return rows
 
 
 def check_mla_blocks(report):
-    """bf16 MLA at the 8- and 128-token KV blocks the block-size serving
-    phase runs (`check_mla_block_sizes`), which the tensor-core kernel does
-    not take: the FMA kernel's bf16 instance at the decode, prefill (a
-    chunk of max(32, block size) tokens, as the engine cuts it) and verify
-    shapes, held against the plain version (bf16 tolerance), each call
-    counted on `launches_mla_bf16` alone; timed at decode."""
+    """MLA at the block sizes the tensor-core kernel does not take, on the
+    FMA kernel: bf16 (its bf16 instance) at 8-, 128- and 256-token blocks
+    and f32 at 128 and 256 (which the whole-block design could not hold),
+    at the decode, prefill (a chunk of max(32, block size) tokens, as the
+    engine cuts it) and verify shapes, held against the plain version,
+    each call counted on its own instance's launches alone; timed at
+    decode.  A 256-token block gets max_len 256 (`mla_inputs`)."""
     rows = []
-    for bs in (8, 128):
-        chunk = max(CHUNK, bs)
-        for name, B, S, positions in (
-                ("decode", SLOTS, 1, [5, 17, 40, 100]),
-                ("prefill", 1, chunk, [37] if 37 + chunk <= MAX_LEN
-                 else [0]),
-                ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90])):
-            rows.append(mla_case(name, B, S, positions, "bfloat16",
-                                 timed=name == "decode", bs=bs))
-    report["paged_attention_mla_bf16"] = {"shapes": rows}
+    for dtype, sizes in (("bfloat16", (8, 128, 256)),
+                         ("float32", (128, 256))):
+        for bs in sizes:
+            chunk = max(CHUNK, bs)
+            for name, B, S, positions in (
+                    ("decode", SLOTS, 1, [5, 17, 40, 100]),
+                    ("prefill", 1, chunk, [37] if 37 + chunk <= MAX_LEN
+                     else [0]),
+                    ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90])):
+                rows.append(mla_case(name, B, S, positions, dtype,
+                                     timed=name == "decode", bs=bs))
+    report["paged_attention_mla_blocks"] = {"shapes": rows}
     return rows
 
 
-def mla_merge_time(row):
-    """The merge kernel alone at the decode shape (its inputs, the
-    partials, are L2-hot on the path: the tensor-core kernel has just
-    written them), beside its plain version and its bound (the live
-    partials' acc and every (m, l) read once, the output written once).
-    No one PyTorch call merges split-softmax partials: library_ms null."""
+def mla_merge_time(row, dtype="bfloat16"):
+    """The merge kernel alone at the MLA decode shape (its inputs, the
+    partials, are L2-hot on the path: the split kernel has just written
+    them), beside its plain version and its bound (the live partials' acc
+    and every (m, l) read once, the output written once): the bf16
+    instance at the tensor-core kernel's plan, the f32 one at the FMA
+    kernel's.  No one PyTorch call merges split-softmax partials:
+    library_ms null."""
     import torch
-    from repro_torch.core.schedule import plan_paged_attn_mla_tc_sm90
+    from repro_torch.core.schedule import (plan_paged_attn_fma_sm90,
+                                           plan_paged_attn_mla_tc_sm90)
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import mla_merge_ref
     B, S, positions = row["B"], row["S"], row["positions"]
-    plan = plan_paged_attn_mla_tc_sm90(
-        batch=B, rows=DS_H * S, block_size=BS, max_blocks=MAX_LEN // BS,
-        latent=DS_R, rope=DS_RR)
+    dt = getattr(torch, dtype)
+    if dtype == "bfloat16":
+        plan = plan_paged_attn_mla_tc_sm90(
+            batch=B, rows=DS_H * S, block_size=BS, max_blocks=MAX_LEN // BS,
+            latent=DS_R, rope=DS_RR)
+        unit, floats = BS, plan.workspace_floats(DS_R)
+    else:
+        plan = plan_paged_attn_fma_sm90(
+            batch=B, kv_heads=1, rows=DS_H * S, block_size=BS,
+            max_blocks=MAX_LEN // BS, width=DS_R, rope=DS_RR, mla=True,
+            kv_itemsize=4)
+        unit, floats = plan.piece, plan.workspace_floats()
     g = torch.Generator(device="cuda").manual_seed(7)
-    ws = torch.randn(plan.workspace_floats(DS_R), generator=g,
-                     device="cuda")
+    ws = torch.randn(floats, generator=g, device="cuda")
     ml = ws[plan.ctas * 16 * DS_R:].view(B, plan.row_tiles,
                                          plan.kv_splits, 16, 2)
     ml[..., 1].abs_().add_(1.0)            # l > 0
     live_runs = 0
     for b, p in enumerate(positions):      # empty runs: m = -inf, l = 0
         for s_ in range(plan.kv_splits):
-            if not any(j * BS <= p + S - 1 for j in plan.run(s_)):
+            if not any(j * unit <= p + S - 1 for j in plan.run(s_)):
                 ml[b, :, s_, :, 0] = float("-inf")
                 ml[b, :, s_, :, 1] = 0.0
             else:
                 live_runs += plan.row_tiles
-    out = torch.empty((B, 1, DS_H * S, DS_R), dtype=torch.bfloat16,
-                      device="cuda")
+    out = torch.empty((B, 1, DS_H * S, DS_R), dtype=dt, device="cuda")
     kw = dict(batch=B, row_tiles=plan.row_tiles, kv_splits=plan.kv_splits,
-              latent=DS_R, rows=DS_H * S)
+              latent=DS_R, rows=DS_H * S, dtype=dt)
     ms, wall = measure(lambda w: pa._launch_merge(
         w, out, B * plan.row_tiles, plan.row_tiles, plan.kv_splits, DS_R,
         plan.rows), [(ws,)], KERNEL_NAMES["paged_attention_merge"])
     plain, plain_wall = measure(lambda w: mla_merge_ref(w, **kw), [(ws,)])
     nbytes = (live_runs * 16 * DS_R * 4 + plan.ctas * 16 * 8
-              + B * DS_H * S * DS_R * 2)
+              + B * DS_H * S * DS_R * out.element_size())
     b_ms, by = bound(nbytes, 3.0 * live_runs * 16 * DS_R, "float32")
     return {"ms": ms, "wall_ms": wall, "plain_ms": plain,
             "plain_wall_ms": plain_wall, "bound_ms": b_ms, "bound_by": by,
@@ -1633,17 +1742,18 @@ def check_mla_block_sizes(report):
     """deepseek-v2-lite-16b at full width, 4 of its 27 layers (1 dense + 3
     MoE), served with 8- and 128-token KV blocks, which the tensor-core MLA
     kernel does not take: bf16 must run the FMA MLA kernel's bf16 instance
-    (its own count) and neither tensor-core MLA kernel; f32 at 8-token
-    blocks (its ring of one 128-token block does not fit the shared
-    memory) must give the plain run's greedy streams.  The bf16 streams
-    are set beside the plain bf16 run's, not gated (bf16 rounds
-    differently in the two)."""
+    (its own count) and its merge, and neither tensor-core MLA kernel nor
+    the f32 instance; f32 at 8- and 128-token blocks (the FMA kernel
+    streams a block in pieces) must run the f32 instance and its merge and
+    give the plain run's greedy streams.  The bf16 streams are set beside
+    the plain bf16 run's, not gated (bf16 rounds differently in the
+    two)."""
     import torch
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
     arch = "deepseek-v2-lite-16b"
     out = {}
-    for dtype, sizes in (("bfloat16", (8, 128)), ("float32", (8,))):
+    for dtype, sizes in (("bfloat16", (8, 128)), ("float32", (8, 128))):
         cfg = registry.get_config(arch).with_(dtype=dtype, num_layers=4)
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = tf.init_params(cfg, gen, "cuda")
@@ -1654,9 +1764,8 @@ def check_mla_block_sizes(report):
             streams, info = serve(cfg, params, prompts, speculation=False,
                                   mode="auto", block_size=bs)
             c = info["launches"]
-            check(c[mla] > 0 and all(
+            check(c[mla] > 0 and c["paged_attention_merge"] > 0 and all(
                 c[k] == 0 for k in ("paged_attention_mla_tc",
-                                    "paged_attention_merge",
                                     "paged_attention_mla",
                                     "paged_attention_mla_bf16") if k != mla),
                   f"{arch} {dtype} block {bs}: MLA launches {c}")
@@ -1714,18 +1823,20 @@ def main(argv=None) -> int:
     grouped_rows, grouped_err = check_grouped(report)
     check_moe_layer(report)
     mla_rows = check_mla(report)
-    mla_bf16_rows = check_mla_blocks(report)
+    mla_block_rows = check_mla_blocks(report)
     qwen = check_serving(report, "qwen1.5-0.5b",
                          ("gpp_matmul_tc", "paged_attention_tc",
                           "paged_attention_merge", "rmsnorm"),
-                         ("gpp_matmul", "paged_attention", "rmsnorm"))
+                         ("gpp_matmul", "paged_attention",
+                          "paged_attention_merge", "rmsnorm"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
                              ("gpp_matmul_tc", "gpp_matmul",
                               "gpp_matmul_grouped_tc",
                               "paged_attention_mla_tc",
                               "paged_attention_merge", "rmsnorm"),
                              ("gpp_matmul", "gpp_matmul_grouped",
-                              "paged_attention_mla", "rmsnorm"),
+                              "paged_attention_mla", "paged_attention_merge",
+                              "rmsnorm"),
                              f32_layers=4)
     blocks = check_mla_block_sizes(report)
 
@@ -1748,14 +1859,22 @@ def main(argv=None) -> int:
              and r["dtype"] == "bfloat16")
     mf = next(r for r in mla_rows if r["case"] == "decode"
               and r["dtype"] == "float32")
+    mla_bf16_rows = [r for r in mla_block_rows if r["dtype"] == "bfloat16"]
     mb8 = next(r for r in mla_bf16_rows if r["case"] == "decode"
                and r["block_size"] == 8)
+    mla_decode = {f"{r['dtype']} block {r['block_size']}": {
+        k: r[k] for k in ("ms", "kernel_ms", "merge_ms", "graph_ms",
+                          "plain_ms", "library_ms", "bound_ms", "plan")}
+        for r in mla_rows + mla_block_rows
+        if r["case"] == "decode" and r["route"] == "mla"}
     mm = mla_merge_time(m)
-    report["paged_attention_merge"] = mm
-    print(f"paged_attention_merge MLA decode (kv_splits {mm['kv_splits']}):"
-          f" ms={mm['ms']:.4f} plain_ms={mm['plain_ms']:.4f} bound_ms="
-          f"{mm['bound_ms']:.5f} ({mm['bound_by']}) wall_ms="
-          f"{mm['wall_ms']:.4f}")
+    mm32 = mla_merge_time(mf, "float32")
+    report["paged_attention_merge"] = {"bfloat16": mm, "float32": mm32}
+    for dt, r in (("bf16", mm), ("f32", mm32)):
+        print(f"paged_attention_merge {dt} MLA decode (kv_splits "
+              f"{r['kv_splits']}): ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']}) wall_ms={r['wall_ms']:.4f}")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     tc_by_path = {
         "qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul_tc"],
@@ -1819,13 +1938,17 @@ def main(argv=None) -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341",
-         "kernel": "paged_attention_kernel (f32 GQA / window, FMA)",
+         "kernel": "paged_attention_kernel (f32 GQA / window, FMA, "
+                   "split-KV over fixed runs of pieces; ms includes its "
+                   "merge kernel's)",
          "path": "qwen1.5-0.5b in f32",
          "launches": qwen["f32_kernel"]["launches"]["paged_attention"],
          "max_abs_err": max(r["max_abs_err"] for r in pa_rows
                             if r["route"] == "gqa"),
          "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
                   f"{pf['positions']} f32",
+         **{k: pf[k] for k in ("kernel_ms", "merge_ms", "graph_ms",
+                               "plan")},
          **{k: pf[k] for k in numbers}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1900,18 +2023,54 @@ def main(argv=None) -> int:
                   "gqa_merge_ms, paged_attention_tc's)",
          "gqa_merge_ms": p["merge_ms"],
          **{k: mm[k] for k in numbers}},
+        {"name": "paged_attention_merge_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341 (the split "
+                     "walks' merge, for mla=True and GQA)",
+         "kernel": "paged_attention_merge_kernel, f32 instance (f32 "
+                   "partials -> f32, after the FMA kernels in f32)",
+         "path": "qwen1.5-0.5b in f32, deepseek-v2-lite-16b in f32 "
+                 f"({deepseek['f32_kernel']['num_layers']} layers)",
+         "launches": qwen["f32_kernel"]["launches"]["paged_attention_merge"]
+         + deepseek["f32_kernel"]["launches"]["paged_attention_merge"],
+         "launches_by_path": {
+             "qwen1.5-0.5b in f32":
+                 qwen["f32_kernel"]["launches"]["paged_attention_merge"],
+             "deepseek-v2-lite-16b in f32":
+                 deepseek["f32_kernel"]["launches"]["paged_attention_merge"],
+             **{f"deepseek-v2-lite-16b (4 layers) {k}":
+                v["launches"]["paged_attention_merge"]
+                for k, v in blocks.items() if k.startswith("float32")}},
+         "max_abs_err": max(r["max_abs_err"] for r in mla_rows + pa_rows
+                            if r["dtype"] == "float32"),
+         "tol": "inside the FMA kernels' f32 rows (atol 2e-4)",
+         "shape": f"MLA decode B={SLOTS} H={DS_H} latent {DS_R}, "
+                  f"{mm32['kv_splits']} partials a row (alone; its time is "
+                  "also inside paged_attention_mla's and "
+                  "paged_attention's)",
+         **{k: mm32[k] for k in numbers}},
         {"name": "paged_attention_mla", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:341 (mla=True, "
                      ":173-177)",
-         "kernel": "paged_attention_mla_kernel (f32, FMA)",
+         "kernel": "paged_attention_mla_kernel (f32, FMA, split-KV over "
+                   "fixed runs of pieces; ms includes its merge kernel's)",
          "path": "deepseek-v2-lite-16b in f32 "
-                 f"({deepseek['f32_kernel']['num_layers']} layers)",
+                 f"({deepseek['f32_kernel']['num_layers']} layers; also at "
+                 "8- and 128-token blocks)",
          "launches": deepseek["f32_kernel"]["launches"]["paged_attention_mla"],
+         "launches_by_block": {
+             k: v["launches"]["paged_attention_mla"]
+             for k, v in blocks.items() if k.startswith("float32")},
          "max_abs_err": max(r["max_abs_err"] for r in mla_rows
-                            if r["dtype"] == "float32"),
+                            + mla_block_rows if r["dtype"] == "float32"),
+         "tol": "atol 2e-4 (f32), decode / prefill / verify at blocks of "
+                "16, 128 and 256",
          "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
-                  f"positions {mf['positions']} f32",
+                  f"positions {mf['positions']} f32, 16-token blocks",
+         "decode_by_block": mla_decode,
+         **{k: mf[k] for k in ("kernel_ms", "merge_ms", "graph_ms",
+                               "plan")},
          **{k: mf[k] for k in numbers}},
         {"name": "paged_attention_mla_bf16", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1921,7 +2080,7 @@ def main(argv=None) -> int:
                    "MLA at block sizes the tensor-core kernel does not "
                    "take)",
          "path": "deepseek-v2-lite-16b (4 layers) at 8- and 128-token KV "
-                 "blocks",
+                 "blocks (ms includes its merge kernel's)",
          "launches": sum(v["launches"]["paged_attention_mla_bf16"]
                          for k, v in blocks.items()
                          if k.startswith("bfloat16")),
@@ -1930,9 +2089,11 @@ def main(argv=None) -> int:
              for k, v in blocks.items() if k.startswith("bfloat16")},
          "max_abs_err": max(r["max_abs_err"] for r in mla_bf16_rows),
          "tol": "atol 2e-2 (bf16), decode / prefill / verify at blocks of "
-                "8 and 128",
+                "8, 128 and 256",
          "shape": f"decode B={SLOTS} H={DS_H} latent {DS_R}+{DS_RR} "
                   f"positions {mb8['positions']} bf16, 8-token blocks",
+         **{k: mb8[k] for k in ("kernel_ms", "merge_ms", "graph_ms",
+                                "plan")},
          **{k: mb8[k] for k in numbers}},
     ]
     report["kernels"] = kernels

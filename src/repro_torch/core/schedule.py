@@ -7,7 +7,8 @@ over; in their place `plan_matmul_fma_sm90` (the FMA route of
 `gpp_matmul`), `plan_matmul_tc_sm90` (its tensor-core route),
 `plan_grouped_sm90` (with `plan_matmul_sm90`, its FMA tile) and
 `plan_grouped_tc_sm90` (the grouped kernel's two routes),
-`plan_paged_attn_sm90` and `plan_paged_attn_mla_tc_sm90` pick the tile
+`plan_paged_attn_fma_sm90`, `plan_paged_attn_mla_tc_sm90` and
+`plan_paged_attn_gqa_tc_sm90` pick the tile
 sizes and the shared-memory ring depth G of the CUDA kernels:
 
   * G comes from `plan_stream` at the H100's rates (989e12 bf16 FLOP/s,
@@ -617,82 +618,211 @@ def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
                      f"{smem_budget} bytes of shared memory")
 
 
-PA_ROWS_PER_CTA = 32    # query rows (rep * S) one CTA holds
-PA_MLA_ROWS_PER_CTA = 16  # MLA: one query's 16 heads (f32 q, acc 576/512 wide)
-PA_MAX_HEAD_DIM = 256
+PA_FMA_ROWS = 16          # query rows of a tile: 4 warps x 4 rows
+PA_FMA_MAX_PIECE = 32     # keys of a piece the q.k thread layout takes
+PA_FMA_PIECE = 16         # the planned piece, at most (GQA; sweep)
+PA_FMA_MLA_PIECE = 8      # the same for MLA: 16 heads x 1088 wide a key
+PA_FMA_MAX_SPLITS = 32    # runs a lane's pieces are cut into, at most
+PA_FMA_MAX_HEAD_DIM = 256  # GQA value columns: 32 lanes x 8
+PA_FMA_MAX_LATENT = 512    # MLA value columns: 32 lanes x 16
+
+
+def paged_attn_fma_row_bytes(width: int, rope: int, kv_itemsize: int) -> int:
+    """Shared-memory bytes of one q, key or value row of the FMA paged-
+    attention kernel (csrc/paged_attention.cu; the launch checks it): the
+    width (MLA: c_kv, then k_rope) with each part zero-padded to whole 16-byte
+    chunks, then the row padded to 64 mod 128 bytes, so the two key
+    groups one phase of a 16-byte load serves (rows t and t + 1) meet no
+    bank twice."""
+    ch = 16 // kv_itemsize
+    kw = (round_up(width, ch) + round_up(rope, ch)) * kv_itemsize
+    return round_up(max(kw - 64, 0), 128) + 64
+
+
+def paged_attn_fma_smem_bytes(piece: int, width: int, rope: int,
+                              kv_itemsize: int, G: int, mla: bool) -> int:
+    """The FMA kernel's shared memory (fma_attn::smem_bytes): the 16-row q
+    tile, the G-slot ring (a slot: the piece's key rows, MLA c_kv | k_rope; GQA
+    its K rows, then its V rows) and each warp's p rows (f32, piece x
+    4)."""
+    rb = paged_attn_fma_row_bytes(width, rope if mla else 0, kv_itemsize)
+    slot = piece * rb * (1 if mla else 2)
+    return PA_FMA_ROWS * rb + G * slot + PA_FMA_ROWS * piece * 4
+
+
+def _pieces_of(block_size: int, cap: int) -> "list[int]":
+    """Powers of two dividing block_size, at most `cap`, largest first."""
+    out, p = [], 1
+    while p <= min(cap, block_size):
+        if block_size % p == 0:
+            out.append(p)
+        p *= 2
+    return out[::-1]
+
+
+def paged_attn_fma_shape_error(block_size: int, width: int, rope: int,
+                               kv_itemsize: int, mla: bool,
+                               num_bufs: "int | None" = None,
+                               smem_budget: int = SMEM_BUDGET_BYTES
+                               ) -> "str | None":
+    """Why the FMA paged-attention kernel cannot take this pool shape, or
+    None: the value width (GQA head_dim <= 256, MLA latent <= 512) in
+    multiples of 8 (the merge's float4 columns), and some piece of the
+    block whose ring of num_bufs (or 1) slots fits beside the q tile."""
+    cap = PA_FMA_MAX_LATENT if mla else PA_FMA_MAX_HEAD_DIM
+    what = (f"{'MLA' if mla else 'GQA'} pools of {block_size}-token blocks "
+            f"at {'latent' if mla else 'head_dim'} {width}"
+            + (f" + rope {rope}" if mla else ""))
+    if block_size < 1 or width < 8 or width > cap or width % 8 or rope < 0:
+        return (f"the FMA paged-attention kernel takes value widths of 8-"
+                f"{cap} in multiples of 8, not {what}")
+    if not any(paged_attn_fma_smem_bytes(p, width, rope, kv_itemsize,
+                                         num_bufs or 1, mla) <= smem_budget
+               for p in _pieces_of(block_size, PA_FMA_MAX_PIECE)):
+        return (f"no piece of {what} fits a ring of {num_bufs or 1} slots "
+                f"in {smem_budget} bytes of shared memory")
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
-class PagedAttnPlan:
-    """Ring of one paged-attention launch: grid (B, KVH, row_splits), each
-    CTA holding `rows_per_cta` query rows and walking its lane's logical
-    blocks through two num_bufs-slot rings (K and V) in `chunks` chunks."""
+class PagedAttnFmaPlan:
+    """The FMA paged-attention kernel (f32, and bf16 where no tensor-core
+    kernel takes the shape), GQA / window or MLA: grid (kv_splits,
+    row_tiles, batch x kv_heads); CTA (s, t, b * KVH + h) owns lane b's KV
+    head h (MLA: the one shared head), its 16 query rows [16 t, 16 t + 16)
+    of the rep x S (head-major) and the pieces of run s (`run`): a lane's
+    keys [0, MB * bs) cut into pieces of `piece` tokens, the pieces cut
+    into kv_splits runs (`kv_runs`).  A run's live pieces stream through a
+    num_bufs-slot ring in `chunks` chunks.  With kv_splits > 1 its
+    partial goes to a workspace of `workspace_floats` f32, which the merge
+    kernel reads."""
 
-    rows_per_cta: int
-    row_splits: int
+    batch: int
+    kv_heads: int
+    rows: int
+    max_blocks: int
+    block_size: int
+    width: int          # the value width: GQA head_dim, MLA latent
+    rope: int           # MLA's rope width (0 for GQA)
+    mla: bool
+    piece: int
+    row_tiles: int
+    kv_splits: int
     num_bufs: int
     chunks: int
+    row_bytes: int
     smem_bytes: int
 
+    @property
+    def pieces(self) -> int:
+        return self.max_blocks * (self.block_size // self.piece)
 
-def paged_attn_row_bytes(head_dim: int, kv_itemsize: int) -> int:
-    """Shared-memory bytes of one K/V row: 16-byte aligned plus 16 bytes of
-    padding so neighbouring rows fall in different banks."""
-    return round_up(head_dim * kv_itemsize, 16) + 16
+    @property
+    def grid(self) -> "tuple[int, int, int]":
+        return (self.kv_splits, self.row_tiles, self.batch * self.kv_heads)
+
+    @property
+    def units(self) -> int:
+        """(lane, KV head, row tile) units: the merge kernel's."""
+        return self.batch * self.kv_heads * self.row_tiles
+
+    @property
+    def ctas(self) -> int:
+        return self.units * self.kv_splits
+
+    def run(self, split: int) -> range:
+        """The pieces run `split` walks (piece i: tokens [i P, i P + P))."""
+        return kv_runs(self.pieces, self.kv_splits)[split]
+
+    def cta(self, lane: int, head: int, tile: int, split: int) -> int:
+        """The kernel's linear CTA index (its issue-order record key)."""
+        return (((lane * self.kv_heads + head) * self.row_tiles + tile)
+                * self.kv_splits + split)
+
+    def workspace_floats(self) -> int:
+        if self.kv_splits == 1:
+            return 0
+        return self.ctas * PA_FMA_ROWS * (self.width + 2)
 
 
-def paged_attn_smem_bytes(G: int, bs: int, head_dim: int, kv_itemsize: int,
-                          rows: int, rope_dim: int = 0) -> int:
-    """Two rings + f32 q (rows x dk), acc (rows x dv), p (rows x bs),
-    m/l/corr.  GQA (rope_dim 0): K and V rings of head_dim, dk = dv =
-    head_dim.  MLA: a c_kv ring of head_dim (the latent width, which is
-    also the value) and a k_rope ring of rope_dim; dk = head_dim +
-    rope_dim, dv = head_dim."""
-    db = rope_dim or head_dim
-    dk, dv = (head_dim + rope_dim, head_dim) if rope_dim else \
-        (head_dim, head_dim)
-    ring = G * bs * (paged_attn_row_bytes(head_dim, kv_itemsize)
-                     + paged_attn_row_bytes(db, kv_itemsize))
-    return ring + rows * (dk + dv) * 4 + rows * bs * 4 + 3 * rows * 4
+def fma_splits(pieces: int) -> int:
+    """The runs the FMA kernel cuts a lane's pieces into: min(pieces,
+    32), from the table width, the block size and the widths alone (never
+    the batch, S or the positions), so a row meets the same runs, and
+    rounds the same bits, at decode, verify and prefill."""
+    return max(1, min(pieces, PA_FMA_MAX_SPLITS))
 
 
-def plan_paged_attn_sm90(*, rows: int, block_size: int, head_dim: int,
-                         kv_itemsize: int, max_blocks: int,
-                         num_bufs: "int | None" = None, rope_dim: int = 0,
-                         smem_budget: int = SMEM_BUDGET_BYTES) -> PagedAttnPlan:
-    """Ring depth for the paged-attention kernel: one KV block (both
-    rings' rows) is the streamed tile, the flash step over the CTA's query
-    rows is the compute.  rope_dim > 0 plans the MLA form (head_dim is then
-    the latent width): 16 query rows a CTA, since its f32 q and acc rows
-    are 576 and 512 wide."""
-    if not rope_dim and head_dim > PA_MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {head_dim} > {PA_MAX_HEAD_DIM}")
-    rt = min(rows, PA_MLA_ROWS_PER_CTA if rope_dim else PA_ROWS_PER_CTA)
-    splits = -(-rows // rt)
-    dk = head_dim + rope_dim
-    dv = head_dim
-    G = num_bufs if num_bufs is not None else _ring_depth(
-        block_size * (head_dim + (rope_dim or head_dim)) * kv_itemsize,
-        2.0 * rt * block_size * (dk + dv), H100_BF16_FLOPS)
-    if G < 1:
+def plan_paged_attn_fma_sm90(*, batch: int, kv_heads: int, rows: int,
+                             block_size: int, max_blocks: int, width: int,
+                             kv_itemsize: int, mla: bool = False,
+                             rope: int = 0,
+                             num_bufs: "int | None" = None,
+                             kv_splits: "int | None" = None,
+                             piece: "int | None" = None,
+                             smem_budget: int = SMEM_BUDGET_BYTES
+                             ) -> PagedAttnFmaPlan:
+    """Plan for the FMA paged-attention kernel (csrc/paged_attention.cu).
+
+    rows = rep x S query rows a (lane, KV head) (MLA: 16 heads x S), cut
+    into 16-row tiles.  The piece P is the largest power of two dividing
+    block_size that is at most 16 (GQA) or 8 (MLA: a lane is one unit of
+    16 heads on 576 + 512 columns, so it wants more, shorter runs;
+    `scripts/fma_attn_sweep.py`; a pinned piece may be up to 32)
+    and whose ring of num_bufs (or 1) slots fits beside the q tile, so a
+    block larger than the shared memory holds streams piece by piece and
+    a live block's dead tokens past P are not copied.  The pieces are cut
+    into `fma_splits` runs; neither P nor the cut reads the batch, S or
+    the positions.  The ring depth comes from `plan_stream` at the H100's
+    f32 rate (a piece's bytes against its flash step over 16 rows),
+    clamped to the longest run and to what fits.  Pins (num_bufs,
+    kv_splits, piece) are kept or raise; raises, naming the shape, where
+    the kernel cannot take it."""
+    if min(batch, kv_heads, rows, max_blocks) < 1:
+        raise ValueError(f"empty paged attention: batch {batch}, kv_heads "
+                         f"{kv_heads}, rows {rows}, max_blocks {max_blocks}")
+    if mla and kv_heads != 1:
+        raise ValueError("MLA has one shared KV head")
+    if num_bufs is not None and num_bufs < 1:
         raise ValueError("num_bufs >= 1")
-    G = min(G, max(1, max_blocks))
+    err = paged_attn_fma_shape_error(block_size, width, rope, kv_itemsize,
+                                     mla, num_bufs, smem_budget)
+    if err is not None:
+        raise ValueError(err)
+    rope = rope if mla else 0
 
-    def smem_of(g):
-        return paged_attn_smem_bytes(g, block_size, head_dim, kv_itemsize,
-                                     rt, rope_dim)
+    def smem_of(p, g):
+        return paged_attn_fma_smem_bytes(p, width, rope, kv_itemsize, g, mla)
 
-    while G > 1 and smem_of(G) > smem_budget:
-        if num_bufs is not None:
-            raise ValueError(f"ring of {num_bufs} exceeds the shared-memory "
-                             f"budget of {smem_budget} bytes")
+    if piece is not None:
+        if piece not in _pieces_of(block_size, PA_FMA_MAX_PIECE):
+            raise ValueError(f"piece {piece} is not a power of two <= "
+                             f"{PA_FMA_MAX_PIECE} dividing block size "
+                             f"{block_size}")
+        cands = [piece]
+    else:
+        cands = _pieces_of(block_size,
+                           PA_FMA_MLA_PIECE if mla else PA_FMA_PIECE)
+    P = next((p for p in cands if smem_of(p, num_bufs or 1) <= smem_budget),
+             None)
+    if P is None:
+        raise ValueError(f"a piece of {piece} tokens with a ring of "
+                         f"{num_bufs or 1} slots does not fit {smem_budget} "
+                         f"bytes of shared memory")
+    pieces = max_blocks * (block_size // P)
+    ks = kv_splits if kv_splits is not None else fma_splits(pieces)
+    longest = max(len(r) for r in kv_runs(pieces, ks))
+    dk = width + rope
+    data = P * (dk if mla else 2 * width) * kv_itemsize
+    G = num_bufs if num_bufs is not None else min(
+        _ring_depth(data, 2.0 * PA_FMA_ROWS * P * (dk + width),
+                    H100_F32_FLOPS), max(1, longest))
+    while num_bufs is None and G > 1 and smem_of(P, G) > smem_budget:
         G -= 1
-    smem = smem_of(G)
-    if smem > smem_budget:
-        raise ValueError(f"paged attention at block size {block_size} needs "
-                         f"{smem} bytes of shared memory (budget "
-                         f"{smem_budget})")
-    return PagedAttnPlan(rt, splits, G, max(1, min(G - 1, block_size)), smem)
+    return PagedAttnFmaPlan(
+        batch, kv_heads, rows, max_blocks, block_size, width, rope, mla, P,
+        -(-rows // PA_FMA_ROWS), ks, G, max(1, min(G - 1, P)),
+        paged_attn_fma_row_bytes(width, rope, kv_itemsize), smem_of(P, G))
 
 
 PA_MLA_TC_ROWS = 16          # query rows of a tile: one mma m16 tile
@@ -704,9 +834,9 @@ PA_MLA_TC_CTAS_PER_SM = 2    # the split aims for two CTAs an SM (sweep)
 
 
 def kv_runs(max_blocks: int, kv_splits: int) -> "list[range]":
-    """The runs of logical blocks the split-KV MLA kernel's CTAs walk:
-    run s is [s * MB // ks, (s + 1) * MB // ks), so runs differ by at most
-    one block and together cover [0, MB) once."""
+    """The runs of logical blocks (or, in the FMA kernel, pieces) the
+    split-KV kernels' CTAs walk: run s is [s * MB // ks, (s + 1) * MB //
+    ks), so runs differ by at most one and together cover [0, MB) once."""
     if not 1 <= kv_splits <= max_blocks:
         raise ValueError(f"kv_splits {kv_splits} not in [1, {max_blocks}]")
     return [range(s * max_blocks // kv_splits,
@@ -740,15 +870,6 @@ def mla_tc_takes(block_size: int, latent: int, rope: int) -> bool:
     return (block_size % 16 == 0 and 16 <= block_size <= PA_MLA_TC_MAX_BLOCK
             and latent % 8 == 0 and rope % 8 == 0 and rope >= 0
             and 8 <= latent <= PA_MLA_TC_MAX_LATENT)
-
-
-def mla_fma_takes(block_size: int, latent: int, rope: int,
-                  kv_itemsize: int) -> bool:
-    """Whether the FMA MLA kernel's in-situ ring fits the shared memory
-    with a full tile of query rows: 229,568 of 232,448 bytes at deepseek's
-    512 + 64 in bf16 at block size 128; block size 256 does not fit."""
-    return paged_attn_smem_bytes(1, block_size, latent, kv_itemsize,
-                                 PA_MLA_ROWS_PER_CTA, rope) <= SMEM_BUDGET_BYTES
 
 
 @dataclasses.dataclass(frozen=True)

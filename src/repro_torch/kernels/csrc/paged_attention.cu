@@ -2,50 +2,28 @@
 //
 // Replaces repro/kernels/paged_attention.py::paged_attention (the Pallas TPU
 // kernel, pallas_call at :341, body _paged_attn_kernel :111), both its
-// GQA/window path and its `mla=True` path (:173-177).  Six kernels, five
-// C entries:
+// GQA/window path and its `mla=True` path (:173-177).  Five kernels, five
+// C entries (and two queries of a launch's shape):
 //
 // * paged_attention_kernel / paged_attention_mla_kernel (entry
-//   paged_attention_launch): CUDA-core FMA kernels, one CTA per (lane, KV
-//   head, row split) walking all of the lane's blocks.  GQA in f32, and in
-//   bf16 at shapes the GQA tensor-core kernel does not take; MLA in f32,
-//   and in bf16 at block sizes the MLA tensor-core kernel does not take.
+//   paged_attention_launch): CUDA-core FMA kernels, split-KV over fixed
+//   runs of pieces of the lane's keys.  GQA in f32, and in bf16 at shapes
+//   the GQA tensor-core kernel does not take; MLA in f32, and in bf16 at
+//   block sizes the MLA tensor-core kernel does not take.
 // * paged_attention_mla_tc_kernel (entry paged_attention_mla_tc_launch)
 //   and paged_attention_tc_kernel (paged_attention_tc_launch): bf16 MLA and
 //   bf16 GQA / window on the tensor cores with the KV walk split across
-//   CTAs; paged_attention_merge_kernel (paged_attention_merge_launch)
-//   merges either one's partials.  Each after its own notes further down.
+//   CTAs.
+// * paged_attention_merge_kernel (paged_attention_merge_launch, f32 or
+//   bf16 out) merges any of the four split kernels' partials.
+// Each after its own notes further down.
 //
-// Two pools, a and b, stream through two rings.  GQA: a = K, b = V, one
-// head_dim for both.  MLA (weight-absorbed, the TPU kernel's form): a =
-// c_kv (the 512-wide latent), b = k_rope (64), one shared KV head; the key
-// row is concat(a, b) (576) and the VALUE is the a row itself — the value
-// is read from the c_kv ring, with no third ring, as on the TPU.  The
-// output is then the latent (rows x 512), which the caller up-projects.
-//
-// One CTA per (lane, KV head, row split).  The CTA reads its lane's block
-// table row and position itself (the TPU kernel's scalar prefetch) and walks
-// the lane's logical blocks; each physical block's K and V rows of the CTA's
-// head stream through two G-slot shared-memory rings on the generalized
-// ping-pong chunk schedule (ring.cuh).  Blocks wholly outside the lane's
-// visible range — past its last query position, or expired behind the
-// window — are skipped for the copy and the compute by one predicate, pure
-// in the step, used at the issue site and the compute site.  Each live block
-// gets one online-softmax step with f32 m / l / acc:
-//   logits = q . k (q pre-scaled in f32 and cast to the KV dtype by the
-//   wrapper), masked to -inf per (row, slot) by position and window;
-//   p = exp(logits - m_safe); l = l * corr + sum(p) in f32;
-//   acc = acc * corr + cast_kv(p) . v;   out = acc / max(l, 1e-30).
-// The f32 q and acc rows are dk and dv wide: at MLA's 576 / 512 the planner
-// (core.schedule.plan_paged_attn_sm90) gives a CTA 16 query rows (one
-// query's 16 heads) instead of 32, so both fit beside the rings in 227 KB.
-//
-// What bounds it on the H100: the KV bytes — decode does ~2 FLOPs per KV
-// byte (MLA: 16 heads share each latent row, ~32 FLOPs a byte, still far
-// below the ridge).  A block's K and V rows arrive in C chunks issued over the C steps
-// before it, so the streams of the lane's next blocks overlap this block's
-// softmax step; with a few 16-row blocks per lane, as on the serving path,
-// the per-block wait and the CTA's barriers set the time, not the bytes.
+// Two pools, a and b.  GQA: a = K, b = V, one head_dim for both.  MLA
+// (weight-absorbed, the TPU kernel's form): a = c_kv (the 512-wide latent),
+// b = k_rope (64), one shared KV head; the key row is concat(a, b) (576)
+// and the VALUE is the a row itself — read from the same shared-memory row
+// as the key, as on the TPU.  The output is then the latent (rows x 512),
+// which the caller up-projects.
 //
 // C interface (ctypes): the launch entries return the launch's
 // cudaError_t.  The kernels only read the pools.
@@ -57,23 +35,114 @@
 #include "mma.cuh"
 #include "ring.cuh"
 
+// ---------------------------------------------------------------------------
+// paged_attention_kernel / paged_attention_mla_kernel: the FMA route.
+//
+// The same function as _paged_attn_kernel: logits = q . k in f32 (q
+// pre-scaled in f32 and cast to the KV dtype by the wrapper; MLA: the key
+// is concat(c_kv, k_rope)), -inf where kpos > qpos (qpos = pos + row % S)
+// or the key is behind the window, online softmax with f32 m / l / acc, p
+// rounded through the KV dtype before p . v (MLA: v = the c_kv row), out =
+// acc / max(l, 1e-30) in the KV dtype.  No TF32 and no tensor cores: the
+// f32 route is held to 2e-4 and to the plain run's greedy streams.
+//
+// What bounds it on the H100: latency and shared-memory bandwidth, not HBM
+// bytes.  A decode call reads ~0.4 MB of f32 latent rows (0.1 us at 3.35
+// TB/s); the whole-block design before this one spent 240 us on it (MLA
+// f32) with 4 CTAs for 132 SMs, each walking every block of its lane with
+// one scalar (row, key) dot a thread, and could not hold a 128-token f32
+// block (or any 256-token one) in shared memory at all.  The design:
+//  1. Pieces and runs.  A lane's keys [0, MB * bs) are cut into pieces of
+//     P tokens (P a power of two dividing bs, at most 32: the planner,
+//     core.schedule.plan_paged_attn_fma_sm90, takes the largest <= 16, MLA
+//     <= 8, whose ring fits), and the pieces into kv_splits fixed runs
+//     (kv_runs; at most 32), from the table width, bs and the widths
+//     alone — never from B, S or the positions — so a lane's row sums in
+//     the same order at decode, verify and prefill.  A ring slot holds
+//     one piece, so any block size the reference serves fits, and a live
+//     block's dead tokens beyond the last live piece are not copied.
+//  2. Grid: one CTA per (lane, KV head, 16-row tile of the rep x S
+//     head-major rows, run).  Each CTA finds its run's live pieces on the
+//     device (the live predicate at piece granularity, an interval) and
+//     walks only those: a dead piece costs no copy, no compute and no step;
+//     a run with none leaves an empty partial (m = -inf, l = 0).  A partly
+//     live piece is copied whole, so a masked key's p = 0 multiplies a row
+//     that was written, never a stale slot.
+//  3. The GPP ring inside a run: the live pieces are the steps of ring.cuh's
+//     chunk schedule (G slots, C = G - 1 chunks of a piece's rows), G in
+//     {1, 2, >= 3} pinnable.  The q tile (KV dtype, the key rows' layout)
+//     joins step 0's first commit group.
+//  4. Register-tiled FMA.  Warp w owns rows 4w..4w+3 of the tile through
+//     the whole step (q . k, softmax, p . v), so the only CTA barriers are
+//     the ring's.  q . k: lane = (key group, k-slice); it holds a 4 row x
+//     KQ key tile of logits (KQ = min(4, P), keys kg + KG i) over its
+//     k-slice (16-byte chunks ks, ks + NKS, ... of the row; a bf16 chunk
+//     widens to f32 in registers), then the k-slices sum by a fixed xor
+//     butterfly.  Softmax: max and sum over the key groups by xor shuffles;
+//     m and l stay in registers.  p . v: p (rounded through the KV dtype)
+//     goes to the warp's own 16 x P floats of shared memory; each lane owns
+//     4 rows x (VW x NV) value columns of acc in registers for the whole
+//     run (MLA 512: 64 floats), reading 16- or 8-byte vectors of the value
+//     rows.  Warps whose 4 rows are all past rS skip the compute.
+//  5. One merged output.  With kv_splits == 1 the CTA writes out; otherwise
+//     its partial (f32 acc of its live rows, then (m, l)) goes to a
+//     workspace and paged_attention_merge_kernel merges each (lane, KV
+//     head, tile)'s runs.
+// Every choice (P, the runs, the layout of a row's sums) follows the
+// widths, bs and MB alone, so a row's bits depend on the row, its lane's
+// cache and its position only: a piece live for a later row of the tile
+// but not for this one is an exact no-op for it (corr = 1, p = 0).
+//
+// With `rec` non-null, CTA `rec_cta` (linear index ((lane * KVH + head) *
+// row_tiles + tile) * kv_splits + split) writes one (step, chunk,
+// issue_step) triple per chunk it issues over its run's live pieces.
+namespace fma_attn {
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kRows = 16;            // query rows of a tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRW = kRows / kWarps;  // rows a warp owns
+constexpr int kKQ = 4;               // keys a lane holds in q . k, at most
+constexpr int kMaxPiece = 32;        // NKS = 128 / P >= 4 k-slices a key
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct FmaArgs {
+  const void* q;         // (B, KVH, rS, dk): pre-scaled, KV dtype
+  const void* pool_a;    // (nb, bs, KVH, da): k, or c_kv (MLA)
+  const void* pool_b;    // (nb, bs, KVH, db): v, or k_rope (MLA)
+  const int* tables;     // (B, MB); 0 = the null block
+  const int* positions;  // (B,): first query position of each lane
+  void* out;             // (B, KVH, rS, dv), KV dtype
+  float* ws;             // partials (kv_splits > 1): acc, then (m, l)
+  int* rec;              // issue-order record or null
+  int rec_cta;
+  int MB, bs, kvh, da, db, S, rS;
+  int row_tiles, kv_splits, P, G, C, window;
+  int vec;               // cp.async width of every row copy
+  int row_bytes;         // shared-memory bytes of a q / key / value row
+  int da_p, db_p;        // the parts' widths, padded to 16-byte chunks
+};
+
+// q tile + G-slot ring (a slot: P key rows; GQA then P value rows) + the
+// warps' p rows (f32, kRows x P)
+__host__ __device__ constexpr size_t smem_bytes(int P, int row_bytes, int G,
+                                               bool mla) {
+  return (size_t)kRows * row_bytes +
+         (size_t)G * P * row_bytes * (mla ? 1 : 2) + (size_t)kRows * P * 4;
 }
 
-// round an f32 value through the KV dtype (the p cast before PV)
-__device__ __forceinline__ float through(float v, const float*) { return v; }
-__device__ __forceinline__ float through(float v, const __nv_bfloat16*) {
+// round an f32 value through the KV dtype (the p cast before p . v)
+template <typename KT>
+__device__ __forceinline__ float through(float v);
+template <>
+__device__ __forceinline__ float through<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float through<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
+template <typename KT>
+__device__ __forceinline__ KT from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
@@ -81,184 +150,389 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-struct PagedArgs {
-  const void* q;         // (B, KVH, rS, dk): pre-scaled, KV dtype
-  const void* pool_a;    // (nb, bs, KVH, da): k, or c_kv (MLA)
-  const void* pool_b;    // (nb, bs, KVH, db): v, or k_rope (MLA)
-  const int* tables;     // (B, MB); 0 = the null block
-  const int* positions;  // (B,): first query position of each lane
-  void* out;             // (B, KVH, rS, dv), KV dtype
-  int MB, bs, kvh, da, db;
-  int S, rS;             // queries per lane, rows per head (rep * S)
-  int rows_per_cta;
-  int G, C;
-  int window;            // <= 0: none
-  int vec;               // cp.async width for both pools' rows
-  int row_bytes_a;       // shared-memory stride of one a / b ring row
-  int row_bytes_b;
-};
+// the two bf16 of a 32-bit word as f32 (exactly __bfloat162float)
+__device__ __forceinline__ void widen2(unsigned w, float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// one 16-byte chunk of a shared-memory row as f32: 4 floats or 8 bf16
+template <typename KT>
+__device__ __forceinline__ void load_chunk(const char* p, float* f);
+template <>
+__device__ __forceinline__ void load_chunk<float>(const char* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void load_chunk<__nv_bfloat16>(const char* p,
+                                                          float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  widen2(v.x, f);
+  widen2(v.y, f + 2);
+  widen2(v.z, f + 4);
+  widen2(v.w, f + 6);
+}
+
+// VW consecutive values of a shared-memory row as f32
+template <typename KT, int VW>
+__device__ __forceinline__ void load_vec(const char* p, float* f) {
+  if constexpr (sizeof(KT) == 4) {
+    if constexpr (VW == 4) {
+      load_chunk<float>(p, f);
+    } else if constexpr (VW == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      f[0] = v.x;
+      f[1] = v.y;
+    } else {
+      f[0] = *reinterpret_cast<const float*>(p);
+    }
+  } else {
+    if constexpr (VW == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      widen2(v.x, f);
+      widen2(v.y, f + 2);
+    } else if constexpr (VW == 2) {
+      widen2(*reinterpret_cast<const unsigned*>(p), f);
+    } else {
+      f[0] = __uint_as_float(
+          (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+    }
+  }
+}
+
+// VW floats to global memory in one store (dv is a multiple of 8 and c of
+// VW, so a vector that starts below dv ends below it)
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* v) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
+  }
+}
 
 // MLA == false: key a, value b (da == db).  MLA == true: key a|b, value a.
-template <typename KT, bool MLA>
-__device__ __forceinline__ void paged_attention_body(const PagedArgs& a) {
+// Lane l owns value columns VW * l + 32 * VW * n + e (n < NV, e < VW).
+template <typename KT, bool MLA, int VW, int NV>
+__device__ __forceinline__ void fma_body(const FmaArgs& a) {
+  constexpr int ES = (int)sizeof(KT);
+  constexpr int CH = 16 / ES;            // elements of a 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int r0 = blockIdx.z * a.rows_per_cta;
-  const int nr = min(a.rows_per_cta, a.rS - r0);
-  const int dk = MLA ? a.da + a.db : a.da;
-  const int dv = MLA ? a.da : a.db;
-  const size_t slot_a = (size_t)a.bs * a.row_bytes_a;
-  const size_t slot_b = (size_t)a.bs * a.row_bytes_b;
-  unsigned char* ring_a = smem;
-  unsigned char* ring_b = smem + a.G * slot_a;
-  float* qs = reinterpret_cast<float*>(ring_b + a.G * slot_b);
-  float* acc = qs + a.rows_per_cta * dk;
-  float* ps = acc + a.rows_per_cta * dv;
-  float* ms = ps + a.rows_per_cta * a.bs;
-  float* ls = ms + a.rows_per_cta;
-  float* cs = ls + a.rows_per_cta;
+  const int RB = a.row_bytes;
+  char* qs = reinterpret_cast<char*>(smem);
+  char* ring = qs + kRows * RB;
+  const size_t slot = (size_t)a.P * RB * (MLA ? 1 : 2);
+  float* pbuf = reinterpret_cast<float*>(ring + a.G * slot);
 
-  const KT* q = static_cast<const KT*>(a.q);
+  const int split = blockIdx.x, tile = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / a.kvh, g = bh % a.kvh;
+  const int r0 = tile * kRows;
+  const int nr = min(kRows, a.rS - r0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ppb = a.bs / a.P;              // pieces a block
+  const int npieces = a.MB * ppb;
+  const int i_lo = (int)((long long)split * npieces / a.kv_splits);
+  const int i_hi = (int)((long long)(split + 1) * npieces / a.kv_splits);
+  const int* trow = a.tables + (size_t)b * a.MB;
   const KT* pa = static_cast<const KT*>(a.pool_a);
   const KT* pb = static_cast<const KT*>(a.pool_b);
-  const int pos = a.positions[b];
-  const int* trow = a.tables + (size_t)b * a.MB;
-  const int stride_a = a.row_bytes_a / (int)sizeof(KT);
-  const int stride_b = a.row_bytes_b / (int)sizeof(KT);
+  const int dk = MLA ? a.da + a.db : a.da;
+  const int dv = a.da;
 
-  // logical block j overlaps the lane's visible keys (pos - window,
-  // pos + S - 1]: the one predicate of the issue and compute sites
-  auto live = [&](int j) {
-    bool ok = j * a.bs <= pos + (a.S - 1);
-    if (a.window > 0) ok = ok && (j + 1) * a.bs - 1 > pos - a.window;
+  // the q tile and the run's table entries are wanted whatever the
+  // position says: start both before the position arrives.  The q copies
+  // join step 0's first commit group (the ring's first wait covers them).
+  {
+    const KT* qg = static_cast<const KT*>(a.q) +
+                   ((size_t)bh * a.rS + r0) * dk;
+    auto qa = [&](int r) -> const char* {
+      return r < nr ? reinterpret_cast<const char*>(qg + (size_t)r * dk)
+                    : nullptr;
+    };
+    gpp::copy_rows_vec(a.vec, qs, RB, 0, kRows, a.da_p * ES, a.da * ES, qa,
+                       static_cast<const char*>(a.q));
+    if (MLA) {
+      auto qb = [&](int r) -> const char* {
+        return r < nr ? reinterpret_cast<const char*>(qg + (size_t)r * dk +
+                                                      a.da)
+                      : nullptr;
+      };
+      gpp::copy_rows_vec(a.vec, qs + a.da_p * ES, RB, 0, kRows, a.db_p * ES,
+                         a.db * ES, qb, static_cast<const char*>(a.q));
+    }
+    const int j_lo = i_lo / ppb;
+    if (i_hi > i_lo && threadIdx.x <= (i_hi - 1) / ppb - j_lo) {
+      asm volatile("prefetch.global.L1 [%0];\n" ::"l"(trow + j_lo +
+                                                       threadIdx.x));
+    }
+  }
+  const int pos = a.positions[b];
+
+  // piece i overlaps the lane's visible keys (pos - window, pos + S - 1]:
+  // the one predicate of the issue and compute sites.  It holds on an
+  // interval of i, so the run's live pieces are [i0, i0 + n).
+  auto live = [&](int i) {
+    bool ok = i * a.P <= pos + (a.S - 1);
+    if (a.window > 0) ok = ok && (i + 1) * a.P - 1 > pos - a.window;
     return ok;
   };
+  int i0 = i_lo, n = 0;
+  for (int i = i_lo; i < i_hi; ++i) {
+    if (live(i)) {
+      if (n == 0) i0 = i;
+      ++n;
+    }
+  }
 
-  auto issue = [&](int j, int c) {
-    if (!live(j)) return;
+  const int cta = (bh * a.row_tiles + tile) * a.kv_splits + split;
+  const bool recorder = a.rec != nullptr && cta == a.rec_cta &&
+                        threadIdx.x == 0;
+  int rec_n = 0;
+  int cur = 0;                           // the step now issuing
+
+  // rows [lo, hi) of chunk c of step `step`'s piece: MLA its c_kv | k_rope
+  // rows; GQA its K rows of this head, then its V rows
+  auto issue = [&](int step, int c) {
     int lo, hi;
-    gpp::chunk_bounds(a.bs, a.C, c, &lo, &hi);
-    const size_t phys = (size_t)trow[j];
-    auto arow = [&](int r) -> const char* {
+    gpp::chunk_bounds(a.P, a.C, c, &lo, &hi);
+    const int i = i0 + step;
+    const size_t row0 = (size_t)trow[i / ppb] * a.bs + (size_t)(i % ppb) * a.P;
+    char* kd = ring + (size_t)(step % a.G) * slot;
+    auto arow = [&](int t) -> const char* {
       return reinterpret_cast<const char*>(
-          pa + ((phys * a.bs + r) * a.kvh + g) * a.da);
+          pa + ((row0 + t) * a.kvh + g) * a.da);
     };
-    auto brow = [&](int r) -> const char* {
+    auto brow = [&](int t) -> const char* {
       return reinterpret_cast<const char*>(
-          pb + ((phys * a.bs + r) * a.kvh + g) * a.db);
+          pb + ((row0 + t) * a.kvh + g) * a.db);
     };
-    const int a_bytes = a.da * (int)sizeof(KT);
-    const int b_bytes = a.db * (int)sizeof(KT);
-    gpp::copy_rows_vec(a.vec,
-                       reinterpret_cast<char*>(ring_a + (j % a.G) * slot_a),
-                       a.row_bytes_a, lo, hi, a_bytes, a_bytes, arow,
+    gpp::copy_rows_vec(a.vec, kd, RB, lo, hi, a.da_p * ES, a.da * ES, arow,
                        reinterpret_cast<const char*>(pa));
-    gpp::copy_rows_vec(a.vec,
-                       reinterpret_cast<char*>(ring_b + (j % a.G) * slot_b),
-                       a.row_bytes_b, lo, hi, b_bytes, b_bytes, brow,
+    gpp::copy_rows_vec(a.vec, MLA ? kd + a.da_p * ES : kd + (size_t)a.P * RB,
+                       RB, lo, hi, a.db_p * ES, a.db * ES, brow,
                        reinterpret_cast<const char*>(pb));
+    if (recorder) {
+      a.rec[3 * rec_n + 0] = step;
+      a.rec[3 * rec_n + 1] = c;
+      a.rec[3 * rec_n + 2] = cur;
+      ++rec_n;
+    }
   };
 
-  const KT* qg = q + ((size_t)(b * a.kvh + g) * a.rS + r0) * dk;
-  for (int i = threadIdx.x; i < nr * dk; i += kThreads) qs[i] = to_f32(qg[i]);
-  for (int i = threadIdx.x; i < nr * dv; i += kThreads) acc[i] = 0.0f;
-  for (int r = threadIdx.x; r < nr; r += kThreads) {
-    ms[r] = -INFINITY;
-    ls[r] = 0.0f;
+  // q . k layout: lane = kg * NKS + ks; keys kg + KG i (i < KQ)
+  const int KQ = min(kKQ, a.P);
+  const int KG = a.P / KQ;
+  const int NKS = 32 / KG;
+  const int kg = lane / NKS, ks = lane % NKS;
+  const int nch = ((MLA ? a.da_p + a.db_p : a.da_p) * ES) / 16;
+  const bool warp_live = warp * kRW < nr;  // uniform across the warp
+  int qpos[kRW];
+#pragma unroll
+  for (int r = 0; r < kRW; ++r) qpos[r] = pos + (r0 + warp * kRW + r) % a.S;
+  float m_r[kRW], l_r[kRW], acc[kRW][NV * VW];
+#pragma unroll
+  for (int r = 0; r < kRW; ++r) {
+    m_r[r] = -INFINITY;
+    l_r[r] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV * VW; ++j) acc[r][j] = 0.0f;
   }
-  // (the barrier in run_chunk_schedule publishes qs / acc / ms / ls)
+  float* pw = pbuf + warp * kRW * a.P;     // this warp's p: [t][4 rows]
 
-  for (int j = 0; j < a.MB; ++j) {
-    gpp::run_chunk_schedule(j, a.MB, a.G, a.C, issue);
-    if (live(j)) {  // uniform across the CTA
-      const KT* at = reinterpret_cast<const KT*>(ring_a + (j % a.G) * slot_a);
-      const KT* bt = reinterpret_cast<const KT*>(ring_b + (j % a.G) * slot_b);
-      for (int e = threadIdx.x; e < nr * a.bs; e += kThreads) {
-        const int r = e / a.bs, t = e % a.bs;
-        const float* qr = qs + r * dk;
-        const KT* kr = at + t * stride_a;
-        float dot = 0.0f;
-        for (int d = 0; d < a.da; ++d) dot = fmaf(qr[d], to_f32(kr[d]), dot);
-        if (MLA) {  // the key's rope tail: q[da:] . k_rope
-          const KT* kb = bt + t * stride_b;
-          for (int d = 0; d < a.db; ++d) {
-            dot = fmaf(qr[a.da + d], to_f32(kb[d]), dot);
+  if (n == 0) {  // no piece to walk: let the q copies land, leave
+    gpp::cp_async_commit();
+    gpp::cp_async_wait<0>();
+  }
+  for (int s = 0; s < n; ++s) {
+    cur = s;
+    gpp::run_chunk_schedule(s, n, a.G, a.C, issue);
+    const char* kb = ring + (size_t)(s % a.G) * slot;
+    if (warp_live) {
+      // q . k over this lane's k-slice
+      float lg[kRW][kKQ];
+#pragma unroll
+      for (int r = 0; r < kRW; ++r)
+#pragma unroll
+        for (int i = 0; i < kKQ; ++i) lg[r][i] = 0.0f;
+      const char* qw = qs + warp * kRW * RB;
+#pragma unroll 2
+      for (int ch = ks; ch < nch; ch += NKS) {
+        float kf[kKQ][CH];
+#pragma unroll
+        for (int i = 0; i < kKQ; ++i) {
+          if (i < KQ) {
+            load_chunk<KT>(kb + (kg + KG * i) * RB + ch * 16, kf[i]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < CH; ++e) kf[i][e] = 0.0f;
           }
         }
-        const int qpos = pos + (r0 + r) % a.S;
-        const int kpos = j * a.bs + t;
-        bool valid = kpos <= qpos;
-        if (a.window > 0) valid = valid && kpos > qpos - a.window;
-        ps[e] = valid ? dot : -INFINITY;
+#pragma unroll
+        for (int r = 0; r < kRW; ++r) {
+          float qf[CH];
+          load_chunk<KT>(qw + r * RB + ch * 16, qf);
+#pragma unroll
+          for (int i = 0; i < kKQ; ++i)
+#pragma unroll
+            for (int e = 0; e < CH; ++e) lg[r][i] = fmaf(qf[e], kf[i][e],
+                                                         lg[r][i]);
+        }
       }
-      __syncthreads();
-      for (int r = threadIdx.x; r < nr; r += kThreads) {
-        float* pr = ps + r * a.bs;
-        const float m = ms[r];
+      for (int off = 1; off < NKS; off <<= 1) {
+#pragma unroll
+        for (int r = 0; r < kRW; ++r)
+#pragma unroll
+          for (int i = 0; i < kKQ; ++i)
+            lg[r][i] += __shfl_xor_sync(0xffffffffu, lg[r][i], off);
+      }
+
+      // softmax step over the piece; every lane holds its rows' m and l
+      const int kbase = (i0 + s) * a.P;
+      float corr[kRW];
+#pragma unroll
+      for (int r = 0; r < kRW; ++r) {
         float mx = -INFINITY;
-        for (int t = 0; t < a.bs; ++t) mx = fmaxf(mx, pr[t]);
-        const float m_new = fmaxf(m, mx);
+#pragma unroll
+        for (int i = 0; i < kKQ; ++i) {
+          const int kpos = kbase + kg + KG * i;
+          bool valid = i < KQ && kpos <= qpos[r];
+          if (a.window > 0) valid = valid && kpos > qpos[r] - a.window;
+          lg[r][i] = valid ? lg[r][i] : -INFINITY;
+          mx = fmaxf(mx, lg[r][i]);
+        }
+        for (int off = NKS; off < 32; off <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const float m_new = fmaxf(m_r[r], mx);
         const float m_safe = isinf(m_new) ? 0.0f : m_new;
+        corr[r] = isinf(m_r[r]) ? 0.0f : expf(m_r[r] - m_safe);
+        m_r[r] = m_new;
         float sum = 0.0f;
-        for (int t = 0; t < a.bs; ++t) {
-          const float p = expf(pr[t] - m_safe);
-          pr[t] = p;
-          sum += p;
+#pragma unroll
+        for (int i = 0; i < kKQ; ++i) {
+          lg[r][i] = expf(lg[r][i] - m_safe);
+          sum += lg[r][i];
         }
-        const float corr = isinf(m) ? 0.0f : expf(m - m_safe);
-        ms[r] = m_new;
-        ls[r] = ls[r] * corr + sum;
-        cs[r] = corr;
+        for (int off = NKS; off < 32; off <<= 1) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        }
+        l_r[r] = l_r[r] * corr[r] + sum;
       }
-      __syncthreads();
-      // the value: the b ring (GQA) or the a ring's latent rows (MLA)
-      const KT* vt = MLA ? at : bt;
-      const int vstride = MLA ? stride_a : stride_b;
-      for (int e = threadIdx.x; e < nr * dv; e += kThreads) {
-        const int r = e / dv, d = e % dv;
-        const float* pr = ps + r * a.bs;
-        float pv = 0.0f;
-        for (int t = 0; t < a.bs; ++t) {
-          pv = fmaf(through(pr[t], pa), to_f32(vt[t * vstride + d]), pv);
+      if (ks == 0) {
+#pragma unroll
+        for (int i = 0; i < kKQ; ++i) {
+          if (i < KQ) {
+            *reinterpret_cast<float4*>(pw + (kg + KG * i) * kRW) =
+                make_float4(through<KT>(lg[0][i]), through<KT>(lg[1][i]),
+                            through<KT>(lg[2][i]), through<KT>(lg[3][i]));
+          }
         }
-        acc[e] = acc[e] * cs[r] + pv;
+      }
+      __syncwarp();
+
+      // acc = acc * corr + p . v over this lane's columns
+#pragma unroll
+      for (int r = 0; r < kRW; ++r)
+#pragma unroll
+        for (int j = 0; j < NV * VW; ++j) acc[r][j] *= corr[r];
+      const char* vb = MLA ? kb : kb + (size_t)a.P * RB;
+      for (int t = 0; t < a.P; ++t) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pw + t * kRW);
+        const float pr[kRW] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int nn = 0; nn < NV; ++nn) {
+          const int c = VW * lane + 32 * VW * nn;
+          if (c < dv) {
+            float vf[VW];
+            load_vec<KT, VW>(vb + t * RB + c * ES, vf);
+#pragma unroll
+            for (int r = 0; r < kRW; ++r)
+#pragma unroll
+              for (int e = 0; e < VW; ++e)
+                acc[r][nn * VW + e] = fmaf(pr[r], vf[e], acc[r][nn * VW + e]);
+          }
+        }
       }
     }
-    __syncthreads();  // the slot is free for the next step's issue
+    __syncthreads();  // the ring slot and the p rows are free
   }
 
-  KT* out = static_cast<KT*>(a.out) +
-            ((size_t)(b * a.kvh + g) * a.rS + r0) * dv;
-  for (int e = threadIdx.x; e < nr * dv; e += kThreads) {
-    out[e] = from_f32<KT>(acc[e] / fmaxf(ls[e / dv], 1e-30f));
+  if (a.kv_splits == 1) {  // the CTA's run is the whole lane
+    if (!warp_live) return;
+    KT* out = static_cast<KT*>(a.out) + ((size_t)bh * a.rS + r0) * dv;
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) {
+      const int row = warp * kRW + r;
+      if (row >= nr) continue;
+      const float l = fmaxf(l_r[r], 1e-30f);
+#pragma unroll
+      for (int nn = 0; nn < NV; ++nn)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const int c = VW * lane + 32 * VW * nn + e;
+          if (c < dv) out[(size_t)row * dv + c] =
+              from_f32<KT>(acc[r][nn * VW + e] / l);
+        }
+    }
+    return;
+  }
+
+  // the partial: acc rows of the (lane, head, tile) unit's split, then
+  // (m, l); an empty run leaves m = -inf, l = 0 and no acc (the merge
+  // skips it), and rows past rS no acc (the merge does not read them)
+  const size_t prow = (((size_t)bh * a.row_tiles + tile) * a.kv_splits +
+                       split) * kRows;
+  if (n > 0 && warp_live) {
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) {
+      const int row = warp * kRW + r;
+      if (row >= nr) continue;
+      float* dst = a.ws + (prow + row) * dv;
+#pragma unroll
+      for (int nn = 0; nn < NV; ++nn) {
+        const int c = VW * lane + 32 * VW * nn;
+        if (c < dv) store_vec<VW>(dst + c, &acc[r][nn * VW]);
+      }
+    }
+  }
+  if (lane == 0) {
+    float2* ml = reinterpret_cast<float2*>(
+        a.ws + (size_t)gridDim.z * a.row_tiles * a.kv_splits * kRows * dv);
+#pragma unroll
+    for (int r = 0; r < kRW; ++r) {
+      ml[prow + warp * kRW + r] = make_float2(m_r[r], l_r[r]);
+    }
   }
 }
 
 // two entry points, so the GQA and MLA launches show apart in a trace
-template <typename KT>
+template <typename KT, int VW, int NV>
 __global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(PagedArgs a) {
-  paged_attention_body<KT, false>(a);
+    paged_attention_kernel(FmaArgs a) {
+  fma_body<KT, false, VW, NV>(a);
 }
 
 template <typename KT>
 __global__ void __launch_bounds__(kThreads)
-    paged_attention_mla_kernel(PagedArgs a) {
-  paged_attention_body<KT, true>(a);
+    paged_attention_mla_kernel(FmaArgs a) {
+  fma_body<KT, true, 4, 4>(a);
 }
 
-template <typename KT, bool MLA>
-cudaError_t launch(const PagedArgs& a, int B, int splits,
-                   cudaStream_t stream) {
-  auto kernel = MLA ? paged_attention_mla_kernel<KT>
-                    : paged_attention_kernel<KT>;
-  const int dk = MLA ? a.da + a.db : a.da;
-  const int dv = MLA ? a.da : a.db;
-  const size_t ring =
-      (size_t)a.G * a.bs * ((size_t)a.row_bytes_a + a.row_bytes_b);
-  const size_t smem = ring + (size_t)a.rows_per_cta * (dk + dv) * 4 +
-                      (size_t)a.rows_per_cta * a.bs * 4 +
-                      3 * (size_t)a.rows_per_cta * 4;
+template <typename KT, bool MLA, int VW, int NV>
+cudaError_t run(const FmaArgs& a, int B, cudaStream_t stream) {
+  void (*kernel)(FmaArgs);
+  if constexpr (MLA) {
+    kernel = paged_attention_mla_kernel<KT>;
+  } else {
+    kernel = paged_attention_kernel<KT, VW, NV>;
+  }
+  const size_t smem = smem_bytes(a.P, a.row_bytes, a.G, MLA);
   static size_t smem_set = 0;  // per instantiation: raise the limit once
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -266,44 +540,94 @@ cudaError_t launch(const PagedArgs& a, int B, int splits,
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  const dim3 grid(B, a.kvh, splits);
+  const dim3 grid(a.kv_splits, a.row_tiles, B * a.kvh);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the value width picks the lane's columns: MLA 512 (4 x 4 a lane); GQA
+// <= 64 (2 x 1), <= 128 (4 x 1), <= 256 (4 x 2)
+template <typename KT>
+cudaError_t run_any(const FmaArgs& a, bool mla, int B, cudaStream_t stream) {
+  if (mla) return run<KT, true, 4, 4>(a, B, stream);
+  if (a.da <= 64) return run<KT, false, 2, 1>(a, B, stream);
+  if (a.da <= 128) return run<KT, false, 4, 1>(a, B, stream);
+  return run<KT, false, 4, 2>(a, B, stream);
+}
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
 }  // namespace
+}  // namespace fma_attn
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, pools and output alike).
 // GQA: mla = 0, da = db = head_dim.  MLA: mla = 1, kvh = 1, da = kv_lora,
-// db = rope_dim.
+// db = rope_dim.  q: (B, KVH, rS, dk) pre-scaled; out (B, KVH, rS, da),
+// written here only with kv_splits == 1.  With kv_splits > 1, ws receives
+// B * KVH * row_tiles * kv_splits * 16 * (da + 2) floats of partials for
+// paged_attention_merge_launch.  piece: P; row_bytes: the planner's
+// (core.schedule.paged_attn_fma_row_bytes).  rec / rec_cta: the issue-order
+// record (rec may be null).
 extern "C" int paged_attention_launch(
     const void* q, const void* pool_a, const void* pool_b, const int* tables,
-    const int* positions, void* out, int B, int MB, int bs, int kvh, int da,
-    int db, int mla, int S, int rS, int rows_per_cta, int splits, int G,
-    int C, int window, int vec, int row_bytes_a, int row_bytes_b, int dtype,
-    void* stream) {
-  if (G < 1 || C < 1 || rows_per_cta < 1 || splits < 1 ||
-      row_bytes_a % 16 != 0 || row_bytes_b % 16 != 0 ||
-      (!mla && da != db) || (mla && kvh != 1)) {
+    const int* positions, void* out, float* ws, int* rec, int B, int MB,
+    int bs, int kvh, int da, int db, int mla, int S, int rS, int row_tiles,
+    int kv_splits, int piece, int G, int C, int window, int vec,
+    int row_bytes, int rec_cta, int dtype, void* stream) {
+  const int es = dtype == 0 ? 4 : 2;
+  const int ch = 16 / es;
+  fma_attn::FmaArgs a{};
+  a.da_p = fma_attn::round_up(da, ch);
+  a.db_p = fma_attn::round_up(db, ch);
+  const int kw = (mla ? a.da_p + a.db_p : a.da_p) * es;
+  using fma_attn::kMaxPiece;
+  using fma_attn::kRows;
+  if (B < 1 || MB < 1 || bs < 1 || kvh < 1 || da < 8 || da % 8 != 0 ||
+      db < 0 || S < 1 || rS < 1 || piece < 1 || piece > kMaxPiece ||
+      (piece & (piece - 1)) != 0 || bs % piece != 0 || G < 1 || C < 1 ||
+      C > piece || (G == 1 && C != 1) || kv_splits < 1 ||
+      kv_splits > MB * (bs / piece) || row_tiles * kRows < rS ||
+      row_bytes < kw || row_bytes % 64 != 0 ||
+      !(vec == 1 || vec == 4 || vec == 8 || vec == 16) ||
+      (kv_splits > 1 && ws == nullptr) || (dtype != 0 && dtype != 1) ||
+      (mla ? (kvh != 1 || da > 512) : (da != db || da > 256))) {
     return (int)cudaErrorInvalidValue;
   }
-  PagedArgs a{q,  pool_a, pool_b, tables,       positions, out,
-              MB, bs,     kvh,    da,           db,        S,
-              rS, rows_per_cta,   G,            C,         window,
-              vec, row_bytes_a,   row_bytes_b};
+  a.q = q;
+  a.pool_a = pool_a;
+  a.pool_b = pool_b;
+  a.tables = tables;
+  a.positions = positions;
+  a.out = out;
+  a.ws = ws;
+  a.rec = rec;
+  a.rec_cta = rec_cta;
+  a.MB = MB;
+  a.bs = bs;
+  a.kvh = kvh;
+  a.da = da;
+  a.db = db;
+  a.S = S;
+  a.rS = rS;
+  a.row_tiles = row_tiles;
+  a.kv_splits = kv_splits;
+  a.P = piece;
+  a.G = G;
+  a.C = C;
+  a.window = window;
+  a.vec = vec;
+  a.row_bytes = row_bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype * 2 + (mla ? 1 : 0)) {
-    case 0:
-      return (int)launch<float, false>(a, B, splits, st);
-    case 1:
-      return (int)launch<float, true>(a, B, splits, st);
-    case 2:
-      return (int)launch<__nv_bfloat16, false>(a, B, splits, st);
-    case 3:
-      return (int)launch<__nv_bfloat16, true>(a, B, splits, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return (int)(dtype == 0
+                   ? fma_attn::run_any<float>(a, mla != 0, B, st)
+                   : fma_attn::run_any<__nv_bfloat16>(a, mla != 0, B, st));
+}
+
+// The dynamic shared memory a paged_attention_launch with these arguments
+// asks for (held against core.schedule.paged_attn_fma_smem_bytes).
+extern "C" long long paged_attention_smem_bytes(int piece, int row_bytes,
+                                                int G, int mla) {
+  return (long long)fma_attn::smem_bytes(piece, row_bytes, G, mla != 0);
 }
 
 extern "C" const char* paged_attention_error_string(int err) {
@@ -820,9 +1144,10 @@ extern "C" int paged_attention_mla_tc_ctas_per_sm(int bs, int da, int db,
 //
 // What bounds it on the H100: latency, not bytes.  A decode call reads
 // ~0.13 MB of K and V at qwen1.5-0.5b's widths (0.04 us at 3.35 TB/s); the
-// FMA kernel above spends 40+ us on one CTA per (lane, KV head), 64 CTAs
-// for 132 SMs, each walking the lane's blocks in order with three barriers
-// a block and a handful of threads in 16- to 64-long serial FMA chains.
+// whole-block FMA design it replaced spent 40+ us on one CTA per (lane,
+// KV head), 64 CTAs for 132 SMs, each walking the lane's blocks in order
+// with three barriers a block and a handful of threads in 16- to 64-long
+// serial FMA chains.
 // What the design does about it:
 //  1. Split-KV over fixed runs.  A CTA owns (lane, KV head, 16-row tile of
 //     the rep x S rows, run of logical blocks); rows are head-major (row =
@@ -1246,10 +1571,12 @@ GqaTcArgs args_of(int bs, int kvh, int hd, int G) {
 
 // ---------------------------------------------------------------------------
 // paged_attention_merge_kernel: the merge of split-KV partials, shared by
-// the two tensor-core kernels above (bf16 MLA: a unit is (lane, row tile),
-// da the latent width; bf16 GQA: a unit is (lane, KV head, row tile), da
-// the head_dim).  The workspace holds, per unit and split, 16 rows of f32
-// acc (da wide), then every (unit, split)'s 16 (m, l) pairs.
+// the four split kernels above (MLA: a unit is (lane, row tile), da the
+// latent width; GQA: a unit is (lane, KV head, row tile), da the
+// head_dim); its output is bf16 (the tensor-core kernels, the FMA kernels'
+// bf16 instances) or f32 (the FMA kernels in f32).  The workspace holds,
+// per unit and split, 16 rows of f32 acc (da wide), then every (unit,
+// split)'s 16 (m, l) pairs.
 //   m = max m_i, w_i = exp(m_i - m) (0 for m_i = -inf),
 //   l = sum w_i l_i, out = sum w_i acc_i / max(l, 1e-30), in split order.
 // (A merge in the unit's last CTA, found through a device counter, was the
@@ -1277,8 +1604,20 @@ __host__ __device__ constexpr size_t merge_smem_bytes(int kv_splits) {
 // arrive, unpredicated by the weights, so the whole merge waits about one
 // memory round trip; an empty run's acc was never written, so a weight of
 // 0 selects 0 instead of multiplying (w * NaN is NaN).
+__device__ __forceinline__ void store4(float* dst, float4 o, float l) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(o.x / l, o.y / l, o.z / l, o.w / l);
+}
+__device__ __forceinline__ void store4(bf16* dst, float4 o, float l) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) =
+      __floats2bfloat162_rn(o.x / l, o.y / l);
+  *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+      __floats2bfloat162_rn(o.z / l, o.w / l);
+}
+
+template <typename OT>
 __global__ void __launch_bounds__(kMergeThreads)
-    paged_attention_merge_kernel(const float* ws, bf16* out, int units,
+    paged_attention_merge_kernel(const float* ws, OT* out, int units,
                                  int row_tiles, int ks, int da, int rS) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* ml = reinterpret_cast<float2*>(smem);         // [ks][16]
@@ -1347,13 +1686,26 @@ __global__ void __launch_bounds__(kMergeThreads)
   for (int h = 0; h < 2; ++h) {
     const int r = rt + 8 * h;
     if (r0 + r >= rS) continue;
-    const float l = lsum[r];
-    bf16* dst = out + ((size_t)b * rS + r0 + r) * da + col;
-    *reinterpret_cast<__nv_bfloat162*>(dst) =
-        __floats2bfloat162_rn(o[h].x / l, o[h].y / l);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
-        __floats2bfloat162_rn(o[h].z / l, o[h].w / l);
+    store4(out + ((size_t)b * rS + r0 + r) * da + col, o[h], lsum[r]);
   }
+}
+
+template <typename OT>
+cudaError_t merge_run(const float* ws, void* out, int units, int row_tiles,
+                      int kv_splits, int da, int rS, cudaStream_t stream) {
+  const size_t smem = merge_smem_bytes(kv_splits);
+  static size_t smem_set = 0;  // per instantiation: raise the limit once
+  if (smem > smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_merge_kernel<OT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  const dim3 grid((da + kMergeCols - 1) / kMergeCols, units);
+  paged_attention_merge_kernel<OT><<<grid, kMergeThreads, smem, stream>>>(
+      ws, static_cast<OT*>(out), units, row_tiles, kv_splits, da, rS);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1401,33 +1753,23 @@ extern "C" int paged_attention_tc_ctas_per_sm(int bs, int hd, int G) {
   return e == cudaSuccess ? ctas : -(int)e;
 }
 
-// Merge the partials a tensor-core kernel left in ws (kv_splits > 1) into
-// out (units / row_tiles, rS, da) bf16: one CTA per (64-column slice,
-// unit).  `units` = lanes x row tiles (MLA), lanes x KV heads x row tiles
-// (GQA).
+// Merge the partials a split kernel left in ws (kv_splits > 1) into out
+// (units / row_tiles, rS, da), f32 (dtype 0) or bf16 (dtype 1): one CTA
+// per (64-column slice, unit).  `units` = lanes x row tiles (MLA), lanes x
+// KV heads x row tiles (GQA).
 extern "C" int paged_attention_merge_launch(const float* ws, void* out,
                                             int units, int row_tiles,
                                             int kv_splits, int da, int rS,
-                                            void* stream) {
+                                            int dtype, void* stream) {
   using namespace merge;
   if (ws == nullptr || units < 1 || row_tiles < 1 || units % row_tiles ||
       kv_splits < 2 || da < 8 || da % 8 != 0 || rS < 1 ||
-      row_tiles * kRows < rS) {
+      row_tiles * kRows < rS || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = merge_smem_bytes(kv_splits);
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_merge_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  const dim3 grid((da + kMergeCols - 1) / kMergeCols, units);
-  paged_attention_merge_kernel<<<grid, kMergeThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      ws, static_cast<__nv_bfloat16*>(out), units, row_tiles, kv_splits, da,
-      rS);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0 ? merge_run<float>(ws, out, units, row_tiles,
+                                             kv_splits, da, rS, st)
+                          : merge_run<bf16>(ws, out, units, row_tiles,
+                                            kv_splits, da, rS, st));
 }

@@ -14,18 +14,23 @@ exactly the reference's wrapper — then launches one of the kernels of
     the tensor cores, then, with more than one run,
     `paged_attention_merge_kernel` merges the runs' partials;
   * "gqa": `paged_attention_kernel` (f32 GQA, and bf16 at other shapes,
-    counted apart): one CTA per (lane, KV head, row split) streams the
-    lane's live K and V blocks through two G-slot shared-memory rings on
-    the chunk schedule and runs one online-softmax step per block;
+    counted apart): the lane's keys cut into pieces of P tokens and the
+    pieces into fixed runs (`core.schedule.plan_paged_attn_fma_sm90`), one
+    CTA per (lane, KV head, 16-row tile, run) streaming its run's live
+    pieces through a G-slot shared-memory ring on the chunk schedule,
+    register-tiled f32 FMA on the CUDA cores, then, with more than one
+    run, the merge kernel;
   * "mla": `paged_attention_mla_kernel` (f32 MLA, and bf16 MLA at block
-    sizes the tensor-core kernel does not take, such as 8 or 128), the
-    same walk over the latent pools: latent MQA, one shared KV head whose
-    key is concat(c_kv, k_rope) and whose value is the c_kv row;
+    sizes the tensor-core kernel does not take, such as 8, 128 or 256),
+    the same split walk over the latent pools: latent MQA, one shared KV
+    head whose key is concat(c_kv, k_rope) and whose value is the c_kv
+    row;
   * "mla_tc": `paged_attention_mla_tc_kernel` (bf16 MLA at block sizes 16,
     32, 48 and 64): the same function on the tensor cores with the KV walk
     split over CTAs (runs of logical blocks,
     `core.schedule.plan_paged_attn_mla_tc_sm90`), then, with more than one
-    run, the same merge kernel.
+    run, the same merge kernel (`paged_attention_merge_kernel`, f32 or
+    bf16 out, shared by the four split kernels).
 
 CUDA tensors only: a CPU tensor, or a CUDA tensor the kernel cannot take,
 raises (the plain version is `kernels.ref.paged_attn_ref`, which
@@ -42,12 +47,13 @@ import ctypes
 
 import torch
 
-from repro_torch.core.schedule import (GqaTcPlan, MlaTcPlan, gqa_tc_takes,
-                                      mla_fma_takes, mla_tc_takes,
-                                      paged_attn_row_bytes,
+from repro_torch.core.schedule import (GqaTcPlan, MlaTcPlan,
+                                      PagedAttnFmaPlan, gqa_tc_takes,
+                                      mla_tc_takes,
+                                      paged_attn_fma_shape_error,
+                                      plan_paged_attn_fma_sm90,
                                       plan_paged_attn_gqa_tc_sm90,
-                                      plan_paged_attn_mla_tc_sm90,
-                                      plan_paged_attn_sm90)
+                                      plan_paged_attn_mla_tc_sm90)
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,20 +64,22 @@ launches_tc = build.LaunchCounter()         # GQA / window, bf16 (tensor cores)
 launches_mla = build.LaunchCounter()        # MLA form, f32 (FMA kernel)
 launches_mla_bf16 = build.LaunchCounter()   # MLA form, bf16 (FMA kernel)
 launches_mla_tc = build.LaunchCounter()     # MLA form, bf16 (tensor cores)
-launches_merge = build.LaunchCounter()      # the two tc kernels' merge
+launches_merge = build.LaunchCounter()      # the split kernels' merge
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [p] * 6 + [i] * 18 + [p]
+        lib.paged_attention_launch.argtypes = [p] * 8 + [i] * 19 + [p]
         lib.paged_attention_launch.restype = i
+        lib.paged_attention_smem_bytes.argtypes = [i] * 4
+        lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
         lib.paged_attention_mla_tc_launch.argtypes = [p] * 8 + [i] * 14 + [p]
         lib.paged_attention_mla_tc_launch.restype = i
         lib.paged_attention_tc_launch.argtypes = [p] * 8 + [i] * 13 + [p]
         lib.paged_attention_tc_launch.restype = i
-        lib.paged_attention_merge_launch.argtypes = [p] * 2 + [i] * 5 + [p]
+        lib.paged_attention_merge_launch.argtypes = [p] * 2 + [i] * 6 + [p]
         lib.paged_attention_merge_launch.restype = i
         lib.paged_attention_mla_tc_ctas_per_sm.argtypes = [i] * 5
         lib.paged_attention_mla_tc_ctas_per_sm.restype = i
@@ -92,22 +100,20 @@ def attention_route(dtype: torch.dtype, mla: bool, block_size: int,
     `core.schedule.gqa_tc_takes`), "gqa" (the FMA GQA / window kernel: f32,
     and bf16 at other shapes), "mla_tc" (bf16 MLA on the tensor cores,
     where that kernel takes the shape: `core.schedule.mla_tc_takes`) or
-    "mla" (the FMA MLA kernel: f32, and bf16 at other block sizes).
-    Raises on an MLA shape neither MLA kernel's shared memory holds (block
-    size 256)."""
+    "mla" (the FMA MLA kernel: f32, and bf16 at other block sizes; it
+    streams a block in pieces, so any block size).  Raises, naming the
+    shape, on an MLA pool neither MLA kernel takes (a latent past 512 or
+    not a multiple of 8)."""
     if not mla:
         if dtype == torch.bfloat16 and gqa_tc_takes(block_size, width):
             return "gqa_tc"
         return "gqa"
     if dtype == torch.bfloat16 and mla_tc_takes(block_size, width, rope):
         return "mla_tc"
-    if not mla_fma_takes(block_size, width, rope, dtype.itemsize):
-        raise ValueError(
-            f"no MLA kernel takes {dtype} pools of {block_size}-token blocks "
-            f"at latent {width} + rope {rope}: the tensor-core kernel "
-            f"(bf16) takes blocks of 16, 32, 48 or 64 tokens, and the FMA "
-            f"kernel's in-situ ring of one block does not fit the shared "
-            f"memory")
+    err = paged_attn_fma_shape_error(block_size, width, rope,
+                                     dtype.itemsize, True)
+    if err is not None:
+        raise ValueError(f"no MLA kernel takes {dtype} pools: {err}")
     return "mla"
 
 
@@ -128,9 +134,9 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
     absorbed through w_uk (dk = kv_lora + rope), num_kv_heads ignored (one
     shared head).  tables: (B, MB) int32 (0 = null block).  positions: (B,)
     int32 first query position per lane.  window: sliding-window size.
-    num_bufs pins the ring depth G.  kv_splits pins the number of runs a
-    tensor-core kernel (bf16 MLA, bf16 GQA) cuts each lane's blocks into
-    (1 .. MB; None plans it; an FMA route raises).  route pins the FMA
+    num_bufs pins the ring depth G.  kv_splits pins the number of runs
+    each lane's blocks (tensor-core kernels: 1 .. MB) or pieces (FMA
+    kernels: 1 .. MB x bs / P) are cut into; None plans it.  route pins the FMA
     kernel of the form ("gqa" or "mla") where `attention_route` would take
     a tensor-core one, to set the two side by side; None routes by shape.
     Returns (B, S, H, dv) in q.dtype (dv = hd, or kv_lora under `mla`).
@@ -186,9 +192,6 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
         raise ValueError(f"route {route!r}: this call takes {planned!r} or "
                          f"its FMA kernel's")
     route = route or planned
-    if kv_splits is not None and route not in ("mla_tc", "gqa_tc"):
-        raise ValueError(f"kv_splits applies to the tensor-core kernels "
-                         f"only, not the {route!r} route")
     q2 = _q_rows(q, scale, kvh, kd)
     if route == "gqa_tc":
         plan = plan_paged_attn_gqa_tc_sm90(
@@ -203,30 +206,13 @@ def paged_attention(q: torch.Tensor, pool_a: torch.Tensor,
         out = _launch_mla_tc(q2, pool_a, pool_b, tables, positions, plan,
                              S=S, window=window)
     else:
-        es = pool_a.element_size()
-        plan = plan_paged_attn_sm90(rows=rS, block_size=bs, head_dim=da,
-                                    rope_dim=db if mla else 0,
-                                    kv_itemsize=es, max_blocks=MB,
-                                    num_bufs=num_bufs)
-        out = torch.empty((B, kvh, rS, dv), dtype=kd, device=dev)
-        vec = min(build.copy_width(da * es, pool_a.data_ptr()),
-                  build.copy_width(db * es, pool_b.data_ptr()))
-        lib = _lib()
-        err = lib.paged_attention_launch(
-            q2.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(),
-            tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, MB, bs, kvh, da, db, int(mla), S, rS, plan.rows_per_cta,
-            plan.row_splits, plan.num_bufs, plan.chunks,
-            window if window else 0, vec, paged_attn_row_bytes(da, es),
-            paged_attn_row_bytes(db, es), DTYPES[kd],
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check_launch(lib, err, "paged_attention")
-        if not mla:
-            (launches_bf16 if kd == torch.bfloat16 else launches).n += 1
-        elif kd == torch.bfloat16:
-            launches_mla_bf16.n += 1
-        else:
-            launches_mla.n += 1
+        plan = plan_paged_attn_fma_sm90(
+            batch=B, kv_heads=kvh, rows=rS, block_size=bs, max_blocks=MB,
+            width=da, rope=db if mla else 0, mla=mla,
+            kv_itemsize=pool_a.element_size(), num_bufs=num_bufs,
+            kv_splits=kv_splits)
+        out = _launch_fma(q2, pool_a, pool_b, tables, positions, plan, S=S,
+                          window=window)
     return (out.reshape(B, kvh, rep, S, dv).permute(0, 3, 1, 2, 4)
             .reshape(B, S, H, dv))
 
@@ -298,14 +284,15 @@ def _launch_mla_split(q2: torch.Tensor, c_kv: torch.Tensor,
 def _launch_merge(ws: torch.Tensor, out: torch.Tensor, units: int,
                   row_tiles: int, kv_splits: int, width: int,
                   rows: int) -> None:
-    """Merge the partials a tensor-core kernel left in `ws` into `out`
-    (units / row_tiles, rows, width) bf16 (plain version:
+    """Merge the partials a split kernel left in `ws` into `out` (units /
+    row_tiles, rows, width), f32 or bf16 (plain version:
     `kernels.ref.mla_merge_ref`): units = lanes x row tiles (MLA), lanes x
     KV heads x row tiles (GQA)."""
     lib = _lib()
     err = lib.paged_attention_merge_launch(
         ws.data_ptr(), out.data_ptr(), units, row_tiles, kv_splits, width,
-        rows, torch.cuda.current_stream(ws.device).cuda_stream)
+        rows, DTYPES[out.dtype],
+        torch.cuda.current_stream(ws.device).cuda_stream)
     build.check_launch(lib, err, "paged_attention")
     launches_merge.n += 1
 
@@ -358,6 +345,111 @@ def _launch_gqa_split(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rec_cta, torch.cuda.current_stream(q2.device).cuda_stream)
     build.check_launch(lib, err, "paged_attention")
     launches_tc.n += 1
+
+
+def _launch_fma(q2: torch.Tensor, pool_a: torch.Tensor,
+                pool_b: torch.Tensor, tables: torch.Tensor,
+                positions: torch.Tensor, plan: PagedAttnFmaPlan, *, S: int,
+                window: "int | None",
+                record: "torch.Tensor | None" = None,
+                rec_cta: int = -1) -> torch.Tensor:
+    """The FMA route (GQA / window or MLA, f32 or bf16) on pre-scaled rows
+    q2 (B, KVH, rS, dk): the FMA kernel, then the merge kernel when the
+    plan splits the pieces; returns (B, KVH, rS, dv) in the KV dtype.  The
+    partials' workspace comes from the caching allocator; nothing syncs."""
+    B, kvh, rS, _ = q2.shape
+    out = torch.empty((B, kvh, rS, plan.width), dtype=pool_a.dtype,
+                      device=q2.device)
+    ws = None
+    if plan.kv_splits > 1:
+        ws = torch.empty(plan.workspace_floats(), dtype=torch.float32,
+                         device=q2.device)
+    _launch_fma_split(q2, pool_a, pool_b, tables, positions, plan, out, ws,
+                      S=S, window=window, record=record, rec_cta=rec_cta)
+    if ws is not None:
+        _launch_merge(ws, out, plan.units, plan.row_tiles, plan.kv_splits,
+                      plan.width, rS)
+    return out
+
+
+def _launch_fma_split(q2: torch.Tensor, pool_a: torch.Tensor,
+                      pool_b: torch.Tensor, tables: torch.Tensor,
+                      positions: torch.Tensor, plan: PagedAttnFmaPlan,
+                      out: torch.Tensor, ws: "torch.Tensor | None", *,
+                      S: int, window: "int | None",
+                      record: "torch.Tensor | None" = None,
+                      rec_cta: int = -1) -> None:
+    """Launch `paged_attention_kernel` / `paged_attention_mla_kernel`
+    alone: with kv_splits == 1 it writes `out`, else the runs' partials
+    into `ws` (`plan.workspace_floats()` f32).  Each launch adds one to
+    its (form, dtype) count."""
+    B, kvh, rS, dk = q2.shape
+    kd = pool_a.dtype
+    es = pool_a.element_size()
+    da, db = plan.width, pool_b.shape[-1]
+    vec = min(build.copy_width(da * es, pool_a.data_ptr(), q2.data_ptr()),
+              build.copy_width(db * es, pool_b.data_ptr()),
+              build.copy_width(dk * es, q2.data_ptr()))
+    lib = _lib()
+    err = lib.paged_attention_launch(
+        q2.data_ptr(), pool_a.data_ptr(), pool_b.data_ptr(),
+        tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if record is None else record.data_ptr(),
+        B, plan.max_blocks, plan.block_size, kvh, da, db, int(plan.mla), S,
+        rS, plan.row_tiles, plan.kv_splits, plan.piece, plan.num_bufs,
+        plan.chunks, window if window else 0, vec, plan.row_bytes, rec_cta,
+        DTYPES[kd], torch.cuda.current_stream(q2.device).cuda_stream)
+    build.check_launch(lib, err, "paged_attention")
+    if not plan.mla:
+        (launches_bf16 if kd == torch.bfloat16 else launches).n += 1
+    elif kd == torch.bfloat16:
+        launches_mla_bf16.n += 1
+    else:
+        launches_mla.n += 1
+
+
+def fma_smem_bytes(plan: PagedAttnFmaPlan) -> int:
+    """The dynamic shared memory the FMA kernel's launch asks for at
+    `plan` (the planner's count is `plan.smem_bytes`)."""
+    return _lib().paged_attention_smem_bytes(plan.piece, plan.row_bytes,
+                                             plan.num_bufs, int(plan.mla))
+
+
+def issue_order_fma(q: torch.Tensor, pool_a: torch.Tensor,
+                    pool_b: torch.Tensor, tables: torch.Tensor,
+                    positions: torch.Tensor, *, num_kv_heads: int,
+                    scale: float, mla: bool, num_bufs: "int | None",
+                    kv_splits: "int | None", window: "int | None" = None):
+    """Run the FMA kernel once with the issue-order record on, for the
+    first CTA (lane-major, then KV head, row tile, split) whose run holds
+    at least 4 live pieces.  Returns ({(step, chunk): [issue_steps]},
+    steps, G, C, cta): `chunk_issue_schedule(steps, G, C)` is the order it
+    should equal (the steps are the run's live pieces).  A check, not the
+    main path: it reads positions on the host."""
+    B, S, H, _ = q.shape
+    kvh = 1 if mla else num_kv_heads
+    plan = plan_paged_attn_fma_sm90(
+        batch=B, kv_heads=kvh, rows=H // kvh * S,
+        block_size=pool_a.shape[1], max_blocks=tables.shape[1],
+        width=pool_a.shape[-1], rope=pool_b.shape[-1] if mla else 0,
+        mla=mla, kv_itemsize=pool_a.element_size(), num_bufs=num_bufs,
+        kv_splits=kv_splits)
+    runs = live_blocks(plan, positions.tolist(), S, window)
+    lane, split = next(((b, s) for b in range(B)
+                        for s in range(plan.kv_splits)
+                        if len(runs[b][s]) >= 4), (None, None))
+    if lane is None:
+        raise ValueError("no run holds 4 live pieces")
+    steps = len(runs[lane][split])
+    rec = torch.full((3 * steps * plan.chunks,), -1, dtype=torch.int32,
+                     device=q.device)
+    cta = plan.cta(lane, 0, 0, split)
+    _launch_fma(_q_rows(q, scale, kvh, pool_a.dtype), pool_a, pool_b,
+                tables, positions, plan, S=S, window=window, record=rec,
+                rec_cta=cta)
+    return (build.read_issue_record(rec), steps, plan.num_bufs, plan.chunks,
+            cta)
 
 
 def gqa_tc_ctas_per_sm(plan: GqaTcPlan) -> int:
@@ -417,14 +509,14 @@ def mla_tc_ctas_per_sm(plan: MlaTcPlan, latent: int, rope: int) -> int:
     return n
 
 
-def live_blocks(plan: "MlaTcPlan | GqaTcPlan", positions: "list[int]",
-                S: int, window: "int | None" = None
+def live_blocks(plan: "MlaTcPlan | GqaTcPlan | PagedAttnFmaPlan",
+                positions: "list[int]", S: int, window: "int | None" = None
                 ) -> "list[list[list[int]]]":
-    """[lane][split] -> the logical blocks of that run a tensor-core kernel
-    walks (the kernels' live predicate: a key at or before the lane's last
-    query position and, with a window, one not expired for its first),
-    host-side, for the issue-order checks."""
-    bs = plan.block_size
+    """[lane][split] -> the logical blocks (FMA plans: pieces) of that run
+    a split kernel walks (the kernels' live predicate: a key at or before
+    the lane's last query position and, with a window, one not expired for
+    its first), host-side, for the issue-order checks."""
+    bs = getattr(plan, "piece", plan.block_size)
     return [[[j for j in plan.run(s) if j * bs <= p + S - 1 and not (
         window and (j + 1) * bs - 1 <= p - window)]
         for s in range(plan.kv_splits)] for p in positions]

@@ -7,10 +7,11 @@ are copies of `repro.kernels.ref` in torch, and `rmsnorm_ref` of
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
 against them on the card.  `dense_split_ref` replays `gpp_matmul`'s
 split over CTAs (either route) and its fixed-order fix-up for the tests.
-`mla_merge_ref` is the plain version of the merge kernel that both
-tensor-core attention kernels share; `paged_attn_mla_split_ref` and
-`paged_attn_gqa_split_ref` replay those kernels' split-KV walks and merge
-for the tests (nothing on the main path calls them).
+`mla_merge_ref` is the plain version of the merge kernel that the split
+attention kernels share; `paged_attn_fma_split_ref` replays their split-KV
+walks and merge (`paged_attn_mla_split_ref` and `paged_attn_gqa_split_ref`
+at the tensor-core kernels' whole blocks) for the tests and
+`chip_smoke.py` (nothing on the main path calls them).
 `chunk_issue_schedule` is a copy of the
 reference's pure-Python replay of the generalized ping-pong issue order
 (`repro/kernels/gpp_matmul.py:78`); the CUDA ring (`csrc/ring.cuh`) issues
@@ -167,15 +168,17 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
 
 
 def mla_merge_ref(ws: torch.Tensor, *, batch: int, row_tiles: int,
-                  kv_splits: int, latent: int, rows: int) -> torch.Tensor:
+                  kv_splits: int, latent: int, rows: int,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of `paged_attention_merge_kernel`: merge the split
-    partials in a tensor-core attention kernel's workspace — per unit
-    ((lane, 16-row tile) for MLA, (lane, KV head, tile) for GQA: `batch`
-    counts lanes, or lanes x KV heads) and split, 16 rows of f32 acc
-    (`latent` wide: the latent, or the head_dim), then the (m, l) pairs —
-    as m = max m_i, w_i = exp(m_i - m) (0 for an empty run, whose acc is
-    never read), out = sum w_i acc_i / max(sum w_i l_i, 1e-30).  Returns
-    (batch, rows, latent) in f32 (the kernel rounds it to bf16)."""
+    partials in a split attention kernel's workspace — per unit ((lane,
+    16-row tile) for MLA, (lane, KV head, tile) for GQA: `batch` counts
+    lanes, or lanes x KV heads) and split, 16 rows of f32 acc (`latent`
+    wide: the latent, or the head_dim), then the (m, l) pairs — as m = max
+    m_i, w_i = exp(m_i - m) (0 for an empty run, whose acc is never read),
+    out = sum w_i acc_i / max(sum w_i l_i, 1e-30) in f32.  Returns (batch,
+    rows, latent) in `dtype` (the kernel's output dtype: f32, or bf16 for
+    the tensor-core kernels and the FMA kernels' bf16 instances)."""
     units = batch * row_tiles
     n_acc = units * kv_splits * 16 * latent
     acc = ws[:n_acc].view(units, kv_splits, 16, latent)
@@ -187,129 +190,74 @@ def mla_merge_ref(ws: torch.Tensor, *, batch: int, row_tiles: int,
     live = (w != 0)[..., None]
     tot = (torch.where(live, acc, 0.0) * w[..., None]).sum(dim=1)
     out = tot / torch.clamp((w * l).sum(dim=1), min=1e-30)[..., None]
-    return out.reshape(batch, row_tiles * 16, latent)[:, :rows]
+    return out.reshape(batch, row_tiles * 16, latent)[:, :rows].to(dtype)
 
 
-def paged_attn_mla_split_ref(q, c_kv, k_rope, tables, positions, *,
-                             scale: float, kv_splits: int,
-                             window=None) -> torch.Tensor:
-    """Plain replay of the tensor-core MLA kernel's split-KV walk and merge
-    (csrc/paged_attention.cu), for tests.
+def paged_attn_fma_split_ref(q, pool_a, pool_b, tables, positions, *,
+                             num_kv_heads: int, scale: float,
+                             kv_splits: int, piece: int, window=None,
+                             mla: bool = False) -> torch.Tensor:
+    """Plain replay of a split paged-attention kernel's walk and merge
+    (csrc/paged_attention.cu), for tests: the FMA kernels' (pieces of
+    `piece` tokens) and, with piece = block size, the tensor-core kernels'
+    (whole blocks).
 
-    Each lane's logical blocks are cut into the planner's runs
-    (`core.schedule.kv_runs`); each run walks its live blocks with the TPU
-    kernel's online-softmax step (f32 m / l / acc, masked logits -inf, p
-    cast to the KV dtype before p . c_kv) and leaves its partial (m, l,
-    acc) in the kernel's workspace layout; with more than one run the
-    partials merge as `mla_merge_ref` does, else the run's acc / max(l,
-    1e-30) is the output.
-    Shapes as `paged_attn_ref(mla=True)`; the result is in q.dtype."""
+    A lane's keys [0, MB * bs) are cut into pieces of `piece` tokens and
+    the pieces into the planner's runs (`core.schedule.kv_runs`).  Each
+    (lane, KV head)'s rows (rep x S, head-major: row = r * S + s; MLA: 16
+    heads x S, one shared head) walk each run alone: the run's live
+    pieces (the kernels' predicate: a key at or before the lane's last
+    query position and, with a window, one not yet expired for its first)
+    get the TPU kernel's online-softmax step (f32 m / l / acc, logits -inf
+    where masked, p rounded through the KV dtype against the run's own
+    max before p . v) and leave a partial (m, l, acc) in the kernels'
+    workspace layout; with more than one run the partials merge as
+    `mla_merge_ref` does, else acc / max(l, 1e-30) is the output.  MLA:
+    the key is concat(c_kv, k_rope) and the value the c_kv row.  Each row
+    is computed by itself (one matrix-vector product of fixed shape a
+    piece), so a row's bits depend on the row alone, as the kernels' do.
+    Shapes as `paged_attn_ref`; the result is in q.dtype."""
     from repro_torch.core.schedule import kv_runs
     B, S, H, dk = q.shape
-    kd = c_kv.dtype
-    bs, MB = c_kv.shape[1], tables.shape[1]
-    da = c_kv.shape[2]
-    rows = H * S
-    rt = -(-rows // 16)
-    neg = float("-inf")
-    qr = (q.float() * scale).to(kd).float().permute(0, 2, 1, 3) \
-        .reshape(B, rows, dk)                      # rows h * S + s
-    rq = torch.arange(rows) % S
-    acc_ws = torch.zeros(B, rt * 16, kv_splits, da)
-    ml_ws = torch.zeros(B, rt * 16, kv_splits, 2)
-    for b in range(B):
-        pos = int(positions[b])
-        for i, run in enumerate(kv_runs(MB, kv_splits)):
-            m = torch.full((rows,), neg)
-            l = torch.zeros(rows)
-            acc = torch.zeros(rows, da)
-            for j in run:
-                if j * bs > pos + S - 1 or (
-                        window and (j + 1) * bs - 1 <= pos - window):
-                    continue                        # dead: neither read
-                phys = int(tables[b, j])
-                ckv = c_kv[phys].float()
-                key = torch.cat([ckv, k_rope[phys].float()], dim=-1)
-                logits = qr[b] @ key.T
-                kpos = j * bs + torch.arange(bs)
-                valid = kpos[None, :] <= pos + rq[:, None]
-                if window:
-                    valid &= kpos[None, :] > pos + rq[:, None] - window
-                logits = logits.masked_fill(~valid, neg)
-                m_new = torch.maximum(m, logits.max(dim=-1).values)
-                m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
-                p = torch.exp(logits - m_safe[:, None])
-                corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
-                l = l * corr + p.sum(dim=-1)
-                acc = acc * corr[:, None] + p.to(kd).float() @ ckv
-                m = m_new
-            acc_ws[b, :rows, i] = acc
-            ml_ws[b, :rows, i, 0] = m
-            ml_ws[b, :rows, i, 1] = l
-    if kv_splits == 1:
-        out = acc_ws[:, :rows, 0] / torch.clamp(ml_ws[:, :rows, 0, 1:],
-                                                min=1e-30)
-    else:   # the kernel's layout: (unit, split, row, ...)
-        ws = torch.cat([
-            acc_ws.reshape(B, rt, 16, kv_splits, da).transpose(2, 3)
-            .reshape(-1),
-            ml_ws.reshape(B, rt, 16, kv_splits, 2).transpose(2, 3)
-            .reshape(-1)])
-        out = mla_merge_ref(ws, batch=B, row_tiles=rt, kv_splits=kv_splits,
-                            latent=da, rows=rows)
-    return (out.reshape(B, H, S, da).permute(0, 2, 1, 3)
-            .to(q.dtype))
-
-
-def paged_attn_gqa_split_ref(q, k, v, tables, positions, *,
-                             num_kv_heads: int, scale: float,
-                             kv_splits: int, window=None) -> torch.Tensor:
-    """Plain replay of the tensor-core GQA / window kernel's split-KV walk
-    and merge (csrc/paged_attention.cu, `paged_attention_tc_kernel`), for
-    tests.
-
-    Each (lane, KV head)'s rows (rep x S, head-major: row = r * S + s) walk
-    each of the planner's runs (`core.schedule.kv_runs`) alone: the run's
-    live blocks (the kernel's predicate: a key at or before the lane's last
-    query position, and, with a window, one not yet expired for its first)
-    get the TPU kernel's online-softmax step (f32 m / l / acc, logits -inf
-    where masked, p cast to the KV dtype before p . v) and leave a partial
-    (m, l, acc) in the kernel's workspace layout; with more than one run
-    the partials merge as `mla_merge_ref` does, else acc / max(l, 1e-30) is
-    the output.  Each row is computed by itself (one matrix-vector product
-    of fixed shape a block), so a row's bits depend on the row alone, as
-    the kernel's do.  Shapes as `paged_attn_ref`; the result is in
-    q.dtype."""
-    from repro_torch.core.schedule import kv_runs
-    B, S, H, hd = q.shape
-    kvh = num_kv_heads
+    kvh = 1 if mla else num_kv_heads
     rep = H // kvh
-    kd = k.dtype
-    bs, MB = k.shape[1], tables.shape[1]
+    kd = pool_a.dtype
+    bs, MB = pool_a.shape[1], tables.shape[1]
+    dv = pool_a.shape[-1]
+    ppb = bs // piece
     rows = rep * S
     rt = -(-rows // 16)
     neg = float("-inf")
-    qr = ((q.float() * scale).to(kd).float().reshape(B, S, kvh, rep, hd)
-          .permute(0, 2, 3, 1, 4).reshape(B, kvh, rows, hd))
-    acc_ws = torch.zeros(B, kvh, rt * 16, kv_splits, hd)
-    ml_ws = torch.zeros(B, kvh, rt * 16, kv_splits, 2)
+    dev = q.device
+    qr = ((q.float() * scale).to(kd).float().reshape(B, S, kvh, rep, dk)
+          .permute(0, 2, 3, 1, 4).reshape(B, kvh, rows, dk))
+    acc_ws = torch.zeros(B, kvh, rt * 16, kv_splits, dv, device=dev)
+    ml_ws = torch.zeros(B, kvh, rt * 16, kv_splits, 2, device=dev)
     for b in range(B):
         pos = int(positions[b])
-        for i, run in enumerate(kv_runs(MB, kv_splits)):
-            live = [j for j in run if j * bs <= pos + S - 1 and not (
-                window and (j + 1) * bs - 1 <= pos - window)]
+        for i, run in enumerate(kv_runs(MB * ppb, kv_splits)):
+            live = [j for j in run if j * piece <= pos + S - 1 and not (
+                window and (j + 1) * piece - 1 <= pos - window)]
             for g in range(kvh):
+                kv = []
+                for j in live:
+                    blk = int(tables[b, j // ppb])
+                    t = slice((j % ppb) * piece, (j % ppb + 1) * piece)
+                    if mla:
+                        val = pool_a[blk, t].float()
+                        key = torch.cat([val, pool_b[blk, t].float()], -1)
+                    else:
+                        key = pool_a[blk, t, g].float()
+                        val = pool_b[blk, t, g].float()
+                    kv.append((j * piece + torch.arange(piece, device=dev),
+                               key, val))
                 for r in range(rows):
                     qpos = pos + r % S
-                    m = torch.tensor(neg)
-                    l = torch.tensor(0.0)
-                    acc = torch.zeros(hd)
-                    for j in live:
-                        phys = int(tables[b, j])
-                        key = k[phys, :, g].float()
-                        val = v[phys, :, g].float()
+                    m = torch.tensor(neg, device=dev)
+                    l = torch.tensor(0.0, device=dev)
+                    acc = torch.zeros(dv, device=dev)
+                    for kpos, key, val in kv:
                         logits = torch.mv(key, qr[b, g, r])
-                        kpos = j * bs + torch.arange(bs)
                         valid = kpos <= qpos
                         if window:
                             valid &= kpos > qpos - window
@@ -329,16 +277,38 @@ def paged_attn_gqa_split_ref(q, k, v, tables, positions, *,
     if kv_splits == 1:
         out = acc_ws[:, :, :rows, 0] / torch.clamp(
             ml_ws[:, :, :rows, 0, 1:], min=1e-30)
-    else:   # the kernel's layout: (unit, split, row, ...)
+    else:   # the kernels' layout: (unit, split, row, ...)
         ws = torch.cat([
-            acc_ws.reshape(B * kvh, rt, 16, kv_splits, hd).transpose(2, 3)
+            acc_ws.reshape(B * kvh, rt, 16, kv_splits, dv).transpose(2, 3)
             .reshape(-1),
             ml_ws.reshape(B * kvh, rt, 16, kv_splits, 2).transpose(2, 3)
             .reshape(-1)])
         out = mla_merge_ref(ws, batch=B * kvh, row_tiles=rt,
-                            kv_splits=kv_splits, latent=hd, rows=rows)
-    return (out.reshape(B, kvh, rep, S, hd).permute(0, 3, 1, 2, 4)
-            .reshape(B, S, H, hd).to(q.dtype))
+                            kv_splits=kv_splits, latent=dv, rows=rows)
+    return (out.reshape(B, kvh, rep, S, dv).permute(0, 3, 1, 2, 4)
+            .reshape(B, S, H, dv).to(q.dtype))
+
+
+def paged_attn_mla_split_ref(q, c_kv, k_rope, tables, positions, *,
+                             scale: float, kv_splits: int,
+                             window=None) -> torch.Tensor:
+    """Plain replay of the tensor-core MLA kernel's split-KV walk over
+    runs of whole blocks and its merge: `paged_attn_fma_split_ref` with
+    the piece the block.  Shapes as `paged_attn_ref(mla=True)`."""
+    return paged_attn_fma_split_ref(
+        q, c_kv, k_rope, tables, positions, num_kv_heads=1, scale=scale,
+        kv_splits=kv_splits, piece=c_kv.shape[1], window=window, mla=True)
+
+
+def paged_attn_gqa_split_ref(q, k, v, tables, positions, *,
+                             num_kv_heads: int, scale: float,
+                             kv_splits: int, window=None) -> torch.Tensor:
+    """Plain replay of the tensor-core GQA / window kernel's split-KV walk
+    over runs of whole blocks and its merge: `paged_attn_fma_split_ref`
+    with the piece the block.  Shapes as `paged_attn_ref`."""
+    return paged_attn_fma_split_ref(
+        q, k, v, tables, positions, num_kv_heads=num_kv_heads, scale=scale,
+        kv_splits=kv_splits, piece=k.shape[1], window=window)
 
 
 def chunk_issue_schedule(num_steps: int, G: int,

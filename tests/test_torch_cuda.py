@@ -19,8 +19,9 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_grouped_ref,
-                                     dense_ref, mla_merge_ref, paged_attn_ref,
-                                     rmsnorm_ref)
+                                     dense_ref, mla_merge_ref,
+                                     paged_attn_fma_split_ref,
+                                     paged_attn_ref, rmsnorm_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -513,17 +514,12 @@ def _mla_inputs(cuda, dtype, case, seed=3):
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
 @pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
 def test_mla_paged_attention_matches_plain(cuda, dtype, case, kv_splits):
-    # bf16 runs the tensor-core kernel (kv_splits pinned or planned), f32
-    # the FMA kernel (which has no splits: pinning them raises)
+    # bf16 runs the tensor-core kernel, f32 the FMA kernel (kv_splits
+    # pinned or planned on both; each with its merge past one run)
     q, ckv, kr, tables, pos = _mla_inputs(cuda, dtype, case)
     B, S, H, _ = q.shape
     kw = dict(num_kv_heads=1, scale=1 / math.sqrt(576), mla=True)
     ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
-    if dtype == torch.float32 and kv_splits is not None:
-        with pytest.raises(ValueError, match="kv_splits"):
-            paged_attention(q, ckv, kr, tables, pos, kv_splits=kv_splits,
-                            **kw)
-        return
     counts = (pa.launches_mla_tc, pa.launches_merge, pa.launches_mla)
     before = [c.n for c in counts]
     for G in (None, 1, 2, 4):
@@ -536,7 +532,8 @@ def test_mla_paged_attention_matches_plain(cuda, dtype, case, kv_splits):
     ran = tuple(c.n - n for c, n in zip(counts, before))
     # the planned split is > 1 at every path shape: the merge runs
     merges = 0 if kv_splits == 1 else 4
-    assert ran == ((4, merges, 0) if dtype == torch.bfloat16 else (0, 0, 4))
+    assert ran == ((4, merges, 0) if dtype == torch.bfloat16
+                   else (0, merges, 4))
 
 
 @pytest.mark.parametrize("kv_splits", (2, 8))
@@ -615,15 +612,207 @@ def test_mla_bf16_block_sizes_take_the_fma_kernel(cuda, case, block_size):
     assert tuple(c.n - n for c, n in zip(counts, before)) == (3, 0, 0)
 
 
-def test_mla_block_size_256_raises(cuda):
-    q = torch.zeros(1, 1, 16, 576, device=cuda).bfloat16()
-    ckv = torch.zeros(3, 256, 512, device=cuda).bfloat16()
-    kr = torch.zeros(3, 256, 64, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="256-token"):
-        paged_attention(q, ckv, kr, torch.ones(1, 1, dtype=torch.int32,
-                                               device=cuda),
-                        torch.zeros(1, dtype=torch.int32, device=cuda),
-                        num_kv_heads=1, scale=0.05, mla=True)
+# ---------------------------------------------------------------------------
+# the FMA route, GQA / window and MLA (paged_attention_kernel,
+# paged_attention_mla_kernel): split-KV over fixed runs of pieces
+# ---------------------------------------------------------------------------
+
+FMA_FORMS = {"mla": (1, 512, 64), "gqa": (16, 64, 64)}  # kvh, width, b
+
+
+def _fma_attn_inputs(cuda, form, dtype, case, bs, seed=5):
+    """deepseek's latent pools or qwen's K / V at `bs`-token blocks, max_len
+    max(128, bs); each lane's blocks distinct (randperm)."""
+    B, S, positions = MLA_CASES[case]
+    kvh, width, wb = FMA_FORMS[form]
+    mb = max(128, bs) // bs
+    nb = B * mb + 1
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dk = width + wb if form == "mla" else width
+    q = torch.randn(B, S, 16, dk, generator=g, device=cuda).to(dtype)
+    shape = (nb, bs) if form == "mla" else (nb, bs, kvh)
+    a = (torch.randn(*shape, width, generator=g, device=cuda) * 0.5).to(dtype)
+    b = (torch.randn(*shape, wb, generator=g, device=cuda) * 0.5).to(dtype)
+    perm = torch.randperm(nb - 1, generator=g, device=cuda) + 1
+    tables = perm[:B * mb].reshape(B, mb).int()
+    pos = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    kw = dict(num_kv_heads=kvh, scale=1 / math.sqrt(dk), mla=form == "mla")
+    return q, a, b, tables, pos, kw
+
+
+def _fma_attn_plan(q, a, b, tables, kw, **pins):
+    B, S, H, _ = q.shape
+    kvh = kw["num_kv_heads"]
+    return sched.plan_paged_attn_fma_sm90(
+        batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=a.shape[1],
+        max_blocks=tables.shape[1], width=a.shape[-1],
+        rope=b.shape[-1] if kw["mla"] else 0, mla=kw["mla"],
+        kv_itemsize=a.element_size(), **pins)
+
+
+@pytest.mark.parametrize("form,dtype,bs,window", [
+    ("mla", torch.float32, 8, None), ("mla", torch.float32, 16, None),
+    ("mla", torch.float32, 128, None), ("mla", torch.float32, 256, None),
+    ("mla", torch.bfloat16, 8, None), ("mla", torch.bfloat16, 128, None),
+    ("mla", torch.bfloat16, 256, None), ("gqa", torch.float32, 16, None),
+    ("gqa", torch.float32, 16, 32)])
+@pytest.mark.parametrize("case", ("decode", "prefill", "verify"))
+def test_fma_attention_matches_plain(cuda, case, form, dtype, bs, window):
+    # the FMA route at every split (planned, 1, 2, one run a piece) and
+    # ring, each call one FMA launch of its form and dtype and, past one
+    # run, one merge; nothing else
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype, case, bs)
+    kw["window"] = window
+    ref = paged_attn_ref(q, a, b, tables, pos, **kw)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    mla = kw["mla"]
+    mine = {(True, torch.float32): pa.launches_mla,
+            (True, torch.bfloat16): pa.launches_mla_bf16,
+            (False, torch.float32): pa.launches,
+            (False, torch.bfloat16): pa.launches_bf16}[(mla, dtype)]
+    assert pa.attention_route(dtype, mla, bs, a.shape[-1], b.shape[-1]) == \
+        ("mla" if mla else "gqa")
+    most = _fma_attn_plan(q, a, b, tables, kw).pieces
+    for ks in (None, 1, 2, most):
+        for G in ((None, 1, 2, 4) if ks in (None, 1) else (None,)):
+            plan = _fma_attn_plan(q, a, b, tables, kw, num_bufs=G,
+                                  kv_splits=ks)
+            before = {k: c.n for k, c in vars(pa).items()
+                      if isinstance(c, pa.build.LaunchCounter)}
+            out = paged_attention(q, a, b, tables, pos, num_bufs=G,
+                                  kv_splits=ks, **kw)
+            ran = {k: c.n - before[k] for k, c in vars(pa).items()
+                   if isinstance(c, pa.build.LaunchCounter)}
+            want = {k: 0 for k in ran}
+            want[next(k for k, c in vars(pa).items() if c is mine)] = 1
+            want["launches_merge"] = int(plan.kv_splits > 1)
+            assert ran == want, (ks, G)
+            assert out.shape == (*q.shape[:3], a.shape[-1])
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("form,dtype", [("mla", torch.float32),
+                                        ("mla", torch.bfloat16),
+                                        ("gqa", torch.float32)])
+def test_fma_attention_matches_the_split_replay(cuda, form, dtype):
+    # at decode, against the plain replay of the same split
+    # (kernels.ref.paged_attn_fma_split_ref): f32 the same maths to
+    # rounding, bf16 the same p rounding a run
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype,
+                                                "decode", 16)
+    plan = _fma_attn_plan(q, a, b, tables, kw)
+    out = paged_attention(q, a, b, tables, pos, **kw)
+    ref = paged_attn_fma_split_ref(q, a, b, tables, pos,
+                                   kv_splits=plan.kv_splits,
+                                   piece=plan.piece, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("form,dtype", [("mla", torch.float32),
+                                        ("mla", torch.bfloat16),
+                                        ("gqa", torch.float32),
+                                        ("gqa", torch.bfloat16)])
+@pytest.mark.parametrize("case", ("decode", "verify"))
+def test_fma_merge_matches_plain(cuda, form, dtype, case):
+    # the merge kernel's f32 and bf16 instances on the FMA kernel's own
+    # partials (empty runs among them at one run a piece)
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype, case, 16)
+    plan = _fma_attn_plan(q, a, b, tables, kw)
+    assert plan.kv_splits > 1
+    B, S, H, _ = q.shape
+    q2 = pa._q_rows(q, kw["scale"], plan.kv_heads, dtype)
+    ws = torch.full((plan.workspace_floats(),), float("nan"), device=cuda)
+    out = torch.empty((B, plan.kv_heads, plan.rows, plan.width), dtype=dtype,
+                      device=cuda)
+    pa._launch_fma_split(q2, a, b, tables, pos, plan, out, ws, S=S,
+                         window=None)
+    pa._launch_merge(ws, out, plan.units, plan.row_tiles, plan.kv_splits,
+                     plan.width, plan.rows)
+    ref = mla_merge_ref(torch.nan_to_num(ws, nan=0.0, neginf=-math.inf),
+                        batch=B * plan.kv_heads, row_tiles=plan.row_tiles,
+                        kv_splits=plan.kv_splits, latent=plan.width,
+                        rows=plan.rows, dtype=dtype)
+    got = out.reshape(B * plan.kv_heads, plan.rows, plan.width)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                                   atol=1e-2)
+
+
+@pytest.mark.parametrize("kv_splits", (1, 2))
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+@pytest.mark.parametrize("form,dtype", [("mla", torch.float32),
+                                        ("mla", torch.bfloat16),
+                                        ("gqa", torch.float32)])
+def test_fma_issue_order_is_the_chunk_schedule(cuda, form, dtype, G,
+                                               kv_splits):
+    # the first run of >= 4 live pieces records: MLA (8-token pieces) lane
+    # 2 at position 40, 6 live pieces in one run at kv_splits 1 and 2; GQA
+    # (16-token pieces) lane 3 at 100, 7 live pieces at 1, runs of 4 and 3
+    # at 2
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype,
+                                                "decode", 16)
+    got, steps, g_used, C, cta = pa.issue_order_fma(
+        q, a, b, tables, pos, num_kv_heads=kw["num_kv_heads"],
+        scale=kw["scale"], mla=kw["mla"], num_bufs=G, kv_splits=kv_splits)
+    assert (steps, cta) == {("mla", 1): (6, 2), ("mla", 2): (6, 4),
+                            ("gqa", 1): (7, 48),
+                            ("gqa", 2): (4, 96)}[(form, kv_splits)]
+    assert G is None or g_used == G
+    assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+@pytest.mark.parametrize("form,dtype,bs", [
+    ("mla", torch.float32, 16), ("mla", torch.float32, 128),
+    ("mla", torch.bfloat16, 8), ("gqa", torch.float32, 16),
+    ("gqa", torch.bfloat16, 8)])
+def test_fma_attention_is_bitwise_repeatable(cuda, form, dtype, bs):
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype,
+                                                "verify", bs)
+    first = paged_attention(q, a, b, tables, pos, **kw)
+    for _ in range(3):
+        assert torch.equal(paged_attention(q, a, b, tables, pos, **kw),
+                           first)
+
+
+@pytest.mark.parametrize("window", (None, 6))
+@pytest.mark.parametrize("form,bs", [("mla", 16), ("mla", 8), ("mla", 128),
+                                     ("gqa", 16)])
+def test_fma_rows_do_not_depend_on_the_step(cuda, form, bs, window):
+    # f32: a token's row is the same bits in a decode step (one query a
+    # lane) and in a verify step (5 queries a lane from an earlier
+    # position), as speculation on == off needs; spans inside a piece and
+    # across pieces and blocks, dead and expired pieces in some runs
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, torch.float32,
+                                           "verify", bs)
+    kw["window"] = window
+    S = q.shape[1]
+    for start in ([3, 30, 64, 90], [13, 29, 46, 94]):
+        p0 = torch.tensor(start, dtype=torch.int32, device=cuda)
+        ver = paged_attention(q, a, b, tables, p0, **kw)
+        for s in range(S):
+            dec = paged_attention(q[:, s:s + 1].contiguous(), a, b, tables,
+                                  p0 + s, **kw)
+            assert torch.equal(dec[:, 0], ver[:, s])
+
+
+@pytest.mark.parametrize("form,dtype", [("mla", torch.float32),
+                                        ("mla", torch.bfloat16),
+                                        ("gqa", torch.float32)])
+@pytest.mark.parametrize("bs", (8, 16, 128, 256))
+def test_fma_launch_smem_is_planned(cuda, form, dtype, bs):
+    # the launch asks for exactly the planner's shared memory, at the
+    # planned ring and at pinned rings and pieces
+    q, a, b, tables, pos, kw = _fma_attn_inputs(cuda, form, dtype,
+                                                "decode", bs)
+    for pins in ({}, dict(num_bufs=2), dict(num_bufs=4, kv_splits=1),
+                 dict(piece=min(8, bs), num_bufs=3)):
+        plan = _fma_attn_plan(q, a, b, tables, kw, **pins)
+        assert pa.fma_smem_bytes(plan) == plan.smem_bytes
+        assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
 
 
 # ---------------------------------------------------------------------------

@@ -206,15 +206,15 @@ class TestSm90Planner:
                                    smem_budget=10_000)
 
     def test_paged_ring_and_row_splits(self):
-        plan = sched.plan_paged_attn_sm90(rows=80, block_size=16,
-                                          head_dim=64, kv_itemsize=2,
-                                          max_blocks=8)
-        assert plan.row_splits * plan.rows_per_cta >= 80
+        plan = sched.plan_paged_attn_fma_sm90(
+            batch=4, kv_heads=16, rows=80, block_size=16, width=64,
+            kv_itemsize=2, max_blocks=8)
+        assert plan.row_tiles * 16 >= 80 and plan.row_tiles == 5
         assert 1 <= plan.num_bufs <= 8
         assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
-        pinned = sched.plan_paged_attn_sm90(rows=1, block_size=16,
-                                            head_dim=64, kv_itemsize=2,
-                                            max_blocks=8, num_bufs=2)
+        pinned = sched.plan_paged_attn_fma_sm90(
+            batch=4, kv_heads=16, rows=1, block_size=16, width=64,
+            kv_itemsize=2, max_blocks=8, num_bufs=2)
         assert pinned.num_bufs == 2 and pinned.chunks == 1
 
     def test_grouped_plan_keeps_two_ctas_per_sm(self):
@@ -236,20 +236,20 @@ class TestSm90Planner:
 
     def test_mla_plan_rows_and_budget(self):
         for rows, es in ((16, 2), (80, 2), (512, 4)):
-            plan = sched.plan_paged_attn_sm90(rows=rows, block_size=16,
-                                              head_dim=512, rope_dim=64,
-                                              kv_itemsize=es, max_blocks=8)
-            assert plan.rows_per_cta == 16
-            assert plan.row_splits == -(-rows // 16)
+            plan = sched.plan_paged_attn_fma_sm90(
+                batch=1, kv_heads=1, rows=rows, block_size=16, width=512,
+                rope=64, mla=True, kv_itemsize=es, max_blocks=8)
+            assert plan.row_tiles == -(-rows // 16)
             assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
-        # two rings of different widths, f32 q (576) and acc (512) rows
-        assert sched.paged_attn_smem_bytes(1, 16, 512, 2, 16, rope_dim=64) \
-            == 16 * (1040 + 144) + 16 * (576 + 512) * 4 + 16 * 16 * 4 \
-            + 3 * 16 * 4
+        # one ring of key rows (c_kv | k_rope, the value read from the same
+        # row), the q tile in the KV dtype, f32 p rows
+        assert sched.paged_attn_fma_smem_bytes(16, 512, 64, 2, 1, True) \
+            == 16 * 1216 + 16 * 1216 + 16 * 16 * 4
         with pytest.raises(ValueError):
-            sched.plan_paged_attn_sm90(rows=16, block_size=16, head_dim=512,
-                                       rope_dim=64, kv_itemsize=4,
-                                       max_blocks=8, num_bufs=8)
+            sched.plan_paged_attn_fma_sm90(
+                batch=1, kv_heads=1, rows=16, block_size=16, width=512,
+                rope=64, mla=True, kv_itemsize=4, max_blocks=8, num_bufs=8,
+                piece=16)
 
     def test_stream_plan_matches_reference(self):
         from repro.core import schedule as jsched

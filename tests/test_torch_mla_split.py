@@ -18,8 +18,9 @@ here:
     `paged_attention(mla=True, interpret=True)` and its `paged_attn_ref`, on
     numpy inputs from a seed: empty runs, positions on block edges, S > 1,
     a window, kv_splits in {1, 2, MB};
-  * the route: bf16 MLA takes the tensor-core kernel, f32 MLA the FMA one,
-    and a CPU tensor raises.
+  * the route: bf16 MLA takes the tensor-core kernel (blocks of 16-64
+    tokens), f32 MLA and bf16 at other block sizes the FMA one, and a CPU
+    tensor raises.
 
 Tolerances: float32 1e-5 (the same f32 maths; the merge rescales partials
 in another order); bf16 2e-2 (a split rounds p to bf16 against its run's
@@ -253,16 +254,13 @@ LAT, ROPE = DS["latent"], DS["rope"]
 
 @pytest.mark.parametrize("block_size,bf16,f32", [
     (8, "mla", "mla"), (16, "mla_tc", "mla"), (64, "mla_tc", "mla"),
-    (128, "mla", None), (256, None, None)])
+    (128, "mla", "mla"), (256, "mla", "mla")])
 def test_route_by_block_size(block_size, bf16, f32):
-    # deepseek's widths; bf16 takes the tensor-core kernel where its plan can (blocks of 16-64
-    # tokens) and the FMA kernel's bf16 instance elsewhere; a shape neither
-    # kernel's shared memory holds raises, naming the block size (None)
+    # deepseek's widths; bf16 takes the tensor-core kernel where its plan
+    # can (blocks of 16-64 tokens) and the FMA kernel's bf16 instance
+    # elsewhere; f32 always the FMA kernel, which streams a block in pieces
+    # and so takes every block size the reference serves
     for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
-        if want is None:
-            with pytest.raises(ValueError, match=f"{block_size}-token"):
-                pa.attention_route(dtype, True, block_size, LAT, ROPE)
-            continue
         assert pa.attention_route(dtype, True, block_size, LAT, ROPE) == want
         # the route's kernel plans this shape (a pure function of it)
         if want == "mla_tc":
@@ -270,11 +268,21 @@ def test_route_by_block_size(block_size, bf16, f32):
                 batch=4, rows=16, block_size=block_size, max_blocks=2,
                 latent=LAT, rope=ROPE)
         else:
-            sched.plan_paged_attn_sm90(
-                rows=16, block_size=block_size, head_dim=LAT, rope_dim=ROPE,
-                kv_itemsize=dtype.itemsize, max_blocks=2)
+            plan = sched.plan_paged_attn_fma_sm90(
+                batch=4, kv_heads=1, rows=16, block_size=block_size,
+                max_blocks=2, width=LAT, rope=ROPE, mla=True,
+                kv_itemsize=dtype.itemsize)
+            assert block_size % plan.piece == 0
+            # the planner's shared memory is the kernel's layout: the q
+            # tile, the ring of pieces (key rows of 64 mod 128 bytes) and
+            # the p rows, within the budget
+            rb = sched.paged_attn_fma_row_bytes(LAT, ROPE, dtype.itemsize)
+            assert rb == {4: 2368, 2: 1216}[dtype.itemsize]
+            assert plan.smem_bytes == (16 * rb + plan.num_bufs * plan.piece
+                                       * rb + 16 * plan.piece * 4)
+            assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
     # the GQA route does not read the widths
     assert pa.attention_route(torch.bfloat16, False, 256, 64, 64) == "gqa"
-    # at block size 128 the FMA kernel's bf16 ring fills all but 2,880 of
-    # the 232,448 bytes (one block in situ, 16 query rows)
-    assert sched.paged_attn_smem_bytes(1, 128, LAT, 2, 16, ROPE) == 229_568
+    # a latent the FMA kernel's lanes cannot hold still raises, naming it
+    with pytest.raises(ValueError, match=f"{block_size}-token"):
+        pa.attention_route(torch.float32, True, block_size, 520, ROPE)
