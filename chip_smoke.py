@@ -21,16 +21,20 @@ In order, it:
      `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
      rows; `F.rms_norm`) and the bound (the larger of bytes / 3.35e12 B/s
      and operations / the peak rate of their type); it checks that the
-     gpp_matmul repeats bit for bit on both routes and that the router's
-     rows are the same bits at 1, 4, 20 and 32 rows, reads the issue-order
-     records of gpp_matmul (CTA 0's run across a tile boundary and a
-     k-split, on both routes), gpp_matmul_grouped (the
+     gpp_matmul repeats bit for bit on both routes, that a tensor-core
+     row is the same bits at 4, 20 and 32 rows at every bf16 projection
+     and the router's at 1, 4, 20 and 32 rows, reads the issue-order
+     records of gpp_matmul (the FMA route's CTA 0 across a tile boundary
+     and a k-split; the tensor-core route's rank 0 over a k-slice of
+     several steps), gpp_matmul_grouped (the
      tensor-core route at deepseek's decode shape, across n-tiles, and at
      one n-tile an expert, across experts; the FMA route at the decode
      shape in f32, 5 experts a CTA) and both tensor-core attention kernels
      back and compares them with `chunk_issue_schedule` for G in {1, 2, 4}
      (3 too on the tensor-core gpp_matmul) and the planned G, checks that
-     the card holds the CTAs an SM the tensor-core plans assume, and runs
+     the card holds the CTAs an SM the tensor-core plans assume (for the
+     tensor-core gpp_matmul: every planned cluster at once, by
+     cudaOccupancyMaxActiveClusters), and runs
      one full-width deepseek MoE layer in bf16 with the kernels against
      the plain versions (decode and prefill inputs, relative error <=
      1e-2); GQA / window paged attention runs its tensor-core kernel in
@@ -328,14 +332,18 @@ def check_gpp(report):
                         plan = plan_matmul_tc_sm90(M, K, N)
                         row["plan"] = {
                             "block_m": plan.block_m,
+                            "block_n": plan.block_n,
                             "block_k": plan.block_k,
-                            "num_bufs": plan.num_bufs, "grid": plan.grid,
-                            "max_segs": plan.max_segs}
-                        row["ctas_per_sm"] = gm.tc_ctas_per_sm(plan)
-                        check(row["ctas_per_sm"] == plan.ctas_per_sm,
+                            "cluster": plan.cluster,
+                            "num_bufs": plan.num_bufs, "ctas": plan.ctas,
+                            "steps": max(plan.cta_steps(r)
+                                         for r in range(plan.cluster))}
+                        # every planned cluster resident at once
+                        row["max_clusters"] = gm.tc_max_clusters(plan)
+                        check(row["max_clusters"] >= plan.tiles,
                               f"gpp_matmul_tc {M}x{K}x{N}: the card holds "
-                              f"{row['ctas_per_sm']} CTAs an SM, planned "
-                              f"{plan.ctas_per_sm}")
+                              f"{row['max_clusters']} clusters of "
+                              f"{plan.cluster}, planned {plan.tiles}")
                     else:
                         plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=4)
                         row["plan"] = {
@@ -404,9 +412,26 @@ def check_gpp(report):
     print("gpp_matmul bitwise repeatable over 4 runs at "
           f"{SLOTS}x{F}x{D} and {CHUNK}x{DS_F0}x{DS_D} (bf16, tensor cores), "
           f"{SLOTS}x{DS_D}x{DS_E} and {CHUNK}x{DS_F0}x{DS_D} (f32, FMA)")
-    # a row's bits do not depend on the batch it rides in: the router at 1,
+    # a row's bits do not depend on the batch it rides in: a tensor-core
+    # row at 4 (decode), 20 (verify) and 32 (prefill) rows at every bf16
+    # projection of both paths (the k-slices and k-groups come from K and
+    # N alone), then the router at 1,
     # 4 (decode), 20 (verify) and 32 (prefill) rows, its weight as stored
     # (bf16, widened in the kernel) and as its f32 copy, which must agree
+    tc_proj = sorted({(K, N) for shapes in GPP_SHAPES.values()
+                      for K, N, dtypes in shapes.values()
+                      if "bfloat16" in dtypes})
+    for K, N in tc_proj:
+        x = torch.randn(CHUNK, K, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(K, N, generator=g, device="cuda")
+             * 0.02).bfloat16()
+        y = gm.gpp_matmul(x, w, activation="silu")
+        check(all(torch.equal(gm.gpp_matmul(x[:M], w, activation="silu"),
+                              y[:M]) for M in (SLOTS, PHASE_M["verify"])),
+              f"gpp_matmul_tc {K}x{N}: a row's bits depend on the batch")
+    print(f"gpp_matmul_tc: a row's bits equal at {SLOTS} / "
+          f"{PHASE_M['verify']} / {CHUNK} rows at all {len(tc_proj)} bf16 "
+          "projections")
     x = torch.randn(CHUNK, DS_D, generator=g, device="cuda")
     w = (torch.randn(DS_D, DS_E, generator=g, device="cuda")
          * 0.02).bfloat16()
@@ -423,8 +448,9 @@ def check_gpp(report):
     # the generalized ping-pong issue order survived the port: the FMA
     # route (pinned on bf16) over CTA 0's planned run, and over a run
     # across a tile boundary (2 CTAs pinned) and at the router's k-split;
-    # the tensor-core route over CTA 0's run across a tile boundary (5 CTAs
-    # pinned) and a k-split (layer 0's down projection as planned)
+    # the tensor-core route over rank 0's k-slice of several steps, which
+    # rank 1 continues (a cluster of 2 at 128-row steps pinned: 8 steps;
+    # layer 0's down projection as planned)
     orders = 0
     x = torch.randn(SLOTS, D, device="cuda").bfloat16()
     w = (torch.randn(D, D, device="cuda") * 0.02).bfloat16()
@@ -459,25 +485,25 @@ def check_gpp(report):
                   f"{len(plan.segments(max(tiles)))} segments: "
                   f"{sum(len(v) for v in got.values())} chunk issues == "
                   "chunk_issue_schedule")
-    for (M, K, N), grid in (((SLOTS, 2048, 1024), 5),
-                            ((SLOTS, DS_F0, DS_D), None)):
+    for (M, K, N), pins in (((SLOTS, 2048, 1024),
+                             dict(cluster=2, block_k=128)),
+                            ((SLOTS, DS_F0, DS_D), {})):
         x = torch.randn(M, K, device="cuda").bfloat16()
         w = (torch.randn(K, N, device="cuda") * 0.02).bfloat16()
         for G in (None, 1, 2, 3, 4):
-            got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
-            plan = plan_matmul_tc_sm90(M, K, N, num_bufs=G, grid=grid)
-            tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
-            check(steps >= 5 and len(plan.segments(max(tiles))) > 1
-                  and len(tiles) == (2 if grid else 1),
-                  "the tc record's run crosses no tile or split boundary")
+            got, steps, g_used, C = gm.issue_order(x, w, G, **pins)
+            plan = plan_matmul_tc_sm90(M, K, N, num_bufs=G, **pins)
+            check(steps == plan.cta_steps(0) >= 5 and plan.cluster > 1,
+                  "the tc record's k-slice is short or unsplit")
             check(G is None or g_used == G, f"ring depth {g_used} != {G}")
             check(got == chunk_issue_schedule(steps, g_used, C),
                   f"tc issue order differs at {M}x{K}x{N} G={G}")
             orders += 1
-            print(f"gpp_matmul_tc issue order {M}x{K}x{N} grid={plan.grid} "
-                  f"G={g_used} (asked {G}) C={C} steps={steps} over tiles "
-                  f"{sorted(tiles)}: {sum(len(v) for v in got.values())} "
-                  "chunk issues == chunk_issue_schedule")
+            print(f"gpp_matmul_tc issue order {M}x{K}x{N} cluster="
+                  f"{plan.cluster} block_k={plan.block_k} G={g_used} (asked "
+                  f"{G}) C={C} steps={steps} of {plan.num_k}: "
+                  f"{sum(len(v) for v in got.values())} chunk issues == "
+                  "chunk_issue_schedule")
     err = {r: max(v + [row["max_abs_err"] for row in rows
                        if row["route"] == r]) for r, v in extra.items()}
     report["gpp_matmul"] = {"shapes": rows,
@@ -1889,8 +1915,9 @@ def main(argv=None) -> int:
         {"name": "gpp_matmul_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:408",
-         "kernel": "gpp_matmul_tc_kernel (bf16 x and W; stream-K, split "
-                   "tiles summed by their last CTA)",
+         "kernel": "gpp_matmul_tc_kernel (bf16 x and W; cluster split-K, "
+                   "partials summed in rank order through distributed "
+                   "shared memory)",
          "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
          "launches": sum(tc_by_path.values()),
          "launches_by_path": tc_by_path,
@@ -1899,6 +1926,11 @@ def main(argv=None) -> int:
          "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
                   "bf16 (every shape of both paths: --json-out)",
          "fma_ms": g["fma_ms"],
+         "worst_prefill_verify_vs_library": max(
+             (r["ms"] / r["library_ms"], f"{r['path']} {r['phase']} "
+              f"{r['proj']} {r['M']}x{r['K']}x{r['N']}")
+             for r in gpp_rows if r["dtype"] == "bfloat16"
+             and r["phase"] != "decode"),
          **{k: g[k] for k in numbers}},
         {"name": "gpp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",

@@ -340,28 +340,36 @@ def plan_grouped_tc_sm90(E: int, M: int, K: int, N: int, *,
                      f"does not fit {smem_budget} bytes of shared memory")
 
 
-GPP_MM_TC_BLOCK_KS = (256, 128)   # gpp_matmul tensor-core k rows a step,
-                                   # largest (planned) first; 128 only
-                                   # where a pinned ring needs it
+GPP_MM_TC_BLOCK_NS = (128, 64)    # gpp_matmul tensor-core columns a tile
+GPP_MM_TC_BLOCK_KS = (256, 128)   # its k rows a step, planned first
+GPP_MM_TC_CLUSTERS = (1, 2, 4, 8)     # its planned cluster sizes (portable)
+GPP_MM_TC_MAX_CLUSTER = 16       # with the non-portable attribute (pins)
+GPP_MM_TC_CTAS = 96              # the most CTAs a split takes (the sweep,
+                                 # PERF.md: 64-96 CTAs of 64 KB steps beat
+                                 # 128-192 at the path shapes; the H100
+                                 # holds 15 clusters of 8, 30 of 4 at one
+                                 # CTA an SM, so 96 are always resident)
 GPP_MM_TC_MAX_RING = 2           # planned rings deeper than ping-pong ran
                                  # slower on the card (PERF.md)
 SM_SMEM_BYTES = 233_472          # an SM's shared memory for its CTAs
 CTA_SMEM_RESERVED = 1_024        # the system's share of it, per CTA
+GPP_MM_TC_PART_PAD = 8           # floats after each partial row (bank
+                                 # groups of the fragment stores)
 
 
 @dataclasses.dataclass(frozen=True)
-class MatmulTcPlan:
-    """`gpp_matmul`'s split over persistent CTAs: its tensor-core route
-    (bf16 x and W, stream-K, block_n 128; `plan_matmul_tc_sm90`) and, with
-    its tiles numbered m-major, its FMA route (`MatmulFmaPlan`).  A tile is
-    one (n-tile, m-tile) of block_m x block_n outputs, numbered n-major with
-    the m-tile innermost; a unit is one (tile, k-step), numbered tile-major
-    with the k-step inner.  `grid` persistent CTAs each walk a contiguous
-    run of units, `cta_units(i)`, streaming the (block_k, block_n) W tile
-    of each step through one num_bufs-slot ring in `chunks` chunks, the x
-    tile beside it in two slots.  The CTAs that share a tile are its
-    segments, `segments(t)`; a split tile's f32 partials go to workspace
-    slot (tile, segment), `max_segs` slots a tile."""
+class MatmulTcClusterPlan:
+    """`gpp_matmul`'s tensor-core route (bf16 x and W), cluster split-K.
+    An output tile is block_m x block_n; each is one cluster of `cluster`
+    (S) CTAs, grid (S, n_tiles, m_tiles).  CTA rank r walks k-slice r,
+    `k_slice(r)`, a contiguous run of block_k-row k-steps, streaming the
+    (block_k, block_n) W tile of each through one num_bufs-slot ring in
+    `chunks` chunks, the x tile beside it in two slots.  Its 8 warps hold
+    16 columns each and split every step's k rows into `k_groups`
+    contiguous parts.  The f32 partials (one a k-group) go to the CTA's own
+    shared memory over the ring; rank r then sums `rank_columns(r)` of the
+    tile from ranks 0 .. S-1 in order, k-group by k-group, through
+    distributed shared memory, and stores them."""
 
     M: int
     K: int
@@ -369,10 +377,9 @@ class MatmulTcPlan:
     block_m: int
     block_n: int
     block_k: int
+    cluster: int
     num_bufs: int
     chunks: int
-    ctas_per_sm: int
-    grid: int
     smem_bytes: int
 
     @property
@@ -389,112 +396,140 @@ class MatmulTcPlan:
 
     @property
     def tiles(self) -> int:
+        """Output tiles: one cluster each."""
         return self.m_tiles * self.n_tiles
 
     @property
-    def units(self) -> int:
-        return self.tiles * self.num_k
-
-    def tile(self, t: int) -> "tuple[int, int]":
-        """(n-tile, m-tile) of tile t."""
-        return divmod(t, self.m_tiles)
-
-    def unit(self, u: int) -> "tuple[int, int]":
-        """(tile, k-step) of unit u."""
-        return divmod(u, self.num_k)
-
-    def cta_units(self, i: int) -> range:
-        """The units CTA i walks: [floor(i*U/P), floor((i+1)*U/P))."""
-        U, P = self.units, self.grid
-        return range(i * U // P, (i + 1) * U // P)
-
-    def cta_steps(self, i: int) -> int:
-        return len(self.cta_units(i))
-
-    def owner(self, u: int) -> int:
-        """The CTA whose run holds unit u (the kernel's `owner`)."""
-        U, P = self.units, self.grid
-        return ((u + 1) * P + U - 1) // U - 1
-
-    def segments(self, t: int) -> range:
-        """The CTAs that share tile t, in segment (= k) order."""
-        u = t * self.num_k
-        return range(self.owner(u), self.owner(u + self.num_k - 1) + 1)
-
-    @functools.cached_property
-    def max_segs(self) -> int:
-        """Workspace slots a tile: the most CTAs that share one."""
-        return max(len(self.segments(t)) for t in range(self.tiles))
+    def ctas(self) -> int:
+        return self.tiles * self.cluster
 
     @property
-    def workspace_floats(self) -> int:
-        """f32 of the partials' workspace: 0 when no tile is split."""
-        segs = self.max_segs
-        if segs == 1:
-            return 0
-        return self.tiles * segs * self.block_m * self.block_n
+    def grid(self) -> "tuple[int, int, int]":
+        """CUDA grid (cluster rank, n-tile, m-tile)."""
+        return (self.cluster, self.n_tiles, self.m_tiles)
+
+    @property
+    def k_groups(self) -> int:
+        """Parts of each step's k rows, one a warp group: 2 at block_n 64
+        (4 warps along N), 1 at 128 (8)."""
+        return 128 // self.block_n
+
+    def k_slice(self, r: int) -> range:
+        """The k-steps rank r walks: [floor(r num_k / S), floor((r+1)
+        num_k / S))."""
+        S, nk = self.cluster, self.num_k
+        return range(r * nk // S, (r + 1) * nk // S)
+
+    def cta_steps(self, r: int) -> int:
+        return len(self.k_slice(r))
+
+    def k_rows(self, r: int, g: int) -> "list[int]":
+        """The k rows rank r's k-group g multiplies (rows < K), in order."""
+        bk, part = self.block_k, self.block_k // self.k_groups
+        return [k for s in self.k_slice(r)
+                for k in range(s * bk + g * part, s * bk + (g + 1) * part)
+                if k < self.K]
+
+    def rank_columns(self, r: int) -> range:
+        """The tile's columns rank r sums and stores."""
+        w = self.block_n // self.cluster
+        return range(r * w, (r + 1) * w)
 
 
-def matmul_tc_smem_bytes(bm: int, bk: int, G: int) -> int:
-    """G-slot bf16 W ring of (bk, 128) tiles + two bf16 (bm, bk) x slots;
-    rows swizzled, not padded (csrc/gpp_matmul.cu, smem_bytes)."""
-    return G * bk * GPP_TC_BLOCK_N * 2 + 2 * bm * bk * 2
+def matmul_tc_smem_bytes(bm: int, bk: int, bn: int, G: int) -> int:
+    """The larger of the G-slot bf16 W ring of (bk, bn) tiles with two bf16
+    (bm, bk) x slots (rows swizzled, not padded) and the f32 partials that
+    reuse it after the last step, (bm, bn + 8) a k-group
+    (csrc/gpp_matmul.cu, gpp_mm_tc::smem_bytes)."""
+    ring = G * bk * bn * 2 + 2 * bm * bk * 2
+    partial = (128 // bn) * bm * (bn + GPP_MM_TC_PART_PAD) * 4
+    return max(ring, partial)
+
+
+def _tc_split(K: int, N: int) -> "tuple[int, int, int]":
+    """(block_n, S, block_k) of the tensor-core route, from K and N alone:
+    block_k 256, and for each block_n the largest cluster S (at most one
+    k-step a rank) whose n_tiles x S CTAs stay within GPP_MM_TC_CTAS; the
+    block_n with more CTAs wins, the wider on a tie.  Where even one CTA a
+    tile is more, S = 1 at the block_n with fewer CTAs."""
+    bk = max(GPP_MM_TC_BLOCK_KS)
+    num_k = -(-K // bk)
+    best = None
+    for bn in GPP_MM_TC_BLOCK_NS:
+        n_tiles = -(-N // bn)
+        S = max([c for c in GPP_MM_TC_CLUSTERS
+                 if c <= num_k and n_tiles * c <= GPP_MM_TC_CTAS] or [1])
+        ctas = n_tiles * S
+        key = (ctas <= GPP_MM_TC_CTAS, ctas if ctas <= GPP_MM_TC_CTAS
+               else -ctas)
+        if best is None or key > best[0]:
+            best = (key, (bn, S, bk))
+    return best[1]
 
 
 def plan_matmul_tc_sm90(M: int, K: int, N: int, *,
                         num_bufs: "int | None" = None,
+                        block_n: "int | None" = None,
+                        cluster: "int | None" = None,
                         block_k: "int | None" = None,
-                        grid: "int | None" = None,
-                        smem_budget: int = SMEM_BUDGET_BYTES) -> MatmulTcPlan:
-    """Plan for the tensor-core route of `gpp_matmul` (stream-K).
+                        smem_budget: int = SMEM_BUDGET_BYTES
+                        ) -> MatmulTcClusterPlan:
+    """Plan for the tensor-core route of `gpp_matmul` (cluster split-K).
 
-    block_m is the smallest of 16, 32, 64, 128 that covers M (M rounded up
-    to 16 at every path shape, so each W tile streams once a launch);
-    block_n 128; block_k 256; grid = min(units, 132): one CTA an SM, each
-    with a run of whole 64 KB W tiles.  The sweep (scripts/gpp_tc_sweep.py,
-    PERF.md) found this within 3% of the best tile and grid summed over the
-    paths' decode and prefill shapes: at these few-MB weights a launch is a
-    handful of round trips, and fewer, larger steps and fewer segments a
-    tile (each a partial the fix-up reads) beat two CTAs an SM of 16 KB
-    steps.  G comes from `plan_stream` at H100 rates (deep: at 16 rows a
-    tile's bytes take ~18x its FLOPs' time), clamped to the longest run and
-    to GPP_MM_TC_MAX_RING (the same sweep: G = 3 and 4 slower than 2 at
-    every run length, up to 47%), then shrunk until the ring fits the
-    shared memory, down to in-situ.  A
-    pinned `num_bufs` is kept and block_k halves until it fits; `block_k`
-    and `grid` pins are for tests and sweeps.  `ctas_per_sm` is what the
-    shared memory lets an SM hold (at most 2: 256 threads of <= 128
-    registers).  Raises when nothing fits."""
+    block_n, the cluster size S and block_k come from K and N alone
+    (`_tc_split`), never from M: the narrow projections of the serving
+    paths (8-24 n-tiles of 128 columns) put 4 or 8 CTAs on each tile's k
+    rows, so the SMs that one CTA a tile left idle each stream a slice of
+    a few 64 KB steps.  block_m is M rounded up to 16, 32, 64 or 128 (one
+    m-tile at every path shape, so W streams once a launch).  G comes from
+    `plan_stream` at H100 rates, clamped to the longest slice and to
+    GPP_MM_TC_MAX_RING, then shrunk until the ring fits the shared memory,
+    down to in-situ.  A pinned `num_bufs` is kept and block_k halves until
+    it fits; `block_n`, `cluster` (up to 16, the non-portable size) and
+    `block_k` pins are for tests and sweeps.  Raises when nothing fits."""
     if min(M, K, N) < 1:
         raise ValueError(f"empty matmul {M}x{K}x{N}")
     if num_bufs is not None and num_bufs < 1:
         raise ValueError("num_bufs >= 1")
+    if block_n is not None and block_n not in GPP_MM_TC_BLOCK_NS:
+        raise ValueError(f"block_n is one of {GPP_MM_TC_BLOCK_NS}, got "
+                         f"{block_n}")
     if block_k is not None and block_k not in GPP_MM_TC_BLOCK_KS:
         raise ValueError(f"block_k is one of {GPP_MM_TC_BLOCK_KS}, got "
                          f"{block_k}")
-    if grid is not None and grid < 1:
-        raise ValueError("grid >= 1")
+    if cluster is not None and cluster not in GPP_MM_TC_CLUSTERS + (
+            GPP_MM_TC_MAX_CLUSTER,):
+        raise ValueError(f"cluster is one of {GPP_MM_TC_CLUSTERS} or "
+                         f"{GPP_MM_TC_MAX_CLUSTER}, got {cluster}")
+    bn, S, bk = _tc_split(K, N)
+    bn = block_n or bn
+    S = cluster or S
+    if block_k is not None:
+        bks = (block_k,)
+    elif num_bufs is not None:      # the split's block_k, or smaller ones
+        bks = [b for b in GPP_MM_TC_BLOCK_KS if b <= bk]
+    else:
+        bks = (bk,)
     bm = 16
     while bm < min(M, GPP_TC_MAX_BLOCK_M):
         bm *= 2
-    bn = GPP_TC_BLOCK_N
-    tiles = -(-M // bm) * -(-N // bn)
-    bks = (block_k,) if block_k is not None else GPP_MM_TC_BLOCK_KS
     for bk in bks:
-        units = tiles * -(-K // bk)
-        P = min(units, grid if grid is not None else H100_SMS)
+        num_k = -(-K // bk)
+        if S > num_k:
+            raise ValueError(f"a cluster of {S} leaves a rank no k-step of "
+                             f"{bk} rows at K = {K}")
         G = num_bufs if num_bufs is not None else min(
             _ring_depth(bk * bn * 2, 2.0 * bm * bk * bn, H100_BF16_FLOPS),
-            -(-units // P),                # deeper than a run idles
+            -(-num_k // S),                # deeper than a slice idles
             GPP_MM_TC_MAX_RING)
         if num_bufs is None:
-            while G > 1 and matmul_tc_smem_bytes(bm, bk, G) > smem_budget:
+            while G > 1 and matmul_tc_smem_bytes(bm, bk, bn,
+                                                 G) > smem_budget:
                 G -= 1
-        smem = matmul_tc_smem_bytes(bm, bk, G)
+        smem = matmul_tc_smem_bytes(bm, bk, bn, G)
         if smem <= smem_budget:
-            ctas = min(2, SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED))
-            return MatmulTcPlan(M, K, N, bm, bn, bk, G,
-                                max(1, min(G - 1, bk)), ctas, P, smem)
+            return MatmulTcClusterPlan(M, K, N, bm, bn, bk, S, G,
+                                       max(1, min(G - 1, bk)), smem)
     raise ValueError(f"gpp_matmul tensor-core ring of {num_bufs} does not "
                      f"fit {smem_budget} bytes of shared memory")
 
@@ -533,18 +568,92 @@ def _fma_block_k(K: int, N: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class MatmulFmaPlan(MatmulTcPlan):
-    """`gpp_matmul`'s FMA route (f32 x, or f32 / int8 W), split-K: the
-    units of `MatmulTcPlan` at block_n 64, with the tiles numbered m-major
-    (the m-tile outermost).  With a grid of m_tiles x P0 CTAs, CTA
-    mt * P0 + j walks m-tile mt's units exactly as CTA j walks them in the
-    one-m-tile plan (floor((mt P0 + j) U0 / P0) = mt U0 + floor(j U0 /
-    P0)), so every m-tile meets the same k-cuts and segments."""
+class MatmulFmaPlan:
+    """`gpp_matmul`'s FMA route (f32 x, or f32 / int8 W), split-K over
+    persistent CTAs.  A tile is one (n-tile, m-tile) of block_m x block_n
+    (64) outputs, numbered m-major (the m-tile outermost); a unit is one
+    (tile, k-step), numbered tile-major with the k-step inner.  `grid`
+    persistent CTAs each walk a contiguous run of units, `cta_units(i)`,
+    streaming the (block_k, block_n) W tile of each step through one
+    num_bufs-slot ring in `chunks` chunks.  The CTAs that share a tile are
+    its segments, `segments(t)`; a split tile's f32 partials go to
+    workspace slot (tile, segment), `max_segs` slots a tile.  With a grid
+    of m_tiles x P0 CTAs, CTA mt * P0 + j walks m-tile mt's units exactly
+    as CTA j walks them in the one-m-tile plan (floor((mt P0 + j) U0 / P0)
+    = mt U0 + floor(j U0 / P0)), so every m-tile meets the same k-cuts and
+    segments."""
+
+    M: int
+    K: int
+    N: int
+    block_m: int
+    block_n: int
+    block_k: int
+    num_bufs: int
+    chunks: int
+    ctas_per_sm: int
+    grid: int
+    smem_bytes: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.M // self.block_m)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.N // self.block_n)
+
+    @property
+    def num_k(self) -> int:
+        return -(-self.K // self.block_k)
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.num_k
 
     def tile(self, t: int) -> "tuple[int, int]":
         """(n-tile, m-tile) of tile t."""
         mt, nt = divmod(t, self.n_tiles)
         return nt, mt
+
+    def unit(self, u: int) -> "tuple[int, int]":
+        """(tile, k-step) of unit u."""
+        return divmod(u, self.num_k)
+
+    def cta_units(self, i: int) -> range:
+        """The units CTA i walks: [floor(i*U/P), floor((i+1)*U/P))."""
+        U, P = self.units, self.grid
+        return range(i * U // P, (i + 1) * U // P)
+
+    def cta_steps(self, i: int) -> int:
+        return len(self.cta_units(i))
+
+    def owner(self, u: int) -> int:
+        """The CTA whose run holds unit u (the kernel's `owner`)."""
+        U, P = self.units, self.grid
+        return ((u + 1) * P + U - 1) // U - 1
+
+    def segments(self, t: int) -> range:
+        """The CTAs that share tile t, in segment (= k) order."""
+        u = t * self.num_k
+        return range(self.owner(u), self.owner(u + self.num_k - 1) + 1)
+
+    @functools.cached_property
+    def max_segs(self) -> int:
+        """Workspace slots a tile: the most CTAs that share one."""
+        return max(len(self.segments(t)) for t in range(self.tiles))
+
+    @property
+    def workspace_floats(self) -> int:
+        """f32 of the partials' workspace: 0 when no tile is split."""
+        segs = self.max_segs
+        if segs == 1:
+            return 0
+        return self.tiles * segs * self.block_m * self.block_n
 
 
 def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,

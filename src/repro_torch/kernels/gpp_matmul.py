@@ -7,15 +7,18 @@ library (`csrc/gpp_matmul.cu`), two kernels, routed by dtype
 (`gpp_route`):
   * "tc": bf16 x and bf16 W (every projection of both serving paths but
     deepseek's f32 router) run `gpp_matmul_tc_kernel` — mma.sync tensor
-    cores, stream-K persistent CTAs each walking a balanced run of
-    (tile, k-step) units on one GPP ring, split tiles summed in a fixed
-    order by their last CTA (`core.schedule.plan_matmul_tc_sm90`);
+    cores, cluster split-K: each output tile is one thread-block cluster
+    whose CTAs walk contiguous k-slices on one GPP ring each, and the
+    partials are summed in rank order through distributed shared memory
+    (`core.schedule.plan_matmul_tc_sm90`); no workspace, no counters;
   * "fma": f32 x, or f32 / int8 W, run `gpp_matmul_kernel` — f32 FMA on
     the CUDA cores, split-K: persistent CTAs each walking a balanced run
     of (64-column tile, k-step) units on one GPP ring, split tiles summed
-    in the same fixed order; block_k and each m-tile's k-cuts come from K
-    and N alone, so a row's bits do not depend on M
-    (`core.schedule.plan_matmul_fma_sm90`).
+    in a fixed order by their last CTA through a global workspace and
+    per-tile arrival counters (`_tile_counters`, this route's alone;
+    `core.schedule.plan_matmul_fma_sm90`).
+On both routes the split comes from K and N alone, so a row's bits do not
+depend on M.
 
 `gpp_matmul_grouped`: y[e] = act((x[e] @ W[e]) * w_scale[e] + bias[e]) for
 E experts — the port of `gpp_matmul_grouped`, the MoE layer's routed-expert
@@ -41,7 +44,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.schedule import (MatmulTcPlan, plan_grouped_sm90,
+from repro_torch.core.schedule import (MatmulFmaPlan, MatmulTcClusterPlan,
+                                      plan_grouped_sm90,
                                       plan_grouped_tc_sm90,
                                       plan_matmul_fma_sm90,
                                       plan_matmul_tc_sm90)
@@ -101,7 +105,8 @@ def gpp_matmul(x: torch.Tensor, w: torch.Tensor, *,
     tensor-core kernel, anything else the FMA kernel (`gpp_route`); `route`
     ("fma" or "tc") pins one, for tests and sweeps.  record: optional int32
     CUDA tensor that receives the first CTA's (step, chunk, issue_step)
-    triples (see `issue_order`).
+    triples (see `issue_order`).  A launch the card refuses (a cluster it
+    cannot place, say) raises.
     """
     if activation not in ACTIVATION_IDS:
         raise ValueError(f"unknown activation {activation!r}")
@@ -123,26 +128,30 @@ def gpp_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    scale, b, activation, record, r)
 
 
-# each shape is planned once a process (a plan's `max_segs` walks its tiles)
+# each shape is planned once a process (the FMA plan's `max_segs` walks
+# its tiles)
 _tc_plan = functools.lru_cache(maxsize=256)(plan_matmul_tc_sm90)
 _fma_plan = functools.lru_cache(maxsize=256)(plan_matmul_fma_sm90)
 
 
 def _plan(route: str, M: int, K: int, N: int, w_itemsize: int,
-          num_bufs: "int | None", grid: "int | None" = None) -> MatmulTcPlan:
-    """The cached plan of one launch on `route`."""
+          num_bufs: "int | None", **pins
+          ) -> "MatmulTcClusterPlan | MatmulFmaPlan":
+    """The cached plan of one launch on `route`; `pins` go to its planner
+    (tc: block_n, cluster, block_k; fma: block_k, grid)."""
     if route == "tc":
-        return _tc_plan(M, K, N, num_bufs=num_bufs, grid=grid)
+        return _tc_plan(M, K, N, num_bufs=num_bufs, **pins)
     return _fma_plan(M, K, N, w_itemsize=w_itemsize, num_bufs=num_bufs,
-                     grid=grid)
+                     **pins)
 
 
-# arrival counters of both routes' split tiles, one int a tile,
-# zero between launches (each launch's last CTA on a tile resets its
-# counter).  Launches on one stream run in order, so each stream keeps its
-# own buffer; a launch captured into a CUDA graph takes one of its own,
-# zeroed at each replay, so a replay never shares counters with eager
-# launches on any stream.
+# arrival counters of the FMA route's split tiles, one int a tile, zero
+# between launches (each launch's last CTA on a tile resets its counter).
+# Launches on one stream run in order, so each stream keeps its own
+# buffer; a launch captured into a CUDA graph takes one of its own, zeroed
+# at each replay, so a replay never shares counters with eager launches on
+# any stream.  (The tensor-core route sums its splits in shared memory and
+# needs none.)
 _COUNTERS: "dict[tuple[torch.device, int], torch.Tensor]" = {}
 
 
@@ -157,14 +166,17 @@ def _tile_counters(dev: torch.device, stream, tiles: int) -> torch.Tensor:
     return c
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcPlan,
-            scale, b, activation: "str | None",
-            record: "torch.Tensor | None", route: str) -> torch.Tensor:
-    """Launch `route`'s kernel ("tc": `gpp_matmul_tc_kernel`, "fma":
-    `gpp_matmul_kernel`) on its plan.  The split tiles' f32 partials go to
-    a workspace from the caching allocator (torch.empty, every slot written
-    before it is read); the tile counters are the launch stream's buffer
-    (`_tile_counters`).  Nothing syncs."""
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            plan: "MatmulTcClusterPlan | MatmulFmaPlan", scale, b,
+            activation: "str | None", record: "torch.Tensor | None",
+            route: str) -> torch.Tensor:
+    """Launch `route`'s kernel on its plan ("tc": `gpp_matmul_tc_kernel`,
+    `_launch_tc`; "fma": `gpp_matmul_kernel`).  The FMA route's split
+    tiles' f32 partials go to a workspace from the caching allocator
+    (torch.empty, every slot written before it is read); its tile counters
+    are the launch stream's buffer (`_tile_counters`).  Nothing syncs."""
+    if route == "tc":
+        return _launch_tc(x, w, plan, scale, b, activation, record)
     M, K = x.shape
     N = w.shape[1]
     segs = plan.max_segs
@@ -175,29 +187,64 @@ def _launch(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcPlan,
         ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
                          device=x.device)
         cnt = _tile_counters(x.device, stream, plan.tiles)
-    lib = _lib("gpp_matmul", 7, 15)
+    lib = _lib("gpp_matmul", 7, 13)
     err = lib.gpp_matmul_launch(
         x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
         _ptr(ws), _ptr(cnt), M, K, N, X_DTYPES[x.dtype], W_DTYPES[w.dtype],
         plan.block_m, plan.block_k, plan.num_bufs, plan.chunks,
         ACTIVATION_IDS[activation],
-        build.copy_width(N * w.element_size(), w.data_ptr()),
-        int(route == "tc"), plan.grid,
-        build.copy_width(K * x.element_size(), x.data_ptr()), segs,
-        _ptr(record), stream.cuda_stream)
+        build.copy_width(N * w.element_size(), w.data_ptr()), plan.grid,
+        segs, _ptr(record), stream.cuda_stream)
     build.check_launch(lib, err, "gpp_matmul")
-    (launches_tc if route == "tc" else launches).n += 1
+    launches.n += 1
     return y
 
 
-def tc_ctas_per_sm(plan: MatmulTcPlan) -> int:
-    """CTAs of the tensor-core `gpp_matmul` kernel an SM of this card holds
-    at `plan`'s tile and ring (the planner assumed `ctas_per_sm`)."""
-    lib = _lib("gpp_matmul", 7, 15)
-    fn = lib.gpp_matmul_tc_ctas_per_sm
-    fn.argtypes = [ctypes.c_int] * 3
-    fn.restype = ctypes.c_int
-    n = fn(plan.block_m, plan.block_k, plan.num_bufs)
+def _tc_lib() -> ctypes.CDLL:
+    """The gpp_matmul library with its tensor-core entries typed."""
+    lib = _lib("gpp_matmul", 7, 13)
+    if not getattr(lib, "_tc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gpp_matmul_tc_launch.argtypes = [p] * 5 + [i] * 12 + [p, p]
+        lib.gpp_matmul_tc_launch.restype = i
+        lib.gpp_matmul_tc_max_clusters.argtypes = [i] * 6
+        lib.gpp_matmul_tc_max_clusters.restype = i
+        lib._tc_typed = True
+    return lib
+
+
+def _launch_tc(x: torch.Tensor, w: torch.Tensor, plan: MatmulTcClusterPlan,
+               scale, b, activation: "str | None",
+               record: "torch.Tensor | None") -> torch.Tensor:
+    """Launch `gpp_matmul_tc_kernel` on `plan`: grid (cluster, n_tiles,
+    m_tiles) in clusters of `plan.cluster` CTAs.  It allocates only y, and
+    nothing syncs."""
+    M, K = x.shape
+    N = w.shape[1]
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _tc_lib()
+    err = lib.gpp_matmul_tc_launch(
+        x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
+        M, K, N, plan.block_m, plan.block_n, plan.block_k, plan.num_bufs,
+        plan.chunks, plan.cluster, ACTIVATION_IDS[activation],
+        build.copy_width(N * 2, w.data_ptr()),
+        build.copy_width(K * 2, x.data_ptr()), _ptr(record),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(lib, err, "gpp_matmul")
+    launches_tc.n += 1
+    return y
+
+
+def tc_max_clusters(plan: MatmulTcClusterPlan) -> int:
+    """Clusters of `plan`'s shape (cluster size, tile, ring, shared memory,
+    and the kernel instance its rows' copy width picks) that this card
+    holds at once (cudaOccupancyMaxActiveClusters): the plan's `tiles`
+    clusters all run in one wave when it is at least that."""
+    lib = _tc_lib()
+    vec = 16 if plan.K % 8 == 0 and plan.N % 8 == 0 else 1
+    n = lib.gpp_matmul_tc_max_clusters(plan.block_m, plan.block_n,
+                                       plan.block_k, plan.num_bufs,
+                                       plan.cluster, vec)
     if n < 0:
         build.check_launch(lib, -n, "gpp_matmul")
     return n
@@ -337,18 +384,19 @@ def grouped_tc_ctas_per_sm(plan) -> int:
 
 
 def issue_order(x: torch.Tensor, w: torch.Tensor, num_bufs: "int | None",
-                *, route: "str | None" = None, grid: "int | None" = None):
+                *, route: "str | None" = None, **pins):
     """Run one launch with the issue-order record on and return
     ({(step, chunk): [issue_steps]}, steps, G, C) for the first CTA — the
     structure `kernels.ref.chunk_issue_schedule(steps, G, C)` returns.  On
-    either route CTA 0 walks its run of units, `plan.cta_units(0)` of
-    `plan_matmul_tc_sm90` / `plan_matmul_fma_sm90`, across tile and k-split
-    boundaries (`grid` pins the CTAs, so that the run can be made to cross
-    them)."""
+    the tensor-core route that CTA is rank 0 of tile 0's cluster, walking
+    its k-slice (`plan_matmul_tc_sm90(...).k_slice(0)`; `block_n`,
+    `cluster` and `block_k` pins shape it); on the FMA route CTA 0 walks
+    its run of units (`plan_matmul_fma_sm90(...).cta_units(0)`) across tile
+    and k-split boundaries (a `grid` pin makes it cross them)."""
     M, K = x.shape
     N = w.shape[1]
     r = gpp_route(x.dtype, w.dtype) if route is None else route
-    plan = _plan(r, M, K, N, w.element_size(), num_bufs, grid)
+    plan = _plan(r, M, K, N, w.element_size(), num_bufs, **pins)
     steps, G, C = plan.cta_steps(0), plan.num_bufs, plan.chunks
     rec = torch.full((3 * steps * C,), -1, dtype=torch.int32,
                      device=x.device)

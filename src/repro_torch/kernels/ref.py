@@ -5,8 +5,10 @@ oracle.
 are copies of `repro.kernels.ref` in torch, and `rmsnorm_ref` of
 `repro.models.layers.rmsnorm` (written as its steps: a sum, / d):
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
-against them on the card.  `dense_split_ref` replays `gpp_matmul`'s
-split over CTAs (either route) and its fixed-order fix-up for the tests.
+against them on the card.  `dense_split_ref` replays the split-K of
+`gpp_matmul`'s FMA route and its fixed-order fix-up, `dense_cluster_ref`
+the cluster split-K of its tensor-core route and its rank-order sum, for
+the tests.
 `mla_merge_ref` is the plain version of the merge kernel that the split
 attention kernels share; `paged_attn_fma_split_ref` replays their split-KV
 walks and merge (`paged_attn_mla_split_ref` and `paged_attn_gqa_split_ref`
@@ -43,27 +45,33 @@ ACTIVATION_IDS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3,
                   "tanh": 4, "sigmoid": 5}
 
 
-def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
-              activation: "str | None" = None) -> torch.Tensor:
-    """Plain version of `gpp_matmul`'s fused epilogue: f32 accumulation,
-    then per-column dequant scale, bias and activation, all in f32, cast to
-    x.dtype."""
-    acc = x.float() @ w.float()
+def _epilogue(acc: torch.Tensor, dtype, w_scale, bias,
+              activation: "str | None") -> torch.Tensor:
+    """`dense_ref`'s epilogue on an f32 accumulator: per-column scale,
+    bias, activation, all in f32, cast to `dtype`."""
     if w_scale is not None:
         acc = acc * torch.as_tensor(w_scale, dtype=torch.float32,
                                     device=acc.device).reshape(1, -1)
     if bias is not None:
         acc = acc + bias.float().reshape(1, -1)
-    return ACTIVATIONS[activation](acc).to(x.dtype)
+    return ACTIVATIONS[activation](acc).to(dtype)
+
+
+def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
+              activation: "str | None" = None) -> torch.Tensor:
+    """Plain version of `gpp_matmul`'s fused epilogue: f32 accumulation,
+    then per-column dequant scale, bias and activation, all in f32, cast to
+    x.dtype."""
+    return _epilogue(x.float() @ w.float(), x.dtype, w_scale, bias,
+                     activation)
 
 
 def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
                     w_scale=None,
                     activation: "str | None" = None) -> torch.Tensor:
-    """Plain replay of `gpp_matmul`'s split (stream-K on the tensor-core
-    route, split-K on the FMA route), for tests: for each (block_m x
-    block_n) tile of `plan` (`core.schedule.plan_matmul_tc_sm90` or
-    `plan_matmul_fma_sm90`), each CTA that shares it
+    """Plain replay of the split-K of `gpp_matmul`'s FMA route, for tests:
+    for each (block_m x block_n) tile of `plan`
+    (`core.schedule.plan_matmul_fma_sm90`), each CTA that shares it
     (`plan.segments(t)`) computes an f32 partial over its run's k-steps of
     the tile; the partials are summed in segment order, then the epilogue
     runs as in `dense_ref` (f32 scale, bias, activation), cast to
@@ -84,12 +92,30 @@ def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
             part = x[rows, k0:k1].float() @ w[k0:k1, cols].float()
             total = part if total is None else total + part
         acc[rows, cols] = total
-    if w_scale is not None:
-        acc = acc * torch.as_tensor(w_scale, dtype=torch.float32,
-                                    device=acc.device).reshape(1, -1)
-    if bias is not None:
-        acc = acc + bias.float().reshape(1, -1)
-    return ACTIVATIONS[activation](acc).to(x.dtype)
+    return _epilogue(acc, x.dtype, w_scale, bias, activation)
+
+
+def dense_cluster_ref(x: torch.Tensor, w: torch.Tensor, plan, *,
+                      bias=None, w_scale=None,
+                      activation: "str | None" = None) -> torch.Tensor:
+    """Plain replay of the cluster split-K of `gpp_matmul`'s tensor-core
+    route, for tests: for each block_n-column tile of `plan`
+    (`core.schedule.plan_matmul_tc_sm90`), rank r of its cluster computes
+    one f32 partial a k-group over the k rows that group multiplies in
+    slice r (`plan.k_rows(r, g)`); the partials are summed from 0.0 in
+    rank order, each rank's k-groups in order, then the epilogue runs as
+    in `dense_ref`, cast to x.dtype.  Rows do not interact, so the m-tiles
+    need no loop of their own."""
+    N = w.shape[1]
+    bn = plan.block_n
+    acc = torch.zeros(x.shape[0], N, dtype=torch.float32, device=x.device)
+    for nt in range(plan.n_tiles):
+        cols = slice(nt * bn, min(N, (nt + 1) * bn))
+        for r in range(plan.cluster):
+            for g in range(plan.k_groups):
+                ks = torch.tensor(plan.k_rows(r, g), dtype=torch.long)
+                acc[:, cols] += x[:, ks].float() @ w[ks, cols].float()
+    return _epilogue(acc, x.dtype, w_scale, bias, activation)
 
 
 def dense_grouped_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None,

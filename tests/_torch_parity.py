@@ -75,11 +75,11 @@ def ring_replay(S: int, G: int, C: int):
 
 
 def walk_checks(plan):
-    """What every split plan of `gpp_matmul` (`core.schedule.MatmulTcPlan`,
-    either route) must hold: each unit walked once, in order, by balanced
-    runs; the kernel's `owner`; each tile's segments covering its k-steps
-    once in segment order; units tile-major with the k-step inner, each
-    tile one (n-tile, m-tile)."""
+    """What every split plan of `gpp_matmul`'s FMA route
+    (`core.schedule.MatmulFmaPlan`) must hold: each unit walked once, in
+    order, by balanced runs; the kernel's `owner`; each tile's segments
+    covering its k-steps once in segment order; units tile-major with the
+    k-step inner, each tile one (n-tile, m-tile)."""
     walked = [u for i in range(plan.grid) for u in plan.cta_units(i)]
     assert walked == list(range(plan.units))      # once each, in order
     sizes = {plan.cta_steps(i) for i in range(plan.grid)}

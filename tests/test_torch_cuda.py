@@ -223,11 +223,11 @@ def test_gpp_tc_route_matches_plain(cuda, shape):
 @pytest.mark.parametrize("shape", ((4, 2816, 1024), (32, 10944, 2048),
                                    (20, 2048, 576), (7, 1000, 1001)))
 def test_gpp_tc_route_is_deterministic(cuda, shape):
-    # split tiles are summed in segment order, whatever order their CTAs
-    # arrive in: two runs agree bit for bit
+    # a tile's k-slices are summed in rank order through distributed shared
+    # memory, whenever each rank finishes: four runs agree bit for bit
     M, K, N = shape
     plan = sched.plan_matmul_tc_sm90(M, K, N)
-    assert plan.max_segs > 1
+    assert plan.cluster > 1
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
     w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
@@ -238,15 +238,17 @@ def test_gpp_tc_route_is_deterministic(cuda, shape):
 
 @pytest.mark.parametrize("KN", GPP_PROJ)
 def test_gpp_tc_rows_do_not_depend_on_the_batch(cuda, KN):
-    # decode (4 rows), verify (20) and prefill (32) plan the same tiles'
-    # k-steps and split, so a row's output is the same bits whichever
+    # decode (4 rows), verify (20) and prefill (32) plan the same k-slices,
+    # k-groups and cluster, so a row's output is the same bits whichever
     # batch it rides in, at every projection of both paths
     K, N = KN
     g = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(32, K, generator=g, device=cuda).bfloat16()
     w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).bfloat16()
-    a, b, c = (sched.plan_matmul_tc_sm90(M, K, N) for M in (4, 20, 32))
-    assert (a.block_k, a.grid) == (b.block_k, b.grid) == (c.block_k, c.grid)
+    a, b, c = ((p.block_n, p.cluster, p.block_k)
+               for p in (sched.plan_matmul_tc_sm90(M, K, N)
+                         for M in (4, 20, 32)))
+    assert a == b == c
     y4 = gm.gpp_matmul(x[:4], w)
     assert torch.equal(gm.gpp_matmul(x[:20], w)[:4], y4)
     assert torch.equal(gm.gpp_matmul(x, w)[:4], y4)
@@ -254,11 +256,12 @@ def test_gpp_tc_rows_do_not_depend_on_the_batch(cuda, KN):
 
 @pytest.mark.parametrize("shape", ((4, 2048, 576), (20, 10944, 2048)))
 def test_gpp_tc_two_streams_at_once(cuda, shape):
-    # a split tile's partials and arrival counters are its launch's own:
-    # launches on two streams at once, and a CUDA graph replayed beside
-    # eager launches, each sum their own tiles
+    # a split tile's partials live in its cluster's shared memory and the
+    # launch shares no counter or workspace: launches on two streams at
+    # once, and a CUDA graph replayed beside eager launches, each sum their
+    # own tiles
     M, K, N = shape
-    assert sched.plan_matmul_tc_sm90(M, K, N).max_segs > 1
+    assert sched.plan_matmul_tc_sm90(M, K, N).cluster > 1
     _two_streams(cuda, M, K, N, torch.bfloat16, 2e-2)
 
 
@@ -305,23 +308,20 @@ def _two_streams(cuda, M, K, N, dtype, tol):
 
 
 @pytest.mark.parametrize("G", (None, 1, 2, 3, 4))
-@pytest.mark.parametrize("shape,grid", (((4, 2048, 1024), 5),
-                                        ((4, 10944, 2048), None)))
-def test_gpp_tc_issue_order_crosses_tiles_and_splits(cuda, shape, grid, G):
-    # 4x2048x1024 on 5 CTAs: CTA 0 walks tile 0's 8 k-steps and 4 of tile
-    # 1's (which CTA 1 finishes); layer 0's down projection as planned: 5
-    # of tile 0's 43 k-steps
+@pytest.mark.parametrize("shape,pins", (((4, 2048, 1024),
+                                         dict(cluster=2, block_k=128)),
+                                        ((4, 10944, 2048), {})))
+def test_gpp_tc_issue_order_crosses_tiles_and_splits(cuda, shape, pins, G):
+    # 4x2048x1024 in clusters of 2 at 128-row steps: rank 0 walks k-steps
+    # 0-7 of its tile, and rank 1 the rest; layer 0's down projection as
+    # planned: rank 0's k-slice of 5 of the 43 k-steps
     M, K, N = shape
     x = torch.randn(M, K, device=cuda).bfloat16()
     w = (torch.randn(K, N, device=cuda) * 0.02).bfloat16()
-    got, steps, g_used, C = gm.issue_order(x, w, G, grid=grid)
-    plan = sched.plan_matmul_tc_sm90(M, K, N, num_bufs=G, grid=grid)
-    assert steps == plan.cta_steps(0) >= 5
-    # the run crosses a tile boundary (pinned grid) or ends inside a tile
-    # that the next CTA finishes (planned)
-    tiles = {plan.unit(u)[0] for u in plan.cta_units(0)}
-    assert len(tiles) == (2 if grid else 1)
-    assert len(plan.segments(max(tiles))) > 1
+    got, steps, g_used, C = gm.issue_order(x, w, G, **pins)
+    plan = sched.plan_matmul_tc_sm90(M, K, N, num_bufs=G, **pins)
+    assert steps == plan.cta_steps(0) >= 5 and plan.cluster > 1
+    assert list(plan.k_slice(0)) == list(range(steps))
     assert G is None or g_used == G
     assert got == chunk_issue_schedule(steps, g_used, C)
 
@@ -331,8 +331,23 @@ def test_gpp_tc_issue_order_crosses_tiles_and_splits(cuda, shape, grid, G):
                                      ((20, 2048, 3072), None),
                                      ((4, 2048, 10944), 4)))
 def test_gpp_tc_occupancy_is_planned(cuda, shape, G):
+    # the card holds every cluster of the plan at once (its shared memory
+    # and registers, clusters placed within the SMs' groups), also at a
+    # pinned deep ring, and one CTA an SM at least at a cluster of one
     plan = sched.plan_matmul_tc_sm90(*shape, num_bufs=G)
-    assert gm.tc_ctas_per_sm(plan) == plan.ctas_per_sm
+    assert gm.tc_max_clusters(plan) >= plan.tiles
+    one = sched.plan_matmul_tc_sm90(*shape, num_bufs=G, cluster=1)
+    assert gm.tc_max_clusters(one) >= sched.H100_SMS
+
+
+@pytest.mark.parametrize("KN", GPP_PROJ)
+def test_gpp_tc_clusters_are_resident(cuda, KN):
+    # every tile's cluster of the planned split runs at once, at decode,
+    # verify and prefill (the card reports clusters, not CTAs: an SM group
+    # holds clusters of 8 only where 8 of its SMs are free)
+    for M in (4, 20, 32):
+        plan = sched.plan_matmul_tc_sm90(M, *KN)
+        assert gm.tc_max_clusters(plan) >= plan.tiles
 
 
 def test_gpp_fma_route_pinned_on_bf16(cuda):

@@ -1,26 +1,26 @@
-"""The tensor-core route of the port's `gpp_matmul` (stream-K), on the CPU.
+"""The tensor-core route of the port's `gpp_matmul` (cluster split-K), on
+the CPU.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py); what
 surrounds it is plain Python and is checked here:
   * `core.schedule.plan_matmul_tc_sm90` at every projection shape of both
     serving paths (qwen1.5-0.5b and deepseek-v2-lite-16b; M = 4 / 32 / 20
-    rows at decode / prefill / verify): every (tile, k-step) unit is walked
-    by exactly one CTA, runs differ by at most one unit, the CTAs that
-    share a tile are its segments in k order, the ring fits the shared
-    memory that many CTAs an SM share, a pinned ring is kept, and what
-    cannot run raises;
-  * `kernels.ref.dense_split_ref` — the plain replay of the kernel's
-    stream-K split and fixed-order fix-up — against the JAX package's
-    `gpp_matmul` in Pallas interpret mode on the same numpy inputs, at f32
-    (1e-5) and bf16 (2e-2), with runs that cross tiles, tiles split over
-    2-3 CTAs, ragged M, K and N, and every activation with bias and scale;
-  * a transliteration of the ring's step loop over CTA 0's planned run
+    rows at decode / prefill / verify): every (tile, k-step) is walked by
+    exactly one rank of the tile's cluster, the k-slices are contiguous,
+    in rank order and differ by at most one step, every k row is
+    multiplied by exactly one (rank, k-group), the ranks' columns cover
+    the tile once, the ring and the partials that reuse it fit the shared
+    memory, a pinned ring is kept, and what cannot run raises;
+  * `kernels.ref.dense_cluster_ref` — the plain replay of the kernel's
+    split and its rank-order sum — against the JAX package's `gpp_matmul`
+    in Pallas interpret mode on the same numpy inputs, at f32 (1e-5) and
+    bf16 (2e-2), with k-slices of 2-3 steps, clusters of 2-16, ragged M, K
+    and N, and every activation with bias and scale;
+  * a transliteration of the ring's step loop over rank 0's planned slice
     issues exactly `chunk_issue_schedule`, with each step's x tile landed
     at its wait;
   * the dtype route.
 """
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,10 +29,10 @@ import torch
 from repro.kernels import gpp_matmul as jgm
 from repro_torch.core import schedule as sched
 from repro_torch.kernels import gpp_matmul as gm
-from repro_torch.kernels.ref import (chunk_issue_schedule, dense_ref,
-                                     dense_split_ref)
+from repro_torch.kernels.ref import (chunk_issue_schedule, dense_cluster_ref,
+                                     dense_ref)
 
-from _torch_parity import np32, ring_replay, t, walk_checks
+from _torch_parity import np32, ring_replay, t
 
 pytestmark = pytest.mark.tier1
 
@@ -52,84 +52,117 @@ RAGGED_SHAPES = [(7, 300, 130), (200, 1000, 1001), (1, 64, 8),
 
 
 def _fits(plan):
-    # the ring fits a CTA's 227 KB, and ctas_per_sm of them an SM
+    # the ring, and the partials that reuse it, fit a CTA's 227 KB
+    ring = (plan.num_bufs * plan.block_k * plan.block_n * 2
+            + 2 * plan.block_m * plan.block_k * 2)
+    partial = plan.k_groups * plan.block_m * (plan.block_n + 8) * 4
+    assert plan.smem_bytes == max(ring, partial) == \
+        sched.matmul_tc_smem_bytes(plan.block_m, plan.block_k, plan.block_n,
+                                   plan.num_bufs)
     assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
-    assert 1 <= plan.ctas_per_sm <= 2
-    need = plan.smem_bytes + sched.CTA_SMEM_RESERVED
-    assert plan.ctas_per_sm * need <= sched.SM_SMEM_BYTES
-    assert plan.ctas_per_sm == 2 or 2 * need > sched.SM_SMEM_BYTES
+
+
+def cluster_checks(plan):
+    """What every plan of the tensor-core route must hold: each tile's
+    k-steps walked once, by contiguous slices in rank order that differ by
+    at most one step and leave no rank empty; each k row below K multiplied
+    by exactly one (rank, k-group); the ranks' columns covering the tile
+    once, four at a time (the kernel's float4 sum)."""
+    S = plan.cluster
+    assert plan.grid == (S, plan.n_tiles, plan.m_tiles)
+    assert plan.ctas == S * plan.tiles
+    walked = [k for r in range(S) for k in plan.k_slice(r)]
+    assert walked == list(range(plan.num_k))
+    sizes = {plan.cta_steps(r) for r in range(S)}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert plan.k_groups == 128 // plan.block_n
+    rows = [k for r in range(S) for g in range(plan.k_groups)
+            for k in plan.k_rows(r, g)]
+    assert sorted(rows) == list(range(plan.K))
+    cols = [c for r in range(S) for c in plan.rank_columns(r)]
+    assert cols == list(range(plan.block_n))
+    assert len(plan.rank_columns(0)) % 4 == 0
 
 
 @pytest.mark.parametrize("shape", PATH_SHAPES + RAGGED_SHAPES)
 def test_units_walked_once_in_balanced_runs(shape):
     M, K, N = shape
     plan = sched.plan_matmul_tc_sm90(M, K, N)
-    assert plan.grid == min(plan.units, sched.H100_SMS)   # one CTA an SM
-    assert plan.smem_bytes == sched.matmul_tc_smem_bytes(
-        plan.block_m, plan.block_k, plan.num_bufs)
+    # a portable cluster, tiles of 64 or 128 columns, a known block_k
+    assert plan.cluster in sched.GPP_MM_TC_CLUSTERS and plan.cluster <= 8
+    assert plan.block_n in (64, 128)
+    assert plan.block_k in sched.GPP_MM_TC_BLOCK_KS
     _fits(plan)
     # block_m covers M up to 128 (M rounded up to 16 at the path's M)
     assert plan.block_m >= min(M, 128) and plan.block_m % 16 == 0
     assert plan.m_tiles == -(-M // 128)
-    # a planned ring is no deeper than the longest run, nor than 2
-    assert plan.num_bufs <= max(plan.cta_steps(i) for i in range(plan.grid))
+    # a planned ring is no deeper than the longest slice, nor than 2
+    assert plan.num_bufs <= max(plan.cta_steps(r)
+                                for r in range(plan.cluster))
     assert plan.num_bufs <= sched.GPP_MM_TC_MAX_RING
-    walk_checks(plan)
-    # tiles n-major, the m-tile inner
-    assert [plan.tile(tl) for tl in range(plan.tiles)] == \
-        [(n, m) for n in range(plan.n_tiles) for m in range(plan.m_tiles)]
-    # the workspace: a (block_m x 128) f32 slot per (tile, segment)
-    segs = plan.max_segs
-    assert plan.workspace_floats == \
-        (0 if segs == 1 else plan.tiles * segs * plan.block_m * 128)
+    assert plan.chunks == max(1, min(plan.num_bufs - 1, plan.block_k))
+    cluster_checks(plan)
 
 
 def test_plan_at_the_path_shapes():
-    # decode up-projection: 22 n-tiles x 4 k-steps of 256 = 88 units, one
-    # a CTA, in situ; two such CTAs would fit an SM
-    up = sched.plan_matmul_tc_sm90(4, 1024, 2816)
-    assert (up.block_m, up.block_n, up.block_k) == (16, 128, 256)
-    assert (up.units, up.grid, up.num_bufs, up.chunks) == (88, 88, 1, 1)
-    assert (up.ctas_per_sm, up.max_segs) == (2, 4)
-    # layer 0's down projection: 16 n-tiles x 43 k-steps = 688 units on
-    # 132 CTAs (runs of 5-6) on a ping-pong ring (plan_stream's 8, clamped
-    # to the run and to the measured best, 2)
+    # qwen's q/k/v/o: 16 tiles of 64 columns in clusters of 4, 64 CTAs of
+    # one 32 KB step each, in situ
+    qkvo = sched.plan_matmul_tc_sm90(32, 1024, 1024)
+    assert (qkvo.block_m, qkvo.block_n, qkvo.block_k) == (32, 64, 256)
+    assert (qkvo.cluster, qkvo.tiles, qkvo.ctas) == (4, 16, 64)
+    assert (qkvo.num_bufs, qkvo.chunks) == (1, 1)
+    assert {qkvo.cta_steps(r) for r in range(4)} == {1}
+    # layer 0's down projection: 16 tiles of 128 in clusters of 4, slices
+    # of 10-11 of the 43 steps of 256 rows, on a ping-pong ring
+    # (plan_stream's 8, clamped to the measured best, 2)
     down = sched.plan_matmul_tc_sm90(4, 10944, 2048)
-    assert (down.block_k, down.units, down.grid) == (256, 688, 132)
-    assert (down.num_bufs, down.chunks, down.ctas_per_sm) == (2, 1, 1)
-    assert {down.cta_steps(i) for i in range(down.grid)} == {5, 6}
-    # prefill and verify: 32 rows a tile
-    for M in (32, 20):
-        assert sched.plan_matmul_tc_sm90(M, 1024, 2816).block_m == 32
-    # every path shape: 64 KB W steps, at most one CTA an SM
+    assert (down.block_n, down.cluster, down.block_k) == (128, 4, 256)
+    assert (down.num_k, down.ctas, down.num_bufs) == (43, 64, 2)
+    assert {down.cta_steps(r) for r in range(4)} == {10, 11}
+    # at most GPP_MM_TC_CTAS CTAs wherever one CTA a tile leaves room
     for M, K, N in PATH_SHAPES:
         p = sched.plan_matmul_tc_sm90(M, K, N)
-        assert p.block_k == 256 and p.grid == min(p.units, 132)
-        assert p.max_segs <= 11
+        assert p.ctas <= sched.GPP_MM_TC_CTAS
+        assert p.block_k == 256
+    # decode: 16 rows a tile, prefill and verify 32
+    for M, bm in ((4, 16), (32, 32), (20, 32)):
+        assert sched.plan_matmul_tc_sm90(M, 1024, 2816).block_m == bm
 
 
 @pytest.mark.parametrize("G", (1, 2, 3, 4, 6))
 def test_pinned_ring_is_kept(G):
     for shape in PATH_SHAPES:
         plan = sched.plan_matmul_tc_sm90(*shape, num_bufs=G)
+        planned = sched.plan_matmul_tc_sm90(*shape)
         assert plan.num_bufs == G
         assert plan.chunks == max(1, min(G - 1, plan.block_k))
+        # the split stays; block_k halves only where the ring cannot fit
+        assert (plan.block_n, plan.cluster) == (planned.block_n,
+                                                planned.cluster)
+        assert plan.block_k <= planned.block_k
         _fits(plan)
-        walk_checks(plan)
+        cluster_checks(plan)
 
 
 def test_pins_for_sweeps():
-    p = sched.plan_matmul_tc_sm90(4, 1024, 2816, block_k=256, grid=50)
-    assert (p.block_k, p.grid) == (256, 50)
-    walk_checks(p)
-    # a grid beyond the units is cut to them
-    assert sched.plan_matmul_tc_sm90(4, 64, 128, grid=9).grid == 1
+    p = sched.plan_matmul_tc_sm90(4, 1024, 2816, block_n=64, cluster=2,
+                                  block_k=128)
+    assert (p.block_n, p.cluster, p.block_k) == (64, 2, 128)
+    assert p.grid == (2, 44, 1)
+    cluster_checks(p)
+    # clusters of 16 (the non-portable size) only when pinned
+    wide = sched.plan_matmul_tc_sm90(4, 2048, 1024, cluster=16, block_k=128)
+    assert (wide.cluster, wide.num_k) == (16, 16)
+    cluster_checks(wide)
 
 
 def test_plan_rejects_what_cannot_run():
-    # block_k 64 has no kernel instance; a ring of 8 fits no block_k
-    for kw in (dict(num_bufs=0), dict(block_k=32), dict(block_k=64),
-               dict(block_k=96), dict(grid=0), dict(num_bufs=8)):
+    # no kernel instance at these tiles, steps or clusters; a ring of 16
+    # fits no block_k; a cluster wider than the k-steps leaves a rank empty
+    for kw in (dict(num_bufs=0), dict(block_k=64), dict(block_k=96),
+               dict(block_n=32), dict(block_n=256), dict(cluster=3),
+               dict(cluster=32), dict(num_bufs=16),
+               dict(cluster=16, block_k=256)):
         with pytest.raises(ValueError):
             sched.plan_matmul_tc_sm90(4, 1024, 2816, **kw)
     with pytest.raises(ValueError):
@@ -139,22 +172,22 @@ def test_plan_rejects_what_cannot_run():
                                   smem_budget=60_000)
 
 
-# (M, K, N, grid): runs that cross tiles and tiles split over 2-3 CTAs,
-# at ragged M, K and N (block_k 128: K = 600 is 5 k-steps, the last of 88)
-SPLITS = [(5, 600, 260, 4),      # 15 units on 4 CTAs: runs of 3-4
-          (20, 600, 130, 3),     # 10 units on 3: every tile split
-          (37, 1024, 384, 7),    # 24 units on 7 CTAs
-          (7, 2000, 1001, 37),   # 8 n-tiles x 16 k-steps on 37 CTAs
-          (130, 400, 200, 5)]    # two m-tiles of 128 rows
+# (M, K, N, pins): k-slices of 2-3 steps, clusters of 2-16, both tile
+# widths, at ragged M, K and N
+SPLITS = [(5, 600, 260, dict(block_n=64, cluster=4, block_k=128)),
+          (20, 600, 130, dict(block_n=128, cluster=2, block_k=128)),
+          (37, 2048, 384, dict(block_n=64, cluster=8, block_k=128)),
+          (7, 4000, 1001, dict(block_n=128, cluster=16, block_k=128)),
+          (130, 400, 200, dict(block_n=64, cluster=2, block_k=128))]
 
 
-def _split_plan(M, K, N, grid):
-    plan = sched.plan_matmul_tc_sm90(M, K, N, block_k=128, grid=grid)
-    assert plan.grid == grid and plan.max_segs >= 2
-    # some CTA's run crosses a tile boundary, and some tile is split
-    assert any(len({plan.unit(u)[0] for u in plan.cta_units(i)}) > 1
-               for i in range(grid))
-    assert any(len(plan.segments(tl)) > 1 for tl in range(plan.tiles))
+def _split_plan(M, K, N, pins):
+    plan = sched.plan_matmul_tc_sm90(M, K, N, **pins)
+    assert (plan.block_n, plan.cluster, plan.block_k) == \
+        (pins["block_n"], pins["cluster"], pins["block_k"])
+    # some rank's slice holds several steps
+    assert max(plan.cta_steps(r) for r in range(plan.cluster)) >= 2
+    cluster_checks(plan)
     return plan
 
 
@@ -169,26 +202,27 @@ def _inputs(M, K, N, seed):
 
 @pytest.mark.parametrize("case", SPLITS)
 def test_split_replay_matches_jax_f32(case):
-    M, K, N, grid = case
-    plan = _split_plan(M, K, N, grid)
+    plan = _split_plan(*case)
+    M, K, N, _ = case
     x, w, b, s = _inputs(M, K, N, 0)
     want = jgm.gpp_matmul(jnp.asarray(x), jnp.asarray(w),
                           bias=jnp.asarray(b), w_scale=jnp.asarray(s),
                           activation="silu", interpret=True)
-    got = dense_split_ref(t(x), t(w), plan, bias=t(b), w_scale=t(s),
-                          activation="silu")
+    got = dense_cluster_ref(t(x), t(w), plan, bias=t(b), w_scale=t(s),
+                            activation="silu")
     np.testing.assert_allclose(np32(got), np32(want), **F32)
 
 
 @pytest.mark.parametrize("case", SPLITS)
 def test_split_replay_matches_jax_bf16(case):
-    M, K, N, grid = case
-    plan = _split_plan(M, K, N, grid)
+    plan = _split_plan(*case)
+    M, K, N, _ = case
     x, w, b, _ = _inputs(M, K, N, 1)
     xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
     want = jgm.gpp_matmul(xb, wb, bias=jnp.asarray(b), activation="gelu",
                           interpret=True)
-    got = dense_split_ref(t(xb), t(wb), plan, bias=t(b), activation="gelu")
+    got = dense_cluster_ref(t(xb), t(wb), plan, bias=t(b),
+                            activation="gelu")
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(np32(got), np32(want), **BF16)
 
@@ -197,14 +231,14 @@ def test_split_replay_matches_jax_bf16(case):
                                  "none", None))
 def test_split_replay_epilogue(act):
     # every activation after bias and per-column scale, on a split plan
-    M, K, N, grid = SPLITS[0]
-    plan = _split_plan(M, K, N, grid)
+    M, K, N, pins = SPLITS[0]
+    plan = _split_plan(M, K, N, pins)
     x, w, b, s = _inputs(M, K, N, 2)
     want = jgm.gpp_matmul(jnp.asarray(x), jnp.asarray(w),
                           bias=jnp.asarray(b), w_scale=jnp.asarray(s),
                           activation=act, interpret=True)
-    got = dense_split_ref(t(x), t(w), plan, bias=t(b), w_scale=t(s),
-                          activation=act)
+    got = dense_cluster_ref(t(x), t(w), plan, bias=t(b), w_scale=t(s),
+                            activation=act)
     np.testing.assert_allclose(np32(got), np32(want), **F32)
     # and the split sums to the unsplit plain version
     np.testing.assert_allclose(
@@ -213,13 +247,13 @@ def test_split_replay_epilogue(act):
 
 
 def test_split_replay_at_a_path_shape():
-    # the planned split at deepseek's decode kv down-projection (5 n-tiles
-    # x 8 k-steps on 40 CTAs: 8 segments a tile) against the plain
-    # version, at a seed's random weights
+    # the planned split at deepseek's decode kv down-projection (9 tiles of
+    # 64 columns in clusters of 8, two k-groups) against the plain version,
+    # at a seed's random weights
     plan = sched.plan_matmul_tc_sm90(4, 2048, 576)
-    assert plan.max_segs == 8
+    assert (plan.block_n, plan.cluster, plan.k_groups) == (64, 8, 2)
     x, w, b, _ = _inputs(4, 2048, 576, 3)
-    got = dense_split_ref(t(x), t(w), plan, bias=t(b))
+    got = dense_cluster_ref(t(x), t(w), plan, bias=t(b))
     np.testing.assert_allclose(np32(got), np32(dense_ref(t(x), t(w),
                                                          bias=t(b))),
                                rtol=1e-5, atol=1e-4)
@@ -243,12 +277,13 @@ def test_cta0_replay_is_the_chunk_schedule(shape, G):
 
 
 def test_issue_record_run_crosses_tile_and_split_boundaries():
-    # the card test's pinned grid (tests/test_torch_cuda.py): CTA 0 walks
-    # tile 0's 8 k-steps and 4 of tile 1's, which CTA 1 finishes
-    plan = sched.plan_matmul_tc_sm90(4, 2048, 1024, grid=5)
-    assert [plan.unit(u) for u in plan.cta_units(0)] == \
-        [(0, k) for k in range(8)] + [(1, k) for k in range(4)]
-    assert list(plan.segments(1)) == [0, 1]
+    # the card test's pinned plan (tests/test_torch_cuda.py): in clusters
+    # of 2 at 128-row steps, rank 0 walks k-steps 0-7 of its tile and rank
+    # 1 continues at step 8
+    plan = sched.plan_matmul_tc_sm90(4, 2048, 1024, cluster=2, block_k=128)
+    assert list(plan.k_slice(0)) == list(range(8))
+    assert list(plan.k_slice(1)) == list(range(8, 16))
+    assert plan.cta_steps(0) == 8
 
 
 @pytest.mark.parametrize("x_dtype,w_dtype,route", [
@@ -269,11 +304,11 @@ def test_dtype_route(x_dtype, w_dtype, route):
 
 
 def test_launch_plan_is_cached_per_shape():
-    # the wrapper plans a shape once a process: max_segs walks every tile
+    # the wrapper plans a shape once a process, pins and all
     gm._tc_plan.cache_clear()
-    a = gm._tc_plan(4, 1024, 2816, num_bufs=None)
-    assert gm._tc_plan(4, 1024, 2816, num_bufs=None) is a
+    a = gm._plan("tc", 4, 1024, 2816, 2, None)
+    assert gm._plan("tc", 4, 1024, 2816, 2, None) is a
     assert a == sched.plan_matmul_tc_sm90(4, 1024, 2816)
-    assert a.max_segs == 4 and "max_segs" in vars(a)      # kept once known
-    plan = dataclasses.replace(a, grid=a.units)            # planned anew
-    assert plan.max_segs == plan.num_k                    # one unit a CTA
+    pinned = gm._plan("tc", 4, 1024, 2816, 2, None, cluster=2)
+    assert pinned.cluster == 2 and pinned is not a
+    assert gm._tc_plan.cache_info().currsize == 2
