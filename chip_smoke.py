@@ -12,28 +12,34 @@ In order, it:
      projection shapes: bf16 x and W on its tensor-core kernel, with G in
      {None, 1, 2, 3, 4} and the FMA kernel pinned beside it, deepseek's f32
      router and every f32 shape on the split-K FMA kernel, timed at the
-     router's three shapes and every f32 decode shape beside the tile
-     kernel it replaced; gpp_matmul_grouped on both routes, bf16 x
-     and W on its tensor-core kernel, f32 and int8 on its FMA kernel), and
-     prints the largest error beside its tolerance, then the kernel's
+     router's three shapes and every f32 decode shape; both models' f32
+     logits heads, f32 x against the bf16 (d, vocab) table on the FMA
+     kernel, timed at the three step shapes beside the `torch.matmul` on
+     the f32 table it replaced; gpp_matmul_grouped on both routes, bf16 x
+     and W on its tensor-core kernel, f32 and int8 on its split-K FMA
+     kernel, both timed at every phase and projection), and prints the
+     largest error beside its tolerance, then the kernel's
      time (for bf16 gpp_matmul also the pinned FMA kernel's), the plain
      version's time, a library yardstick's time (`torch.matmul` /
-     `torch.bmm`; `scaled_dot_product_attention` on gathered K/V or latent
-     rows; `F.rms_norm`) and the bound (the larger of bytes / 3.35e12 B/s
-     and operations / the peak rate of their type); it checks that the
-     gpp_matmul repeats bit for bit on both routes, that a tensor-core
-     row is the same bits at 4, 20 and 32 rows at every bf16 projection
-     and the router's at 1, 4, 20 and 32 rows, reads the issue-order
-     records of gpp_matmul (the FMA route's CTA 0 across a tile boundary
-     and a k-split; the tensor-core route's rank 0 over a k-slice of
-     several steps), gpp_matmul_grouped (the
-     tensor-core route at deepseek's decode shape, across n-tiles, and at
-     one n-tile an expert, across experts; the FMA route at the decode
-     shape in f32, 5 experts a CTA) and both tensor-core attention kernels
+     `torch.bmm`, f32 with TF32 off; `scaled_dot_product_attention` on
+     gathered K/V or latent rows; `F.rms_norm`) and the bound (the larger
+     of bytes / 3.35e12 B/s and operations / the peak rate of their type);
+     it checks that the gpp_matmul repeats bit for bit on both routes and
+     the grouped FMA kernel too, that a tensor-core row is the same bits
+     at 4, 20 and 32 rows at every bf16 projection, the router's at 1, 4,
+     20 and 32 rows, a logits row at 1, 4, 20 and 32 rows on both models'
+     tables and a grouped FMA row at 8, 32 and 128 rows an expert, reads
+     the issue-order records of gpp_matmul (the FMA route's CTA 0 across a
+     tile boundary and a k-split; the tensor-core route's rank 0 over a
+     k-slice of several steps), gpp_matmul_grouped (the tensor-core route
+     at deepseek's decode shape, across n-tiles, and at one n-tile an
+     expert, across experts; the FMA route at the decode shape in f32,
+     across tiles and k-splits, and at one n-tile an expert, across three
+     experts) and both tensor-core attention kernels
      back and compares them with `chunk_issue_schedule` for G in {1, 2, 4}
      (3 too on the tensor-core gpp_matmul) and the planned G, checks that
-     the card holds the CTAs an SM the tensor-core plans assume (for the
-     tensor-core gpp_matmul: every planned cluster at once, by
+     the card holds the CTAs an SM the plans assume (both grouped routes;
+     for the tensor-core gpp_matmul: every planned cluster at once, by
      cudaOccupancyMaxActiveClusters), and runs
      one full-width deepseek MoE layer in bf16 with the kernels against
      the plain versions (decode and prefill inputs, relative error <=
@@ -66,8 +72,9 @@ In order, it:
      three prompt seeds, whose greedy streams must be equal (tok/s and
      launch counts from seed 0, which must be > 0 for the path's kernels
      and 0 for the others: bf16 projections on the tensor-core gpp_matmul,
-     the FMA one only for deepseek's f32 router, one a MoE layer; GQA on
-     the tensor-core kernel and its merge; RMSNorm on its kernel), one
+     the FMA one for the f32 logits head, one a step-function call, and
+     deepseek's f32 router, one a MoE layer; GQA on the tensor-core kernel
+     and its merge; RMSNorm on its kernel), one
      profiled run (device time by kernel, again only under the path's
      kernels, busy share, the time under gpp_matmul and paged attention),
      then float32 with the kernels and with their plain versions, whose
@@ -265,13 +272,11 @@ def gpp_time(M, K, N, dtype):
     """Kernel / plain / torch.matmul times of an (M,K)@(K,N) product with
     no bias or activation (the up projection), and its bound.  bf16 times
     the tensor-core route and, in the same call, the FMA route pinned;
-    f32 the split-K FMA route and, beside it, the tile kernel it replaced
-    (`gpp_matmul_grouped` at E = 1 runs it on its old plan), each also by
-    CUDA events over a CUDA graph of launches (`graph_ms`, with
-    torch.matmul's beside it): a launch of a few microseconds is shorter
-    than the host's cost of issuing one."""
+    f32 the split-K FMA route, also by CUDA events over a CUDA graph of
+    launches (`graph_ms`, with torch.matmul's beside it): a launch of a few
+    microseconds is shorter than the host's cost of issuing one."""
     import torch
-    from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
+    from repro_torch.kernels.gpp_matmul import gpp_matmul
     from repro_torch.kernels.ref import dense_ref
     dt = getattr(torch, dtype)
     es = torch.tensor([], dtype=dt).element_size()
@@ -291,12 +296,7 @@ def gpp_time(M, K, N, dtype):
     else:
         out["ms"], out["wall_ms"] = measure(
             lambda x, w: gpp_matmul(x, w), sets, KERNEL_NAMES["gpp_matmul"])
-        out["tile_ms"], out["tile_wall_ms"] = measure(
-            lambda x, w: gpp_matmul_grouped(x[None], w[None]), sets,
-            KERNEL_NAMES["gpp_matmul_grouped"])
         out["graph_ms"] = graph_ms(lambda x, w: gpp_matmul(x, w), sets)
-        out["tile_graph_ms"] = graph_ms(
-            lambda x, w: gpp_matmul_grouped(x[None], w[None]), sets)
         out["library_graph_ms"] = graph_ms(torch.matmul, sets)
     out["plain_ms"], out["plain_wall_ms"] = measure(
         lambda x, w: dense_ref(x, w), sets)
@@ -305,6 +305,99 @@ def gpp_time(M, K, N, dtype):
     out["bound_ms"], out["bound_by"] = bound((M * K + K * N + M * N) * es,
                                              2.0 * M * K * N, dtype)
     return out
+
+
+# the f32 logits heads: (d_model, vocab) of each model's table, and the
+# rows a step function's head takes (prefill: its chunk's last row)
+HEADS = {"qwen1.5-0.5b": (D, 151936), "deepseek-v2-lite-16b": (DS_D, 102400)}
+HEAD_M = {"prefill": 1, "decode": SLOTS, "verify": SLOTS * (DRAFT + 1)}
+
+
+def head_time(M, K, N):
+    """The f32 logits head at one step shape: f32 x (M, K) against the
+    bf16 (K, N) serving copy of the table on the FMA route of gpp_matmul
+    (`kernels.ops.dense`), against what it replaced, `torch.matmul` of f32
+    x and the f32 table's transpose (the cached f32 copy), and the plain
+    version; the bound reads the bf16 table once."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import dense_ref
+    g = torch.Generator(device="cuda").manual_seed(2)
+    sets = []
+    for _ in range(copies_for(K * N * 2)):
+        table = (torch.randn(N, K, generator=g, device="cuda")
+                 * 0.02).bfloat16()
+        sets.append((torch.randn(M, K, generator=g, device="cuda"),
+                     table.t().contiguous(), table.float()))
+    out = {}
+    out["ms"], out["wall_ms"] = measure(lambda x, wt, _: ops.dense(x, wt),
+                                        sets, KERNEL_NAMES["gpp_matmul"])
+    out["library_ms"], out["library_wall_ms"] = measure(
+        lambda x, _, t32: x @ t32.t(), sets)
+    out["plain_ms"], _ = measure(lambda x, wt, _: dense_ref(x, wt), sets)
+    out["bound_ms"], out["bound_by"] = bound(
+        M * K * 4 + K * N * 2 + M * N * 4, 2.0 * M * K * N, "float32")
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_head(report):
+    """The f32 logits head of both models on the FMA route: a row's bits
+    equal at 1, 4, 20 and 32 rows (and against the f32 table), within 2e-4
+    of the plain version; timed at the three step shapes beside the
+    `torch.matmul` it replaced."""
+    import torch
+    from repro_torch.core.schedule import plan_matmul_fma_sm90
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import dense_ref
+    rows = []
+    for arch, (K, N) in HEADS.items():
+        g = torch.Generator(device="cuda").manual_seed(3)
+        table = (torch.randn(N, K, generator=g, device="cuda")
+                 * 0.02).bfloat16()
+        table_t = table.t().contiguous()
+        x = torch.randn(32, K, generator=g, device="cuda")
+        fma = gm.launches.n
+        y = ops.dense(x, table_t)
+        check(gm.launches.n == fma + 1, f"{arch} head: not the FMA route")
+        ref = dense_ref(x, table_t)
+        err = float((y - ref).abs().max())
+        check(bool(torch.isfinite(y).all())
+              and bool(((y - ref).abs() <= 2e-4 + 2e-4 * ref.abs()).all()),
+              f"{arch} head: max err {err}")
+        by_m = {M: ops.dense(x[:M], table_t) for M in (1, SLOTS,
+                                                       HEAD_M["verify"])}
+        check(all(torch.equal(v, y[:M]) for M, v in by_m.items()),
+              f"{arch} head: a logits row's bits depend on the batch")
+        check(torch.equal(ops.dense(x[:SLOTS], table.float().t()
+                                    .contiguous()), y[:SLOTS]),
+              f"{arch} head: the bf16 table does not give its f32 copy's "
+              "bits")
+        del table, table_t
+        torch.cuda.empty_cache()
+        print(f"logits head {arch} {K}x{N}: a row's bits equal at "
+              f"{sorted(by_m) + [32]} rows; bf16 table == its f32 copy; "
+              f"max_abs_err={err:.3g}", flush=True)
+        for phase, M in HEAD_M.items():
+            plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=2)
+            row = {"arch": arch, "phase": phase, "M": M, "K": K, "N": N,
+                   "max_abs_err": err,
+                   "plan": {"block_m": plan.block_m,
+                            "block_k": plan.block_k,
+                            "num_bufs": plan.num_bufs, "grid": plan.grid,
+                            "max_segs": plan.max_segs},
+                   **head_time(M, K, N)}
+            rows.append(row)
+            print(f"logits head {arch} {phase:7s} {M}x{K}x{N} (f32 x, bf16 "
+                  f"table): ms={row['ms']:.4f} torch.matmul (f32 table) "
+                  f"library_ms={row['library_ms']:.4f} plain_ms="
+                  f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}) wall_ms={row['wall_ms']:.4f} "
+                  f"plan={row['plan']}", flush=True)
+    report["logits_head"] = rows
+    return rows
 
 
 def check_gpp(report):
@@ -360,10 +453,8 @@ def check_gpp(report):
                           f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
                           + (f" ms={row['ms']:.4f}"
                              + (f" fma_ms={row['fma_ms']:.4f}" if bf16
-                                else f" tile_ms={row['tile_ms']:.4f} graph_ms"
-                                f" kernel / tile / matmul="
+                                else f" graph_ms kernel / matmul="
                                 f"{row['graph_ms']:.4f} / "
-                                f"{row['tile_graph_ms']:.4f} / "
                                 f"{row['library_graph_ms']:.4f}")
                              + f" plain_ms={row['plain_ms']:.4f} library_ms="
                              f"{row['library_ms']:.4f} bound_ms="
@@ -876,7 +967,8 @@ def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
 def grouped_time(M, K, N, dtype):
     """Kernel / plain / torch.bmm times of one (E, M, K) @ (E, K, N) launch
     at the path's shape, and its bound (every expert's W read once).  bf16
-    times the tensor-core kernel, f32 the FMA kernel."""
+    times the tensor-core kernel, f32 the split-K FMA kernel (torch.bmm in
+    f32 with TF32 off)."""
     import torch
     from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
     from repro_torch.kernels.ref import dense_grouped_ref
@@ -895,26 +987,30 @@ def grouped_time(M, K, N, dtype):
             "library_wall_ms": lib_wall, "kernel": name}
 
 
-def grouped_issue_order(x, w, G, what):
+def grouped_issue_order(x, w, G, what, experts=1):
     """Read the first CTA's issue-order record back and compare it with
-    `chunk_issue_schedule`; returns (G used, work items in the run)."""
+    `chunk_issue_schedule`; the run must hold more than one work item and
+    at least `experts` experts.  Returns (G used, work items in the run)."""
     from repro_torch.kernels import gpp_matmul as gm
     from repro_torch.kernels.ref import chunk_issue_schedule
-    got, steps, g_used, C, items = gm.issue_order_grouped(x, w, G)
+    got, steps, g_used, C, items, n_exp = gm.issue_order_grouped(x, w, G)
     check(G is None or g_used == G, f"{what}: ring depth {g_used} != {G}")
-    check(items > 1, f"{what}: the first CTA's run holds {items} item(s)")
+    check(items > 1 and n_exp >= experts,
+          f"{what}: the first CTA's run holds {items} item(s) of {n_exp} "
+          "expert(s)")
     check(got == chunk_issue_schedule(steps, g_used, C),
           f"{what}: issue order differs at G={G}")
     print(f"gpp_matmul_grouped issue order {what} G={g_used} (asked {G}) "
-          f"C={C} steps={steps} over {items} work items: "
-          f"{sum(len(v) for v in got.values())} chunk issues == "
+          f"C={C} steps={steps} over {items} work items of {n_exp} "
+          f"expert(s): {sum(len(v) for v in got.values())} chunk issues == "
           "chunk_issue_schedule")
     return g_used, items
 
 
 def check_grouped(report):
     import torch
-    from repro_torch.core.schedule import plan_grouped_tc_sm90
+    from repro_torch.core.schedule import (plan_grouped_tc_sm90,
+                                           plan_matmul_fma_sm90)
     from repro_torch.kernels import gpp_matmul as gm
     rows = []
     timed = {}
@@ -930,32 +1026,34 @@ def check_grouped(report):
                        "tol": TOL[dtype],
                        "route": "tc" if dtype == "bfloat16" else "fma"}
                 key = (M, K, N, dtype)       # verify's shape is decode's
-                if dtype == "bfloat16" or (phase, name) == ("decode",
-                                                            "gate_up"):
-                    if key not in timed:
-                        timed[key] = grouped_time(M, K, N, dtype)
-                    row.update(timed[key])
-                if dtype == "bfloat16":      # the card holds the plan
+                if key not in timed:
+                    timed[key] = grouped_time(M, K, N, dtype)
+                row.update(timed[key])
+                # the card holds the CTAs an SM the plan assumed
+                if dtype == "bfloat16":
                     plan = plan_grouped_tc_sm90(DS_E, M, K, N)
                     row["ctas_per_sm"] = gm.grouped_tc_ctas_per_sm(plan)
-                    check(row["ctas_per_sm"] == plan.ctas_per_sm,
-                          f"{row['ctas_per_sm']} CTAs an SM, planned "
-                          f"{plan.ctas_per_sm}")
-                    row["plan"] = {"block_m": plan.block_m,
-                                   "block_k": plan.block_k,
-                                   "num_bufs": plan.num_bufs,
-                                   "grid": plan.grid}
+                else:
+                    plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=4,
+                                                E=DS_E)
+                    row["ctas_per_sm"] = gm.fma_ctas_per_sm(
+                        plan, torch.float32, torch.float32)
+                check(row["ctas_per_sm"] == plan.ctas_per_sm,
+                      f"gpp_matmul_grouped {dtype} {DS_E}x{M}x{K}x{N}: "
+                      f"{row['ctas_per_sm']} CTAs an SM, planned "
+                      f"{plan.ctas_per_sm}")
+                row["plan"] = {"block_m": plan.block_m,
+                               "block_k": plan.block_k,
+                               "num_bufs": plan.num_bufs, "grid": plan.grid}
                 rows.append(row)
                 print(f"gpp_matmul_grouped {phase:7s} {name:7s} "
                       f"{DS_E}x{M}x{K}x{N} {dtype} ({row['route']}): "
                       f"max_abs_err={err:.3g} (atol,rtol)={TOL[dtype]}"
-                      + (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
-                         f" library_ms={row['library_ms']:.4f} bound_ms="
-                         f"{row['bound_ms']:.4f} ({row['bound_by']})"
-                         f" wall_ms={row['wall_ms']:.4f}"
-                         if "ms" in row else "")
-                      + (f" plan={row['plan']} ctas/SM="
-                         f"{row['ctas_per_sm']}" if "plan" in row else ""))
+                      f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f}"
+                      f" library_ms (torch.bmm)={row['library_ms']:.4f} "
+                      f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+                      f" wall_ms={row['wall_ms']:.4f} plan={row['plan']} "
+                      f"ctas/SM={row['ctas_per_sm']}", flush=True)
     extra = {"tc": [], "fma": []}
     for dtype in ("bfloat16", "float32"):      # int8 W: the FMA route
         for scale in ("scalar", "expert", "column"):
@@ -964,15 +1062,35 @@ def check_grouped(report):
     for G in (None, 1, 2, 4):                  # ragged M, K, N
         extra["tc"].append(grouped_case(7, 300, 130, "bfloat16", bias=True,
                                         act="gelu", G=G))
-    extra["fma"].append(grouped_case(7, 300, 130, "float32", bias=True,
-                                     act="gelu", G=4))
+        extra["fma"].append(grouped_case(7, 300, 130, "float32", bias=True,
+                                         act="gelu", G=G))
     print("gpp_matmul_grouped int8/bias/ragged cases: "
           + ", ".join(f"{r} {len(v)} ok, max_abs_err={max(v):.3g}"
                       for r, v in extra.items()))
+    # the FMA route sums split tiles in segment order: bitwise repeatable,
+    # and a row's bits are the same at 8, 32 (decode, verify) and 128
+    # (prefill) rows an expert, its k-cuts coming from E, K and N alone
+    for name, (K, N) in DS_PROJ.items():
+        x, w = grouped_inputs(DS_ROWS["prefill"], K, N, "float32", seed=7)
+        y = gm.gpp_matmul_grouped(x, w, activation="silu")
+        check(all(torch.equal(gm.gpp_matmul_grouped(x, w, activation="silu"),
+                              y) for _ in range(3)),
+              f"gpp_matmul_grouped f32 {name}: not bitwise repeatable")
+        for M in (8, DS_ROWS["decode"]):
+            check(torch.equal(gm.gpp_matmul_grouped(
+                x[:, :M].contiguous(), w, activation="silu"), y[:, :M]),
+                  f"gpp_matmul_grouped f32 {name}: a row's bits differ at "
+                  f"{M} rows an expert")
+        print(f"gpp_matmul_grouped f32 {name} {DS_E}x*x{K}x{N}: bitwise "
+              "repeatable over 4 runs; a "
+              f"row's bits equal at 8 / {DS_ROWS['decode']} / "
+              f"{DS_ROWS['prefill']} rows an expert", flush=True)
+        del x, w, y
     # the ring runs across work boundaries in the issue order of the
     # generalized ping-pong schedule: the tensor-core route at the path's
     # decode gate/up shape (n-tile boundaries) and at one n-tile an expert
-    # (expert boundaries), the FMA route at the decode shape in f32
+    # (expert boundaries); the FMA route at the decode shape in f32 (tile
+    # and k-split boundaries) and at one n-tile an expert (expert ones)
     orders = []
     x, w = grouped_inputs(DS_ROWS["decode"], DS_D, DS_F, "bfloat16")
     for G in (None, 1, 2, 4):
@@ -981,11 +1099,13 @@ def check_grouped(report):
     x = torch.randn(600, 16, 512, generator=g, device="cuda").bfloat16()
     w = (torch.randn(600, 512, 64, generator=g, device="cuda")
          * 0.02).bfloat16()
-    plan = plan_grouped_tc_sm90(600, 16, 512, 64)
-    check([plan.unit(u)[0] for u in plan.cta_units(0)] == [0, 1],
-          "the first CTA's run does not cross an expert boundary")
     for G in (None, 1, 2, 4):
-        orders.append(grouped_issue_order(x, w, G, "tc 600x16x512x64"))
+        orders.append(grouped_issue_order(x, w, G, "tc 600x16x512x64",
+                                          experts=2))
+    x, w = x.float(), w.float()
+    for G in (None, 1, 2, 4):
+        orders.append(grouped_issue_order(x, w, G, "fma f32 600x16x512x64",
+                                          experts=3))
     x, w = grouped_inputs(DS_ROWS["decode"], DS_D, DS_F, "float32")
     for G in (None, 1, 2, 4):
         orders.append(grouped_issue_order(x, w, G, "fma f32 64x32x2048x1408"))
@@ -1629,6 +1749,9 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
                 busy[key] += e.time_range.elapsed_us() / 1e6
     streams = [results[r] for r in rids]
     ntok = sum(len(s) for s in streams)
+    # step-function calls: each runs one logits head
+    calls = sum((m["prefill_tokens"] > 0) + (m["decode_tokens"] > 0)
+                + (m["verify_tokens"] > 0) for m in engine.metrics)
     check(all(len(s) == max_new for s in streams), "a request did not finish")
     check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
           "token out of range")
@@ -1641,7 +1764,7 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
             "dtype": cfg.dtype, "speculation": speculation, "mode": mode,
             "block_size": block_size,
             "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
-            "steps": len(engine.metrics), "launches": counts,
+            "steps": len(engine.metrics), "calls": calls, "launches": counts,
             "shapes": shapes, "acceptance_rate": engine.acceptance_rate()}
     if profile:
         info["device_busy_s"] = busy
@@ -1704,11 +1827,14 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
             check((n > 0) == (k in path_kernels),
                   f"{k} launched {n} times on the {arch} path ({key})")
         # bf16 projections run the tensor-core gpp_matmul; the FMA one runs
-        # only deepseek's f32 router, one a MoE layer (three grouped
-        # launches)
-        check(counts["gpp_matmul"] * 3 == counts["gpp_matmul_grouped_tc"],
+        # the f32 logits head, one a step-function call, and deepseek's f32
+        # router, one a MoE layer (three grouped launches)
+        calls = runs[key]["calls"]
+        check(counts["gpp_matmul"]
+              == calls + counts["gpp_matmul_grouped_tc"] // 3,
               f"{arch} ({key}): {counts['gpp_matmul']} FMA gpp_matmul "
-              f"launches for {counts['gpp_matmul_grouped_tc']} grouped ones")
+              f"launches for {calls} heads and "
+              f"{counts['gpp_matmul_grouped_tc']} grouped launches")
     check(runs["bf16"]["shapes"]["decode"] == 1
           and runs["bf16_spec"]["shapes"]["verify"] == 1,
           f"{arch}: the decode or the verify shape did not run")
@@ -1844,6 +1970,7 @@ def main(argv=None) -> int:
     report = {"card": smi, "build_s": build_s}
 
     gpp_rows, gpp_err = check_gpp(report)
+    head_rows = check_head(report)
     pa_rows = check_paged(report)
     rms_rows = check_rmsnorm(report)
     grouped_rows, grouped_err = check_grouped(report)
@@ -1851,8 +1978,9 @@ def main(argv=None) -> int:
     mla_rows = check_mla(report)
     mla_block_rows = check_mla_blocks(report)
     qwen = check_serving(report, "qwen1.5-0.5b",
-                         ("gpp_matmul_tc", "paged_attention_tc",
-                          "paged_attention_merge", "rmsnorm"),
+                         ("gpp_matmul_tc", "gpp_matmul",
+                          "paged_attention_tc", "paged_attention_merge",
+                          "rmsnorm"),
                          ("gpp_matmul", "paged_attention",
                           "paged_attention_merge", "rmsnorm"))
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
@@ -1906,11 +2034,22 @@ def main(argv=None) -> int:
         "qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul_tc"],
         "deepseek-v2-lite-16b": deepseek["bf16"]["launches"]["gpp_matmul_tc"]}
     fma_by_path = {
-        "deepseek-v2-lite-16b (f32 router)":
+        "qwen1.5-0.5b (f32 logits head)":
+            qwen["bf16"]["launches"]["gpp_matmul"],
+        "deepseek-v2-lite-16b (f32 logits head and router)":
             deepseek["bf16"]["launches"]["gpp_matmul"],
         "qwen1.5-0.5b in f32": qwen["f32_kernel"]["launches"]["gpp_matmul"],
         "deepseek-v2-lite-16b in f32 (4 layers)":
             deepseek["f32_kernel"]["launches"]["gpp_matmul"]}
+    head_by_shape = {f"{r['arch']} {r['phase']} {r['M']}x{r['K']}x{r['N']}":
+                     {k: r[k] for k in ("ms", "library_ms", "plain_ms",
+                                        "bound_ms")}
+                     for r in head_rows}
+    grouped_fma_by_shape = {
+        f"{r['phase']} {r['proj']} {r['E']}x{r['M']}x{r['K']}x{r['N']}":
+            {k: r[k] for k in ("ms", "library_ms", "plain_ms", "bound_ms",
+                               "plan", "ctas_per_sm")}
+        for r in grouped_rows if r["dtype"] == "float32"}
     kernels = [
         {"name": "gpp_matmul_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
@@ -1933,24 +2072,28 @@ def main(argv=None) -> int:
              and r["phase"] != "decode"),
          **{k: g[k] for k in numbers}},
         {"name": "gpp_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gpp_matmul.cu",
+         "source": "src/repro_torch/kernels/csrc/gpp_matmul.cuh",
          "replaces": "src/repro/kernels/gpp_matmul.py:408",
-         "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; split-K "
-                   "FMA, split tiles summed by their last CTA)",
-         "path": "deepseek-v2-lite-16b (its f32 router); f32 runs",
-         "launches": deepseek["bf16"]["launches"]["gpp_matmul"],
+         "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; the split-K "
+                   "FMA body of gpp_matmul.cuh at E = 1, split tiles "
+                   "summed by their last CTA)",
+         "path": "qwen1.5-0.5b (its f32 logits head), deepseek-v2-lite-16b "
+                 "(its f32 logits head and router); f32 runs",
+         "launches": qwen["bf16"]["launches"]["gpp_matmul"]
+         + deepseek["bf16"]["launches"]["gpp_matmul"],
          "launches_by_path": fma_by_path,
-         "max_abs_err": gpp_err["fma"],
+         "max_abs_err": max(gpp_err["fma"],
+                            max(r["max_abs_err"] for r in head_rows)),
          "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 and int8 W as "
                 "bf16",
          "shape": f"deepseek decode router {gr['M']}x{gr['K']}x{gr['N']} "
-                  "f32 (prefill / verify and every f32 decode shape: "
-                  "--json-out)",
-         "tile_ms": gr["tile_ms"],
+                  "f32 (prefill / verify, every f32 decode shape and the "
+                  "heads: --json-out)",
          "graph_ms": gr["graph_ms"],
          "library_graph_ms": gr["library_graph_ms"],
          "router_ms_by_phase": {r["phase"]: r["ms"] for r in gpp_rows
                                 if r["proj"] == "router"},
+         "logits_head": head_by_shape,
          **{k: gr[k] for k in numbers}},
         {"name": "paged_attention_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2011,16 +2154,20 @@ def main(argv=None) -> int:
                   "bf16",
          **{k: gg[k] for k in numbers}},
         {"name": "gpp_matmul_grouped_fma", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
+         "source": "src/repro_torch/kernels/csrc/gpp_matmul.cuh",
          "replaces": "src/repro/kernels/gpp_matmul.py:606",
-         "kernel": "gpp_matmul_grouped_kernel (f32 x, or f32 / int8 W)",
+         "kernel": "gpp_matmul_grouped_kernel (f32 x, or f32 / int8 W; the "
+                   "split-K FMA body of gpp_matmul.cuh over the expert "
+                   "axis)",
          "path": "deepseek-v2-lite-16b in f32 "
                  f"({deepseek['f32_kernel']['num_layers']} layers)",
          "launches":
              deepseek["f32_kernel"]["launches"]["gpp_matmul_grouped"],
          "max_abs_err": grouped_err["fma"],
+         "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 x as bf16",
          "shape": f"decode gate/up {gf['E']}x{gf['M']}x{gf['K']}x{gf['N']} "
-                  "f32",
+                  "f32 (library: torch.bmm, TF32 off)",
+         "by_shape": grouped_fma_by_shape,
          **{k: gf[k] for k in numbers}},
         {"name": "paged_attention_mla_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -16,11 +16,12 @@ launch: CUDA events around the replay of a CUDA graph of 40 launches whose
 inputs rotate through copies larger than the L2 cache (a launch takes a
 few microseconds, about the host's cost of issuing one from Python).  Each
 configuration's output is held against `kernels.ref.dense_ref` (f32
-tolerance 2e-4).  Beside the planned configuration it times, by the same
-graph replay, `torch.matmul` and the tile kernel the FMA route ran before
-(`gpp_matmul_grouped` at E = 1 launches it on its old plan), and sums the
-planned and the best configuration's times over the shapes.  Without
-CUDA, or outside a checkout of the repo, it exits 2.
+tolerance 2e-4).  Beside the planned configuration it times
+`torch.matmul` by the same graph replay, and sums the planned and the best
+configuration's times over the shapes.  (`gpp_matmul_grouped` at E = 1
+runs the same kernel body; `scripts/grouped_fma_sweep.py` sweeps it over
+the experts.)  Without CUDA, or outside a checkout of the repo, it exits
+2.
 """
 from __future__ import annotations
 
@@ -93,7 +94,7 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
-    build.build_all(("gpp_matmul", "gpp_matmul_grouped"))
+    build.build_all(("gpp_matmul",))
     shapes = []
     for phase in args.phases.split(","):
         M = PHASE_M[phase]
@@ -102,8 +103,7 @@ def main(argv=None) -> int:
     if "verify" not in args.phases.split(","):
         shapes.append(("verify", "ds router", PHASE_M["verify"],
                        *ROUTER["ds router"]))
-    rows, totals = [], {"planned": 0.0, "best": 0.0, "tile": 0.0,
-                        "matmul": 0.0}
+    rows, totals = [], {"planned": 0.0, "best": 0.0, "matmul": 0.0}
     for phase, name, M, K, N in shapes:
         planned = sched.plan_matmul_fma_sm90(M, K, N, w_itemsize=4)
         copies = max(2, math.ceil(2 * L2_BYTES / (K * N * 4)))
@@ -113,10 +113,8 @@ def main(argv=None) -> int:
                 for _ in range(copies)]
         ref = dense_ref(*sets[0])
         mm = graph_ms(torch.matmul, sets)
-        tile = graph_ms(lambda x, w: gm.gpp_matmul_grouped(x[None], w[None]),
-                        sets)
-        print(f"{phase} {name} {M}x{K}x{N}: torch.matmul {mm:.4f} ms, old "
-              f"tile kernel {tile:.4f} ms; planned block_k="
+        print(f"{phase} {name} {M}x{K}x{N}: torch.matmul {mm:.4f} ms; "
+              f"planned block_k="
               f"{planned.block_k} G={planned.num_bufs} grid={planned.grid} "
               f"segs={planned.max_segs}", flush=True)
         times = {}
@@ -146,8 +144,7 @@ def main(argv=None) -> int:
                                  "K": K, "N": N, "block_k": bk, "G": G,
                                  "grid": grid, "max_segs": p.max_segs,
                                  "ms": ms, "max_abs_err": err,
-                                 "matmul_ms": mm, "tile_ms": tile,
-                                 "planned": is_plan})
+                                 "matmul_ms": mm, "planned": is_plan})
                     print(f"  block_k={bk} G={G} grid={grid} block_m="
                           f"{p.block_m} segs="
                           f"{p.max_segs} steps={p.cta_steps(0)} ms={ms:.4f}"
@@ -158,11 +155,9 @@ def main(argv=None) -> int:
         key = (planned.block_k, planned.num_bufs, planned.grid)
         best = min(times, key=times.get)
         print(f"  planned {key} {times[key]:.4f} ms, best {best} "
-              f"{times[best]:.4f} ms, matmul {mm:.4f}, old tile {tile:.4f}",
-              flush=True)
+              f"{times[best]:.4f} ms, matmul {mm:.4f}", flush=True)
         totals["planned"] += times[key]
         totals["best"] += times[best]
-        totals["tile"] += tile
         totals["matmul"] += mm
         del sets
         torch.cuda.empty_cache()

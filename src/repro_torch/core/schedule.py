@@ -3,10 +3,10 @@
 `round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
 `tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
-over; in their place `plan_matmul_fma_sm90` (the FMA route of
-`gpp_matmul`), `plan_matmul_tc_sm90` (its tensor-core route),
-`plan_grouped_sm90` (with `plan_matmul_sm90`, its FMA tile) and
-`plan_grouped_tc_sm90` (the grouped kernel's two routes),
+over; in their place `plan_matmul_fma_sm90` (the FMA
+route of `gpp_matmul` and, with an expert axis, of `gpp_matmul_grouped`),
+`plan_matmul_tc_sm90` and `plan_grouped_tc_sm90` (their tensor-core
+routes),
 `plan_paged_attn_fma_sm90`, `plan_paged_attn_mla_tc_sm90` and
 `plan_paged_attn_gqa_tc_sm90` pick the tile
 sizes and the shared-memory ring depth G of the CUDA kernels:
@@ -115,117 +115,14 @@ def tokens_per_step_cov(counts: "list[int] | list[float]") -> float:
 # sm_90 plans for the CUDA kernels
 # ---------------------------------------------------------------------------
 
-GPP_BLOCK_N = 64         # output columns per CTA (one per thread column)
-GPP_BLOCK_K = 256        # weight-tile rows per k-step: each step's wait
-                         # covers one memory round trip, so fewer, larger
-                         # steps stream W faster at small M
-GPP_MAX_BLOCK_M = 64     # rows per CTA: 4 row groups x <= 16 rows/thread
-
-
-@dataclasses.dataclass(frozen=True)
-class MatmulPlan:
-    """Tiles and ring of one FMA tile-kernel launch (`gpp_matmul.cuh`, the
-    grouped kernel's FMA route, one expert's tile).  Each CTA owns one
-    (block_m, block_n) output tile and walks its num_k k-steps; the W tiles
-    of those steps stream through a num_bufs-slot ring in `chunks` chunks."""
-
-    block_m: int
-    block_n: int
-    block_k: int
-    num_bufs: int
-    chunks: int
-    smem_bytes: int
-
-    def grid(self, M: int, N: int, K: int) -> "tuple[int, int, int]":
-        return (-(-M // self.block_m), -(-N // self.block_n),
-                -(-K // self.block_k))
-
-
-def gpp_smem_bytes(bm: int, bn: int, bk: int, G: int, w_itemsize: int) -> int:
-    """W ring (raw weight dtype) + one f32 x tile."""
-    return G * bk * bn * w_itemsize + bm * bk * 4
+GPP_BLOCK_N = 64         # FMA route: output columns of a tile
+GPP_MAX_BLOCK_M = 64     # its rows of a tile: 4 row groups x <= 16 rows
 
 
 def _ring_depth(block_bytes: float, flops: float, flops_per_s: float) -> int:
     return plan_stream(block_bytes=block_bytes, compute_flops=flops,
                        flops_per_s=flops_per_s,
                        transfer_bytes_per_s=H100_HBM_BYTES_PER_S).ring_depth
-
-
-def plan_matmul_sm90(M: int, K: int, N: int, *, w_itemsize: int,
-                     num_bufs: "int | None" = None,
-                     smem_budget: int = SMEM_BUDGET_BYTES,
-                     runs: int = 1) -> MatmulPlan:
-    """Tiles + ring depth of the FMA tile kernel (`gpp_matmul.cuh`, the
-    grouped kernel's FMA route) on an H100 (module docstring).
-
-    A planned ring shrinks to fit the shared-memory budget, down to
-    ping-pong; a pinned `num_bufs` is kept and the tile's k rows halve
-    instead.  Raises when even 16 rows a step do not fit.  `runs` is the
-    number of k-walks one CTA makes back to back on one ring (experts per
-    CTA in the grouped kernel), which bounds how deep a ring can fill."""
-    if min(M, K, N) < 1:
-        raise ValueError(f"empty matmul {M}x{K}x{N}")
-    if num_bufs is not None and num_bufs < 1:
-        raise ValueError("num_bufs >= 1")
-    # block_m = 4 row groups x a power-of-two rows per thread (the kernel's
-    # compile-time count), the smallest that covers M, at most 64
-    bm = 4
-    while bm < min(M, GPP_MAX_BLOCK_M):
-        bm *= 2
-    bn = GPP_BLOCK_N
-    bk = min(GPP_BLOCK_K, K)
-    while True:
-        num_k = -(-K // bk)
-        G = num_bufs if num_bufs is not None else _ring_depth(
-            bk * bn * w_itemsize, 2.0 * bm * bk * bn, H100_BF16_FLOPS)
-        G = min(G, max(1, runs * num_k))   # deeper than the steps idles
-        if num_bufs is None:
-            while G > 2 and gpp_smem_bytes(bm, bn, bk, G,
-                                           w_itemsize) > smem_budget:
-                G -= 1
-        smem = gpp_smem_bytes(bm, bn, bk, G, w_itemsize)
-        if smem <= smem_budget:
-            return MatmulPlan(bm, bn, bk, G, max(1, min(G - 1, bk)), smem)
-        if bk <= 16:
-            raise ValueError(f"gpp_matmul ring of {G} needs {smem} bytes of "
-                             f"shared memory (budget {smem_budget})")
-        bk //= 2
-
-
-@dataclasses.dataclass(frozen=True)
-class GroupedPlan:
-    """`gpp_matmul_grouped`: each CTA owns one (block_m, block_n) tile
-    position for `experts_per_cta` consecutive experts and walks their
-    k-steps expert-major on one ring, so expert e+1's first W tiles stream
-    while expert e's last ones compute (the reference's expert-outermost
-    global step order)."""
-
-    tile: MatmulPlan
-    experts_per_cta: int
-
-    def grid(self, E: int, M: int, N: int) -> "tuple[int, int, int]":
-        """CUDA grid (n tiles, m tiles, expert runs)."""
-        return (-(-N // self.tile.block_n), -(-M // self.tile.block_m),
-                -(-E // self.experts_per_cta))
-
-
-def plan_grouped_sm90(E: int, M: int, K: int, N: int, *, w_itemsize: int,
-                      num_bufs: "int | None" = None,
-                      smem_budget: int = SMEM_BUDGET_BYTES) -> GroupedPlan:
-    """Plan for `gpp_matmul_grouped`: the flat kernel's tiles per expert,
-    and experts per CTA so that the grid keeps about two CTAs per SM (more
-    experts a CTA means fewer ring fills, fewer means more CTAs)."""
-    if E < 1:
-        raise ValueError("E >= 1")
-    bm = plan_matmul_sm90(M, K, N, w_itemsize=w_itemsize,
-                          num_bufs=num_bufs, smem_budget=smem_budget).block_m
-    per_expert = -(-M // bm) * -(-N // GPP_BLOCK_N)
-    epc = max(1, min(E, per_expert * E // (2 * H100_SMS)))
-    tile = plan_matmul_sm90(M, K, N, w_itemsize=w_itemsize,
-                            num_bufs=num_bufs, smem_budget=smem_budget,
-                            runs=epc)
-    return GroupedPlan(tile, epc)
 
 
 GPP_TC_BLOCK_N = 128         # output columns of one tensor-core unit
@@ -311,8 +208,7 @@ def plan_grouped_tc_sm90(E: int, M: int, K: int, N: int, *,
     in-situ: decode (32 rows) keeps 128-row tiles on a G = 3 ring, prefill
     (128 rows, whose x tiles take half the room) 128-row tiles in situ
     (PERF.md).  A pinned `num_bufs` is kept (clamped to the steps a
-    CTA walks, as `plan_matmul_sm90` does) and the tile or the CTAs an SM
-    give way."""
+    CTA walks) and the tile or the CTAs an SM give way."""
     if min(E, M, K, N) < 1:
         raise ValueError(f"empty grouped matmul {E}x{M}x{K}x{N}")
     if num_bufs is not None and num_bufs < 1:
@@ -543,22 +439,36 @@ GPP_FMA_SEG_S = 0.02e-6            # a split tile's fix-up, per segment read
 
 def matmul_fma_smem_bytes(bm: int, bk: int, G: int, w_itemsize: int) -> int:
     """G-slot W ring of (bk, 64) tiles in W's own dtype + one f32 (bm, bk)
-    x tile (csrc/gpp_matmul.cu, gpp_mm_fma::smem_bytes)."""
+    x tile (csrc/gpp_matmul.cuh, gpp_fma::smem_bytes)."""
     return G * bk * GPP_BLOCK_N * w_itemsize + bm * bk * 4
 
 
-def _fma_block_k(K: int, N: int) -> int:
-    """block_k of the FMA route, from K and N alone: the one whose
-    one-CTA-an-SM cut of an m-tile has the least modelled time, a run's
-    steps each streaming its f32 W tile at an SM's share of the memory rate
-    after a fixed wait, plus the fix-up's read of a split tile's segments.
-    Ties go to the larger block_k (fewer segments)."""
-    n_tiles = -(-N // GPP_BLOCK_N)
+def fma_two_ctas(bk: int) -> bool:
+    """Whether two CTAs of the FMA route fit an SM at k rows `bk` a step
+    whatever the rows and W: block_m 64, f32 W, a ring of 2."""
+    smem = matmul_fma_smem_bytes(GPP_MAX_BLOCK_M, bk, GPP_MM_TC_MAX_RING, 4)
+    return 2 * (smem + CTA_SMEM_RESERVED) <= SM_SMEM_BYTES
+
+
+def _fma_block_k(E: int, K: int, N: int) -> int:
+    """block_k of the FMA route, from E, K and N alone: the one whose
+    one-CTA-an-SM cut of an m-tile (E x n_tiles tiles) has the least
+    modelled time, a run's steps each streaming its f32 W tile at an SM's
+    share of the memory rate after a fixed wait, plus the fix-up's read of
+    a split tile's segments.  Ties go to the larger block_k (fewer
+    segments).  A grouped launch (E > 1) takes only the block_ks at which
+    two CTAs fit an SM (`fma_two_ctas`): it is the route's one launch with
+    more than 64 rows on a path (prefill's 128 rows an expert, two m-tiles
+    of 132 CTAs), which runs in one wave only at two CTAs an SM, and its
+    block_k may not depend on the rows."""
+    tiles = E * -(-N // GPP_BLOCK_N)
     best = None
     for bk in GPP_FMA_BLOCK_KS:
+        if E > 1 and not fma_two_ctas(bk):
+            continue
         num_k = -(-K // bk)
-        P = min(n_tiles * num_k, H100_SMS)
-        steps = -(-n_tiles * num_k // P)
+        P = min(tiles * num_k, H100_SMS)
+        steps = -(-tiles * num_k // P)
         segs = 1 if steps >= num_k else -(-num_k // steps) + 1
         t = steps * (bk * GPP_BLOCK_N * 4 * H100_SMS / H100_HBM_BYTES_PER_S
                      + GPP_FMA_STEP_S) + (segs > 1) * segs * GPP_FMA_SEG_S
@@ -569,19 +479,21 @@ def _fma_block_k(K: int, N: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MatmulFmaPlan:
-    """`gpp_matmul`'s FMA route (f32 x, or f32 / int8 W), split-K over
-    persistent CTAs.  A tile is one (n-tile, m-tile) of block_m x block_n
-    (64) outputs, numbered m-major (the m-tile outermost); a unit is one
-    (tile, k-step), numbered tile-major with the k-step inner.  `grid`
-    persistent CTAs each walk a contiguous run of units, `cta_units(i)`,
-    streaming the (block_k, block_n) W tile of each step through one
-    num_bufs-slot ring in `chunks` chunks.  The CTAs that share a tile are
-    its segments, `segments(t)`; a split tile's f32 partials go to
-    workspace slot (tile, segment), `max_segs` slots a tile.  With a grid
-    of m_tiles x P0 CTAs, CTA mt * P0 + j walks m-tile mt's units exactly
-    as CTA j walks them in the one-m-tile plan (floor((mt P0 + j) U0 / P0)
-    = mt U0 + floor(j U0 / P0)), so every m-tile meets the same k-cuts and
-    segments."""
+    """The FMA route (f32 x, or f32 / int8 W) of `gpp_matmul` (E = 1) and
+    `gpp_matmul_grouped` (E experts), split-K over persistent CTAs.  A tile
+    is one (m-tile, expert, n-tile) of block_m x block_n (64) outputs,
+    numbered m-tile outermost, then the expert, the n-tile inner (`tile`,
+    `expert`); a unit is one (tile, k-step), numbered tile-major with the
+    k-step inner.  `grid` persistent CTAs each walk a contiguous run of
+    units, `cta_units(i)`, streaming the (block_k, block_n) W tile of each
+    step through one num_bufs-slot ring in `chunks` chunks.  The CTAs that
+    share a tile are its segments, `segments(t)`, and a split tile's f32
+    partials are summed in segment order; each CTA has two workspace slots
+    of block_m x block_n, one for the tile its run starts in and one for
+    the tile it ends in.  With a grid of m_tiles x P0 CTAs, CTA mt * P0 +
+    j walks m-tile mt's units exactly as CTA j walks them in the
+    one-m-tile plan (floor((mt P0 + j) U0 / P0) = mt U0 + floor(j U0 /
+    P0)), so every m-tile meets the same k-cuts and segments."""
 
     M: int
     K: int
@@ -594,6 +506,7 @@ class MatmulFmaPlan:
     ctas_per_sm: int
     grid: int
     smem_bytes: int
+    E: int = 1
 
     @property
     def m_tiles(self) -> int:
@@ -609,16 +522,20 @@ class MatmulFmaPlan:
 
     @property
     def tiles(self) -> int:
-        return self.m_tiles * self.n_tiles
+        return self.m_tiles * self.E * self.n_tiles
 
     @property
     def units(self) -> int:
         return self.tiles * self.num_k
 
     def tile(self, t: int) -> "tuple[int, int]":
-        """(n-tile, m-tile) of tile t."""
-        mt, nt = divmod(t, self.n_tiles)
-        return nt, mt
+        """(n-tile, m-tile) of tile t (of expert `expert(t)`)."""
+        mt, r = divmod(t, self.E * self.n_tiles)
+        return r % self.n_tiles, mt
+
+    def expert(self, t: int) -> int:
+        """The expert of tile t."""
+        return t // self.n_tiles % self.E
 
     def unit(self, u: int) -> "tuple[int, int]":
         """(tile, k-step) of unit u."""
@@ -644,36 +561,46 @@ class MatmulFmaPlan:
 
     @functools.cached_property
     def max_segs(self) -> int:
-        """Workspace slots a tile: the most CTAs that share one."""
+        """The most CTAs that share one tile (1: no tile is split)."""
         return max(len(self.segments(t)) for t in range(self.tiles))
+
+    def slot(self, i: int, t: int) -> int:
+        """CTA i's workspace slot for its partial of tile t: 2 i for the
+        tile its run starts in, 2 i + 1 for the one it ends in."""
+        return 2 * i + (self.cta_units(i).start < t * self.num_k)
 
     @property
     def workspace_floats(self) -> int:
         """f32 of the partials' workspace: 0 when no tile is split."""
-        segs = self.max_segs
-        if segs == 1:
+        if self.max_segs == 1:
             return 0
-        return self.tiles * segs * self.block_m * self.block_n
+        return 2 * self.grid * self.block_m * self.block_n
 
 
 def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
+                         E: int = 1,
                          num_bufs: "int | None" = None,
                          block_k: "int | None" = None,
                          grid: "int | None" = None,
                          smem_budget: int = SMEM_BUDGET_BYTES
                          ) -> MatmulFmaPlan:
-    """Plan for the FMA route of `gpp_matmul` (f32 x, or f32 / int8 W).
+    """Plan for the FMA route (f32 x, or f32 / int8 W) of `gpp_matmul` (E
+    = 1) and of `gpp_matmul_grouped` (E experts of M rows each).
 
     block_k (256, 128, 64 or 32; `_fma_block_k`) and the P0 CTAs that cut
-    one m-tile's units (one an SM, at most 132) come from K and N alone,
-    never from M or W's dtype.  block_m (4 row groups x a power of two
-    rows a thread, 4-64) is the smallest whose m-tiles, P0 CTAs each, fit
-    132 CTAs, and
+    one m-tile's units come from E, K and N alone, never from M or W's
+    dtype: P0 is at most one CTA an SM (132) for one product, two (264)
+    for a grouped launch, whose block_k fits two an SM (the sweep: 264
+    CTAs of half the run beat 132 at deepseek's decode, PERF.md).  block_m
+    (4 row groups x a power of two rows a thread, 4-64) is the smallest
+    whose m-tiles, P0 CTAs each, fit those CTAs at once, and
     the grid is m_tiles x P0: at deepseek's router (P0 = 32) decode's 4
     rows take one m-tile of 4, verify's 20 three of 8, prefill's 32 four
     of 8, so each fix-up reads 32 partials of 1-2 KB, not of 8 KB; at the
-    wide projections (P0 = 132) block_m covers M <= 64 in one m-tile, as
-    W is then read once.  Every m-tile is cut alike (`MatmulFmaPlan`), so
+    wide projections (P0 = 132) and the experts (P0 = 264) block_m covers
+    M <= 64 in one m-tile, as W is then read once, and 128 rows an expert
+    take two m-tiles of 64 (W read twice: that launch is bound by its
+    FMAs, not its bytes).  Every m-tile is cut alike (`MatmulFmaPlan`), so
     a row meets the same k-cuts, the same segments and the same order of
     sums at any M: decode, verify and prefill give it the same bits, and a
     bf16 W widened in the kernel gives the bits of its f32 copy.  G comes
@@ -682,8 +609,8 @@ def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
     `num_bufs` is kept and block_k shrinks until it fits; `block_k` and
     `grid` (all CTAs) pins are for tests and sweeps.  Raises when nothing
     fits."""
-    if min(M, K, N) < 1:
-        raise ValueError(f"empty matmul {M}x{K}x{N}")
+    if min(E, M, K, N) < 1:
+        raise ValueError(f"empty matmul {E}x{M}x{K}x{N}")
     if num_bufs is not None and num_bufs < 1:
         raise ValueError("num_bufs >= 1")
     if block_k is not None and block_k not in GPP_FMA_BLOCK_KS:
@@ -694,17 +621,18 @@ def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
     if w_itemsize not in (1, 2, 4):
         raise ValueError(f"w_itemsize is 1, 2 or 4, got {w_itemsize}")
     bn = GPP_BLOCK_N
-    n_tiles = -(-N // bn)
-    planned_bk = _fma_block_k(K, N)
+    n_tiles = E * -(-N // bn)                  # an m-tile's tiles
+    slots = H100_SMS * (2 if E > 1 else 1)     # CTAs held at once
+    planned_bk = _fma_block_k(E, K, N)
     if block_k is not None:
         bks = (block_k,)
     else:       # the planned block_k, or smaller ones where a pinned ring
         bks = [bk for bk in GPP_FMA_BLOCK_KS if bk <= planned_bk]
     for bk in bks:
         per_m = n_tiles * -(-K // bk)
-        P0 = min(per_m, H100_SMS)
+        P0 = min(per_m, slots)
         bm = 4
-        while bm < GPP_MAX_BLOCK_M and -(-M // bm) * P0 > H100_SMS:
+        while bm < GPP_MAX_BLOCK_M and -(-M // bm) * P0 > slots:
             bm *= 2
         m_tiles = -(-M // bm)
         units = m_tiles * per_m
@@ -722,7 +650,7 @@ def plan_matmul_fma_sm90(M: int, K: int, N: int, *, w_itemsize: int,
         if smem <= smem_budget:
             ctas = min(2, SM_SMEM_BYTES // (smem + CTA_SMEM_RESERVED))
             return MatmulFmaPlan(M, K, N, bm, bn, bk, G,
-                                 max(1, min(G - 1, bk)), ctas, P, smem)
+                                 max(1, min(G - 1, bk)), ctas, P, smem, E)
     raise ValueError(f"gpp_matmul FMA ring of {num_bufs} does not fit "
                      f"{smem_budget} bytes of shared memory")
 

@@ -8,15 +8,16 @@
 // call, rows or none (the reference's dense_grouped does the same);
 // skipping empty experts is later work.
 //
-// Two tile kernels, one entry (`route`):
+// Two kernels, one entry (`route`):
 //
 // * route 1, gpp_matmul_grouped_tc_kernel (bf16 x and bf16 W, the
 //   deepseek serving path), below.
-// * route 0, gpp_matmul_grouped_kernel (f32 x, or f32 / int8 W): the FMA
-//   tile kernel of gpp_matmul.cuh with the expert axis in the grid; CTA
-//   (n, m, z) owns output tile (m, n) of experts z*epc .. z*epc+epc-1 and
-//   walks their k-steps expert-major on one G-slot ring
-//   (core.schedule.plan_grouped_sm90).
+// * route 0, gpp_matmul_grouped_kernel (f32 x, or f32 / int8 W; the f32
+//   runs): gpp_matmul.cuh's split-K FMA body over the expert axis, the one
+//   gpp_matmul.cu launches at E = 1 — persistent CTAs each walking a
+//   balanced run of (m-tile, expert, n-tile, k-step) units on one GPP ring,
+//   across expert boundaries, split tiles summed in segment order
+//   (core.schedule.plan_matmul_fma_sm90 with E).
 //
 // What bounds the tensor-core route on the H100: the expert weight bytes at
 // every shape of the path.  A decode or verify launch (32 rows an expert)
@@ -53,13 +54,13 @@
 //     overlap each other's waits, and the largest block_k that fits: 32 KB
 //     W tiles on a G = 3 ring at decode, 32 KB W + 32 KB x tiles in situ
 //     at prefill (the 128-row x tiles take half the room).
-// There is no split-K: each output element is one f32 chain over k in a
-// fixed order, whatever the batch holds.
+// The tensor-core route has no split-K: each output element is one f32
+// chain over k in a fixed order, whatever the batch holds.
 //
 // C interface (ctypes): gpp_matmul_grouped_launch returns the launch's
-// cudaError_t; with `rec` non-null, the first CTA (route 0: (0, 0, 0);
-// route 1: block 0) writes one (step, chunk, issue_step) triple per W chunk
-// it issues across its run of steps.
+// cudaError_t; with `rec` non-null, the first CTA (block 0 on either route)
+// writes one (step, chunk, issue_step) triple per W chunk it issues across
+// its run of steps.
 #define GPP_KERNEL gpp_matmul_grouped_kernel
 #include "gpp_matmul.cuh"
 #include "mma.cuh"
@@ -254,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 2)
               float t = acc[i][j][2 * h + q];
               if (a.scale != nullptr) t *= sc[q];
               if (a.bias != nullptr) t += bi[q];
-              v[q] = gpp_tile::activate(t, a.act);
+              v[q] = gpp_fma::activate(t, a.act);
             }
             bf16* yr = ye + (size_t)m * a.N;
             if ((a.N & 1) == 0 && n < a.N) {  // aligned pair
@@ -338,20 +339,25 @@ cudaError_t run_any(const TcArgs& a, int bm, int bk, int grid,
 }  // namespace gpp_tc
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (weights only).
-// scale and bias are (E, N) f32 or null.  route 0 is the FMA kernel
-// (experts_per_cta `epc`; `grid` and `xvec` unused), route 1 the
-// tensor-core kernel (bf16 x and W only; `grid` persistent CTAs, `xvec`
-// the cp.async width of x rows; `epc` unused).
+// scale and bias are (E, N) f32 or null; `grid` persistent CTAs.  route 0
+// is the FMA kernel (ws the f32 workspace of 2 (block_m x 64) slots a CTA
+// and cnt one int a tile, zero at the launch and after it, both unused when
+// max_segs == 1; `xvec` the width in bytes that x rows allow, the kernel
+// loading 4 elements at once from 4 elements' bytes), route 1 the
+// tensor-core kernel (bf16 x and W only; `xvec` the cp.async width of x
+// rows; ws, cnt and max_segs unused).
 extern "C" int gpp_matmul_grouped_launch(
     const void* x, const void* w, const float* scale, const float* bias,
-    void* y, int E, int M, int K, int N, int epc, int x_dtype, int w_dtype,
-    int bm, int bk, int G, int C, int act, int vec, int route, int grid,
-    int xvec, int* rec, void* stream) {
+    void* y, float* ws, int* cnt, int E, int M, int K, int N, int x_dtype,
+    int w_dtype, int bm, int bk, int G, int C, int act, int vec, int route,
+    int grid, int xvec, int max_segs, int* rec, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 0) {
-    gpp_tile::GppArgs a{x, w, scale, bias, y, E, M, K, N, epc,
-                        bm, bk, G, C, act, vec, rec};
-    return (int)gpp_tile::launch_any(a, x_dtype, w_dtype, st);
+    const int x4 = xvec >= (x_dtype == 0 ? 16 : 8);  // 4 elements' bytes
+    gpp_fma::FmaArgs a{x,  w, scale, bias, y,   ws, cnt, E,        M,  K,
+                       N,  bk, G,    C,   act, vec, x4, max_segs, rec};
+    return (int)gpp_fma::run_any(a, x_dtype, w_dtype, bm, grid, st,
+                                 nullptr);
   }
   if (route != 1 || x_dtype != 1 || w_dtype != 1) {
     return (int)cudaErrorInvalidValue;
@@ -361,6 +367,21 @@ extern "C" int gpp_matmul_grouped_launch(
                    scale, bias, static_cast<__nv_bfloat16*>(y),
                    E, M, K, N, G, C, act, vec, xvec, rec};
   return (int)gpp_tc::run_any(a, bm, bk, grid, st, nullptr);
+}
+
+// CTAs of the FMA kernel one SM holds at this tile, ring and dtypes (the
+// card's answer, after the launch's own attribute settings); < 0 is minus
+// a cudaError_t.
+extern "C" int gpp_matmul_grouped_fma_ctas_per_sm(int x_dtype, int w_dtype,
+                                                  int bm, int bk, int G) {
+  gpp_fma::FmaArgs a{};
+  a.bk = bk;
+  a.G = G;
+  a.C = 1;
+  int ctas = 0;
+  const cudaError_t e = gpp_fma::run_any(a, x_dtype, w_dtype, bm, 0,
+                                         nullptr, &ctas);
+  return e == cudaSuccess ? ctas : -(int)e;
 }
 
 // CTAs of the tensor-core kernel one SM holds at this tile and ring (the

@@ -16,7 +16,8 @@ library (`csrc/gpp_matmul.cu`), two kernels, routed by dtype
     of (64-column tile, k-step) units on one GPP ring, split tiles summed
     in a fixed order by their last CTA through a global workspace and
     per-tile arrival counters (`_tile_counters`, this route's alone;
-    `core.schedule.plan_matmul_fma_sm90`).
+    `core.schedule.plan_matmul_fma_sm90`), the body of `csrc/gpp_matmul.cuh`
+    at E = 1.
 On both routes the split comes from K and N alone, so a row's bits do not
 depend on M.
 
@@ -28,9 +29,9 @@ by dtype (`grouped_route`):
     `gpp_matmul_grouped_tc_kernel` — mma.sync tensor cores, persistent
     balanced CTAs on the same GPP ring (`core.schedule.plan_grouped_tc_sm90`);
   * "fma": f32 x, or f32 / int8 W, run `gpp_matmul_grouped_kernel`, the
-    CUDA-core tile kernel of `gpp_matmul.cuh` with each CTA walking the
-    k-steps of a few consecutive experts on one ring
-    (`core.schedule.plan_grouped_sm90`).
+    same split-K FMA body over the expert axis: units (m-tile, expert,
+    n-tile, k-step), runs across expert boundaries on one ring
+    (`core.schedule.plan_matmul_fma_sm90` with E).
 
 Both take CUDA tensors only and raise on anything the kernel cannot take;
 their plain versions (`kernels.ref.dense_ref` / `dense_grouped_ref`) are
@@ -40,12 +41,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.schedule import (MatmulFmaPlan, MatmulTcClusterPlan,
-                                      plan_grouped_sm90,
+from repro_torch.core.schedule import (GroupedTcPlan, MatmulFmaPlan,
+                                      MatmulTcClusterPlan,
                                       plan_grouped_tc_sm90,
                                       plan_matmul_fma_sm90,
                                       plan_matmul_tc_sm90)
@@ -166,35 +166,41 @@ def _tile_counters(dev: torch.device, stream, tiles: int) -> torch.Tensor:
     return c
 
 
+def _fma_scratch(plan: MatmulFmaPlan, x: torch.Tensor, stream):
+    """The FMA route's f32 workspace (torch.empty from the caching
+    allocator: every slot is written before it is read) and the stream's
+    tile counters, or (None, None) when the plan splits no tile."""
+    if plan.max_segs == 1:
+        return None, None
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                     device=x.device)
+    return ws, _tile_counters(x.device, stream, plan.tiles)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor,
             plan: "MatmulTcClusterPlan | MatmulFmaPlan", scale, b,
             activation: "str | None", record: "torch.Tensor | None",
             route: str) -> torch.Tensor:
     """Launch `route`'s kernel on its plan ("tc": `gpp_matmul_tc_kernel`,
     `_launch_tc`; "fma": `gpp_matmul_kernel`).  The FMA route's split
-    tiles' f32 partials go to a workspace from the caching allocator
-    (torch.empty, every slot written before it is read); its tile counters
-    are the launch stream's buffer (`_tile_counters`).  Nothing syncs."""
+    tiles' f32 partials go to a workspace (`_fma_scratch`).  Nothing
+    syncs."""
     if route == "tc":
         return _launch_tc(x, w, plan, scale, b, activation, record)
     M, K = x.shape
     N = w.shape[1]
-    segs = plan.max_segs
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device)
-    ws = cnt = None
-    if segs > 1:
-        ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
-                         device=x.device)
-        cnt = _tile_counters(x.device, stream, plan.tiles)
-    lib = _lib("gpp_matmul", 7, 13)
+    ws, cnt = _fma_scratch(plan, x, stream)
+    lib = _lib("gpp_matmul", 7, 14)
     err = lib.gpp_matmul_launch(
         x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
         _ptr(ws), _ptr(cnt), M, K, N, X_DTYPES[x.dtype], W_DTYPES[w.dtype],
         plan.block_m, plan.block_k, plan.num_bufs, plan.chunks,
         ACTIVATION_IDS[activation],
         build.copy_width(N * w.element_size(), w.data_ptr()), plan.grid,
-        segs, _ptr(record), stream.cuda_stream)
+        plan.max_segs, build.copy_width(K * x.element_size(), x.data_ptr()),
+        _ptr(record), stream.cuda_stream)
     build.check_launch(lib, err, "gpp_matmul")
     launches.n += 1
     return y
@@ -202,7 +208,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
 
 def _tc_lib() -> ctypes.CDLL:
     """The gpp_matmul library with its tensor-core entries typed."""
-    lib = _lib("gpp_matmul", 7, 13)
+    lib = _lib("gpp_matmul", 7, 14)
     if not getattr(lib, "_tc_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gpp_matmul_tc_launch.argtypes = [p] * 5 + [i] * 12 + [p, p]
@@ -297,34 +303,17 @@ def grouped_route(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
     return "fma"
 
 
-class _GroupedLaunch(NamedTuple):
-    """One `gpp_matmul_grouped` launch on its route, as planned: the C
-    entry's route, tile and ring arguments, and the first CTA's run."""
-
-    route: int           # 0 the FMA kernel, 1 the tensor-core kernel
-    block_m: int
-    block_k: int
-    num_bufs: int
-    chunks: int
-    grid: int            # tensor-core route: persistent CTAs
-    experts_per_cta: int  # FMA route
-    steps: int           # steps of the first CTA's run
-    items: int           # its work items: units (tc) or experts (fma)
-
-
-def _plan_grouped(x: torch.Tensor, w: torch.Tensor,
-                  num_bufs: "int | None") -> _GroupedLaunch:
+def _plan_grouped(x: torch.Tensor, w: torch.Tensor, num_bufs: "int | None"
+                  ) -> "GroupedTcPlan | MatmulFmaPlan":
+    """The plan of one `gpp_matmul_grouped` launch on the route x and w
+    take: `plan_grouped_tc_sm90` (tensor cores) or `plan_matmul_fma_sm90`
+    with E experts (FMA)."""
     E, M, K = x.shape
     N = w.shape[2]
     if grouped_route(x.dtype, w.dtype) == "tc":
-        p = plan_grouped_tc_sm90(E, M, K, N, num_bufs=num_bufs)
-        return _GroupedLaunch(1, p.block_m, p.block_k, p.num_bufs, p.chunks,
-                              p.grid, 0, p.cta_steps(0), len(p.cta_units(0)))
-    plan = plan_grouped_sm90(E, M, K, N, w_itemsize=w.element_size(),
-                             num_bufs=num_bufs)
-    tp, epc = plan.tile, plan.experts_per_cta
-    return _GroupedLaunch(0, tp.block_m, tp.block_k, tp.num_bufs, tp.chunks,
-                          0, epc, epc * tp.grid(M, N, K)[2], epc)
+        return plan_grouped_tc_sm90(E, M, K, N, num_bufs=num_bufs)
+    return _fma_plan(M, K, N, w_itemsize=w.element_size(), E=E,
+                     num_bufs=num_bufs)
 
 
 def gpp_matmul_grouped(x: torch.Tensor, w: torch.Tensor, *,
@@ -337,11 +326,10 @@ def gpp_matmul_grouped(x: torch.Tensor, w: torch.Tensor, *,
 
     x: (E, M, K) f32/bf16; w: (E, K, N) f32/bf16/int8; bias: (E, N);
     w_scale: scalar, (E,) or (E, N).  Output (E, M, N) in x.dtype.
-    num_bufs pins the ring depth G (None plans it); tiles, and the work
-    each CTA walks on its ring, are always planned.  bf16 x and w take the
-    tensor-core kernel, anything else the FMA kernel (`grouped_route`).
-    record: optional int32 CUDA tensor for the first CTA's issue order (see
-    `issue_order_grouped`).
+    num_bufs pins the ring depth G (None plans it); the rest of the plan is
+    planned.  bf16 x and w take the tensor-core kernel, anything else the
+    FMA kernel (`grouped_route`).  record: optional int32 CUDA tensor for
+    the first CTA's issue order (see `issue_order_grouped`).
     """
     if activation not in ACTIVATION_IDS:
         raise ValueError(f"unknown activation {activation!r}")
@@ -354,30 +342,61 @@ def gpp_matmul_grouped(x: torch.Tensor, w: torch.Tensor, *,
     _check_operands("gpp_matmul_grouped", x, w, record)
     scale = _epilogue_vector(w_scale, E, N, x.device, "w_scale")
     b = _epilogue_vector(bias, E, N, x.device, "bias", full=True)
-    p = _plan_grouped(x, w, num_bufs)
+    return _launch_grouped(x, w, _plan_grouped(x, w, num_bufs), scale, b,
+                           activation, record)
+
+
+def _launch_grouped(x: torch.Tensor, w: torch.Tensor,
+                    p: "GroupedTcPlan | MatmulFmaPlan", scale, b,
+                    activation: "str | None",
+                    record: "torch.Tensor | None") -> torch.Tensor:
+    """Launch `gpp_matmul_grouped`'s kernel on plan `p`: the tensor-core
+    kernel on a `GroupedTcPlan`, the FMA kernel (its workspace from
+    `_fma_scratch`) on a `MatmulFmaPlan`.  Nothing syncs."""
+    E, M, K = x.shape
+    N = w.shape[2]
+    tc = isinstance(p, GroupedTcPlan)
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
-    lib = _lib("gpp_matmul_grouped", 5, 16)
+    stream = torch.cuda.current_stream(x.device)
+    ws, cnt = (None, None) if tc else _fma_scratch(p, x, stream)
+    lib = _lib("gpp_matmul_grouped", 7, 16)
     err = lib.gpp_matmul_grouped_launch(
         x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(b), y.data_ptr(),
-        E, M, K, N, p.experts_per_cta, X_DTYPES[x.dtype], W_DTYPES[w.dtype],
-        p.block_m, p.block_k, p.num_bufs, p.chunks,
+        _ptr(ws), _ptr(cnt), E, M, K, N, X_DTYPES[x.dtype],
+        W_DTYPES[w.dtype], p.block_m, p.block_k, p.num_bufs, p.chunks,
         ACTIVATION_IDS[activation],
-        build.copy_width(N * w.element_size(), w.data_ptr()), p.route,
+        build.copy_width(N * w.element_size(), w.data_ptr()), int(tc),
         p.grid, build.copy_width(K * x.element_size(), x.data_ptr()),
-        _ptr(record), torch.cuda.current_stream(x.device).cuda_stream)
+        1 if tc else p.max_segs, _ptr(record), stream.cuda_stream)
     build.check_launch(lib, err, "gpp_matmul_grouped")
-    (launches_grouped_tc if p.route else launches_grouped).n += 1
+    (launches_grouped_tc if tc else launches_grouped).n += 1
     return y
 
 
 def grouped_tc_ctas_per_sm(plan) -> int:
     """CTAs of the tensor-core kernel an SM of this card holds at `plan`'s
     tile and ring (the occupancy the planner assumed is `ctas_per_sm`)."""
-    lib = _lib("gpp_matmul_grouped", 5, 16)
+    lib = _lib("gpp_matmul_grouped", 7, 16)
     fn = lib.gpp_matmul_grouped_tc_ctas_per_sm
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
     n = fn(plan.block_m, plan.block_k, plan.num_bufs)
+    if n < 0:
+        build.check_launch(lib, -n, "gpp_matmul_grouped")
+    return n
+
+
+def fma_ctas_per_sm(plan: MatmulFmaPlan, x_dtype: torch.dtype,
+                    w_dtype: torch.dtype) -> int:
+    """CTAs of the FMA kernel (`gpp_matmul.cuh`, as the grouped library
+    builds it) an SM of this card holds at `plan`'s tile and ring, for x
+    and W of these dtypes (the planner assumed `ctas_per_sm`)."""
+    lib = _lib("gpp_matmul_grouped", 7, 16)
+    fn = lib.gpp_matmul_grouped_fma_ctas_per_sm
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    n = fn(X_DTYPES[x_dtype], W_DTYPES[w_dtype], plan.block_m, plan.block_k,
+           plan.num_bufs)
     if n < 0:
         build.check_launch(lib, -n, "gpp_matmul_grouped")
     return n
@@ -405,17 +424,28 @@ def issue_order(x: torch.Tensor, w: torch.Tensor, num_bufs: "int | None",
     return build.read_issue_record(rec), steps, G, C
 
 
-def issue_order_grouped(x: torch.Tensor, w: torch.Tensor, num_bufs: int):
+def issue_order_grouped(x: torch.Tensor, w: torch.Tensor,
+                        num_bufs: "int | None"):
     """`issue_order` for `gpp_matmul_grouped`, on the route x and w take.
     The first CTA walks its run of work as one run of steps: on the
     tensor-core route its units (`plan_grouped_tc_sm90(...).cta_units(0)`,
-    (expert, n-tile, m-tile) each), on the FMA route experts 0 ..
-    experts_per_cta-1 at one tile position.  Returns ({(step, chunk):
-    [issue_steps]}, num_steps, G, C, work items in the run);
-    `chunk_issue_schedule(num_steps, G, C)` is the order it should equal."""
+    (expert, n-tile, m-tile) each), on the FMA route its (tile, k-step)
+    units (`plan_matmul_fma_sm90(..., E=E).cta_units(0)`) across k-split,
+    tile and expert boundaries.  Returns
+    ({(step, chunk): [issue_steps]}, num_steps, G, C, work items in the
+    run: units (tc) or tiles (fma), experts in the run);
+    `chunk_issue_schedule(num_steps, G, C)` is the order it should
+    equal."""
     p = _plan_grouped(x, w, num_bufs)
-    rec = torch.full((3 * p.steps * p.chunks,), -1, dtype=torch.int32,
+    if isinstance(p, GroupedTcPlan):
+        items = [p.unit(u) for u in p.cta_units(0)]
+        experts = {e for e, _, _ in items}
+    else:
+        items = sorted({p.unit(u)[0] for u in p.cta_units(0)})
+        experts = {p.expert(t) for t in items}
+    steps = p.cta_steps(0)
+    rec = torch.full((3 * steps * p.chunks,), -1, dtype=torch.int32,
                      device=x.device)
     gpp_matmul_grouped(x, w, num_bufs=num_bufs, record=rec)
-    return (build.read_issue_record(rec), p.steps, p.num_bufs, p.chunks,
-            p.items)
+    return (build.read_issue_record(rec), steps, p.num_bufs, p.chunks,
+            len(items), len(experts))

@@ -75,8 +75,8 @@ def dense(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
         y2 = dense_ref(x2, w2, bias=bias, w_scale=w_scale,
                        activation=activation)
     else:
-        y2 = gpp_matmul(x2.contiguous(), w2, bias=bias, w_scale=w_scale,
-                        activation=activation)
+        y2 = gpp_matmul(x2.contiguous(), w2.contiguous(), bias=bias,
+                        w_scale=w_scale, activation=activation)
     return y2.reshape(*lead, *out_dims)
 
 

@@ -5,8 +5,9 @@ oracle.
 are copies of `repro.kernels.ref` in torch, and `rmsnorm_ref` of
 `repro.models.layers.rmsnorm` (written as its steps: a sum, / d):
 the CPU path of the port runs them, and `chip_smoke.py` holds each kernel
-against them on the card.  `dense_split_ref` replays the split-K of
-`gpp_matmul`'s FMA route and its fixed-order fix-up, `dense_cluster_ref`
+against them on the card.  `dense_split_ref` and `dense_grouped_split_ref`
+replay the split-K of the FMA route of `gpp_matmul` and
+`gpp_matmul_grouped` and its fixed-order fix-up, `dense_cluster_ref`
 the cluster split-K of its tensor-core route and its rank-order sum, for
 the tests.
 `mla_merge_ref` is the plain version of the merge kernel that the split
@@ -66,22 +67,21 @@ def dense_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
                      activation)
 
 
-def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
-                    w_scale=None,
-                    activation: "str | None" = None) -> torch.Tensor:
-    """Plain replay of the split-K of `gpp_matmul`'s FMA route, for tests:
-    for each (block_m x block_n) tile of `plan`
-    (`core.schedule.plan_matmul_fma_sm90`), each CTA that shares it
-    (`plan.segments(t)`) computes an f32 partial over its run's k-steps of
-    the tile; the partials are summed in segment order, then the epilogue
-    runs as in `dense_ref` (f32 scale, bias, activation), cast to
-    x.dtype."""
-    M, K = x.shape
-    N = w.shape[1]
+def _split_acc(x: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
+    """The f32 accumulator (E, M, N) of the FMA route's split-K walk over
+    (E, M, K) @ (E, K, N): for each tile of `plan` (block_m x block_n of
+    expert `plan.expert(t)`), each CTA that shares it (`plan.segments(t)`)
+    computes an f32 partial over its run's k-steps of the tile, and the
+    partials are summed in segment order.  Each row is computed by itself
+    (a vector-matrix product of fixed shape a segment), so a row's bits
+    depend on the row and the plan's k-cuts alone, as the kernel's do."""
+    E, M, K = x.shape
+    N = w.shape[2]
     bm, bn, bk = plan.block_m, plan.block_n, plan.block_k
-    acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
+    acc = torch.zeros(E, M, N, dtype=torch.float32, device=x.device)
     for t in range(plan.tiles):
         nt, mt = plan.tile(t)
+        e = plan.expert(t)
         rows = slice(mt * bm, min(M, (mt + 1) * bm))
         cols = slice(nt * bn, min(N, (nt + 1) * bn))
         total = None
@@ -89,10 +89,33 @@ def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
             ks = [plan.unit(u)[1] for u in plan.cta_units(i)
                   if plan.unit(u)[0] == t]
             k0, k1 = ks[0] * bk, min(K, (ks[-1] + 1) * bk)
-            part = x[rows, k0:k1].float() @ w[k0:k1, cols].float()
+            wk = w[e, k0:k1, cols].float()
+            part = torch.stack([r @ wk for r in x[e, rows, k0:k1].float()])
             total = part if total is None else total + part
-        acc[rows, cols] = total
-    return _epilogue(acc, x.dtype, w_scale, bias, activation)
+        acc[e, rows, cols] = total
+    return acc
+
+
+def dense_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *, bias=None,
+                    w_scale=None,
+                    activation: "str | None" = None) -> torch.Tensor:
+    """Plain replay of the split-K of `gpp_matmul`'s FMA route, for tests:
+    `_split_acc` over `plan` (`core.schedule.plan_matmul_fma_sm90`), then
+    the epilogue as in `dense_ref` (f32 scale, bias, activation), cast to
+    x.dtype."""
+    return _epilogue(_split_acc(x[None], w[None], plan)[0], x.dtype,
+                     w_scale, bias, activation)
+
+
+def dense_grouped_split_ref(x: torch.Tensor, w: torch.Tensor, plan, *,
+                            bias=None, w_scale=None,
+                            activation: "str | None" = None) -> torch.Tensor:
+    """Plain replay of the split-K of `gpp_matmul_grouped`'s FMA route over
+    its expert axis, for tests: `_split_acc` over `plan`
+    (`plan_matmul_fma_sm90(..., E=E)`: runs cross expert boundaries), then
+    the epilogue as in `dense_grouped_ref`, cast to x.dtype."""
+    return _grouped_epilogue(_split_acc(x, w, plan), x.dtype, w_scale, bias,
+                             activation)
 
 
 def dense_cluster_ref(x: torch.Tensor, w: torch.Tensor, plan, *,
@@ -118,6 +141,20 @@ def dense_cluster_ref(x: torch.Tensor, w: torch.Tensor, plan, *,
     return _epilogue(acc, x.dtype, w_scale, bias, activation)
 
 
+def _grouped_epilogue(acc: torch.Tensor, dtype, w_scale, bias,
+                      activation: "str | None") -> torch.Tensor:
+    """`dense_grouped_ref`'s epilogue on an f32 (E, M, N) accumulator:
+    scale (scalar, (E,) or (E, N)), bias (E, N), activation, all in f32,
+    cast to `dtype`."""
+    E = acc.shape[0]
+    if w_scale is not None:
+        sc = torch.as_tensor(w_scale, dtype=torch.float32, device=acc.device)
+        acc = acc * (sc if sc.dim() == 0 else sc.reshape(E, 1, -1))
+    if bias is not None:
+        acc = acc + bias.float()[:, None, :]
+    return ACTIVATIONS[activation](acc).to(dtype)
+
+
 def dense_grouped_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None,
                       w_scale=None,
                       activation: "str | None" = None) -> torch.Tensor:
@@ -125,14 +162,8 @@ def dense_grouped_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None,
     y[e] = act(x[e] @ w[e] [* w_scale[e]] [+ bias[e]]) with f32
     accumulation, the dequant scale (scalar, (E,) or (E, N)) applied after
     accumulation, cast to x.dtype."""
-    E = x.shape[0]
-    acc = torch.bmm(x.float(), w.float())
-    if w_scale is not None:
-        sc = torch.as_tensor(w_scale, dtype=torch.float32, device=acc.device)
-        acc = acc * (sc if sc.dim() == 0 else sc.reshape(E, 1, -1))
-    if bias is not None:
-        acc = acc + bias.float()[:, None, :]
-    return ACTIVATIONS[activation](acc).to(x.dtype)
+    return _grouped_epilogue(torch.bmm(x.float(), w.float()), x.dtype,
+                             w_scale, bias, activation)
 
 
 def paged_attn_ref(q, pool_a, pool_b, tables, positions, *, num_kv_heads,

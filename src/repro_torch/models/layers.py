@@ -137,11 +137,21 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     return p["embedding"][tokens]
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32 against the (vocab, d) embedding.  Uses the f32 copy
-    `embedding_f32` when the caller made one (`transformer.serving_params`
-    does, once), so the 151936 x 1024 table is not re-cast every step."""
-    table = p.get("embedding_f32")
-    if table is None:
-        table = p["embedding"].float()
-    return x.float() @ table.t()
+def head_logits(x: torch.Tensor, table: torch.Tensor,
+                table_t: "torch.Tensor | None",
+                mode: str = "auto") -> torch.Tensor:
+    """f32 logits of x against a (vocab, d) table: f32 x through `dense`
+    against `table_t`, the table's contiguous (d, vocab) copy in its stored
+    dtype (`transformer.serving_params` makes it once), or, without one,
+    the table transposed here.  On a CUDA tensor that is the FMA route of
+    `gpp_matmul`, which widens W in registers and gives a row the same bits
+    at any number of rows; under "ref" or on the CPU, `dense_ref`."""
+    if table_t is None:
+        table_t = table.t()
+    return dense(x.float(), table_t, mode=mode)
+
+
+def unembed(p: dict, x: torch.Tensor, mode: str = "auto") -> torch.Tensor:
+    """Logits in f32 against the (vocab, d) embedding (`head_logits`, on
+    the serving copy `embedding_t` when the caller made one)."""
+    return head_logits(x, p["embedding"], p.get("embedding_t"), mode)

@@ -23,9 +23,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Spec, embed, embed_specs,
-                                       init_from_specs, map_specs, mlp,
-                                       mlp_specs, rmsnorm, rmsnorm_specs,
-                                       stack_specs, unembed)
+                                       head_logits, init_from_specs,
+                                       map_specs, mlp, mlp_specs, rmsnorm,
+                                       rmsnorm_specs, stack_specs, unembed)
 
 PAGED_BLOCK_KINDS = ("dense", "moe")
 
@@ -102,19 +102,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """A shallow copy of `params` for serving: in a narrow dtype it carries
-    one f32 copy of the logits head's table — the tied embedding or the
-    untied `lm_head.w_out` — made here once, which the f32 logits head
-    reads every step."""
+    """A shallow copy of `params` for serving: it carries one contiguous
+    (d_model, vocab) copy of the logits head's table — the tied embedding
+    (`embed.embedding_t`) or the untied `lm_head.w_out` (`w_out_t`) — in
+    its stored dtype, made here once, which the f32 logits head reads every
+    step (`layers.head_logits`)."""
     out = dict(params)
-    if cfg.tie_embeddings:
-        table = params["embed"]["embedding"]
-        if table.dtype != torch.float32:
-            out["embed"] = dict(params["embed"])
-            out["embed"]["embedding_f32"] = table.float()
-    elif params["lm_head"]["w_out"].dtype != torch.float32:
-        out["lm_head"] = dict(params["lm_head"])
-        out["lm_head"]["w_out_f32"] = params["lm_head"]["w_out"].float()
+    key, name = (("embed", "embedding") if cfg.tie_embeddings
+                 else ("lm_head", "w_out"))
+    out[key] = dict(params[key])
+    out[key][f"{name}_t"] = params[key][name].t().contiguous()
     return out
 
 
@@ -234,12 +231,10 @@ def _embed_tokens(params, cfg: ModelConfig, tokens):
 def _logits_head(params, cfg: ModelConfig, x):
     x = rmsnorm(params["final_norm"], x, mode=cfg.dense_kernel)
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
+        return unembed(params["embed"], x, cfg.dense_kernel)
     head = params["lm_head"]
-    table = head.get("w_out_f32")
-    if table is None:
-        table = head["w_out"].float()
-    return x.float() @ table.t()
+    return head_logits(x, head["w_out"], head.get("w_out_t"),
+                       cfg.dense_kernel)
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,

@@ -75,17 +75,19 @@ def ring_replay(S: int, G: int, C: int):
 
 
 def walk_checks(plan):
-    """What every split plan of `gpp_matmul`'s FMA route
-    (`core.schedule.MatmulFmaPlan`) must hold: each unit walked once, in
-    order, by balanced runs; the kernel's `owner`; each tile's segments
-    covering its k-steps once in segment order; units tile-major with the
-    k-step inner, each tile one (n-tile, m-tile)."""
+    """What every split plan of the FMA route of `gpp_matmul` and
+    `gpp_matmul_grouped` (`core.schedule.MatmulFmaPlan`) must hold: each
+    unit walked once, in order, by balanced runs; the kernel's `owner`;
+    each tile's segments covering its k-steps once in segment order; units
+    tile-major with the k-step inner, each tile one (expert, n-tile,
+    m-tile); every partial of a split tile in a workspace slot of its own."""
     walked = [u for i in range(plan.grid) for u in plan.cta_units(i)]
     assert walked == list(range(plan.units))      # once each, in order
     sizes = {plan.cta_steps(i) for i in range(plan.grid)}
     assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
     for u in range(plan.units):                   # the kernel's owner()
         assert u in plan.cta_units(plan.owner(u))
+    slots = set()
     for tile in range(plan.tiles):
         segs = plan.segments(tile)
         assert len(segs) <= plan.max_segs
@@ -93,8 +95,17 @@ def walk_checks(plan):
         ks = [plan.unit(u)[1] for i in segs for u in plan.cta_units(i)
               if plan.unit(u)[0] == tile]
         assert ks == list(range(plan.num_k))
-    # units tile-major, the k-step inner; every (n-tile, m-tile) a tile once
+        if len(segs) > 1:        # each partial has a slot of its own; a
+            for i in segs:       # later segment's run starts in the tile
+                slot = plan.slot(i, tile)
+                assert 2 * i <= slot < 2 * i + 2 and slot not in slots
+                assert i == segs[0] or slot == 2 * i
+                slots.add(slot)
+    # units tile-major, the k-step inner; every (expert, n-tile, m-tile) a
+    # tile once
     assert [plan.unit(u) for u in range(plan.units)] == \
         [(tl, k) for tl in range(plan.tiles) for k in range(plan.num_k)]
-    assert sorted(plan.tile(tl) for tl in range(plan.tiles)) == \
-        [(n, m) for n in range(plan.n_tiles) for m in range(plan.m_tiles)]
+    assert sorted((plan.expert(tl), *plan.tile(tl))
+                  for tl in range(plan.tiles)) == \
+        [(e, n, m) for e in range(plan.E) for n in range(plan.n_tiles)
+         for m in range(plan.m_tiles)]

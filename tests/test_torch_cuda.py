@@ -439,10 +439,10 @@ def test_gpp_grouped_issue_order_crosses_experts(cuda, G):
     # than CTAs, so CTA 0 walks experts 0 and 1 on one ring
     x = torch.randn(600, 16, 512, device=cuda).bfloat16()
     w = (torch.randn(600, 512, 64, device=cuda) * 0.02).bfloat16()
-    got, steps, g_used, C, units = gm.issue_order_grouped(x, w, G)
+    got, steps, g_used, C, units, experts = gm.issue_order_grouped(x, w, G)
     plan = sched.plan_grouped_tc_sm90(600, 16, 512, 64, num_bufs=G)
     assert [plan.unit(u)[0] for u in plan.cta_units(0)] == [0, 1]
-    assert units == 2 and steps == plan.cta_steps(0)
+    assert (units, experts) == (2, 2) and steps == plan.cta_steps(0)
     assert G is None or g_used == G
     assert got == chunk_issue_schedule(steps, g_used, C)
 
@@ -452,7 +452,7 @@ def test_gpp_grouped_tc_issue_order_at_decode(cuda, G):
     # deepseek-v2-lite decode gate/up: CTA 0 walks two n-tiles of expert 0
     x = torch.randn(64, 32, 2048, device=cuda).bfloat16()
     w = (torch.randn(64, 2048, 1408, device=cuda) * 0.02).bfloat16()
-    got, steps, g_used, C, units = gm.issue_order_grouped(x, w, G)
+    got, steps, g_used, C, units, _ = gm.issue_order_grouped(x, w, G)
     assert units == 2
     assert G is None or g_used == G
     assert got == chunk_issue_schedule(steps, g_used, C)
@@ -460,19 +460,156 @@ def test_gpp_grouped_tc_issue_order_at_decode(cuda, G):
 
 @pytest.mark.parametrize("G", (None, 1, 2, 4))
 def test_gpp_grouped_fma_issue_order_crosses_experts(cuda, G):
-    # f32: the FMA route at deepseek-v2-lite decode gate/up as planned,
-    # 5 experts a CTA, so CTA (0, 0, 0)'s record crosses four expert
-    # boundaries (8 k-steps an expert; 16 where a pinned ring of 4 halves
-    # the tile's rows to fit)
-    x = torch.randn(64, 32, 2048, device=cuda)
-    w = torch.randn(64, 2048, 1408, device=cuda) * 0.02
-    got, steps, g_used, C, epc = gm.issue_order_grouped(x, w, G)
-    tile = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=4,
-                                   num_bufs=G).tile
-    assert epc == 5 and steps == 5 * tile.grid(32, 1408, 2048)[2]
-    assert steps == (80 if G == 4 else 40)
+    # f32: the split-K FMA route at one n-tile an expert, as planned: CTA
+    # 0's 9 steps walk experts 0 and 1 and the first step of expert 2 on
+    # one ring
+    x = torch.randn(600, 16, 512, device=cuda)
+    w = torch.randn(600, 512, 64, device=cuda) * 0.02
+    got, steps, g_used, C, tiles, experts = gm.issue_order_grouped(x, w, G)
+    plan = sched.plan_matmul_fma_sm90(16, 512, 64, w_itemsize=4, E=600,
+                                      num_bufs=G)
+    assert steps == plan.cta_steps(0) and tiles == experts >= 3
+    assert len(plan.segments(tiles - 1)) > 1
     assert G is None or g_used == G
     assert got == chunk_issue_schedule(steps, g_used, C)
+
+
+# deepseek-v2-lite-16b's routed experts in f32, (E, M, K, N): decode and
+# verify (32 rows an expert) and prefill (128), gate / up and down
+GROUPED_FMA_PATH = [(64, M, K, N) for M in (32, 128)
+                    for K, N in ((2048, 1408), (1408, 2048))]
+
+
+def _grouped_inputs(cuda, E, M, K, N, seed, *, x_dtype=torch.float32,
+                    w_dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(E, M, K, generator=g, device=cuda).to(x_dtype)
+    if w_dtype == torch.int8:
+        w = torch.randint(-127, 128, (E, K, N), generator=g, device=cuda,
+                          dtype=torch.int8)
+    else:
+        w = (torch.randn(E, K, N, generator=g, device=cuda)
+             * 0.02).to(w_dtype)
+    b = torch.randn(E, N, generator=g, device=cuda)
+    return x, w, b
+
+
+@pytest.mark.parametrize("G", (None, 1, 2, 4))
+@pytest.mark.parametrize("shape", GROUPED_FMA_PATH + [(64, 7, 300, 130),
+                                                      (5, 7, 300, 130),
+                                                      (2, 33, 999, 1001),
+                                                      (600, 16, 512, 64)])
+def test_gpp_grouped_fma_route_matches_plain(cuda, shape, G):
+    # f32 x and W launch the split-K FMA kernel, never the tensor-core one
+    x, w, b = _grouped_inputs(cuda, *shape, 21)
+    tc, fma = gm.launches_grouped_tc.n, gm.launches_grouped.n
+    for act, bias in (("silu", None), ("gelu", b)):
+        y = gm.gpp_matmul_grouped(x, w, bias=bias, activation=act,
+                                  num_bufs=G)
+        ref = dense_grouped_ref(x, w, bias=bias, activation=act)
+        torch.testing.assert_close(y, ref, rtol=2e-4, atol=2e-4)
+    assert (gm.launches_grouped_tc.n - tc, gm.launches_grouped.n - fma) \
+        == (0, 2)
+
+
+@pytest.mark.parametrize("scale_shape", ("scalar", "expert", "column"))
+@pytest.mark.parametrize("x_dtype", (torch.float32, torch.bfloat16))
+def test_gpp_grouped_fma_int8(cuda, scale_shape, x_dtype):
+    # int8 W with each scale form, at the decode shape, f32 and bf16 x
+    E, M, K, N = GROUPED_FMA_PATH[0]
+    x, w, b = _grouped_inputs(cuda, E, M, K, N, 22, x_dtype=x_dtype,
+                              w_dtype=torch.int8)
+    scale = {"scalar": torch.tensor(1e-3),
+             "expert": torch.rand(E, device=cuda) * 1e-3,
+             "column": torch.rand(E, N, device=cuda) * 1e-3}[scale_shape]
+    y = gm.gpp_matmul_grouped(x, w, w_scale=scale, bias=b, activation="silu")
+    ref = dense_grouped_ref(x, w, w_scale=scale, bias=b, activation="silu")
+    tol = 2e-4 if x_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", GROUPED_FMA_PATH[:2])
+def test_gpp_grouped_fma_bf16_x_with_f32_w(cuda, shape):
+    x, w, b = _grouped_inputs(cuda, *shape, 23, x_dtype=torch.bfloat16)
+    fma = gm.launches_grouped.n
+    y = gm.gpp_matmul_grouped(x, w, bias=b, activation="gelu")
+    assert gm.launches_grouped.n == fma + 1 and y.dtype == torch.bfloat16
+    ref = dense_grouped_ref(x, w, bias=b, activation="gelu")
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", GROUPED_FMA_PATH)
+def test_gpp_grouped_fma_is_bitwise_repeatable(cuda, shape):
+    # split tiles are summed in segment order whatever order their CTAs
+    # arrive in
+    x, w, _ = _grouped_inputs(cuda, *shape, 24)
+    first = gm.gpp_matmul_grouped(x, w, activation="silu")
+    for _ in range(3):
+        assert torch.equal(gm.gpp_matmul_grouped(x, w, activation="silu"),
+                           first)
+
+
+@pytest.mark.parametrize("KN", ((2048, 1408), (1408, 2048)))
+def test_gpp_grouped_fma_rows_do_not_depend_on_the_batch(cuda, KN):
+    # 8, 32 (decode / verify) and 128 (prefill) rows an expert plan the
+    # same k-cuts and segments, so a row's output is the same bits; a bf16
+    # W gives its f32 copy's bits
+    x, w, _ = _grouped_inputs(cuda, 64, 128, *KN, 25)
+    y = gm.gpp_matmul_grouped(x, w)
+    for M in (8, 32):
+        assert torch.equal(gm.gpp_matmul_grouped(x[:, :M].contiguous(), w),
+                           y[:, :M])
+    wb = w.bfloat16()
+    assert torch.equal(gm.gpp_matmul_grouped(x[:, :32].contiguous(), wb),
+                       gm.gpp_matmul_grouped(x[:, :32].contiguous(),
+                                             wb.float()))
+
+
+@pytest.mark.parametrize("shape,w_dtype", [
+    (GROUPED_FMA_PATH[0], torch.float32), (GROUPED_FMA_PATH[2], torch.float32),
+    (GROUPED_FMA_PATH[3], torch.int8), ((1, 4, 2048, 64), torch.bfloat16),
+    ((1, 20, 1024, 151936), torch.bfloat16)])
+def test_gpp_grouped_fma_occupancy_is_planned(cuda, shape, w_dtype):
+    # the card holds as many CTAs an SM as the planner assumed (two at the
+    # experts' shapes: the prefill grid of 264 runs in one wave)
+    E, M, K, N = shape
+    plan = sched.plan_matmul_fma_sm90(
+        M, K, N, w_itemsize=torch.empty((), dtype=w_dtype).element_size(),
+        E=E)
+    assert gm.fma_ctas_per_sm(plan, torch.float32, w_dtype) == \
+        plan.ctas_per_sm
+
+
+def test_gpp_matmul_is_the_grouped_body_at_one_expert(cuda):
+    # gpp_matmul's FMA route and gpp_matmul_grouped at E = 1 run one body
+    # on one plan: the same bits
+    for M, K, N in ((4, 2048, 64), (20, 1000, 1001), (32, 2816, 1024)):
+        x, w, b = _grouped_inputs(cuda, 1, M, K, N, 26)
+        assert torch.equal(gm.gpp_matmul(x[0], w[0], bias=b[0],
+                                         activation="tanh"),
+                           gm.gpp_matmul_grouped(x, w, bias=b,
+                                                 activation="tanh")[0])
+
+
+@pytest.mark.parametrize("KN", ((1024, 151936), (2048, 102400)))
+def test_logits_head_rows_do_not_depend_on_the_batch(cuda, KN):
+    # the f32 logits head of qwen1.5-0.5b (tied, 151936 x 1024) and
+    # deepseek-v2-lite-16b (102400 x 2048): f32 x against the bf16 (d,
+    # vocab) serving copy on the FMA route; a row is the same bits at 1, 4,
+    # 20 and 32 rows, and against the table's f32 copy
+    K, N = KN
+    g = torch.Generator(device=cuda).manual_seed(27)
+    table = (torch.randn(N, K, generator=g, device=cuda) * 0.02).bfloat16()
+    table_t = table.t().contiguous()
+    x = torch.randn(32, K, generator=g, device=cuda)
+    fma = gm.launches.n
+    y = ops.dense(x, table_t)
+    assert gm.launches.n == fma + 1
+    for M in (1, 4, 20):
+        assert torch.equal(ops.dense(x[:M], table_t), y[:M])
+    assert torch.equal(ops.dense(x[:4], table_t.float()), y[:4])
+    torch.testing.assert_close(y, x @ table.float().t(), rtol=2e-4,
+                               atol=2e-4)
 
 
 @pytest.mark.parametrize("G", (None, 1, 2, 4))

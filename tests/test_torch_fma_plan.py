@@ -83,10 +83,11 @@ def test_units_walked_once_in_balanced_runs(shape):
     assert plan.num_bufs <= sched.GPP_MM_TC_MAX_RING
     assert plan.chunks == max(1, min(plan.num_bufs - 1, plan.block_k))
     walk_checks(plan)
-    # the workspace: a (block_m x 64) f32 slot per (tile, segment)
+    # the workspace: two (block_m x 64) f32 slots a CTA, the tile its run
+    # starts in and the one it ends in
     segs = plan.max_segs
     assert plan.workspace_floats == \
-        (0 if segs == 1 else plan.tiles * segs * plan.block_m * 64)
+        (0 if segs == 1 else 2 * plan.grid * plan.block_m * 64)
 
 
 def test_plan_at_the_router():

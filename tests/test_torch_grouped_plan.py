@@ -14,7 +14,8 @@ surrounds it is plain Python and is checked here:
     `kernels.ref`), and every W chunk and x tile of a step has landed at
     that step's wait;
   * the dtype route: bf16 x and W take the tensor-core kernel, f32 or int8
-    the FMA kernel.
+    the FMA kernel (planned with its expert axis,
+    tests/test_torch_grouped_fma_plan.py).
 """
 import pytest
 import torch
@@ -142,13 +143,9 @@ def test_dtype_route(x_dtype, w_dtype, route):
     w = torch.empty((64, 2048, 1408), dtype=w_dtype, device="meta")
     launch = gm._plan_grouped(x, w, None)
     if route == "tc":
-        plan = sched.plan_grouped_tc_sm90(64, 32, 2048, 1408)
-        assert launch == (1, plan.block_m, plan.block_k, plan.num_bufs,
-                          plan.chunks, plan.grid, 0, plan.cta_steps(0),
-                          len(plan.cta_units(0)))
+        assert launch == sched.plan_grouped_tc_sm90(64, 32, 2048, 1408)
     else:
-        plan = sched.plan_grouped_sm90(64, 32, 2048, 1408,
-                                       w_itemsize=w.element_size())
-        assert (launch.route, launch.grid, launch.num_bufs) == \
-            (0, 0, plan.tile.num_bufs)
-        assert launch.items == plan.experts_per_cta
+        # the FMA route: the split-K plan with the expert axis
+        assert launch == sched.plan_matmul_fma_sm90(
+            32, 2048, 1408, w_itemsize=w.element_size(), E=64)
+        assert (launch.E, launch.grid, launch.block_k) == (64, 264, 128)

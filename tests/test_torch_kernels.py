@@ -177,34 +177,6 @@ class TestChunkSchedule:
 
 
 class TestSm90Planner:
-    def test_decode_ring_fills_shared_memory(self):
-        # W bytes bound decode: plan_stream asks for MAX_RING slots, the
-        # 227 KB budget keeps as many 256 x 64 bf16 tiles as fit
-        plan = sched.plan_matmul_sm90(4, 2816, 1024, w_itemsize=2)
-        assert plan.num_bufs == 6 and plan.chunks == 5
-        assert plan.smem_bytes <= sched.SMEM_BUDGET_BYTES
-        assert sched.gpp_smem_bytes(4, 64, 256, 7, 2) > \
-            sched.SMEM_BUDGET_BYTES
-
-    def test_ring_bounded_by_steps_and_pinnable(self):
-        plan = sched.plan_matmul_sm90(4, 1024, 1024, w_itemsize=2)
-        assert plan.num_bufs == 4                  # 4 k-steps of 256 rows
-        assert sched.plan_matmul_sm90(4096, 4096, 4096, w_itemsize=2,
-                                      num_bufs=2).num_bufs == 2
-        assert sched.plan_matmul_sm90(8, 64, 64, w_itemsize=4).num_bufs == 1
-
-    def test_budget_shrinks_or_raises(self):
-        plan = sched.plan_matmul_sm90(64, 4096, 4096, w_itemsize=4,
-                                      smem_budget=200_000)
-        assert plan.num_bufs == 2 and plan.smem_bytes <= 200_000
-        pinned = sched.plan_matmul_sm90(64, 4096, 4096, w_itemsize=4,
-                                        num_bufs=8, smem_budget=200_000)
-        assert pinned.num_bufs == 8 and pinned.block_k == 64   # rows halve
-        assert pinned.smem_bytes <= 200_000
-        with pytest.raises(ValueError):
-            sched.plan_matmul_sm90(64, 4096, 4096, w_itemsize=4,
-                                   smem_budget=10_000)
-
     def test_paged_ring_and_row_splits(self):
         plan = sched.plan_paged_attn_fma_sm90(
             batch=4, kv_heads=16, rows=80, block_size=16, width=64,
@@ -216,23 +188,6 @@ class TestSm90Planner:
             batch=4, kv_heads=16, rows=1, block_size=16, width=64,
             kv_itemsize=2, max_blocks=8, num_bufs=2)
         assert pinned.num_bufs == 2 and pinned.chunks == 1
-
-    def test_grouped_plan_keeps_two_ctas_per_sm(self):
-        # deepseek decode gate/up: 22 n-tiles x 64 experts, 5 experts a CTA
-        plan = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=2)
-        assert plan.experts_per_cta == 5
-        assert plan.grid(64, 32, 1408) == (22, 1, 13)
-        assert plan.tile.smem_bytes <= sched.SMEM_BUDGET_BYTES
-        # the ring may span the expert boundary: deeper than one expert's
-        # 2 k-steps when the CTA walks several experts
-        one = sched.plan_grouped_sm90(1, 4, 512, 1408, w_itemsize=2)
-        five = sched.plan_grouped_sm90(64, 4, 512, 1408, w_itemsize=2)
-        assert (one.experts_per_cta, one.tile.num_bufs) == (1, 2)
-        assert five.experts_per_cta == 5 and five.tile.num_bufs > 2
-        # a pinned ring keeps the planned run of experts
-        pinned = sched.plan_grouped_sm90(64, 32, 2048, 1408, w_itemsize=2,
-                                         num_bufs=4)
-        assert (pinned.tile.num_bufs, pinned.experts_per_cta) == (4, 5)
 
     def test_mla_plan_rows_and_budget(self):
         for rows, es in ((16, 2), (80, 2), (512, 4)):

@@ -358,16 +358,50 @@ class TestParamsAndBridge:
         assert torch.equal(a["scale"], torch.ones(2, 8, dtype=torch.bfloat16))
 
     def test_untied_lm_head_f32_copy_is_cached(self):
-        jcfg, cfg = _smoke("bfloat16", "deepseek-v2-lite-16b")
-        params = tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
-        sp = tf.serving_params(params, cfg)
-        w = params["lm_head"]["w_out"]
-        assert sp["lm_head"]["w_out_f32"].dtype == torch.float32
-        assert torch.equal(sp["lm_head"]["w_out_f32"], w.float())
-        assert "w_out_f32" not in params["lm_head"]      # a shallow copy
-        x = torch.randn(2, 1, cfg.d_model).to(torch.bfloat16)
-        assert torch.equal(tf._logits_head(sp, cfg, x),
-                           tf._logits_head(params, cfg, x))
+        # serving keeps one contiguous (d, vocab) copy of the head's table
+        # in its stored dtype, and no f32 copy; the head reads it as W of
+        # the f32 FMA route and gives the table's own logits
+        for arch, key, name in (("deepseek-v2-lite-16b", "lm_head", "w_out"),
+                                ("qwen1.5-0.5b", "embed", "embedding")):
+            jcfg, cfg = _smoke("bfloat16", arch)
+            params = tf.init_params(cfg, torch.Generator().manual_seed(5),
+                                    "cpu")
+            sp = tf.serving_params(params, cfg)
+            w = params[key][name]
+            copy = sp[key][f"{name}_t"]
+            assert copy.dtype == w.dtype == torch.bfloat16
+            assert copy.is_contiguous() and torch.equal(copy, w.t())
+            assert set(sp[key]) == {name, f"{name}_t"}   # no f32 copy
+            assert f"{name}_t" not in params[key]      # a shallow copy
+            x = torch.randn(2, 1, cfg.d_model).to(torch.bfloat16)
+            got = tf._logits_head(sp, cfg, x)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(np32(got),
+                                       np32(tf._logits_head(params, cfg, x)),
+                                       rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "deepseek-v2-lite-16b"))
+    @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+    def test_logits_head_matches_reference(self, arch, dtype):
+        # the f32 logits head (qwen: tied, `unembed`; deepseek: untied,
+        # `lm_head`) on the serving copy against the JAX package's
+        # `_logits_head` and `unembed` on the same parameters
+        jcfg, cfg = _smoke(dtype, arch)
+        jparams = jtf.init_params(jcfg, jax.random.PRNGKey(3))
+        params = tf.serving_params(tree_to_torch(jparams), cfg)
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((4, 5, cfg.d_model)).astype(np.float32)
+        jx = jnp.asarray(x, jcfg.dtype)
+        want = jtf._logits_head(jparams, jcfg, jx)
+        got = tf._logits_head(params, cfg, t(x).to(cfg.torch_dtype))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(np32(got), np32(want), rtol=2e-4,
+                                   atol=2e-4)
+        if cfg.tie_embeddings:
+            np.testing.assert_allclose(
+                np32(L.unembed(params["embed"], t(x))),
+                np32(JL.unembed(jparams["embed"], jnp.asarray(x))),
+                rtol=2e-4, atol=2e-4)
 
     def test_config_from_reference(self):
         jcfg = jregistry.get_config("qwen1.5-0.5b")
