@@ -86,7 +86,33 @@ In order, it:
      serves bf16 with 8- and 128-token KV blocks (the FMA MLA kernel's
      bf16 instance, counted on its own, and its merge) and f32 with 8- and
      128-token blocks, whose greedy streams must equal the plain run's;
-  6. prints {"kernels": [...]} and, last, the device line.
+  6. for the paged token archs of slice 11, at their published widths,
+     with step 3's checks: every projection shape of qwen2-7b,
+     h2o-danube-1.8b, gemma3-12b and kimi-k2 on both gpp_matmul routes
+     (bf16 at the three step shapes, a row's bits equal at 4 / 20 / 32
+     rows; f32 at decode; kimi's f32 router's bits at 1 / 4 / 20 / 32
+     rows), their f32 logits heads, GQA attention at their heads (query
+     groups 2, 4, 7 and 8; head_dim 256 with gemma3's 1024-token window
+     past it at max_len 1280; danube's head_dim 80 on the FMA kernel's
+     bf16 instance), the grouped kernel at kimi's 384 experts and one
+     full-width kimi MoE layer (auto vs plain within 1e-2, the experts
+     given no routed row); and, after step 5, it serves qwen2-7b and
+     danube at full width and depth (f32 too), gemma3-12b at full width
+     and depth in bf16 and 12 layers in f32, each also with a 1,200-token
+     request past its window (bf16 spec on == off, the window group's
+     blocks plateau, f32 kernel == plain), and kimi-k2 at full width with
+     2 of its 61 layers in bf16 (its f32 parity stands on the CPU at
+     SMOKE: 2 layers in f32 are 80 GB), each launching exactly its path's
+     kernels, bf16 spec on == off at three prompt seeds (prompts of one
+     token repeated, so the drafter drafts; some seed must accept drafts),
+     the f32 streams on random prompts, and every f32 run's logits rows,
+     one an emitted token, within LOGITS_RTOL of the plain run's;
+  7. with step 3's checks, the paper's workload,
+     `kernels.ops.streamed_gemm_sequence`: 8 rounds of 4096 x 4096 bf16
+     weights (256 MB) at 8 and 128 rows, at G = 1, 2, 3, 4 and the planned
+     G (gpp_matmul's planner, unpinned), against the plain version, timed beside the copied simulator's
+     prediction, with measured tile times fed to a `TimingCache`;
+  8. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
 outside a checkout of the repo (no `src/repro_torch` beside it), it exits
@@ -132,6 +158,25 @@ GPP_SHAPES = {
         "dense_gate_up": (DS_D, DS_F0, BOTH),
         "dense_down": (DS_F0, DS_D, BOTH)},
 }
+# the paged token archs ported in slice 11, at their published widths
+# (configs/): (d_model, heads, kv heads, head_dim, d_ff, vocab)
+NEW_ARCHS = {"qwen2-7b": (3584, 28, 4, 128, 18944, 152064),
+             "h2o-danube-1.8b": (2560, 32, 8, 80, 6912, 32000),
+             "gemma3-12b": (3840, 16, 8, 256, 15360, 262144),
+             "kimi-k2-1t-a32b": (7168, 64, 8, 128, 18432, 163840)}
+KIMI_E, KIMI_F = 384, 2048          # kimi-k2's routed experts and their d_ff
+# their gpp_matmul shapes: q, k / v, o, the MLP (kimi: layer 0's dense MLP,
+# the shared expert, the f32 router); f32 at decode only (the f32 serving
+# runs then hold every shape, stream against stream)
+GPP_SHAPES.update({
+    arch: {"q": (d, h * hd, BOTH), "kv": (d, kv * hd, BOTH),
+           "o": (h * hd, d, BOTH), "gate_up": (d, f, BOTH),
+           "down": (f, d, BOTH)}
+    for arch, (d, h, kv, hd, f, _) in NEW_ARCHS.items()})
+GPP_SHAPES["kimi-k2-1t-a32b"].update({
+    "shared_gate_up": (7168, KIMI_F, BOTH),
+    "shared_down": (KIMI_F, 7168, BOTH),
+    "router": (7168, KIMI_E, ("float32",))})
 
 
 def check(ok: bool, what: str) -> None:
@@ -309,7 +354,8 @@ def gpp_time(M, K, N, dtype):
 
 # the f32 logits heads: (d_model, vocab) of each model's table, and the
 # rows a step function's head takes (prefill: its chunk's last row)
-HEADS = {"qwen1.5-0.5b": (D, 151936), "deepseek-v2-lite-16b": (DS_D, 102400)}
+HEADS = {"qwen1.5-0.5b": (D, 151936), "deepseek-v2-lite-16b": (DS_D, 102400),
+         **{arch: (w[0], w[5]) for arch, w in NEW_ARCHS.items()}}
 HEAD_M = {"prefill": 1, "decode": SLOTS, "verify": SLOTS * (DRAFT + 1)}
 
 
@@ -408,12 +454,20 @@ def check_gpp(report):
     from repro_torch.kernels.ref import ACTIVATION_IDS, chunk_issue_schedule
     rows = []
     for path, shapes in GPP_SHAPES.items():
+        new = path in NEW_ARCHS
         for phase, M in PHASE_M.items():
             for name, (K, N, dtypes) in shapes.items():
                 for dtype in dtypes:
                     bf16 = dtype == "bfloat16"
+                    # slice 11's archs: f32 projections at decode, planned
+                    # G (their f32 serving runs hold the rest); timed at
+                    # decode in the path's own dtype
+                    if new and not bf16 and phase != "decode" \
+                            and name != "router":
+                        continue
                     err = max(gpp_case(M, K, N, dtype, G=G)
                               for G in ((None, 1, 2, 3, 4) if bf16
+                                        else (None,) if new
                                         else (None, 1, 2, 4)))
                     row = {"path": path, "phase": phase, "proj": name,
                            "M": M, "K": K, "N": N, "dtype": dtype,
@@ -445,7 +499,8 @@ def check_gpp(report):
                             "num_bufs": plan.num_bufs, "grid": plan.grid,
                             "max_segs": plan.max_segs}
                     # the path's own dtype, and every f32 decode shape
-                    if dtype == dtypes[0] or phase == "decode":
+                    if (phase == "decode" and dtype == dtypes[0] if new
+                            else dtype == dtypes[0] or phase == "decode"):
                         row.update(gpp_time(M, K, N, dtype))
                     rows.append(row)
                     print(f"gpp_matmul {path} {phase:7s} {name:14s} "
@@ -523,19 +578,20 @@ def check_gpp(report):
     print(f"gpp_matmul_tc: a row's bits equal at {SLOTS} / "
           f"{PHASE_M['verify']} / {CHUNK} rows at all {len(tc_proj)} bf16 "
           "projections")
-    x = torch.randn(CHUNK, DS_D, generator=g, device="cuda")
-    w = (torch.randn(DS_D, DS_E, generator=g, device="cuda")
-         * 0.02).bfloat16()
-    rows_by_m = {M: gm.gpp_matmul(x[:M], w) for M in (1, SLOTS,
-                                                      PHASE_M["verify"],
-                                                      CHUNK)}
-    check(all(torch.equal(rows_by_m[CHUNK][:M], y)
-              for M, y in rows_by_m.items()),
-          "the router's row bits depend on the batch")
-    check(torch.equal(gm.gpp_matmul(x, w.float()), rows_by_m[CHUNK]),
-          "the router's bf16 weight does not give its f32 copy's bits")
-    print(f"gpp_matmul router {DS_D}x{DS_E}: a row's bits equal at "
-          f"{sorted(rows_by_m)} rows; bf16 W == its f32 copy")
+    for K, N in ((DS_D, DS_E), (7168, KIMI_E)):     # deepseek's, kimi's
+        x = torch.randn(CHUNK, K, generator=g, device="cuda")
+        w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).bfloat16()
+        rows_by_m = {M: gm.gpp_matmul(x[:M], w) for M in (1, SLOTS,
+                                                          PHASE_M["verify"],
+                                                          CHUNK)}
+        check(all(torch.equal(rows_by_m[CHUNK][:M], y)
+                  for M, y in rows_by_m.items()),
+              f"the router {K}x{N}: a row's bits depend on the batch")
+        check(torch.equal(gm.gpp_matmul(x, w.float()), rows_by_m[CHUNK]),
+              f"the router {K}x{N}: the bf16 weight does not give its f32 "
+              "copy's bits")
+        print(f"gpp_matmul router {K}x{N}: a row's bits equal at "
+              f"{sorted(rows_by_m)} rows; bf16 W == its f32 copy")
     # the generalized ping-pong issue order survived the port: the FMA
     # route (pinned on bf16) over CTA 0's planned run, and over a run
     # across a tile boundary (2 CTAs pinned) and at the router's k-split;
@@ -608,12 +664,13 @@ def check_gpp(report):
 # kernel 2: paged attention
 # ---------------------------------------------------------------------------
 
-def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H):
+def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H, heads=H,
+              max_len=MAX_LEN):
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mb = MAX_LEN // BS
-    q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    mb = max_len // BS
+    q = torch.randn(B, S, heads, hd, generator=g, device="cuda").to(dt)
     k = (torch.randn(nb, BS, kvh, hd, generator=g, device="cuda") * 0.5
          ).to(dt)
     v = (torch.randn(nb, BS, kvh, hd, generator=g, device="cuda") * 0.5
@@ -629,11 +686,12 @@ def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H):
     return q, k, v, tables, pos
 
 
-def pa_work(positions, S, window, es):
+def pa_work(positions, S, window, es, *, heads=H, kvh=H, hd=HD,
+            max_len=MAX_LEN):
     """(bytes, operations) this call's data needs: each visible K/V row
-    read once, q / tables / positions read and the output written once;
-    2 * hd operations per (query row, visible key) for q.k and again for
-    p.v."""
+    (kvh heads) read once, q / tables / positions read and the output
+    written once; 2 * hd operations per (query head row, visible key) for
+    q.k and again for p.v."""
     keys = set()
     pairs = 0
     for b, p in enumerate(positions):
@@ -642,9 +700,9 @@ def pa_work(positions, S, window, es):
             pairs += p + s - lo + 1
             keys.update((b, t) for t in range(lo, p + s + 1))
     B = len(positions)
-    nbytes = (2 * len(keys) * H * HD * es + 2 * B * S * H * HD * es
-              + B * (MAX_LEN // BS) * 4 + B * 4)
-    return nbytes, 4.0 * pairs * H * HD
+    nbytes = (2 * len(keys) * kvh * hd * es + 2 * B * S * heads * hd * es
+              + B * (max_len // BS) * 4 + B * 4)
+    return nbytes, 4.0 * pairs * heads * hd
 
 
 PA_CASES = [
@@ -652,6 +710,23 @@ PA_CASES = [
     ("prefill", 1, CHUNK, [37]),             # unaligned chunk start
     ("verify", SLOTS, DRAFT + 1, [3, 30, 64, 90]),
 ]
+
+
+# slice 11's GQA shapes: heads, kv heads, head_dim, window, max_len and
+# step cases.  gemma3-12b's window layers serve a 1,200-token request
+# (max_len 1280: 80 blocks, 8 runs of 10), so its cases sit past the
+# 1024-token window, whose first runs are then wholly behind it; its
+# global layers (no window) read the same pools.  danube's 4096-token
+# window does not bind under 128 tokens: a 32-token window stands in.
+LONG_CASES = [("decode", SLOTS, 1, [5, 300, 1100, 1250]),
+              ("prefill", 1, CHUNK, [1100]),
+              ("verify", SLOTS, DRAFT + 1, [3, 600, 1030, 1240])]
+NEW_PA = {"qwen2-7b": (28, 4, 128, None, MAX_LEN, PA_CASES),
+          "kimi-k2-1t-a32b": (64, 8, 128, None, MAX_LEN, PA_CASES),
+          "gemma3-12b": (16, 8, 256, 1024, 1280, LONG_CASES),
+          "gemma3-12b global": (16, 8, 256, None, 1280, LONG_CASES[:1]),
+          "h2o-danube-1.8b": (32, 8, 80, 4096, MAX_LEN, PA_CASES),
+          "h2o-danube-1.8b +window": (32, 8, 80, 32, MAX_LEN, PA_CASES)}
 
 
 def fma_times(row, fn, sets, name, plan, launch, q2_sets):
@@ -671,7 +746,7 @@ def fma_times(row, fn, sets, name, plan, launch, q2_sets):
 
 
 def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
-            hd=HD, kvh=H):
+            hd=HD, kvh=H, heads=H, max_len=MAX_LEN):
     """One GQA / window comparison on the card, at every ring depth: bf16
     must launch the tensor-core kernel (kv_splits planned, 1 and 2; its
     merge with more than one run), f32 the FMA kernel (kv_splits planned,
@@ -680,22 +755,27 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
     their plain versions.  `timed` adds the kernel's device time (with its
     merge; bf16 also the FMA kernel pinned beside it), the plain
     version's, SDPA's on gathered K/V, the bound and the CUDA-event time of
-    a graph of launches (tensor cores: at kv_splits 1, 2, 4 and planned)."""
+    a graph of launches (tensor cores: at kv_splits 1, 2, 4 and planned).
+    A bf16 head_dim the tensor-core plan does not take (80) must launch
+    the FMA kernel's bf16 instance, at the same splits as f32."""
     import torch
     import torch.nn.functional as Fn
     from repro_torch.core.schedule import (plan_paged_attn_fma_sm90,
                                            plan_paged_attn_gqa_tc_sm90)
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_attn_ref
-    nb = SLOTS * (MAX_LEN // BS) + 1
-    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb, hd=hd,
-                                     kvh=kvh)
+    mb = max_len // BS
+    nb = SLOTS * mb + 1
+    shape = dict(hd=hd, kvh=kvh, heads=heads, max_len=max_len)
+    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb, **shape)
     kw = dict(num_kv_heads=kvh, scale=1.0 / math.sqrt(hd), window=window)
     ref = paged_attn_ref(q, k, v, tables, pos, **kw)
     route = pa.attention_route(q.dtype, False, BS, hd, hd)
     tc = route == "gqa_tc"
-    check(tc == (dtype == "bfloat16"), f"gqa {name} {dtype}: route {route}")
+    check(tc == (dtype == "bfloat16" and hd in (64, 128, 256)),
+          f"gqa {name} {dtype} hd {hd}: route {route}")
     counts = (pa.launches_tc, pa.launches, pa.launches_bf16)
+    fma_counts = (0, 1, 0) if dtype == "float32" else (0, 0, 1)
     errs = []
 
     def run(want, **extra):
@@ -705,34 +785,34 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
         ran = tuple(c.n - n for c, n in zip(counts, before))
         check(ran == want, f"gqa {name} {dtype} {extra} took the wrong "
                            f"kernel: {ran}")
-        check(tuple(out.shape) == (B, S, H, hd), f"gqa {name}: shape")
+        check(tuple(out.shape) == (B, S, heads, hd), f"gqa {name}: shape")
         check(bool(torch.isfinite(out.float()).all()),
               f"gqa {name}: non-finite")
         return float((out.float() - ref.float()).abs().max())
 
     fplan = plan_paged_attn_fma_sm90(
-        batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
-        max_blocks=MAX_LEN // BS, width=hd, kv_itemsize=q.element_size())
+        batch=B, kv_heads=kvh, rows=heads // kvh * S, block_size=BS,
+        max_blocks=mb, width=hd, kv_itemsize=q.element_size())
     for G in (None, 1, 2, 4):
         for ks in ((None, 1, 2) if tc else (None, 1, 2, fplan.pieces)):
-            errs.append(run((1, 0, 0) if tc else (0, 1, 0), num_bufs=G,
+            errs.append(run((1, 0, 0) if tc else fma_counts, num_bufs=G,
                             kv_splits=ks))
     err = max(errs)
     atol, _ = TOL[dtype]
     check(err <= atol, f"paged_attention {name} {dtype} hd {hd}: max err "
                        f"{err}")
     row = {"case": name, "B": B, "S": S, "positions": positions,
-           "window": window, "dtype": dtype, "head_dim": hd,
-           "kv_heads": kvh, "route": route, "max_abs_err": err,
-           "tol": atol}
+           "window": window, "dtype": dtype, "head_dim": hd, "heads": heads,
+           "kv_heads": kvh, "max_len": max_len, "route": route,
+           "max_abs_err": err, "tol": atol}
     if tc:
         row["fma_max_abs_err"] = run((0, 0, 1), route="gqa")
         check(row["fma_max_abs_err"] <= atol,
               f"gqa {name}: the FMA kernel's bf16 instance, max err "
               f"{row['fma_max_abs_err']}")
         plan = plan_paged_attn_gqa_tc_sm90(
-            batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
-            max_blocks=MAX_LEN // BS, head_dim=hd)
+            batch=B, kv_heads=kvh, rows=heads // kvh * S, block_size=BS,
+            max_blocks=mb, head_dim=hd)
         row["merge_max_abs_err"] = gqa_merge_case(q, k, v, tables, pos, kw,
                                                   plan)
         row["plan"] = {"kv_splits": plan.kv_splits, "num_bufs":
@@ -745,8 +825,8 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
     if timed:
         es = q.element_size()
         n = copies_for(2 * k.numel() * es)
-        sets = [pa_inputs(B, S, positions, dtype, nb=nb, seed=i, hd=hd,
-                          kvh=kvh) for i in range(n)]
+        sets = [pa_inputs(B, S, positions, dtype, nb=nb, seed=i, **shape)
+                for i in range(n)]
 
         def call(**extra):
             return lambda q, k, v, t, p: pa.paged_attention(
@@ -768,8 +848,8 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
             row["graph_ms_by_splits"] = {}
             for ks in (1, 2, 4, None):
                 p_ks = plan_paged_attn_gqa_tc_sm90(
-                    batch=B, kv_heads=kvh, rows=H // kvh * S, block_size=BS,
-                    max_blocks=MAX_LEN // BS, head_dim=hd, kv_splits=ks)
+                    batch=B, kv_heads=kvh, rows=heads // kvh * S,
+                    block_size=BS, max_blocks=mb, head_dim=hd, kv_splits=ks)
                 row["graph_ms_by_splits"][
                     "planned" if ks is None else str(ks)] = graph_ms(
                     lambda q2, k_, v_, t_, p_, p_ks=p_ks: pa._launch_gqa_tc(
@@ -785,12 +865,15 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
         row["plain_ms"], row["plain_wall_ms"] = measure(
             lambda q, k, v, t, p: paged_attn_ref(q, k, v, t, p, **kw), sets)
         # yardstick: SDPA over K/V gathered through the tables beforehand
-        T = MAX_LEN
+        # (each KV head repeated for its query group)
+        T = max_len
         kpos = torch.arange(T, device="cuda")
         lib_sets = []
         for q_, k_, v_, t_, p_ in sets:
-            kseq = k_[t_.long()].reshape(B, T, H, HD).transpose(1, 2)
-            vseq = v_[t_.long()].reshape(B, T, H, HD).transpose(1, 2)
+            kseq, vseq = (
+                a[t_.long()].reshape(B, T, kvh, hd)
+                .repeat_interleave(heads // kvh, dim=2).transpose(1, 2)
+                for a in (k_, v_))
             qpos = p_.long()[:, None] + torch.arange(S, device="cuda")[None]
             m = kpos[None, None, :] <= qpos[:, :, None]
             if window is not None:
@@ -799,9 +882,11 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
         row["library_ms"], row["library_wall_ms"] = measure(
             lambda q, k, v, m: Fn.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, scale=kw["scale"]), lib_sets)
-        nbytes, ops = pa_work(positions, S, window, es)
+        nbytes, ops = pa_work(positions, S, window, es, heads=heads,
+                              kvh=kvh, hd=hd, max_len=max_len)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
-    print(f"paged_attention {name:14s} {dtype} hd {hd} ({route}): "
+    print(f"paged_attention {name:14s} {dtype} {heads}/{kvh} heads hd {hd}"
+          f" window {window} max_len {max_len} ({route}): "
           f"max_abs_err={err:.3g} atol={atol}"
           + (f" fma_err={row['fma_max_abs_err']:.3g} merge_err="
              f"{row['merge_max_abs_err']:.3g}" if tc else "")
@@ -900,6 +985,17 @@ def check_paged(report):
                         f"{name}{'+window' if window else ''}", B, S,
                         positions, "bfloat16", window=window, hd=hd,
                         kvh=kvh))
+    # slice 11's archs at their own heads and windows, bf16 at the three
+    # step shapes (timed at decode), f32 at decode
+    for arch, (heads, kvh, hd, window, max_len, cases) in NEW_PA.items():
+        for name, B, S, positions in cases:
+            for dtype in BOTH:
+                if dtype == "float32" and name != "decode":
+                    continue
+                rows.append(pa_case(
+                    f"{arch} {name}", B, S, positions, dtype,
+                    window=window, hd=hd, kvh=kvh, heads=heads,
+                    max_len=max_len, timed=name == "decode"))
     gqa_issue_order(report)
     report["paged_attention"] = {"shapes": rows}
     return rows
@@ -930,12 +1026,9 @@ def grouped_inputs(M, K, N, dtype, *, seed=0, int8=False):
 
 def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
                  scale=None, seed=0):
-    """One gpp_matmul_grouped comparison on the card; max abs error.  bf16
-    x and W must launch the tensor-core kernel, anything else the FMA
-    kernel."""
+    """One gpp_matmul_grouped comparison on the card at deepseek's expert
+    count; max abs error (`grouped_check`)."""
     import torch
-    from repro_torch.kernels import gpp_matmul as gm
-    from repro_torch.kernels.ref import dense_grouped_ref
     x, w = grouped_inputs(M, K, N, dtype, seed=seed, int8=scale is not None)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     sc = None
@@ -944,6 +1037,20 @@ def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
         sc = torch.rand(shape, generator=g, device="cuda") * 2e-3
     b = (torch.randn(DS_E, N, generator=g, device="cuda") * 0.1).to(x.dtype) \
         if bias else None
+    return grouped_check(x, w, G=G, act=act, b=b, sc=sc,
+                         what=f"scale={scale}")
+
+
+def grouped_check(x, w, *, G=None, act=None, b=None, sc=None, what=""):
+    """gpp_matmul_grouped on (E, M, K) x and (E, K, N) W against its plain
+    version; max abs error.  bf16 x and W must launch the tensor-core
+    kernel, anything else the FMA kernel."""
+    import torch
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels.ref import dense_grouped_ref
+    E, M, K = x.shape
+    N = w.shape[2]
+    dtype = str(x.dtype).split(".")[-1]
     route = gm.grouped_route(x.dtype, w.dtype)
     before = (gm.launches_grouped_tc.n, gm.launches_grouped.n)
     y = gm.gpp_matmul_grouped(x, w, bias=b, w_scale=sc, activation=act,
@@ -959,29 +1066,31 @@ def grouped_case(M, K, N, dtype, *, G=None, act=None, bias=False,
     err = (y.float() - ref.float()).abs()
     atol, rtol = TOL[dtype]
     check(bool((err <= atol + rtol * ref.float().abs()).all()),
-          f"gpp_matmul_grouped {DS_E}x{M}x{K}x{N} {dtype} G={G} act={act} "
-          f"scale={scale}: max err {float(err.max())}")
+          f"gpp_matmul_grouped {E}x{M}x{K}x{N} {dtype} G={G} act={act} "
+          f"{what}: max err {float(err.max())}")
     return float(err.max())
 
 
-def grouped_time(M, K, N, dtype):
+def grouped_time(M, K, N, dtype, *, sets=None, E=DS_E):
     """Kernel / plain / torch.bmm times of one (E, M, K) @ (E, K, N) launch
     at the path's shape, and its bound (every expert's W read once).  bf16
     times the tensor-core kernel, f32 the split-K FMA kernel (torch.bmm in
-    f32 with TF32 off)."""
+    f32 with TF32 off).  `sets` gives the (x, W) inputs (kimi-k2's 11.3 GB
+    expert stacks: one set), else deepseek's are drawn."""
     import torch
     from repro_torch.kernels.gpp_matmul import gpp_matmul_grouped
     from repro_torch.kernels.ref import dense_grouped_ref
     es = 2 if dtype == "bfloat16" else 4
-    sets = [grouped_inputs(M, K, N, dtype, seed=i)
-            for i in range(copies_for(DS_E * K * N * es))]
+    if sets is None:
+        sets = [grouped_inputs(M, K, N, dtype, seed=i)
+                for i in range(copies_for(E * K * N * es))]
     name = KERNEL_NAMES["gpp_matmul_grouped_tc" if dtype == "bfloat16"
                         else "gpp_matmul_grouped"]
     ms, wall = measure(lambda x, w: gpp_matmul_grouped(x, w), sets, name)
     plain, plain_wall = measure(lambda x, w: dense_grouped_ref(x, w), sets)
     lib, lib_wall = measure(lambda x, w: torch.bmm(x, w), sets)
-    b_ms, by = bound(DS_E * (M * K + K * N + M * N) * es,
-                     2.0 * DS_E * M * K * N, dtype)
+    b_ms, by = bound(E * (M * K + K * N + M * N) * es,
+                     2.0 * E * M * K * N, dtype)
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
             "bound_by": by, "wall_ms": wall, "plain_wall_ms": plain_wall,
             "library_wall_ms": lib_wall, "kernel": name}
@@ -1119,11 +1228,81 @@ def check_grouped(report):
     return rows, err
 
 
-def check_moe_layer(report):
-    """One full-width deepseek-v2-lite-16b MoE layer in bf16 (random
-    weights from a seed), decode inputs (4 tokens) and prefill inputs (32):
-    mode "auto" (the routed experts on the tensor-core kernel) against mode
-    "ref" (the plain versions), relative error of the layer's output."""
+KIMI_ROWS = {"decode": 32, "prefill": 128, "verify": 32}
+KIMI_PROJ = {"gate_up": (7168, KIMI_F), "down": (KIMI_F, 7168)}
+
+
+def bf16_stack(E, K, N, seed):
+    """A (E, K, N) bf16 weight stack drawn on the card 16 experts at a time
+    (kimi-k2's 11.3 GB stacks would need 45 GB of f32 drawn at once)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.empty(E, K, N, dtype=torch.bfloat16, device="cuda")
+    for e in range(0, E, 16):
+        w[e:e + 16] = (torch.randn(min(16, E - e), K, N, generator=g,
+                                   device="cuda") * 0.02).bfloat16()
+    return w
+
+
+def check_grouped_kimi(report):
+    """The tensor-core gpp_matmul_grouped at kimi-k2's expert stacks (E =
+    384, 7168 -> 2048 gate/up and 2048 -> 7168 down, bf16) with 32 rows an
+    expert at decode and verify and 128 at prefill (dispatch groups x
+    capacity, `models.moe`), at G planned, 1, 2 and 4 against the plain
+    version; the planned CTAs an SM held; timed at decode and prefill
+    (verify has decode's shape) beside torch.bmm and the bound."""
+    import torch
+    from repro_torch.core.schedule import plan_grouped_tc_sm90
+    from repro_torch.kernels import gpp_matmul as gm
+    rows = []
+    for name, (K, N) in KIMI_PROJ.items():
+        w = bf16_stack(KIMI_E, K, N, seed=21)
+        timed = {}
+        for phase, M in KIMI_ROWS.items():
+            g = torch.Generator(device="cuda").manual_seed(22)
+            x = torch.randn(KIMI_E, M, K, generator=g,
+                            device="cuda").bfloat16()
+            act = "silu" if name == "gate_up" else None
+            err = max(grouped_check(x, w, G=G, act=act, what=f"kimi {name}")
+                      for G in (None, 1, 2, 4))
+            plan = plan_grouped_tc_sm90(KIMI_E, M, K, N)
+            row = {"phase": phase, "proj": name, "E": KIMI_E, "M": M,
+                   "K": K, "N": N, "dtype": "bfloat16", "max_abs_err": err,
+                   "tol": TOL["bfloat16"], "route": "tc",
+                   "ctas_per_sm": gm.grouped_tc_ctas_per_sm(plan),
+                   "plan": {"block_m": plan.block_m,
+                            "block_k": plan.block_k,
+                            "num_bufs": plan.num_bufs}}
+            check(row["ctas_per_sm"] == plan.ctas_per_sm,
+                  f"gpp_matmul_grouped kimi {KIMI_E}x{M}x{K}x{N}: "
+                  f"{row['ctas_per_sm']} CTAs an SM, planned "
+                  f"{plan.ctas_per_sm}")
+            if M not in timed:
+                timed[M] = grouped_time(M, K, N, "bfloat16", sets=[(x, w)],
+                                        E=KIMI_E)
+            row.update(timed[M])
+            rows.append(row)
+            print(f"gpp_matmul_grouped kimi {phase:7s} {name:7s} "
+                  f"{KIMI_E}x{M}x{K}x{N} bfloat16 (tc): max_abs_err="
+                  f"{err:.3g} ms={row['ms']:.4f} plain_ms="
+                  f"{row['plain_ms']:.4f} library_ms (torch.bmm)="
+                  f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']}) wall_ms={row['wall_ms']:.4f} plan="
+                  f"{row['plan']} ctas/SM={row['ctas_per_sm']}", flush=True)
+            del x
+        del w
+        torch.cuda.empty_cache()
+    report["gpp_matmul_grouped_kimi"] = {"shapes": rows}
+    return rows
+
+
+def check_moe_layer(report, arch):
+    """One full-width MoE layer of `arch` in bf16 (random weights from a
+    seed), decode inputs (4 tokens) and prefill inputs (32): mode "auto"
+    (the routed experts on the tensor-core kernel, the router on the FMA
+    one) against mode "ref" (the plain versions), relative error of the
+    layer's output; and the experts the router gave a row, so the share
+    of the expert weights streamed for experts with none."""
     import dataclasses
 
     import torch
@@ -1132,35 +1311,51 @@ def check_moe_layer(report):
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import init_from_specs
-    cfg = registry.get_config("deepseek-v2-lite-16b").with_(dtype="bfloat16")
+    cfg = registry.get_config(arch).with_(dtype="bfloat16")
     mc = tf._moe_cfg(cfg)
+    d = cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(6)
+    torch.cuda.reset_peak_memory_stats()
     params = init_from_specs(moe_mod.moe_specs(mc), gen,
                              torch.device("cuda"))
     out = {}
     for phase, (B, S) in (("decode", (SLOTS, 1)), ("prefill", (1, CHUNK))):
-        x = torch.randn(B, S, DS_D, generator=gen, device="cuda").bfloat16()
+        x = torch.randn(B, S, d, generator=gen, device="cuda").bfloat16()
         tc = gm.launches_grouped_tc.n
         auto = moe_mod.moe_apply(params, mc, x)
         ran = gm.launches_grouped_tc.n - tc
         ref = moe_mod.moe_apply(
             params, dataclasses.replace(mc, dense_kernel="ref"), x)
         torch.cuda.synchronize()
-        check(tuple(auto.shape) == (B, S, DS_D)
+        check(tuple(auto.shape) == (B, S, d)
               and bool(torch.isfinite(auto.float()).all()),
-              f"MoE layer {phase}: shape or non-finite")
+              f"{arch} MoE layer {phase}: shape or non-finite")
         rel = float((auto.float() - ref.float()).norm()
                     / ref.float().norm())
-        check(ran == 3, f"MoE layer {phase}: {ran} tensor-core launches")
-        check(rel <= 1e-2, f"MoE layer {phase}: |auto - ref| / |ref| = "
-                           f"{rel:.3g} > 1e-2")
-        out[phase] = {"tokens": B * S, "rel_err": rel, "tc_launches": ran}
-        print(f"MoE layer {phase} ({B * S} tokens, deepseek widths, bf16): "
-              f"|auto - ref| / |ref| = {rel:.3g} (limit 1e-2), {ran} "
-              "tensor-core launches")
+        check(ran == 3, f"{arch} MoE layer {phase}: {ran} tensor-core "
+                        "launches")
+        check(rel <= 1e-2, f"{arch} MoE layer {phase}: |auto - ref| / |ref| "
+                           f"= {rel:.3g} > 1e-2")
+        # the experts with a routed row (the kept dispatch entries)
+        T = B * S
+        G = moe_mod._dispatch_groups(mc, T)
+        _, meta = moe_mod._dispatch(params, mc, x.reshape(G, T // G, d),
+                                    moe_mod.capacity(mc, T // G))
+        sorted_e, _, keep, _, _ = meta
+        routed = int(torch.unique(sorted_e[keep]).numel())
+        out[phase] = {"tokens": T, "rel_err": rel, "tc_launches": ran,
+                      "experts": mc.num_experts, "experts_routed": routed,
+                      "expert_bytes_unrouted_share":
+                          1.0 - routed / mc.num_experts}
+        print(f"{arch} MoE layer {phase} ({T} tokens, bf16): |auto - ref| / "
+              f"|ref| = {rel:.3g} (limit 1e-2), {ran} tensor-core launches; "
+              f"{routed} of {mc.num_experts} experts routed a row, "
+              f"{1.0 - routed / mc.num_experts:.3f} of the expert bytes "
+              "streamed for none", flush=True)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params
     torch.cuda.empty_cache()
-    report["moe_layer"] = out
+    report.setdefault("moe_layer", {})[arch] = out
     return out
 
 
@@ -1553,7 +1748,8 @@ def mla_merge_time(row, dtype="bfloat16"):
 # RMSNorm (a kernel of the port alone: the reference leaves it to XLA)
 # ---------------------------------------------------------------------------
 
-RMS_WIDTHS = (DS_R, D, 1536, DS_D)   # kv_norm, qwen, a q_norm, deepseek
+# kv_norm, qwen, a q_norm, deepseek, then slice 11's d_models
+RMS_WIDTHS = (DS_R, D, 1536, DS_D, *(w[0] for w in NEW_ARCHS.values()))
 RMS_ROWS = (1, 4, 5, 20, 32)         # rows a step brings (decode .. prefill)
 RMS_EPS = 1e-6
 
@@ -1670,6 +1866,149 @@ def rms_time(M, d):
 
 
 # ---------------------------------------------------------------------------
+# the paper's workload: consecutive GeMMs with streamed weights
+# ---------------------------------------------------------------------------
+
+SEQ_K, SEQ_R, SEQ_M = 4096, 8, (8, 128)  # 8 rounds of 4096 x 4096 (256 MB)
+SIM_MACROS = 32            # the reference ledger's simulated macros
+
+
+def check_gemm_sequence(report):
+    """`kernels.ops.streamed_gemm_sequence` in bf16: x (M, 4096) against 8
+    rounds of (4096 x 4096) weights, 256 MB, more than the L2, the rounds
+    folded into N (one tensor-core gpp_matmul launch, 256 tiles), at M = 8
+    and 128, at G = 1 (in-situ), 2 (naive ping-pong), 3 and 4 (GPP) and
+    the planned G (`gpp_matmul`'s own, num_bufs None), each held against
+    its plain version.  Prints the
+    kernel's device time on the folded W and the whole call's (the fold
+    copies W), and the achieved share of 3.35e12 B/s.  A tile's measured
+    transfer (a device copy of W) and compute (the kernel's FLOP rate on
+    an L2-resident 1024 x 16384 slice, 128 CTAs) go into a `TimingCache`
+    as compiled samples; beside
+    them, the copied simulator's bus-busy share and latency for insitu /
+    naive_pp / gpp at that measured ratio (t_pim / t_rw mapped onto
+    PimConfig.n_in as the reference's ledger does), and the ring depth the
+    measured rates plan against the data sheet's.  Claims nothing."""
+    import torch
+    from repro_torch.core.analytical import PimConfig
+    from repro_torch.core.schedule import TimingCache, plan_matmul_tc_sm90
+    from repro_torch.core.simulator import simulate
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import dense_ref
+    K = N = SEQ_K
+    R = SEQ_R
+    ws = bf16_stack(R, K, N, seed=31)
+    w_flat = ops.fold_rounds(ws)
+    wbytes = R * K * N * 2
+    dst = torch.empty_like(w_flat)
+    copy_ms = time_ms(lambda: dst.copy_(w_flat), [()], iters=20)
+    del dst
+    tcache = TimingCache()
+    rows, sims = [], {}
+    name = KERNEL_NAMES["gpp_matmul_tc"]
+    for M in SEQ_M:
+        g = torch.Generator(device="cuda").manual_seed(32)
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        want = dense_ref(x, w_flat).reshape(M, R, N).permute(1, 0, 2)
+        analytic = ops.plan_ring_depth(M, K, 256)
+        planned = plan_matmul_tc_sm90(M, K, R * N).num_bufs
+        rows_m = []
+        for G in dict.fromkeys((1, 2, 3, 4, planned)):
+            pin = None if G == planned else G   # the planned G: unpinned
+            before = gm.launches_tc.n
+            y = ops.streamed_gemm_sequence(x, ws, num_bufs=pin)
+            check(gm.launches_tc.n == before + 1,
+                  "the GeMM sequence is not one tensor-core launch")
+            err = (y.float() - want.float()).abs()
+            atol, rtol = TOL["bfloat16"]
+            check(tuple(y.shape) == (R, M, N)
+                  and bool((err <= atol + rtol * want.float().abs()).all()),
+                  f"GeMM sequence M={M} G={G}: max err {float(err.max())}")
+            ms = device_ms(lambda: gm.gpp_matmul(x, w_flat, num_bufs=pin),
+                           [()], name)
+            call_ms, call_wall = measure(
+                lambda: ops.streamed_gemm_sequence(x, ws, num_bufs=pin),
+                [()])
+            nbytes = wbytes + M * K * 2 + M * R * N * 2
+            plan = plan_matmul_tc_sm90(M, K, R * N, num_bufs=G)
+            row = {"M": M, "G": G, "planned": G == planned,
+                   "max_abs_err": float(err.max()), "ms": ms,
+                   "call_ms": call_ms, "call_wall_ms": call_wall,
+                   "bytes": nbytes,
+                   "achieved_share": nbytes / (ms * 1e-3)
+                   / H100_HBM_BYTES_PER_S,
+                   "plan": {"block_m": plan.block_m,
+                            "block_n": plan.block_n,
+                            "block_k": plan.block_k,
+                            "cluster": plan.cluster, "ctas": plan.ctas}}
+            rows_m.append(row)
+            print(f"GeMM sequence M={M} x {R} rounds of {K}x{N} bf16 G={G}"
+                  f"{' (planned)' if G == planned else ''}: kernel ms="
+                  f"{ms:.4f} achieved {row['achieved_share']:.3f} of "
+                  f"3.35e12 B/s; call (with the fold) ms={call_ms:.4f}; "
+                  f"max_abs_err={row['max_abs_err']:.3g} plan="
+                  f"{row['plan']}", flush=True)
+        # one (block_k, block_n) tile of the planned launch, measured: its
+        # transfer at the copy's rate, its compute at the kernel's FLOP
+        # rate where W is L2-resident (a 32 MB slice, the same buffer each
+        # call, 128 CTAs), so its bytes cost next to nothing
+        plan = plan_matmul_tc_sm90(M, K, R * N, num_bufs=planned)
+        tile_bytes = plan.block_k * plan.block_n * 2
+        tile_flops = 2.0 * M * plan.block_k * plan.block_n
+        hot_k, hot_n = 1024, 16384
+        w_hot = w_flat[:hot_k, :hot_n].contiguous()
+        x_hot = x[:, :hot_k].contiguous()
+        hot_ms = device_ms(lambda: gm.gpp_matmul(x_hot, w_hot), [()], name)
+        t_dma = copy_ms * 1e-3 / 2 * tile_bytes / wbytes
+        t_cmp = hot_ms * 1e-3 * tile_flops / (2.0 * M * hot_k * hot_n)
+        del w_hot, x_hot
+        tcache.record(block_bytes=tile_bytes, compute_flops=tile_flops,
+                      t_dma=t_dma, t_compute=t_cmp, measured_on="compiled")
+        ratio = t_cmp / t_dma
+        cfg = PimConfig()
+        cfg = cfg.with_(n_in=max(1.0, ratio * cfg.size_ou / cfg.s))
+        res = {st: simulate(st, cfg, SIM_MACROS, R)
+               for st in ("insitu", "naive_pp", "gpp")}
+        sims[M] = {
+            "t_dma_s": t_dma, "t_compute_s": t_cmp, "ratio_pim_rw": ratio,
+            "n_in": cfg.n_in, "l2_hot_ms": hot_ms,
+            **{st: {"bus_busy_share": r.bw_busy_cycles / r.total_cycles,
+                    "cycles": r.total_cycles,
+                    "latency_vs_insitu": r.total_cycles
+                    / res["insitu"].total_cycles}
+               for st, r in res.items()},
+            "measured_vs_g1": {str(r["G"]): r["ms"] / rows_m[0]["ms"]
+                               for r in rows_m},
+            "ring_analytic": analytic, "ring_planned": planned}
+        print(f"GeMM sequence M={M}: tile {plan.block_k}x{plan.block_n} "
+              f"t_dma={t_dma * 1e6:.4f} us t_compute={t_cmp * 1e6:.4f} us "
+              f"(t_pim/t_rw {ratio:.4f} -> n_in {cfg.n_in:.3g}); simulator "
+              + ", ".join(f"{st}: bus busy {v['bus_busy_share']:.3f}, "
+                          f"latency x{v['latency_vs_insitu']:.3f}"
+                          for st, v in sims[M].items() if st in res)
+              + f"; measured ms / G=1: {sims[M]['measured_vs_g1']}",
+              flush=True)
+        rows += rows_m
+        del x, y, want
+    fps, bps = tcache.effective_rates()
+    rings = {M: {"analytic": ops.plan_ring_depth(M, K, 256),
+                 "measured": ops.plan_ring_depth(M, K, 256, timing=tcache)}
+             for M in SEQ_M}
+    print(f"TimingCache (compiled): effective_rates {fps:.4g} FLOP/s, "
+          f"{bps:.4g} B/s; ring depth analytic vs measured {rings}",
+          flush=True)
+    del ws, w_flat
+    torch.cuda.empty_cache()
+    report["gemm_sequence"] = {
+        "rows": rows, "simulator": sims, "copy_ms": copy_ms,
+        "timing_samples": tcache.to_json(),
+        "effective_rates": {"flops_per_s": fps, "bytes_per_s": bps},
+        "ring_depth": rings}
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the main paths: full-width models through the serving engine
 # ---------------------------------------------------------------------------
 
@@ -1716,16 +2055,44 @@ def random_prompts(vocab: int, requests: int = 4, seed: int = 0):
             for _ in range(requests)]
 
 
+def repeated_prompts(vocab: int, requests: int = 4, seed: int = 0):
+    """Prompts of one token repeated 20-40 times.  On random weights the
+    greedy continuation of qwen2-7b and kimi-k2 depends on the whole
+    context (after a prompt that holds its own continuation it continues
+    elsewhere, and no token of it repeats in 16), so the n-gram drafter
+    finds nothing to propose; after one token repeated, the continuation
+    repeats too, and speculation runs verify steps."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(rng.integers(0, vocab))] * int(rng.integers(20, 41))
+            for _ in range(requests)]
+
+
 def serve(cfg, params, prompts, *, speculation: bool, mode: str,
-          profile=False, max_new: int = 16, block_size: int = BS):
+          profile=False, max_new: int = 16, block_size: int = BS,
+          max_len: int = MAX_LEN, on_step=None, keep_logits=False):
+    """Serve `prompts` through the paged engine; `on_step(engine)` (if
+    given) is called after every step.  With `keep_logits`, info["logits"]
+    holds each request's (tokens, vocab) f32 rows, one an emitted token,
+    the row it was sampled from."""
+    import numpy as np
     import torch
     from repro_torch.serving.engine import ServeConfig, make_engine
 
     engine = make_engine(cfg, params, ServeConfig(
-        slots=SLOTS, max_len=MAX_LEN, block_size=block_size,
+        slots=SLOTS, max_len=max_len, block_size=block_size,
         prefill_chunk=max(CHUNK, block_size),   # a whole number of blocks
         speculation=speculation, draft_len=DRAFT, dense_kernel=mode,
         paged_attn_kernel=mode))
+    rows = {}
+    if keep_logits:
+        sample = engine._sample
+
+        def keep(logits_row, req):
+            rows.setdefault(req.rid, []).append(
+                np.array(logits_row, dtype=np.float32))
+            return sample(logits_row, req)
+        engine._sample = keep
     torch.cuda.synchronize()
     if profile:
         from torch.profiler import ProfilerActivity
@@ -1735,7 +2102,13 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
         c.n = 0
     t0 = time.perf_counter()
     rids = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
-    results = engine.run()
+    if on_step is None:
+        engine.run()
+    else:
+        while engine.pending:
+            engine.step()
+            on_step(engine)
+    results = {r: engine.result(r) for r in rids}
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {k: c.n for k, c in counters().items()}
@@ -1762,12 +2135,17 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
           and shapes["verify"] <= int(speculation), f"step shapes {shapes}")
     info = {"model": cfg.name, "num_layers": cfg.num_layers,
             "dtype": cfg.dtype, "speculation": speculation, "mode": mode,
-            "block_size": block_size,
+            "block_size": block_size, "max_len": max_len,
             "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
             "steps": len(engine.metrics), "calls": calls, "launches": counts,
-            "shapes": shapes, "acceptance_rate": engine.acceptance_rate()}
+            "shapes": shapes, "acceptance_rate": engine.acceptance_rate(),
+            "drafted_tokens": engine.metrics.total("drafted_tokens"),
+            "accepted_tokens": engine.metrics.total("accepted_tokens")}
     if profile:
         info["device_busy_s"] = busy
+    if keep_logits:
+        info["logits"] = [np.stack(rows[r]) for r in rids]
+        del engine._sample      # the wrapper holds the engine: free it now
     print(f"serve {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
           f"spec={speculation} mode={mode} block={block_size}: {ntok} "
           f"tokens in {dt:.3f}s = "
@@ -1779,16 +2157,64 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
     return streams, info
 
 
+# the FMA kernels' bf16 instances count launches on their own counters but
+# run under their f32 instances' names
+INSTANCE_OF = {"paged_attention_bf16": "paged_attention",
+               "paged_attention_mla_bf16": "paged_attention_mla"}
+
+
+# f32 kernel vs plain: each emitted token's logits row within this share
+# of the row's largest |logit|
+LOGITS_RTOL = 1e-3
+
+
+def check_logits(what: str, ker: dict, ref: dict) -> dict:
+    """The f32 kernel run's logits rows against the plain run's, one row an
+    emitted token (the streams are equal, so both rows saw the same
+    context): max |difference| / max |plain logit| gated at LOGITS_RTOL,
+    so a fault shows whatever the argmax margin.  On random weights the
+    greedy streams can collapse into a few repeated tokens with a wide
+    margin, which equal streams alone would not catch; the least top-1
+    margin (over the same scale) and the distinct tokens a stream are
+    reported beside it."""
+    import numpy as np
+    err, margin = 0.0, float("inf")
+    for a, b in zip(ker.pop("logits"), ref.pop("logits")):
+        check(a.shape == b.shape, f"{what}: logits rows {a.shape} vs "
+                                  f"{b.shape}")
+        scale = np.abs(b).max(axis=1)
+        err = max(err, float((np.abs(a - b).max(axis=1) / scale).max()))
+        top2 = np.partition(b, -2, axis=1)[:, -2:]
+        margin = min(margin, float((np.abs(top2[:, 1] - top2[:, 0])
+                                    / scale).min()))
+    out = {"logits_max_rel_err": err, "least_top1_margin": margin}
+    print(f"{what}: logits max |kernel - plain| / max |logit| = {err:.3g} "
+          f"(gate {LOGITS_RTOL}), least top-1 margin {margin:.3g}",
+          flush=True)
+    check(err <= LOGITS_RTOL, f"{what}: logits differ by {err:.3g} of the "
+                              f"row's scale (gate {LOGITS_RTOL})")
+    return out
+
+
 def check_serving(report, arch: str, path_kernels, f32_kernels,
-                  f32_layers=None):
-    """bf16 serve (spec off, on, profiled) at full width and depth, then
-    f32 kernel vs plain greedy streams (at `f32_layers` layers if set).
-    Every kernel in `path_kernels` must launch in the bf16 runs and no
-    other (with device time under the path's names only); every kernel in
-    `f32_kernels` must launch in the f32 kernel run.  bf16 greedy streams
-    with speculation on must equal those with it off, at every prompt seed
-    of SPEC_SEEDS (the reference guarantees it: a token's row is the same
-    bits in a decode step and in a verify step)."""
+                  f32_layers=None, *, bf16_layers=None, long=None,
+                  f32_note=None, repeat=False):
+    """bf16 serve (spec off, on, profiled) at full width (at `bf16_layers`
+    layers if set, else full depth), then f32 kernel vs plain greedy
+    streams (at `f32_layers` layers if set; skipped, with `f32_note`
+    printed, when `f32_kernels` is None).  Every kernel in `path_kernels`
+    must launch in the bf16 runs and no other (with device time under the
+    path's names only); every kernel in `f32_kernels` must launch in the
+    f32 kernel run.  bf16 greedy streams with speculation on must equal
+    those with it off, at every prompt seed of SPEC_SEEDS (the reference
+    guarantees it: a token's row is the same bits in a decode step and in a
+    verify step), and some seed's speculating run must accept drafts.  The
+    prompts hold each one's greedy continuation, or with `repeat` are one
+    token repeated (`repeated_prompts`, which makes the drafter draft on
+    these archs); the f32 comparison then takes `random_prompts`.  The f32
+    runs' logits rows must agree too (`check_logits`).
+    `long(cfg, params)`, if given, runs on each model while it is resident
+    and its result goes into the report."""
     import torch
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
@@ -1801,34 +2227,44 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
         return cfg, tf.init_params(cfg, gen, "cuda")
 
     runs = {}
-    cfg, params = model("bfloat16")
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg, params = model("bfloat16", bf16_layers)
+    runs["bf16_params_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
     # a warm-up run on random prompts (library loading, kernel attributes
     # and the caching allocator's first blocks are not the main path's
     # cost); the measured prompts then hold each one's greedy continuation,
     # so the n-gram drafter has drafts and speculation runs verify steps
-    spec_equal = {}
+    spec_equal, accepted = {}, {}
     for seed in SPEC_SEEDS:
-        base = random_prompts(cfg.vocab_size, seed=seed)
-        first, _ = serve(cfg, params, base, speculation=False, mode="auto")
-        seeded = [p + s + p[-3:] for p, s in zip(base, first)]
+        if repeat:
+            seeded = repeated_prompts(cfg.vocab_size, seed=seed)
+            serve(cfg, params, seeded, speculation=False, mode="auto")
+        else:
+            base = random_prompts(cfg.vocab_size, seed=seed)
+            first, _ = serve(cfg, params, base, speculation=False,
+                             mode="auto")
+            seeded = [p + s + p[-3:] for p, s in zip(base, first)]
         off, r_off = serve(cfg, params, seeded, speculation=False,
                            mode="auto")
         on, r_on = serve(cfg, params, seeded, speculation=True, mode="auto")
         spec_equal[seed] = off == on
+        accepted[seed] = r_on["accepted_tokens"]
         print(f"{arch} bf16 greedy streams spec on == off, prompt seed "
-              f"{seed}: {off == on}", flush=True)
-        if seed == 0:
+              f"{seed}: {off == on} ({r_on['accepted_tokens']} of "
+              f"{r_on['drafted_tokens']} drafts accepted)", flush=True)
+        if seed == SPEC_SEEDS[0]:
             prompts, plain = seeded, off
             runs["bf16"], runs["bf16_spec"] = r_off, r_on
+    named = {INSTANCE_OF.get(k, k) for k in path_kernels}
     for key in ("bf16", "bf16_spec"):
         counts = runs[key]["launches"]
         for k, n in counts.items():
             check((n > 0) == (k in path_kernels),
                   f"{k} launched {n} times on the {arch} path ({key})")
         # bf16 projections run the tensor-core gpp_matmul; the FMA one runs
-        # the f32 logits head, one a step-function call, and deepseek's f32
-        # router, one a MoE layer (three grouped launches)
+        # the f32 logits head, one a step-function call, and the MoE
+        # models' f32 router, one a MoE layer (three grouped launches)
         calls = runs[key]["calls"]
         check(counts["gpp_matmul"]
               == calls + counts["gpp_matmul_grouped_tc"] // 3,
@@ -1842,6 +2278,8 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
           f"{arch}: bf16 greedy streams with speculation on differ from "
           f"those with it off at prompt seeds "
           f"{[k for k, v in spec_equal.items() if not v]}")
+    check(sum(accepted.values()) > 0,
+          f"{arch}: no speculating run accepted a draft ({accepted})")
     # the same bf16 run again under torch.profiler: device time by kernel,
     # over the wall time of the unprofiled run (same work, same shapes)
     again, prof = serve(cfg, params, prompts, speculation=False,
@@ -1849,7 +2287,7 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     check(again == plain, f"{arch}: the profiled run's streams differ")
     busy = prof["device_busy_s"]
     for k in KERNEL_NAMES:
-        check((busy[k] > 0) == (k in path_kernels),
+        check((busy[k] > 0) == (k in named),
               f"{arch}: {busy[k]} s of device time under {KERNEL_NAMES[k]}")
     share = sum(busy.values()) / runs["bf16"]["seconds"]
     runs["bf16"]["device_busy_s"] = busy
@@ -1858,36 +2296,126 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     runs["bf16"]["attention_device_s"] = sum(
         v for k, v in busy.items() if k.startswith("paged_attention"))
     runs["bf16"]["device_busy_share"] = share
-    runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     runs["bf16"]["total_params"] = cfg.total_params()
+    if long is not None:
+        runs["long_bf16"] = long(cfg, params)
+    runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"{arch} bf16 decode run device time: {busy} s; under gpp_matmul "
           f"{runs['bf16']['gpp_matmul_device_s']:.4f} s, paged attention "
           f"{runs['bf16']['attention_device_s']:.4f} s; busy share "
-          f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall; peak memory "
-          f"{runs['bf16']['peak_mem_gb']:.1f} GB")
+          f"{share:.3f} of {runs['bf16']['seconds']:.3f}s wall; "
+          f"{cfg.num_layers} layers, {runs['bf16_params_gb']:.1f} GB of "
+          f"weights; peak memory {runs['bf16']['peak_mem_gb']:.1f} GB")
     del params
     torch.cuda.empty_cache()
 
-    cfg, params = model("float32", f32_layers)
-    f32_kernel, runs["f32_kernel"] = serve(cfg, params, prompts,
-                                           speculation=False, mode="auto")
-    f32_ref, runs["f32_ref"] = serve(cfg, params, prompts,
-                                     speculation=False, mode="ref")
-    check(not any(runs["f32_ref"]["launches"].values()),
-          "the plain run launched a kernel")
-    for k in f32_kernels:
-        check(runs["f32_kernel"]["launches"][k] > 0,
-              f"{k} never launched on the {arch} f32 kernel run")
-    check(f32_kernel == f32_ref,
-          f"{arch} f32 greedy streams differ: kernel {f32_kernel} ref "
-          f"{f32_ref}")
-    print(f"{arch} f32 greedy streams kernel == plain: True "
-          f"({cfg.num_layers} layers)")
-    del params
-    torch.cuda.empty_cache()
+    if f32_kernels is None:
+        print(f"{arch} f32 kernel-vs-plain streams: not on the card "
+              f"({f32_note})")
+        runs["f32_note"] = f32_note
+    else:
+        cfg, params = model("float32", f32_layers)
+        f32_prompts = (random_prompts(cfg.vocab_size, seed=SPEC_SEEDS[0])
+                       if repeat else prompts)
+        f32_kernel, runs["f32_kernel"] = serve(cfg, params, f32_prompts,
+                                               speculation=False,
+                                               mode="auto", keep_logits=True)
+        f32_ref, runs["f32_ref"] = serve(cfg, params, f32_prompts,
+                                         speculation=False, mode="ref",
+                                         keep_logits=True)
+        check(not any(runs["f32_ref"]["launches"].values()),
+              "the plain run launched a kernel")
+        for k in f32_kernels:
+            check(runs["f32_kernel"]["launches"][k] > 0,
+                  f"{k} never launched on the {arch} f32 kernel run")
+        check(f32_kernel == f32_ref,
+              f"{arch} f32 greedy streams differ: kernel {f32_kernel} ref "
+              f"{f32_ref}")
+        runs["f32_logits"] = check_logits(f"{arch} f32", runs["f32_kernel"],
+                                          runs["f32_ref"])
+        runs["f32_logits"]["distinct"] = [len(set(t)) for t in f32_kernel]
+        print(f"{arch} f32 greedy streams kernel == plain: True "
+              f"({cfg.num_layers} layers)")
+        if long is not None:
+            runs["long_f32"] = long(cfg, params)
+        del params
+        torch.cuda.empty_cache()
     report.setdefault("serving", {})[arch] = runs
     report.setdefault("bf16_spec_equal", {})[arch] = spec_equal
+    runs["accepted_by_seed"] = accepted
     return runs
+
+
+LONG_PROMPT, LONG_MAX_LEN = 1200, 1280
+
+
+def window_long_run(cfg, params):
+    """gemma3-12b past its window: one request with a 1,200-token prompt
+    and 3 short ones, 16 new tokens each, max_len 1280 (80 blocks; the
+    tensor-core plan cuts a lane's table into 8 runs of 10 blocks, so at
+    decode the first run, positions 0-159, lies wholly behind the
+    1024-token window and the window layers read zeroed table entries).
+    bf16: speculation on == off, and the window group's blocks a lane maps
+    stay at most ceil(1024 / 16) + 2 while the global group's grow with
+    the context; f32: the kernel run's greedy streams equal the plain
+    run's (the FMA GQA kernel at head_dim 256 with the window)."""
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()] + \
+        random_prompts(cfg.vocab_size, requests=3, seed=13)
+    horizons = tf.group_horizons(cfg)
+    peak = [0] * len(horizons)
+
+    def track(engine):
+        for gi, g in enumerate(engine.kv.groups):
+            peak[gi] = max([peak[gi]] + [len(g.blocks_for(lane))
+                                         for lane in range(SLOTS)])
+
+    kw = dict(max_len=LONG_MAX_LEN, on_step=track)
+    out = {"prompt_tokens": [len(p) for p in prompts],
+           "horizons": list(horizons)}
+    if cfg.dtype == "bfloat16":
+        off, r_off = serve(cfg, params, prompts, speculation=False,
+                           mode="auto", **kw)
+        on, r_on = serve(cfg, params, prompts, speculation=True,
+                         mode="auto", **kw)
+        check(off == on, f"{cfg.name} past its window: bf16 streams with "
+                         "speculation on differ from those with it off")
+        check(r_on["accepted_tokens"] > 0,
+              f"{cfg.name} past its window: no draft accepted")
+        win = math.ceil(cfg.window_size / BS) + 2
+        need = math.ceil((LONG_PROMPT + 15) / BS)
+        for h, p in zip(horizons, peak):
+            check(p <= win if h else p >= need,
+                  f"{cfg.name} past its window: group {h} mapped {p} "
+                  f"blocks a lane (window bound {win}, context {need})")
+        out.update(spec_equal=True, launches=r_off["launches"],
+                   seconds=r_off["seconds"], tok_s=r_off["tok_s"],
+                   peak_blocks_by_group=peak, window_bound=win,
+                   context_blocks=need,
+                   acceptance_rate=r_on["acceptance_rate"])
+    else:
+        ker, r_k = serve(cfg, params, prompts, speculation=False,
+                         mode="auto", keep_logits=True, **kw)
+        ref, r_ref = serve(cfg, params, prompts, speculation=False,
+                           mode="ref", keep_logits=True, **kw)
+        check(r_k["launches"]["paged_attention"] > 0,
+              f"{cfg.name} past its window (f32): no FMA GQA launch")
+        check(ker == ref, f"{cfg.name} past its window: f32 kernel streams "
+                          f"{ker} differ from plain {ref}")
+        out["logits"] = check_logits(f"{cfg.name} past its window f32",
+                                     r_k, r_ref)
+        out["logits"]["distinct"] = [len(set(t)) for t in ker]
+        out.update(streams_equal_plain=True, launches=r_k["launches"],
+                   seconds=r_k["seconds"], peak_blocks_by_group=peak)
+    print(f"{cfg.name} ({cfg.num_layers} layers) {cfg.dtype} past its "
+          f"window: prompts {out['prompt_tokens']}, max_len {LONG_MAX_LEN}, "
+          f"blocks a lane by group {dict(zip(map(str, horizons), peak))}"
+          + (f" (window bound {out['window_bound']}), spec on == off"
+             if cfg.dtype == "bfloat16" else ", kernel == plain"),
+          flush=True)
+    return out
 
 
 def check_mla_block_sizes(report):
@@ -1974,15 +2502,17 @@ def main(argv=None) -> int:
     pa_rows = check_paged(report)
     rms_rows = check_rmsnorm(report)
     grouped_rows, grouped_err = check_grouped(report)
-    check_moe_layer(report)
+    check_moe_layer(report, "deepseek-v2-lite-16b")
     mla_rows = check_mla(report)
     mla_block_rows = check_mla_blocks(report)
-    qwen = check_serving(report, "qwen1.5-0.5b",
-                         ("gpp_matmul_tc", "gpp_matmul",
-                          "paged_attention_tc", "paged_attention_merge",
-                          "rmsnorm"),
-                         ("gpp_matmul", "paged_attention",
-                          "paged_attention_merge", "rmsnorm"))
+    kimi_grouped_rows = check_grouped_kimi(report)
+    check_moe_layer(report, "kimi-k2-1t-a32b")
+    seq_rows = check_gemm_sequence(report)
+    gqa_path = ("gpp_matmul_tc", "gpp_matmul", "paged_attention_tc",
+                "paged_attention_merge", "rmsnorm")
+    gqa_f32 = ("gpp_matmul", "paged_attention", "paged_attention_merge",
+               "rmsnorm")
+    qwen = check_serving(report, "qwen1.5-0.5b", gqa_path, gqa_f32)
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
                              ("gpp_matmul_tc", "gpp_matmul",
                               "gpp_matmul_grouped_tc",
@@ -1993,6 +2523,31 @@ def main(argv=None) -> int:
                               "rmsnorm"),
                              f32_layers=4)
     blocks = check_mla_block_sizes(report)
+    # slice 11: qwen2-7b (query group 7) and h2o-danube-1.8b (head_dim 80:
+    # the FMA kernel's bf16 instance) at full width and depth, f32 too;
+    # gemma3-12b at full width and depth in bf16, 12 layers in f32 (two
+    # 5:1 superblocks; 48 in f32 is 47 GB), both also past its window;
+    # kimi-k2 at full width with 2 of its 61 layers (the dense prefix layer
+    # and one MoE layer of 384 experts: 1.03 T parameters fit no card)
+    # (their spec on == off prompts: one token repeated,
+    # `repeated_prompts`).  danube's 4096-token window does not bind under
+    # max_len 128: its expiry is exercised at SMOKE on the CPU
+    # (tests/test_torch_serving.py) and, on the card, by the same kernels
+    # on gemma3's run past its window
+    check_serving(report, "qwen2-7b", gqa_path, gqa_f32, repeat=True)
+    check_serving(report, "h2o-danube-1.8b",
+                  ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
+                   "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
+    check_serving(report, "gemma3-12b", gqa_path, gqa_f32, f32_layers=12,
+                  long=window_long_run, repeat=True)
+    check_serving(report, "kimi-k2-1t-a32b",
+                  ("gpp_matmul_tc", "gpp_matmul", "gpp_matmul_grouped_tc",
+                   "paged_attention_tc", "paged_attention_merge", "rmsnorm"),
+                  None, bf16_layers=2, repeat=True,
+                  f32_note="2 layers in f32 are 80 GB; kimi-k2's f32 parity "
+                           "with the reference stands on the CPU at SMOKE "
+                           "(tests/test_torch_models.py, "
+                           "test_torch_serving.py)")
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
@@ -2003,6 +2558,19 @@ def main(argv=None) -> int:
              and r["dtype"] == "bfloat16" and r["head_dim"] == HD)
     pf = next(r for r in pa_rows if r["case"] == "decode"
               and r["dtype"] == "float32")
+    pb = next(r for r in pa_rows if r["case"] == "h2o-danube-1.8b decode"
+              and r["dtype"] == "bfloat16")
+    at_new = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+    pa_new = {f"{r['case']} {r['dtype']} {r['heads']}/{r['kv_heads']}x"
+              f"{r['head_dim']} window {r['window']}":
+              {k: r[k] for k in at_new} for r in pa_rows
+              if r["case"].split()[0] in NEW_ARCHS and "ms" in r}
+    gpp_new = {f"{r['path']} {r['proj']} {r['M']}x{r['K']}x{r['N']} "
+               f"{r['dtype']}": {k: r[k] for k in at_new}
+               for r in gpp_rows if r["path"] in NEW_ARCHS and "ms" in r}
+    seq = {f"M={r['M']} G={r['G']}{' planned' if r['planned'] else ''}":
+           {k: r[k] for k in ("ms", "call_ms", "achieved_share")}
+           for r in seq_rows}
     rq = next(r for r in rms_rows if r["width"] == D
               and r["dtype"] == "bfloat16")
     gg = next(r for r in grouped_rows if r["phase"] == "decode"
@@ -2030,17 +2598,26 @@ def main(argv=None) -> int:
               f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}) wall_ms={r['wall_ms']:.4f}")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    tc_by_path = {
-        "qwen1.5-0.5b": qwen["bf16"]["launches"]["gpp_matmul_tc"],
-        "deepseek-v2-lite-16b": deepseek["bf16"]["launches"]["gpp_matmul_tc"]}
-    fma_by_path = {
-        "qwen1.5-0.5b (f32 logits head)":
-            qwen["bf16"]["launches"]["gpp_matmul"],
-        "deepseek-v2-lite-16b (f32 logits head and router)":
-            deepseek["bf16"]["launches"]["gpp_matmul"],
-        "qwen1.5-0.5b in f32": qwen["f32_kernel"]["launches"]["gpp_matmul"],
-        "deepseek-v2-lite-16b in f32 (4 layers)":
-            deepseek["f32_kernel"]["launches"]["gpp_matmul"]}
+    serving = report["serving"]
+
+    def by_path(counter, f32=False):
+        """{path: launches of `counter`} over every served path that ran
+        it: the bf16 runs (and gemma3's long run) or the f32 kernel runs."""
+        keys = (("f32_kernel", " in f32 ({} layers)"),
+                ("long_f32", " past its window in f32 ({} layers)")) if f32 \
+            else (("bf16", ""), ("long_bf16", " past its window"))
+        out = {}
+        for arch, runs in serving.items():
+            for key, label in keys:
+                n = runs.get(key, {}).get("launches", {}).get(counter, 0)
+                if n:
+                    layers = runs.get("f32_kernel", runs["bf16"])[
+                        "num_layers"]
+                    out[arch + label.format(layers)] = n
+        return out
+
+    tc_by_path = by_path("gpp_matmul_tc")
+    fma_by_path = {**by_path("gpp_matmul"), **by_path("gpp_matmul", True)}
     head_by_shape = {f"{r['arch']} {r['phase']} {r['M']}x{r['K']}x{r['N']}":
                      {k: r[k] for k in ("ms", "library_ms", "plain_ms",
                                         "bound_ms")}
@@ -2057,7 +2634,7 @@ def main(argv=None) -> int:
          "kernel": "gpp_matmul_tc_kernel (bf16 x and W; cluster split-K, "
                    "partials summed in rank order through distributed "
                    "shared memory)",
-         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
+         "path": ", ".join(serving),
          "launches": sum(tc_by_path.values()),
          "launches_by_path": tc_by_path,
          "max_abs_err": gpp_err["tc"],
@@ -2065,11 +2642,13 @@ def main(argv=None) -> int:
          "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
                   "bf16 (every shape of both paths: --json-out)",
          "fma_ms": g["fma_ms"],
+         "slice11_decode_shapes": gpp_new,
+         "gemm_sequence": seq,
          "worst_prefill_verify_vs_library": max(
              (r["ms"] / r["library_ms"], f"{r['path']} {r['phase']} "
               f"{r['proj']} {r['M']}x{r['K']}x{r['N']}")
              for r in gpp_rows if r["dtype"] == "bfloat16"
-             and r["phase"] != "decode"),
+             and r["phase"] != "decode" and "ms" in r),
          **{k: g[k] for k in numbers}},
         {"name": "gpp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gpp_matmul.cuh",
@@ -2077,10 +2656,9 @@ def main(argv=None) -> int:
          "kernel": "gpp_matmul_kernel (f32 x, or f32 / int8 W; the split-K "
                    "FMA body of gpp_matmul.cuh at E = 1, split tiles "
                    "summed by their last CTA)",
-         "path": "qwen1.5-0.5b (its f32 logits head), deepseek-v2-lite-16b "
-                 "(its f32 logits head and router); f32 runs",
-         "launches": qwen["bf16"]["launches"]["gpp_matmul"]
-         + deepseek["bf16"]["launches"]["gpp_matmul"],
+         "path": "every served path (its f32 logits head; the MoE "
+                 "models' f32 router); f32 runs",
+         "launches": sum(by_path("gpp_matmul").values()),
          "launches_by_path": fma_by_path,
          "max_abs_err": max(gpp_err["fma"],
                             max(r["max_abs_err"] for r in head_rows)),
@@ -2092,7 +2670,8 @@ def main(argv=None) -> int:
          "graph_ms": gr["graph_ms"],
          "library_graph_ms": gr["library_graph_ms"],
          "router_ms_by_phase": {r["phase"]: r["ms"] for r in gpp_rows
-                                if r["proj"] == "router"},
+                                if r["proj"] == "router"
+                                and r["path"] == "deepseek-v2-lite-16b"},
          "logits_head": head_by_shape,
          **{k: gr[k] for k in numbers}},
         {"name": "paged_attention_tc", "route": "cuda",
@@ -2100,8 +2679,9 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/paged_attention.py:341",
          "kernel": "paged_attention_tc_kernel (bf16 GQA / window, split-KV "
                    "over fixed block runs; ms includes its merge kernel's)",
-         "path": "qwen1.5-0.5b",
-         "launches": qwen["bf16"]["launches"]["paged_attention_tc"],
+         "path": ", ".join(by_path("paged_attention_tc")),
+         "launches": sum(by_path("paged_attention_tc").values()),
+         "launches_by_path": by_path("paged_attention_tc"),
          "max_abs_err": max(r["max_abs_err"] for r in pa_rows
                             if r["route"] == "gqa_tc"),
          "tol": "atol 2e-2 (bf16); decode / prefill / verify, window 32 or "
@@ -2109,6 +2689,8 @@ def main(argv=None) -> int:
          "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
                   f"{p['positions']} bf16",
          "fma_ms": p["fma_ms"],
+         "slice11_shapes": {k: v for k, v in pa_new.items()
+                            if "bfloat16" in k},
          **{k: p[k] for k in numbers}},
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2116,8 +2698,9 @@ def main(argv=None) -> int:
          "kernel": "paged_attention_kernel (f32 GQA / window, FMA, "
                    "split-KV over fixed runs of pieces; ms includes its "
                    "merge kernel's)",
-         "path": "qwen1.5-0.5b in f32",
-         "launches": qwen["f32_kernel"]["launches"]["paged_attention"],
+         "path": ", ".join(by_path("paged_attention", True)),
+         "launches": sum(by_path("paged_attention", True).values()),
+         "launches_by_path": by_path("paged_attention", True),
          "max_abs_err": max(r["max_abs_err"] for r in pa_rows
                             if r["route"] == "gqa"),
          "shape": f"decode B={SLOTS} H={H} hd={HD} positions "
@@ -2125,19 +2708,36 @@ def main(argv=None) -> int:
          **{k: pf[k] for k in ("kernel_ms", "merge_ms", "graph_ms",
                                "plan")},
          **{k: pf[k] for k in numbers}},
+        {"name": "paged_attention_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:341",
+         "kernel": "paged_attention_kernel, bf16 instance (FMA, split-KV "
+                   "over fixed runs of pieces; bf16 GQA at head dims the "
+                   "tensor-core kernel does not take; ms includes its "
+                   "merge kernel's)",
+         "path": ", ".join(by_path("paged_attention_bf16")),
+         "launches": sum(by_path("paged_attention_bf16").values()),
+         "launches_by_path": by_path("paged_attention_bf16"),
+         "max_abs_err": max(r["max_abs_err"] for r in pa_rows
+                            if r["route"] == "gqa"
+                            and r["dtype"] == "bfloat16"),
+         "tol": "atol 2e-2 (bf16); decode / prefill / verify, window 4096 "
+                "and 32",
+         "shape": f"danube decode B={pb['B']} H={pb['heads']} kv "
+                  f"{pb['kv_heads']} hd={pb['head_dim']} positions "
+                  f"{pb['positions']} bf16",
+         **{k: pb[k] for k in ("kernel_ms", "merge_ms", "graph_ms",
+                               "plan")},
+         **{k: pb[k] for k in numbers}},
         {"name": "rmsnorm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "none: a kernel of the port alone (the reference's "
                      "RMSNorm, src/repro/models/layers.py:60, is XLA's)",
          "kernel": "rmsnorm_kernel (row-invariant: a CTA a row, threads "
                    "from the width)",
-         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
-         "launches": qwen["bf16"]["launches"]["rmsnorm"]
-         + deepseek["bf16"]["launches"]["rmsnorm"],
-         "launches_by_path": {
-             "qwen1.5-0.5b": qwen["bf16"]["launches"]["rmsnorm"],
-             "deepseek-v2-lite-16b":
-                 deepseek["bf16"]["launches"]["rmsnorm"]},
+         "path": ", ".join(serving),
+         "launches": sum(by_path("rmsnorm").values()),
+         "launches_by_path": by_path("rmsnorm"),
          "max_abs_err": max(r["max_abs_err"] for r in rms_rows),
          "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step",
          "shape": f"qwen decode {SLOTS}x{D} bf16 (widths 512-2048, 1-32 "
@@ -2147,8 +2747,18 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/gpp_matmul_grouped.cu",
          "replaces": "src/repro/kernels/gpp_matmul.py:606",
          "kernel": "gpp_matmul_grouped_tc_kernel (bf16 x and W)",
-         "path": "deepseek-v2-lite-16b",
-         "launches": deepseek["bf16"]["launches"]["gpp_matmul_grouped_tc"],
+         "path": ", ".join(by_path("gpp_matmul_grouped_tc")),
+         "launches": sum(by_path("gpp_matmul_grouped_tc").values()),
+         "launches_by_path": by_path("gpp_matmul_grouped_tc"),
+         "kimi_by_shape": {
+             f"{r['phase']} {r['proj']} {r['E']}x{r['M']}x{r['K']}x{r['N']}":
+                 {k: r[k] for k in ("ms", "library_ms", "plain_ms",
+                                    "bound_ms", "max_abs_err")}
+             for r in kimi_grouped_rows},
+         "expert_bytes_unrouted_share": {
+             arch: {ph: v["expert_bytes_unrouted_share"]
+                    for ph, v in out.items() if ph != "peak_mem_gb"}
+             for arch, out in report["moe_layer"].items()},
          "max_abs_err": grouped_err["tc"],
          "shape": f"decode gate/up {gg['E']}x{gg['M']}x{gg['K']}x{gg['N']} "
                   "bf16",
@@ -2187,13 +2797,9 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/paged_attention.py:341 (the split "
                      "walks' merge, for mla=True and GQA)",
          "kernel": "paged_attention_merge_kernel (f32 partials -> bf16)",
-         "path": "qwen1.5-0.5b, deepseek-v2-lite-16b",
-         "launches": qwen["bf16"]["launches"]["paged_attention_merge"]
-         + deepseek["bf16"]["launches"]["paged_attention_merge"],
-         "launches_by_path": {
-             "qwen1.5-0.5b": qwen["bf16"]["launches"]["paged_attention_merge"],
-             "deepseek-v2-lite-16b":
-                 deepseek["bf16"]["launches"]["paged_attention_merge"]},
+         "path": ", ".join(serving),
+         "launches": sum(by_path("paged_attention_merge").values()),
+         "launches_by_path": by_path("paged_attention_merge"),
          "max_abs_err": max(r["merge_max_abs_err"] for r in mla_rows + pa_rows
                             if "merge_max_abs_err" in r),
          "shape": f"MLA decode B={SLOTS} H={DS_H} latent {DS_R}, "
@@ -2208,15 +2814,10 @@ def main(argv=None) -> int:
                      "walks' merge, for mla=True and GQA)",
          "kernel": "paged_attention_merge_kernel, f32 instance (f32 "
                    "partials -> f32, after the FMA kernels in f32)",
-         "path": "qwen1.5-0.5b in f32, deepseek-v2-lite-16b in f32 "
-                 f"({deepseek['f32_kernel']['num_layers']} layers)",
-         "launches": qwen["f32_kernel"]["launches"]["paged_attention_merge"]
-         + deepseek["f32_kernel"]["launches"]["paged_attention_merge"],
+         "path": "every f32 run",
+         "launches": sum(by_path("paged_attention_merge", True).values()),
          "launches_by_path": {
-             "qwen1.5-0.5b in f32":
-                 qwen["f32_kernel"]["launches"]["paged_attention_merge"],
-             "deepseek-v2-lite-16b in f32":
-                 deepseek["f32_kernel"]["launches"]["paged_attention_merge"],
+             **by_path("paged_attention_merge", True),
              **{f"deepseek-v2-lite-16b (4 layers) {k}":
                 v["launches"]["paged_attention_merge"]
                 for k, v in blocks.items() if k.startswith("float32")}},

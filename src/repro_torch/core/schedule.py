@@ -1,7 +1,13 @@
-"""GPP planners: the reference's stream/serve planners plus sm_90 ring plans.
+"""GPP planners: the reference's schedule IR, stream/serve planners and
+timing cache, plus sm_90 ring plans.
 
-`round_up`, `plan_stream`, `plan_serve_chunk`, `plan_verify_budget` and
-`tokens_per_step_cov` are copies of `repro.core.schedule`.  The TPU tile
+The schedule IR and its builders (`ScheduleOp`, `Schedule`,
+`gpp_group_count`, `gpp_concurrent_rewriters`, `build_insitu` /
+`build_naive_pp` / `build_gpp` / `build`), `round_up`, `plan_stream`,
+`plan_serve_chunk`, `plan_verify_budget`, `tokens_per_step_cov` and the
+measured-timing feedback (`TimingSample`, `TimingCache`,
+`set_default_timing_cache` / `get_default_timing_cache`; the default stays
+None) are copies of `repro.core.schedule`.  The TPU tile
 planners (v5e rates, ~100 MiB VMEM budget, (8, 128) tiling) do not carry
 over; in their place `plan_matmul_fma_sm90` (the FMA
 route of `gpp_matmul` and, with an expert axis, of `gpp_matmul_grouped`),
@@ -27,6 +33,8 @@ import functools
 import math
 import statistics
 
+from repro_torch.core.analytical import PimConfig
+
 # NVIDIA H100 SXM data sheet (dense, 700 W)
 H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -39,6 +47,194 @@ def round_up(x: int, mult: int) -> int:
     """Smallest multiple of `mult` >= x (tile, block, and chunk sizing)."""
     return ((x + mult - 1) // mult) * mult
 
+
+# ---------------------------------------------------------------------------
+# the schedule IR and its builders (copies)
+# ---------------------------------------------------------------------------
+
+KIND_REWRITE = "rewrite"
+KIND_COMPUTE = "compute"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleOp:
+    macro: int
+    kind: str          # "rewrite" | "compute"
+    start: float       # cycles
+    dur: float         # cycles
+    nbytes: float      # off-chip bytes moved (0 for compute)
+
+    @property
+    def end(self) -> float:
+        return self.start + self.dur
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    ops: tuple[ScheduleOp, ...]
+    num_macros: int
+    cfg: PimConfig
+    strategy: str
+
+    @property
+    def makespan(self) -> float:
+        return max((op.end for op in self.ops), default=0.0)
+
+    def bandwidth_profile(self, resolution: int = 2048) -> "list[float]":
+        """Off-chip bandwidth demand sampled over the makespan [B/cycle]."""
+        span = self.makespan
+        if span <= 0:
+            return []
+        out = [0.0] * resolution
+        dt = span / resolution
+        for op in self.ops:
+            if op.kind != KIND_REWRITE or op.dur <= 0:
+                continue
+            rate = op.nbytes / op.dur
+            i0 = int(op.start / dt)
+            i1 = min(resolution - 1, int((op.end - 1e-9) / dt))
+            for i in range(i0, i1 + 1):
+                lo = max(op.start, i * dt)
+                hi = min(op.end, (i + 1) * dt)
+                out[i] += rate * max(0.0, hi - lo) / dt
+        return out
+
+    def peak_bandwidth(self) -> float:
+        """Exact peak instantaneous bandwidth demand [B/cycle]."""
+        events: list[tuple[float, float]] = []
+        for op in self.ops:
+            if op.kind != KIND_REWRITE or op.dur <= 0:
+                continue
+            rate = op.nbytes / op.dur
+            events.append((op.start, rate))
+            events.append((op.end, -rate))
+        events.sort()
+        cur = peak = 0.0
+        for _, delta in events:
+            cur += delta
+            peak = max(peak, cur)
+        return peak
+
+    def avg_bandwidth(self) -> float:
+        total = sum(op.nbytes for op in self.ops if op.kind == KIND_REWRITE)
+        return total / self.makespan if self.makespan else 0.0
+
+    def bandwidth_idle_fraction(self) -> float:
+        """Fraction of the makespan with zero rewrite traffic in flight."""
+        span = self.makespan
+        if span <= 0:
+            return 0.0
+        ivals = sorted(
+            (op.start, op.end) for op in self.ops if op.kind == KIND_REWRITE
+        )
+        busy = 0.0
+        cur_s = cur_e = None
+        for s, e in ivals:
+            if cur_s is None:
+                cur_s, cur_e = s, e
+            elif s <= cur_e:
+                cur_e = max(cur_e, e)
+            else:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+        if cur_s is not None:
+            busy += cur_e - cur_s
+        return 1.0 - busy / span
+
+    def macro_utilization(self) -> float:
+        """Mean fraction of the makespan each macro spends busy (either op)."""
+        span = self.makespan
+        if span <= 0:
+            return 0.0
+        busy = sum(op.dur for op in self.ops)
+        return busy / (span * self.num_macros)
+
+
+# ---------------------------------------------------------------------------
+# Builders
+# ---------------------------------------------------------------------------
+
+def gpp_group_count(cfg: PimConfig) -> int:
+    """Number of stagger groups G = round((t_pim + t_rw) / t_rw), >= 2.
+
+    With G groups, group k starts its rewrite at k*(t_pim+t_rw)/G; exactly
+    num/G macros rewrite at any instant when the ratio divides evenly.
+    """
+    tp, tr = cfg.time_pim, cfg.time_rewrite
+    return max(2, round((tp + tr) / tr))
+
+
+def gpp_concurrent_rewriters(cfg: PimConfig, num_macros: int) -> float:
+    """Average number of simultaneously-rewriting macros under GPP."""
+    tp, tr = cfg.time_pim, cfg.time_rewrite
+    return num_macros * tr / (tp + tr)
+
+
+def build_insitu(cfg: PimConfig, num_macros: int, rounds: int) -> Schedule:
+    """All macros rewrite together, then all compute together."""
+    tp, tr = cfg.time_pim, cfg.time_rewrite
+    ops = []
+    for r in range(rounds):
+        t0 = r * (tp + tr)
+        for m in range(num_macros):
+            ops.append(ScheduleOp(m, KIND_REWRITE, t0, tr, cfg.size_macro))
+            ops.append(ScheduleOp(m, KIND_COMPUTE, t0 + tr, tp, 0.0))
+    return Schedule(tuple(ops), num_macros, cfg, "insitu")
+
+
+def build_naive_pp(cfg: PimConfig, num_macros: int, rounds: int) -> Schedule:
+    """Two synchronized banks: one computes GeMM n while the other rewrites
+    weights for GeMM n+1; banks swap when BOTH finish (paper Fig 3b)."""
+    tp, tr = cfg.time_pim, cfg.time_rewrite
+    period = max(tp, tr)
+    half = num_macros // 2
+    bank = [0] * half + [1] * (num_macros - half)
+    ops = []
+    # phase p: bank (p % 2) computes round p, bank ((p+1) % 2) rewrites
+    # weights for round p+1.  Warm-up: bank0 rewrites round 0 first.
+    for m in range(num_macros):
+        if bank[m] == 0:
+            ops.append(ScheduleOp(m, KIND_REWRITE, 0.0, tr, cfg.size_macro))
+    t0 = tr  # steady phases start after warm-up fill
+    for p in range(rounds):
+        comp_bank = p % 2
+        for m in range(num_macros):
+            if bank[m] == comp_bank:
+                ops.append(ScheduleOp(m, KIND_COMPUTE, t0, tp, 0.0))
+            elif p + 1 < rounds:
+                ops.append(ScheduleOp(m, KIND_REWRITE, t0, tr, cfg.size_macro))
+        t0 += period
+    return Schedule(tuple(ops), num_macros, cfg, "naive_pp")
+
+
+def build_gpp(cfg: PimConfig, num_macros: int, rounds: int) -> Schedule:
+    """Generalized ping-pong: macro groups stagger rewrite starts so that
+    off-chip traffic is flat and no macro ever idles (paper Fig 3c)."""
+    tp, tr = cfg.time_pim, cfg.time_rewrite
+    period = tp + tr
+    groups = gpp_group_count(cfg)
+    ops = []
+    for m in range(num_macros):
+        g = m % groups
+        offset = g * period / groups
+        for r in range(rounds):
+            t0 = offset + r * period
+            ops.append(ScheduleOp(m, KIND_REWRITE, t0, tr, cfg.size_macro))
+            ops.append(ScheduleOp(m, KIND_COMPUTE, t0 + tr, tp, 0.0))
+    return Schedule(tuple(ops), num_macros, cfg, "gpp")
+
+
+def build(strategy: str, cfg: PimConfig, num_macros: int, rounds: int) -> Schedule:
+    return {
+        "insitu": build_insitu,
+        "naive_pp": build_naive_pp,
+        "gpp": build_gpp,
+    }[strategy](cfg, num_macros, rounds)
+
+
+# ---------------------------------------------------------------------------
+# the stream planner (a copy)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class StreamPlan:
@@ -53,6 +249,10 @@ class StreamPlan:
     chunks: int
     t_compute: float
     t_transfer: float
+
+    @property
+    def ratio(self) -> float:
+        return self.t_compute / self.t_transfer if self.t_transfer else math.inf
 
 
 def plan_stream(*, block_bytes: float, compute_flops: float,
@@ -109,6 +309,131 @@ def tokens_per_step_cov(counts: "list[int] | list[float]") -> float:
     if mean == 0:
         return 0.0
     return statistics.pstdev(counts) / mean
+
+
+# ---------------------------------------------------------------------------
+# measured-timing feedback (copies)
+# ---------------------------------------------------------------------------
+
+TIMING_PROVENANCES = ("host", "compiled")
+
+
+@dataclasses.dataclass(frozen=True)
+class TimingSample:
+    """One measured (transfer, compute) pair for a weight tile.
+
+    block_bytes / compute_flops describe the tile the measurement was taken
+    on; t_dma / t_compute are the measured wall-times [s] to move and to
+    matmul that tile.  Rates (bytes/s, flop/s) are what the planner consumes,
+    so samples at any tile size inform plans at every tile size.
+
+    measured_on records provenance: "host" samples come from eager/CPU timing
+    loops (dispatch overhead, no real HBM), "compiled" samples from a
+    compiled run on the accelerator the plan will execute on.  Consumers
+    (`TimingCache.effective_rates`) prefer compiled samples when any exist —
+    a host-measured rate is a stand-in, not ground truth.
+    """
+
+    block_bytes: float
+    compute_flops: float
+    t_dma: float
+    t_compute: float
+    measured_on: str = "host"
+
+    @property
+    def bytes_per_s(self) -> float:
+        return self.block_bytes / self.t_dma if self.t_dma > 0 else math.inf
+
+    @property
+    def flops_per_s(self) -> float:
+        return self.compute_flops / self.t_compute if self.t_compute > 0 else math.inf
+
+
+class TimingCache:
+    """Measured per-tile t_dma/t_compute samples feeding the ring-depth
+    plan (`kernels.ops.plan_ring_depth`).
+
+    The analytic model (the H100's data-sheet rates) is an ideal; real
+    kernels see epilogue overheads, copy contention and clock throttling.
+    `chip_smoke.py` records what one tile of the GeMM sequence costs on the
+    card (`measured_on="compiled"`) and the planner can then size the ring
+    against median measured rates instead of the ideal — the paper's
+    runtime-adaptation loop (Fig 7) applied to the CUDA mapping.
+    """
+
+    def __init__(self, samples: "list[TimingSample] | tuple[TimingSample, ...]" = ()):
+        self._samples: list[TimingSample] = list(samples)
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    @property
+    def samples(self) -> "tuple[TimingSample, ...]":
+        return tuple(self._samples)
+
+    def record(self, *, block_bytes: float, compute_flops: float,
+               t_dma: float, t_compute: float,
+               measured_on: str = "host") -> None:
+        if block_bytes <= 0 or compute_flops <= 0:
+            raise ValueError("block_bytes and compute_flops must be positive")
+        if t_dma < 0 or t_compute < 0:
+            raise ValueError("measured times must be non-negative")
+        if measured_on not in TIMING_PROVENANCES:
+            raise ValueError(
+                f"measured_on must be one of {TIMING_PROVENANCES}, "
+                f"got {measured_on!r}")
+        self._samples.append(TimingSample(block_bytes, compute_flops,
+                                          t_dma, t_compute, measured_on))
+
+    def effective_rates(self) -> "tuple[float, float]":
+        """(flops_per_s, transfer_bytes_per_s) — median of per-sample rates.
+
+        Median (not mean): one cold-cache or preempted sample must not drag
+        the plan; the planner wants the steady-state rate.  When any
+        compiled-run samples exist they are used exclusively — host-measured
+        rates (eager dispatch, no real HBM link) only stand in until a
+        compiled path has been profiled.
+        """
+        if not self._samples:
+            raise ValueError("TimingCache has no samples")
+        pool = [s for s in self._samples if s.measured_on == "compiled"] \
+            or self._samples
+        fps = statistics.median(s.flops_per_s for s in pool)
+        bps = statistics.median(s.bytes_per_s for s in pool)
+        return fps, bps
+
+    # ---- persistence (JSON lists of samples) ----
+    def to_json(self) -> "list[dict]":
+        return [dataclasses.asdict(s) for s in self._samples]
+
+    @classmethod
+    def from_json(cls, entries: "list[dict]") -> "TimingCache":
+        return cls([TimingSample(**e) for e in entries])
+
+    @classmethod
+    def from_bench_json(cls, path: str,
+                        key: str = "dense_timing_samples") -> "TimingCache":
+        """Load the samples a benchmark JSON holds under entry `key`,
+        field "samples" (the reference's BENCH_kernels.json layout)."""
+        import json
+        with open(path) as f:
+            bench = json.load(f)
+        entry = bench.get(key) or {}
+        return cls.from_json(entry.get("samples", []))
+
+
+_DEFAULT_TIMING: "TimingCache | None" = None
+
+
+def set_default_timing_cache(cache: "TimingCache | None") -> None:
+    """Install measurements for every subsequent `kernels.ops.plan_ring_depth`
+    call that doesn't pass its own `timing` (None clears)."""
+    global _DEFAULT_TIMING
+    _DEFAULT_TIMING = cache
+
+
+def get_default_timing_cache() -> "TimingCache | None":
+    return _DEFAULT_TIMING
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +672,11 @@ def _tc_split(K: int, N: int) -> "tuple[int, int, int]":
     block_k 256, and for each block_n the largest cluster S (at most one
     k-step a rank) whose n_tiles x S CTAs stay within GPP_MM_TC_CTAS; the
     block_n with more CTAs wins, the wider on a tie.  Where even one CTA a
-    tile is more, S = 1 at the block_n with fewer CTAs."""
+    tile is more, S = 1 at the block_n with fewer CTAs, and where those
+    tiles are more than the SMs but at most twice as many, block_k 128:
+    its 2-slot ring lets two CTAs share an SM at up to 64 rows, so every
+    tile runs in one wave (at 256 rows one CTA fits an SM, and the tiles
+    past the 132nd ran a second wave)."""
     bk = max(GPP_MM_TC_BLOCK_KS)
     num_k = -(-K // bk)
     best = None
@@ -360,7 +689,10 @@ def _tc_split(K: int, N: int) -> "tuple[int, int, int]":
                else -ctas)
         if best is None or key > best[0]:
             best = (key, (bn, S, bk))
-    return best[1]
+    bn, S, bk = best[1]
+    if S == 1 and H100_SMS < -(-N // bn) <= 2 * H100_SMS:
+        bk = min(GPP_MM_TC_BLOCK_KS)
+    return bn, S, bk
 
 
 def plan_matmul_tc_sm90(M: int, K: int, N: int, *,

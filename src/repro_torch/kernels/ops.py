@@ -1,5 +1,6 @@
 """Model-facing entry points for the kernels: `dense`, `dense_grouped`,
-`paged_attn` and `rmsnorm`.
+`paged_attn` and `rmsnorm`; the paper's streamed workload,
+`streamed_matmul` and `streamed_gemm_sequence`, with `plan_ring_depth`.
 
 Copies of `repro.kernels.ops.dense` (with its einsum-shaped `contract_dims`
 adapter), `dense_grouped` and `paged_attn` (GQA, window and MLA), and the
@@ -23,6 +24,11 @@ import math
 
 import torch
 
+from repro_torch.core.schedule import (H100_BF16_FLOPS, H100_F32_FLOPS,
+                                       H100_HBM_BYTES_PER_S,
+                                       TimingCache,
+                                       get_default_timing_cache,
+                                       plan_stream)
 from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.paged_attention import paged_attention
@@ -42,6 +48,74 @@ def resolve_mode(mode: str, t: torch.Tensor) -> str:
         raise ValueError("mode='kernel' launches a CUDA kernel and needs "
                          "CUDA tensors")
     return mode
+
+
+def plan_ring_depth(M: int, K: int, block_n: int,
+                    dtype: torch.dtype = torch.bfloat16, max_ring: int = 8,
+                    timing: "TimingCache | None" = None) -> int:
+    """Ring depth G = ceil(t_dma / t_compute) + 1 for one (K, block_n)
+    weight tile against M rows (the reference's `plan_ring_depth`, at the
+    H100's rates: 3.35e12 B/s and 989e12 bf16 / 67e12 f32 FLOP/s).  With
+    `timing` (or a default cache installed by
+    `core.schedule.set_default_timing_cache`) the median measured rates
+    replace the data sheet's."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    timing = timing if timing is not None else get_default_timing_cache()
+    if timing is not None and len(timing):
+        flops_per_s, bytes_per_s = timing.effective_rates()
+    else:
+        flops_per_s = (H100_BF16_FLOPS if dtype == torch.bfloat16
+                       else H100_F32_FLOPS)
+        bytes_per_s = H100_HBM_BYTES_PER_S
+    return plan_stream(block_bytes=K * block_n * itemsize,
+                       compute_flops=2.0 * M * K * block_n,
+                       flops_per_s=flops_per_s,
+                       transfer_bytes_per_s=bytes_per_s,
+                       max_ring=max_ring).ring_depth
+
+
+def streamed_matmul(x: torch.Tensor, w: torch.Tensor, *, bias=None,
+                    w_scale=None, activation: "str | None" = None,
+                    num_bufs: "int | None" = None,
+                    mode: str = "auto") -> torch.Tensor:
+    """y = epilogue(x @ w) with the weights streamed through the GPP ring
+    (the reference's `streamed_matmul`): `gpp_matmul` on a CUDA tensor,
+    whose planner picks the tiles (the reference's block_m / block_n /
+    block_k pins are TPU tiles and are not taken), its plain version on the
+    CPU.  num_bufs pins the ring depth G."""
+    if resolve_mode(mode, x) == "ref":
+        return dense_ref(x, w, bias=bias, w_scale=w_scale,
+                         activation=activation)
+    return gpp_matmul(x, w, bias=bias, w_scale=w_scale,
+                      activation=activation, num_bufs=num_bufs)
+
+
+def fold_rounds(ws: torch.Tensor) -> torch.Tensor:
+    """(R, K, N) round weights -> (K, R * N), round r in columns
+    [r * N, (r + 1) * N): the reference's fold of the round dimension into
+    the streamed tile stream."""
+    R, K, N = ws.shape
+    return ws.permute(1, 0, 2).reshape(K, R * N)
+
+
+def streamed_gemm_sequence(x: torch.Tensor, ws: torch.Tensor, *,
+                           num_bufs: "int | None" = None,
+                           mode: str = "auto") -> torch.Tensor:
+    """The paper's BLAS workload (the reference's `streamed_gemm_sequence`):
+    consecutive GeMMs ys[r] = x @ ws[r] with every round's weights streamed
+    from device memory.  The round dimension is folded into N
+    (`fold_rounds`), so the ring pipelines across GeMMs as macros pipeline
+    across consecutive layers; one `gpp_matmul` launch, its ring depth G
+    pinned by num_bufs or, when None, its own planner's (the reference's
+    block_n pin is a TPU tile and is not taken).  Returns (R, M, N)."""
+    R, K, N = ws.shape
+    M = x.shape[0]
+    w_flat = fold_rounds(ws)
+    if resolve_mode(mode, x) == "ref":
+        y = dense_ref(x, w_flat)
+    else:
+        y = gpp_matmul(x, w_flat, num_bufs=num_bufs)
+    return y.reshape(M, R, N).permute(1, 0, 2).contiguous()
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,

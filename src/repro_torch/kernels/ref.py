@@ -155,15 +155,39 @@ def _grouped_epilogue(acc: torch.Tensor, dtype, w_scale, bias,
     return ACTIVATIONS[activation](acc).to(dtype)
 
 
+# f32 elements of W widened at once by `dense_grouped_ref` (256 MB): an
+# expert stack is taken a chunk of experts at a time, so no f32 copy of a
+# whole stack exists (kimi-k2's 384 x 7168 x 2048 would be 22.5 GB)
+GROUPED_REF_CHUNK_ELEMS = 1 << 26
+
+
+def grouped_ref_chunk(E: int, K: int, N: int) -> int:
+    """Experts `dense_grouped_ref` widens and multiplies at once."""
+    return max(1, min(E, GROUPED_REF_CHUNK_ELEMS // max(1, K * N)))
+
+
 def dense_grouped_ref(x: torch.Tensor, w: torch.Tensor, *, bias=None,
                       w_scale=None,
                       activation: "str | None" = None) -> torch.Tensor:
     """Plain version of `gpp_matmul_grouped`'s fused epilogue: per expert
     y[e] = act(x[e] @ w[e] [* w_scale[e]] [+ bias[e]]) with f32
     accumulation, the dequant scale (scalar, (E,) or (E, N)) applied after
-    accumulation, cast to x.dtype."""
-    return _grouped_epilogue(torch.bmm(x.float(), w.float()), x.dtype,
-                             w_scale, bias, activation)
+    accumulation, cast to x.dtype.  Computed over chunks of experts
+    (`grouped_ref_chunk`); each expert's product and epilogue are its own,
+    so the result is the whole stack's."""
+    E, M, _ = x.shape
+    K, N = w.shape[1:]
+    sc = None if w_scale is None else torch.as_tensor(
+        w_scale, dtype=torch.float32, device=x.device)
+    y = torch.empty(E, M, N, dtype=x.dtype, device=x.device)
+    step = grouped_ref_chunk(E, K, N)
+    for e0 in range(0, E, step):
+        e = slice(e0, e0 + step)
+        y[e] = _grouped_epilogue(
+            torch.bmm(x[e].float(), w[e].float()), x.dtype,
+            sc if sc is None or sc.dim() == 0 else sc[e],
+            None if bias is None else bias[e], activation)
+    return y
 
 
 def paged_attn_ref(q, pool_a, pool_b, tables, positions, *, num_kv_heads,

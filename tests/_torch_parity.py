@@ -109,3 +109,32 @@ def walk_checks(plan):
                   for tl in range(plan.tiles)) == \
         [(e, n, m) for e in range(plan.E) for n in range(plan.n_tiles)
          for m in range(plan.m_tiles)]
+
+def same_values(got, want, rel: float = 1e-9, path: str = "") -> None:
+    """Dataclasses, tuples / lists and dicts of numbers and strings, field
+    by field: ints, bools and strings equal, floats within `rel`
+    (relative, absolute at magnitudes under 1)."""
+    import dataclasses
+    import math
+    if dataclasses.is_dataclass(got):
+        assert type(got).__name__ == type(want).__name__, path
+        for f in dataclasses.fields(got):
+            same_values(getattr(got, f.name), getattr(want, f.name), rel,
+                        f"{path}.{f.name}")
+    elif isinstance(got, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_values(g, w, rel, f"{path}[{i}]")
+    elif isinstance(got, dict):
+        assert got.keys() == want.keys(), path
+        for k in got:
+            same_values(got[k], want[k], rel, f"{path}[{k!r}]")
+    elif isinstance(got, float) or isinstance(want, float):
+        if math.isinf(want) or math.isnan(want):
+            assert got == want or (math.isnan(got) and math.isnan(want)), \
+                path
+        else:
+            assert abs(got - want) <= rel * max(1.0, abs(want)), \
+                (path, got, want)
+    else:
+        assert got == want, (path, got, want)

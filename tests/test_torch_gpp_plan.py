@@ -10,7 +10,9 @@ surrounds it is plain Python and is checked here:
     in rank order and differ by at most one step, every k row is
     multiplied by exactly one (rank, k-group), the ranks' columns cover
     the tile once, the ring and the partials that reuse it fit the shared
-    memory, a pinned ring is kept, and what cannot run raises;
+    memory, a pinned ring is kept, and what cannot run raises; where one
+    CTA a tile is more tiles than SMs (the wide gate/up of qwen2-7b and
+    kimi-k2), two CTAs share an SM so every tile runs in one wave;
   * `kernels.ref.dense_cluster_ref` — the plain replay of the kernel's
     split and its rank-order sum — against the JAX package's `gpp_matmul`
     in Pallas interpret mode on the same numpy inputs, at f32 (1e-5) and
@@ -127,6 +129,30 @@ def test_plan_at_the_path_shapes():
     # decode: 16 rows a tile, prefill and verify 32
     for M, bm in ((4, 16), (32, 32), (20, 32)):
         assert sched.plan_matmul_tc_sm90(M, 1024, 2816).block_m == bm
+
+
+# (K, N) with more 128-column tiles than SMs but at most twice as many:
+# qwen2-7b's and kimi-k2's gate/up, the GeMM sequence's 8 folded rounds
+WIDE = {"qwen2 gate_up": (3584, 18944), "kimi gate_up": (7168, 18432),
+        "gemm sequence": (4096, 8 * 4096)}
+
+
+@pytest.mark.parametrize("M", (4, 8, 20, 32, 64))
+@pytest.mark.parametrize("proj", WIDE)
+def test_wide_projection_runs_in_one_wave(proj, M):
+    # one CTA a tile at k-steps of 128 rows: two CTAs of the 2-slot ring
+    # share an SM, so the card holds every tile at once
+    K, N = WIDE[proj]
+    plan = sched.plan_matmul_tc_sm90(M, K, N)
+    assert (plan.cluster, plan.block_n, plan.block_k) == (1, 128, 128)
+    assert plan.num_bufs == 2
+    assert sched.H100_SMS < plan.tiles <= 2 * sched.H100_SMS
+    assert 2 * (plan.smem_bytes + sched.CTA_SMEM_RESERVED) <= \
+        sched.SM_SMEM_BYTES
+    _fits(plan)
+    cluster_checks(plan)
+    # narrower: block_k stays 256 (gemma3-12b's gate/up, 120 tiles)
+    assert sched.plan_matmul_tc_sm90(M, 3840, 15360).block_k == 256
 
 
 @pytest.mark.parametrize("G", (1, 2, 3, 4, 6))

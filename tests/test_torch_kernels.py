@@ -27,6 +27,9 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (chunk_issue_schedule, dense_ref,
                                      paged_attn_ref)
 
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ref import ACTIVATIONS
+
 from _torch_parity import np32, t
 
 pytestmark = pytest.mark.tier1
@@ -156,6 +159,125 @@ class TestDenseParity:
         with pytest.raises(ValueError):
             ops.dense(x, w, activation="swish")
         assert ops.resolve_mode("auto", x) == "ref"
+
+
+class TestGroupedRefChunks:
+    """`dense_grouped_ref` takes an expert stack a chunk of experts at a
+    time (no f32 copy of a whole stack): the same function as the whole
+    stack's f32 bmm and epilogue, bit for bit, except that at f32 an
+    activated element may differ by an ulp (PyTorch's CPU loop for
+    silu / tanh-gelu rounds the elements of a tensor's vectorised body and
+    of its tail by two code paths, so where an element falls depends on the
+    tensor's size)."""
+
+    @staticmethod
+    def _whole(x, w, bias, w_scale, act):
+        acc = torch.bmm(x.float(), w.float())
+        if w_scale is not None:
+            sc = torch.as_tensor(w_scale, dtype=torch.float32)
+            acc = acc * (sc if sc.dim() == 0 else sc.reshape(
+                x.shape[0], 1, -1))
+        if bias is not None:
+            acc = acc + bias.float()[:, None, :]
+        return ACTIVATIONS[act](acc).to(x.dtype)
+
+    @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+    @pytest.mark.parametrize("scale", (None, "scalar", "expert", "column"))
+    @pytest.mark.parametrize("act", (None, "silu", "gelu"))
+    def test_chunks_equal_whole_stack(self, monkeypatch, dtype, scale, act):
+        monkeypatch.setattr(kref, "GROUPED_REF_CHUNK_ELEMS", 3 * 24 * 40)
+        E, M, K, N = 11, 5, 24, 40
+        assert kref.grouped_ref_chunk(E, K, N) == 3     # 4 chunks, one short
+        g = torch.Generator().manual_seed(2)
+        x = torch.randn(E, M, K, generator=g).to(dtype)
+        w = (torch.randn(E, K, N, generator=g) * 0.1).to(dtype)
+        bias = (torch.randn(E, N, generator=g) * 0.1).to(dtype)
+        w_scale = {None: None, "scalar": torch.tensor(0.5),
+                   "expert": torch.rand(E, generator=g),
+                   "column": torch.rand(E, N, generator=g)}[scale]
+        got = kref.dense_grouped_ref(x, w, bias=bias, w_scale=w_scale,
+                                     activation=act)
+        assert got.dtype == dtype and got.shape == (E, M, N)
+        want = self._whole(x, w, bias, w_scale, act)
+        if act is None or dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=2.0 ** -22,
+                                       atol=1e-7)
+
+    def test_chunk_count(self):
+        # kimi-k2's expert stack: 4 experts a chunk (256 MB of f32 W)
+        assert kref.grouped_ref_chunk(384, 7168, 2048) == 4
+        assert kref.grouped_ref_chunk(64, 2048, 1408) == 23
+        assert kref.grouped_ref_chunk(8, 64, 32) == 8
+
+
+class TestStreamedWorkload:
+    """The paper's consecutive-GeMM workload and its ring-depth plan against
+    the reference's (`repro.kernels.ops`): the port's plain path on the CPU
+    against the JAX interpret kernel, on the same numpy inputs."""
+
+    @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+    @pytest.mark.parametrize("G", (None, 1, 2, 3))
+    def test_gemm_sequence_matches_reference(self, dtype, G):
+        rng = np.random.default_rng(3)
+        R, M, K, N = 3, 8, 256, 128
+        x = rng.standard_normal((M, K)).astype(np.float32)
+        ws = (rng.standard_normal((R, K, N)) * 0.05).astype(np.float32)
+        jdt = getattr(jnp, dtype)
+        want = jops.streamed_gemm_sequence(
+            jnp.asarray(x, jdt), jnp.asarray(ws, jdt), block_n=128,
+            num_bufs=G, interpret=True)
+        got = ops.streamed_gemm_sequence(t(jnp.asarray(x, jdt)),
+                                         t(jnp.asarray(ws, jdt)),
+                                         num_bufs=G)
+        assert got.shape == want.shape == (R, M, N)
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(np32(got), np32(want),
+                                   **(F32 if dtype == "float32" else BF16))
+
+    def test_rounds_fold_into_n(self):
+        ws = torch.arange(2 * 3 * 4.0).reshape(2, 3, 4)
+        w = ops.fold_rounds(ws)
+        assert w.shape == (3, 8)
+        assert torch.equal(w[:, :4], ws[0]) and torch.equal(w[:, 4:], ws[1])
+
+    def test_streamed_matmul_matches_reference(self):
+        x, w, b = _mats(16, 256, 192, seed=4)
+        want = jops.streamed_matmul(jnp.asarray(x), jnp.asarray(w),
+                                    bias=jnp.asarray(b), activation="silu",
+                                    interpret=True)
+        got = ops.streamed_matmul(t(x), t(w), bias=t(b), activation="silu")
+        np.testing.assert_allclose(np32(got), np32(want), **F32)
+
+    def test_ring_depth_at_h100_rates_and_measured(self):
+        for M in (1, 8, 32, 128, 512):
+            for dtype, fps in ((torch.bfloat16, sched.H100_BF16_FLOPS),
+                               (torch.float32, sched.H100_F32_FLOPS)):
+                es = torch.empty((), dtype=dtype).element_size()
+                assert ops.plan_ring_depth(M, 4096, 256, dtype) == \
+                    sched.plan_stream(
+                        block_bytes=4096 * 256 * es,
+                        compute_flops=2.0 * M * 4096 * 256,
+                        flops_per_s=fps,
+                        transfer_bytes_per_s=sched.H100_HBM_BYTES_PER_S
+                    ).ring_depth
+        assert ops.plan_ring_depth(8, 4096, 256) == 8
+        assert ops.plan_ring_depth(128, 4096, 256) == 4
+        # measured rates replace the data sheet's: a cache at the
+        # reference's TPU v5e rates gives the reference's plan
+        tc = sched.TimingCache()
+        tc.record(block_bytes=819e3, compute_flops=197e9, t_dma=1e-6,
+                  t_compute=1e-3, measured_on="compiled")
+        for M, K, bn in ((8, 4096, 256), (64, 1024, 512), (512, 256, 128)):
+            assert ops.plan_ring_depth(M, K, bn, timing=tc) == \
+                jops.plan_ring_depth(M, K, bn)
+        sched.set_default_timing_cache(tc)
+        try:
+            assert ops.plan_ring_depth(8, 4096, 256) == \
+                jops.plan_ring_depth(8, 4096, 256)
+        finally:
+            sched.set_default_timing_cache(None)
 
 
 class TestChunkSchedule:

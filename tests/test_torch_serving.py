@@ -1,8 +1,12 @@
 """The port's paged serving engine and CLI against the JAX package's on the
-CPU: greedy token streams at float32 on qwen1.5-0.5b SMOKE and on
-deepseek-v2-lite-16b SMOKE (MLA + MoE), with the same parameters (JAX
-`init_params`, carried over by `repro_torch.bridge`) and the same requests.
-Greedy streams must be equal token for token."""
+CPU: greedy token streams at float32 on qwen1.5-0.5b SMOKE, on
+deepseek-v2-lite-16b SMOKE (MLA + MoE) and on the SMOKE configs of
+qwen2-7b, h2o-danube-1.8b, gemma3-12b and kimi-k2 (`NEW_ARCHS`), with the
+same parameters (JAX `init_params`, carried over by `repro_torch.bridge`)
+and the same requests.  Greedy streams must be equal token for token.
+Full kimi-k2 (1.03 T parameters, 61 layers of 384 experts) fits no single
+card: its parity with the reference stands here, at SMOKE, and the card
+serves it at full width with 2 of its layers (`chip_smoke.py`)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -160,6 +164,77 @@ class TestDeepseekEngineParity:
         assert eng.trace_counts["verify"] == (1 if spec else 0)
 
 
+NEW_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "gemma3-12b", "kimi-k2-1t-a32b")
+# enough new tokens to carry every lane past the SMOKE windows of 16
+NEW_MAX_NEW = 24
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def new_arch(request):
+    """(jcfg, jparams, cfg, params, prompts) at f32 SMOKE; the prompts hold
+    their greedy continuation (so the n-gram drafter finds drafts)."""
+    jcfg = jregistry.get_config(request.param, smoke=True).with_(
+        dtype="float32")
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    base = _prompts(jcfg.vocab_size)
+    outs = _run(JServingEngine(jcfg, jparams, JServeConfig(**SERVE)), base,
+                max_new=8)
+    prompts = [b + o + b[-3:] for b, o in zip(base, outs)]
+    return (jcfg, jparams, config_from_reference(jcfg),
+            tree_to_torch(jparams), prompts)
+
+
+class TestNewArchEngineParity:
+    @pytest.mark.parametrize("spec", (False, True))
+    def test_greedy_streams_match_jax(self, new_arch, spec):
+        jcfg, jparams, cfg, params, prompts = new_arch
+        je = JServingEngine(jcfg, jparams, JServeConfig(speculation=spec,
+                                                        **SERVE))
+        want = _run(je, prompts, max_new=NEW_MAX_NEW)
+        eng = ServingEngine(cfg, params, ServeConfig(
+            speculation=spec, device="cpu", **SERVE))
+        assert _run(eng, prompts, max_new=NEW_MAX_NEW) == want
+        assert max(len(p) for p in prompts) + NEW_MAX_NEW > 16
+        if spec:
+            assert eng.metrics.total("drafted_tokens") > 0
+        assert eng.trace_counts["prefill_chunk"] == 1
+        assert eng.trace_counts["decode"] <= 1
+        assert eng.trace_counts["verify"] == (1 if spec else 0)
+        # the same blocks in use at every step (window expiry included)
+        assert [m["blocks_in_use"] for m in eng.metrics] == \
+            [m["blocks_in_use"] for m in je.metrics]
+
+
+class TestWindowPlateau:
+    """A window group's blocks plateau while a global group's grow with the
+    context (the reference's `TestWindowReclamation`), lane by lane through
+    the port's per-group tables, with the JAX engine's streams."""
+
+    @pytest.mark.parametrize("arch", ("h2o-danube-1.8b", "gemma3-12b"))
+    def test_window_group_plateaus(self, arch):
+        jcfg = jregistry.get_config(arch, smoke=True).with_(dtype="float32")
+        jparams = jtf.init_params(jcfg, jax.random.PRNGKey(1))
+        cfg = config_from_reference(jcfg)
+        serve = dict(slots=1, max_len=64, block_size=8, prefill_chunk=8)
+        eng = ServingEngine(cfg, tree_to_torch(jparams),
+                            ServeConfig(device="cpu", **serve))
+        rid = eng.submit(list(range(1, 9)), max_new_tokens=40)
+        peak = [0] * eng.kv.num_groups
+        while eng.pending:
+            eng.step()
+            for gi, g in enumerate(eng.kv.groups):
+                peak[gi] = max(peak[gi], len(g.blocks_for(0)))
+        out = eng.result(rid)
+        je = JServingEngine(jcfg, jparams, JServeConfig(**serve))
+        jid = je.submit(list(range(1, 9)), max_new_tokens=40)
+        assert out == je.run()[jid] and len(out) == 40
+        # 48 tokens of context = 6 blocks; a 16-token window needs at most
+        # 2 visible blocks + the one being written
+        for h, p in zip(eng.group_horizons, peak):
+            assert p <= (3 if h else 6) and (h or p == 6)
+        assert (None in eng.group_horizons) == (arch == "gemma3-12b")
+
+
 class TestSampling:
     def test_temperature_draws_are_keyed_not_stateful(self):
         serve = ServeConfig(temperature=0.8, seed=3)
@@ -191,6 +266,15 @@ class TestCli:
         r = self._cli("--device", "cpu", "--requests", "3", "--max-new", "4",
                       "--slots", "2", "--max-len", "64", "--speculation",
                       arch="deepseek-v2-lite-16b")
+        assert r.returncode == 0, r.stderr
+        assert "3 requests, 12 tokens" in r.stdout
+        assert "'prefill_chunk': 1" in r.stdout
+
+    @pytest.mark.parametrize("arch", NEW_ARCHS)
+    def test_new_archs_serve_on_cpu_when_asked(self, arch):
+        r = self._cli("--device", "cpu", "--requests", "3", "--max-new", "4",
+                      "--slots", "2", "--max-len", "64", "--speculation",
+                      arch=arch)
         assert r.returncode == 0, r.stderr
         assert "3 requests, 12 tokens" in r.stdout
         assert "'prefill_chunk': 1" in r.stdout
