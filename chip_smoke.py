@@ -65,6 +65,12 @@ In order, it:
      its row-invariant kernel at the paths' widths (512-2048, f32 and bf16,
      1-32 rows, strided rows), whose rows must be the same bits at 1, 5 and
      32 rows, at any place in the batch and at decode and verify layouts;
+     and (slice 12) every attention kernel where the prefix cache puts it:
+     a 32-token prefill chunk starting at 16, 48 and 80 (tensor-core GQA
+     at head_dim 64 / 128 / 256 with and without a window, tensor-core
+     MLA, the FMA kernel's bf16 instance at head_dim 80, f32 FMA GQA and
+     MLA) and decode / verify with lanes whose tables name the same
+     blocks;
   4. serves full-width qwen1.5-0.5b (random weights from a seed) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
@@ -78,7 +84,16 @@ In order, it:
      profiled run (device time by kernel, again only under the path's
      kernels, busy share, the time under gpp_matmul and paged attention),
      then float32 with the kernels and with their plain versions, whose
-     greedy streams must be equal;
+     greedy streams must be equal; with the model resident it serves
+     with the prefix cache (`prefix_serving`: 4 requests sharing an
+     80-token system prompt, `engine.defragment()`, 2 follow-up turns;
+     prefix on == off in bf16 at three prompt seeds and in f32 with each
+     token's logits row within LOGITS_RTOL, hits, the cache's invariants
+     after every step, three step shapes, the same streams without the
+     `defragment`) and with telemetry (`obs_run`: obs on == off, a trace
+     with every request, step and the modelled kernel lanes, TTFT / TPOT,
+     the utilization report, the overhead as the best of 5 interleaved
+     runs, the host time of a step split into its parts);
   5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
      depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
@@ -106,12 +121,21 @@ In order, it:
      kernels, bf16 spec on == off at three prompt seeds (prompts of one
      token repeated, so the drafter drafts; some seed must accept drafts),
      the f32 streams on random prompts, and every f32 run's logits rows,
-     one an emitted token, within LOGITS_RTOL of the plain run's;
+     one an emitted token, within LOGITS_RTOL of the plain run's; deepseek
+     (step 5) and gemma3-12b also serve with the prefix cache
+     (`prefix_serving`), gemma3 also two requests sharing a 1,100-token
+     prefix past its window (`prefix_long_run`), and full-width
+     qwen1.5-0.5b drafts for qwen2-7b and for itself (`draft_run`:
+     streams equal to speculation off, drafts accepted when it drafts for
+     itself, the draft forward's device time);
   7. with step 3's checks, the paper's workload,
      `kernels.ops.streamed_gemm_sequence`: 8 rounds of 4096 x 4096 bf16
      weights (256 MB) at 8 and 128 rows, at G = 1, 2, 3, 4 and the planned
      G (gpp_matmul's planner, unpinned), against the plain version, timed beside the copied simulator's
-     prediction, with measured tile times fed to a `TimingCache`;
+     prediction, with measured tile times fed to a `TimingCache`; the
+     planned G must run within 5% of the fastest, and every serving
+     shape's tensor-core plan must be the one it was (one wave, the
+     deepest ring);
   8. prints {"kernels": [...]} and, last, the device line.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -125,10 +149,12 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+REPORT_DIR = None          # --json-out's directory: the obs trace goes there
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_HBM_BYTES_PER_S = 3.35e12
@@ -141,6 +167,7 @@ DS_D, DS_F, DS_E, DS_H = 2048, 1408, 64, 16      # deepseek-v2-lite widths
 DS_R, DS_RR, DS_NOPE, DS_F0 = 512, 64, 128, 10944  # kv_lora, rope, layer 0
 SLOTS, MAX_LEN, BS, CHUNK, DRAFT = 4, 128, 16, 32, 4
 PHASE_M = {"decode": SLOTS, "prefill": CHUNK, "verify": SLOTS * (DRAFT + 1)}
+DRAFT_WINDOW = 16     # tokens of the draft model's forward (the engine's)
 BOTH = ("bfloat16", "float32")
 # gpp_matmul's (K, N, dtypes) on each serving path.  deepseek: MLA q, the
 # kv down-projection (latent + rope), o; the router, f32 in every model
@@ -390,7 +417,7 @@ def head_time(M, K, N):
 
 def check_head(report):
     """The f32 logits head of both models on the FMA route: a row's bits
-    equal at 1, 4, 20 and 32 rows (and against the f32 table), within 2e-4
+    equal at 1, 4, 16, 20 and 32 rows (and against the f32 table), within 2e-4
     of the plain version; timed at the three step shapes beside the
     `torch.matmul` it replaced."""
     import torch
@@ -413,8 +440,8 @@ def check_head(report):
         check(bool(torch.isfinite(y).all())
               and bool(((y - ref).abs() <= 2e-4 + 2e-4 * ref.abs()).all()),
               f"{arch} head: max err {err}")
-        by_m = {M: ops.dense(x[:M], table_t) for M in (1, SLOTS,
-                                                       HEAD_M["verify"])}
+        by_m = {M: ops.dense(x[:M], table_t) for M in (
+            1, SLOTS, DRAFT_WINDOW, HEAD_M["verify"])}
         check(all(torch.equal(v, y[:M]) for M, v in by_m.items()),
               f"{arch} head: a logits row's bits depend on the batch")
         check(torch.equal(ops.dense(x[:SLOTS], table.float().t()
@@ -455,7 +482,10 @@ def check_gpp(report):
     rows = []
     for path, shapes in GPP_SHAPES.items():
         new = path in NEW_ARCHS
-        for phase, M in PHASE_M.items():
+        # qwen1.5-0.5b is also the draft model: its (1, 16) window
+        phases = dict(PHASE_M, **({"draft": DRAFT_WINDOW}
+                                  if path == "qwen1.5-0.5b" else {}))
+        for phase, M in phases.items():
             for name, (K, N, dtypes) in shapes.items():
                 for dtype in dtypes:
                     bf16 = dtype == "bfloat16"
@@ -573,9 +603,10 @@ def check_gpp(report):
              * 0.02).bfloat16()
         y = gm.gpp_matmul(x, w, activation="silu")
         check(all(torch.equal(gm.gpp_matmul(x[:M], w, activation="silu"),
-                              y[:M]) for M in (SLOTS, PHASE_M["verify"])),
+                              y[:M]) for M in (SLOTS, DRAFT_WINDOW,
+                                               PHASE_M["verify"])),
               f"gpp_matmul_tc {K}x{N}: a row's bits depend on the batch")
-    print(f"gpp_matmul_tc: a row's bits equal at {SLOTS} / "
+    print(f"gpp_matmul_tc: a row's bits equal at {SLOTS} / {DRAFT_WINDOW} / "
           f"{PHASE_M['verify']} / {CHUNK} rows at all {len(tc_proj)} bf16 "
           "projections")
     for K, N in ((DS_D, DS_E), (7168, KIMI_E)):     # deepseek's, kimi's
@@ -664,8 +695,19 @@ def check_gpp(report):
 # kernel 2: paged attention
 # ---------------------------------------------------------------------------
 
+def share_tables(tables, positions, S, bs=BS):
+    """Make every lane after the first name lane 0's physical blocks for
+    the blocks both hold before their last one (a shared prefix, as the
+    prefix cache maps it: read-only, the lane's own last block apart)."""
+    n0 = (positions[0] + S - 1) // bs + 1
+    for b, p in enumerate(positions[1:], 1):
+        k = min(n0, (p + S - 1) // bs + 1) - 1
+        tables[b, :k] = tables[0, :k]
+    return tables
+
+
 def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H, heads=H,
-              max_len=MAX_LEN):
+              max_len=MAX_LEN, share=False):
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -682,6 +724,8 @@ def pa_inputs(B, S, positions, dtype, *, nb, seed=0, hd=HD, kvh=H, heads=H,
         nblk = (p + S - 1) // BS + 1
         tables[b, :nblk] = perm[used:used + nblk].int()
         used += nblk
+    if share:
+        share_tables(tables, positions, S)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     return q, k, v, tables, pos
 
@@ -746,7 +790,7 @@ def fma_times(row, fn, sets, name, plan, launch, q2_sets):
 
 
 def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
-            hd=HD, kvh=H, heads=H, max_len=MAX_LEN):
+            hd=HD, kvh=H, heads=H, max_len=MAX_LEN, share=False):
     """One GQA / window comparison on the card, at every ring depth: bf16
     must launch the tensor-core kernel (kv_splits planned, 1 and 2; its
     merge with more than one run), f32 the FMA kernel (kv_splits planned,
@@ -767,7 +811,8 @@ def pa_case(name, B, S, positions, dtype, *, window=None, timed=False,
     mb = max_len // BS
     nb = SLOTS * mb + 1
     shape = dict(hd=hd, kvh=kvh, heads=heads, max_len=max_len)
-    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb, **shape)
+    q, k, v, tables, pos = pa_inputs(B, S, positions, dtype, nb=nb,
+                                     share=share, **shape)
     kw = dict(num_kv_heads=kvh, scale=1.0 / math.sqrt(hd), window=window)
     ref = paged_attn_ref(q, k, v, tables, pos, **kw)
     route = pa.attention_route(q.dtype, False, BS, hd, hd)
@@ -1363,12 +1408,14 @@ def check_moe_layer(report, arch):
 # kernel 3b: MLA paged attention (deepseek-v2-lite-16b latent pools)
 # ---------------------------------------------------------------------------
 
-def mla_inputs(B, S, positions, dtype, *, nb, seed=0, bs=BS):
-    """Latent pools of `bs`-token blocks, max_len max(MAX_LEN, bs)."""
+def mla_inputs(B, S, positions, dtype, *, nb, seed=0, bs=BS, share=False,
+               max_len=MAX_LEN):
+    """Latent pools of `bs`-token blocks, max_len max(max_len, bs); with
+    `share`, the lanes' tables name lane 0's blocks (`share_tables`)."""
     import torch
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mb = max(MAX_LEN, bs) // bs
+    mb = max(max_len, bs) // bs
     q = torch.randn(B, S, DS_H, DS_R + DS_RR, generator=g,
                     device="cuda").to(dt)
     ckv = (torch.randn(nb, bs, DS_R, generator=g, device="cuda") * 0.5
@@ -1382,11 +1429,13 @@ def mla_inputs(B, S, positions, dtype, *, nb, seed=0, bs=BS):
         nblk = (p + S - 1) // bs + 1
         tables[b, :nblk] = perm[used:used + nblk].int()
         used += nblk
+    if share:
+        share_tables(tables, positions, S, bs)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     return q, ckv, kr, tables, pos
 
 
-def mla_work(positions, S, es, bs=BS):
+def mla_work(positions, S, es, bs=BS, max_len=MAX_LEN):
     """(bytes, operations) this call's data needs: each visible latent row
     (c_kv + k_rope) read once, q / tables / positions read and the latent
     output written once; per (query row, visible key) 2 * 576 operations
@@ -1400,11 +1449,12 @@ def mla_work(positions, S, es, bs=BS):
     B = len(positions)
     nbytes = (len(keys) * (DS_R + DS_RR) * es
               + B * S * DS_H * (DS_R + DS_RR + DS_R) * es
-              + B * (max(MAX_LEN, bs) // bs) * 4 + B * 4)
+              + B * (max(max_len, bs) // bs) * 4 + B * 4)
     return nbytes, 2.0 * pairs * DS_H * (DS_R + DS_RR + DS_R)
 
 
-def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
+def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS,
+             share=False):
     """One MLA comparison on the card, at every ring depth and at kv_splits
     planned, 1, 2 and the most (a run a block, or a piece): bf16 at
     `bs`-token blocks of 16-64 must launch the tensor-core kernel, bf16 at
@@ -1422,7 +1472,7 @@ def mla_case(name, B, S, positions, dtype, *, timed=False, bs=BS):
     mb = max(MAX_LEN, bs) // bs
     nb = SLOTS * mb + 1
     q, ckv, kr, tables, pos = mla_inputs(B, S, positions, dtype, nb=nb,
-                                         bs=bs)
+                                         bs=bs, share=share)
     kw = dict(num_kv_heads=1, scale=1.0 / math.sqrt(128 + DS_RR), mla=True)
     ref = paged_attn_ref(q, ckv, kr, tables, pos, **kw)
     route = pa.attention_route(q.dtype, True, bs, DS_R, DS_RR)
@@ -1690,6 +1740,67 @@ def check_mla_blocks(report):
     return rows
 
 
+def mla_split_cost(report):
+    """What the fixed split of the tensor-core MLA kernel costs where a
+    lane's table is wider than its 8 runs: deepseek's bf16 decode, prefill
+    and verify at max_len 256 (MB = 16, the prefix phase's), the planned
+    runs (`tc_kv_splits`, min(MB, 8)) against the split planned before it
+    from the CTAs a step wants, min(MB, ceil(2 x 132 / units)) with units
+    = lanes x 16-row tiles (16 / 9 / 14 runs).  Each held against the
+    plain version; device time of the kernel and its merge (profiler),
+    old / new / new / old, the mean of each pair, beside the bound."""
+    import torch
+    from repro_torch.core.schedule import (H100_SMS,
+                                           plan_paged_attn_mla_tc_sm90)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_attn_ref
+    max_len = 256
+    mb = max_len // BS
+    kw = dict(num_kv_heads=1, scale=1.0 / math.sqrt(128 + DS_RR), mla=True)
+    names = (KERNEL_NAMES["paged_attention_mla_tc"],
+             KERNEL_NAMES["paged_attention_merge"])
+    rows = []
+    for name, B, S, positions in (("decode", SLOTS, 1, [5, 100, 180, 240]),
+                                  ("prefill", 1, CHUNK, [80]),
+                                  ("verify", SLOTS, DRAFT + 1,
+                                   [3, 90, 170, 250])):
+        units = B * -(-DS_H * S // 16)
+        splits = {"old": min(mb, -(-2 * H100_SMS // units)),
+                  "new": plan_paged_attn_mla_tc_sm90(
+                      batch=B, rows=DS_H * S, block_size=BS, max_blocks=mb,
+                      latent=DS_R, rope=DS_RR).kv_splits}
+        nb = SLOTS * mb + 1
+        es = 2
+        n = copies_for(nb * BS * (DS_R + DS_RR) * es)
+        sets = [mla_inputs(B, S, positions, "bfloat16", nb=nb, seed=i,
+                           max_len=max_len) for i in range(n)]
+        ref = paged_attn_ref(*sets[0], **kw).float()
+        err, ms = {}, {"old": [], "new": []}
+        for tag, ks in splits.items():
+            out = pa.paged_attention(*sets[0], kv_splits=ks, **kw)
+            err[tag] = float((out.float() - ref).abs().max())
+            check(err[tag] <= TOL["bfloat16"][0],
+                  f"mla {name} at MB {mb}, {ks} runs: max err {err[tag]}")
+        for tag in ("old", "new", "new", "old"):
+            ms[tag].append(device_ms(
+                lambda q, c, k, t, p, ks=splits[tag]: pa.paged_attention(
+                    q, c, k, t, p, kv_splits=ks, **kw), sets, names))
+        nbytes, ops = mla_work(positions, S, es, max_len=max_len)
+        b_ms, b_by = bound(nbytes, ops, "bfloat16")
+        row = {"case": name, "B": B, "S": S, "positions": positions,
+               "max_blocks": mb, "kv_splits": splits, "max_abs_err": err,
+               "ms": {k: sum(v) / len(v) for k, v in ms.items()},
+               "readings": ms, "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        print(f"paged_attention_mla_tc {name} bf16 at MB {mb}: runs "
+              f"{splits['old']} (the split before) ms={row['ms']['old']:.4f}"
+              f" / {splits['new']} (planned) ms={row['ms']['new']:.4f} "
+              f"(kernel + merge, readings {ms}) bound_ms={b_ms:.5f} ({b_by})"
+              f" max_abs_err={err}", flush=True)
+    report["mla_split_cost"] = rows
+    return rows
+
+
 def mla_merge_time(row, dtype="bfloat16"):
     """The merge kernel alone at the MLA decode shape (its inputs, the
     partials, are L2-hot on the path: the split kernel has just written
@@ -1749,8 +1860,67 @@ def mla_merge_time(row, dtype="bfloat16"):
 # ---------------------------------------------------------------------------
 
 # kv_norm, qwen, a q_norm, deepseek, then slice 11's d_models
+# ---------------------------------------------------------------------------
+# slice 12: attention where the prefix cache starts a chunk and shares blocks
+# ---------------------------------------------------------------------------
+
+# a prefix hit of 1, 3 or 5 blocks starts the 32-token chunk at these
+# positions: block-aligned, not chunk-aligned
+PREFIX_STARTS = (16, 48, 80)
+# the tensor-core GQA shapes (label, heads, kv heads, head_dim, windows):
+# qwen1.5, qwen2, gemma3 (its 1024-token window, and a 32-token one that
+# binds inside the chunk)
+PREFIX_GQA = (("qwen1.5 hd 64", H, H, HD, (None, 32)),
+              ("qwen2 hd 128", 28, 4, 128, (None, 32)),
+              ("gemma3 hd 256", 16, 8, 256, (None, 1024, 32)))
+
+
+def check_prefix_starts(report):
+    """Each attention kernel against its plain version where the prefix
+    cache puts it: a 32-token prefill chunk (B = 1) starting at 16, 48 and
+    80 (a hit of 1, 3 or 5 blocks), through the tensor-core GQA kernel at
+    head_dim 64 / 128 / 256 with and without a window, the tensor-core MLA
+    kernel, the FMA kernel's bf16 instance at head_dim 80 (danube), and
+    the FMA GQA and MLA kernels in f32; and decode with lanes whose tables
+    name lane 0's blocks (`share_tables`) on every route.  Each case at
+    every ring depth and split of `pa_case` / `mla_case`, within their
+    tolerances."""
+    rows = []
+    for start in PREFIX_STARTS:
+        at = [start]
+        for label, heads, kvh, hd, windows in PREFIX_GQA:
+            for window in windows:
+                rows.append(pa_case(f"prefix@{start} {label}", 1, CHUNK, at,
+                                    "bfloat16", window=window, hd=hd,
+                                    kvh=kvh, heads=heads))
+        rows.append(pa_case(f"prefix@{start} danube hd 80", 1, CHUNK, at,
+                            "bfloat16", window=32, hd=80, kvh=8, heads=32))
+        for window in (None, 32):
+            rows.append(pa_case(f"prefix@{start} f32", 1, CHUNK, at,
+                                "float32", window=window))
+        for dtype in BOTH:
+            rows.append(mla_case(f"prefix@{start}", 1, CHUNK, at, dtype))
+    shared = [70, 75, 66, 90]         # 4-5 blocks, the first 4 lane 0's
+    for dtype in BOTH:
+        rows.append(pa_case("shared decode", SLOTS, 1, shared, dtype,
+                            share=True))
+        rows.append(pa_case("shared verify", SLOTS, DRAFT + 1, shared,
+                            dtype, window=32, share=True))
+        rows.append(mla_case("shared decode", SLOTS, 1, shared, dtype,
+                             share=True))
+    rows.append(pa_case("shared decode qwen2 hd 128", SLOTS, 1, shared,
+                        "bfloat16", hd=128, kvh=4, heads=28, share=True))
+    report["prefix_attention"] = [
+        {k: r[k] for k in ("case", "dtype", "route", "max_abs_err", "tol")}
+        for r in rows]
+    print(f"attention at prefix-hit starts {PREFIX_STARTS} and shared "
+          f"blocks: {len(rows)} cases, largest error "
+          f"{max(r['max_abs_err'] for r in rows):.3g}", flush=True)
+    return rows
+
+
 RMS_WIDTHS = (DS_R, D, 1536, DS_D, *(w[0] for w in NEW_ARCHS.values()))
-RMS_ROWS = (1, 4, 5, 20, 32)         # rows a step brings (decode .. prefill)
+RMS_ROWS = (1, 4, 5, 16, 20, 32)     # rows a step (or the draft) brings
 RMS_EPS = 1e-6
 
 
@@ -1871,6 +2041,51 @@ def rms_time(M, d):
 
 SEQ_K, SEQ_R, SEQ_M = 4096, 8, (8, 128)  # 8 rounds of 4096 x 4096 (256 MB)
 SIM_MACROS = 32            # the reference ledger's simulated macros
+GATE_REPEATS = 5           # readings a ring depth for the planned-G gate
+
+
+def ring_medians(call_for, Gs, name) -> dict:
+    """{G: median device ms} of `call_for(G)()` over GATE_REPEATS
+    readings of 20 calls each, the ring depths taken in turns (forward,
+    then backward), so a drift in the card's clock falls on all alike."""
+    import statistics
+    times = {G: [] for G in Gs}
+    for rep in range(GATE_REPEATS):
+        for G in (Gs if rep % 2 == 0 else Gs[::-1]):
+            times[G].append(device_ms(call_for(G), [()], name, iters=20))
+    return {G: statistics.median(v) for G, v in times.items()}
+
+
+def check_serving_plans() -> int:
+    """No serving shape's tensor-core plan moved when the planner began to
+    weigh waves: at every bf16 projection of the six archs at 4, 16, 20
+    and 32 rows, the plan runs in one wave and its ring is the deepest the
+    clamps and the shared memory allow (what it was before)."""
+    from repro_torch.core import schedule as sc
+    n = 0
+    for projs in GPP_SHAPES.values():
+        for K, N, dtypes in projs.values():
+            if "bfloat16" not in dtypes:
+                continue
+            for M in (4, 16, 20, 32):
+                p = sc.plan_matmul_tc_sm90(M, K, N)
+                deepest = min(sc._ring_depth(
+                    p.block_k * p.block_n * 2,
+                    2.0 * p.block_m * p.block_k * p.block_n,
+                    sc.H100_BF16_FLOPS), -(-p.num_k // p.cluster),
+                    sc.GPP_MM_TC_MAX_RING)
+                while deepest > 1 and sc.matmul_tc_smem_bytes(
+                        p.block_m, p.block_k, p.block_n,
+                        deepest) > sc.SMEM_BUDGET_BYTES:
+                    deepest -= 1
+                check(sc.tc_waves(p.tiles, p.cluster, p.smem_bytes) == 1
+                      and p.num_bufs == deepest,
+                      f"the serving plan at {M}x{K}x{N} moved: G = "
+                      f"{p.num_bufs} (deepest {deepest})")
+                n += 1
+    print(f"tensor-core plans: {n} serving shapes in one wave at their "
+          "deepest ring (unchanged)", flush=True)
+    return n
 
 
 def check_gemm_sequence(report):
@@ -1949,6 +2164,23 @@ def check_gemm_sequence(report):
                   f"3.35e12 B/s; call (with the fold) ms={call_ms:.4f}; "
                   f"max_abs_err={row['max_abs_err']:.3g} plan="
                   f"{row['plan']}", flush=True)
+        # the planner weighs waves against ring depth: the planned G runs
+        # within 5% of the fastest of G = 1..4.  Rings that tie (G = 2 and
+        # 3 at 8 rows) part by ~5% from one reading to the next, so the
+        # gate takes each G's median over GATE_REPEATS readings in turns
+        gate = ring_medians(
+            lambda G: (lambda: gm.gpp_matmul(
+                x, w_flat, num_bufs=None if G == planned else G)),
+            (1, 2, 3, 4), name)
+        fastest = min(gate, key=gate.get)
+        check(gate[planned] <= 1.05 * gate[fastest],
+              f"GeMM sequence M={M}: the planned G = {planned} runs "
+              f"{gate[planned]:.4f} ms (median), G = {fastest} "
+              f"{gate[fastest]:.4f}")
+        print(f"GeMM sequence M={M}: medians of {GATE_REPEATS} readings in "
+              f"turns by G {({G: round(v, 5) for G, v in gate.items()})}; "
+              f"planned G = {planned} against the fastest, G = {fastest}: "
+              f"{gate[planned] / gate[fastest]:.4f} (gate 1.05)", flush=True)
         # one (block_k, block_n) tile of the planned launch, measured: its
         # transfer at the copy's rate, its compute at the kernel's FLOP
         # rate where W is L2-resident (a 32 MB slice, the same buffer each
@@ -1980,6 +2212,8 @@ def check_gemm_sequence(report):
                for st, r in res.items()},
             "measured_vs_g1": {str(r["G"]): r["ms"] / rows_m[0]["ms"]
                                for r in rows_m},
+            "gate_median_ms": gate,
+            "planned_vs_fastest": gate[planned] / gate[fastest],
             "ring_analytic": analytic, "ring_planned": planned}
         print(f"GeMM sequence M={M}: tile {plan.block_k}x{plan.block_n} "
               f"t_dma={t_dma * 1e6:.4f} us t_compute={t_cmp * 1e6:.4f} us "
@@ -2000,6 +2234,7 @@ def check_gemm_sequence(report):
           flush=True)
     del ws, w_flat
     torch.cuda.empty_cache()
+    report["serving_plans_unchanged"] = check_serving_plans()
     report["gemm_sequence"] = {
         "rows": rows, "simulator": sims, "copy_ms": copy_ms,
         "timing_samples": tcache.to_json(),
@@ -2070,11 +2305,16 @@ def repeated_prompts(vocab: int, requests: int = 4, seed: int = 0):
 
 def serve(cfg, params, prompts, *, speculation: bool, mode: str,
           profile=False, max_new: int = 16, block_size: int = BS,
-          max_len: int = MAX_LEN, on_step=None, keep_logits=False):
+          max_len: int = MAX_LEN, on_step=None, keep_logits=False,
+          engine_kw=None, draft_model=None, keep_engine=False,
+          cpu_profile=False):
     """Serve `prompts` through the paged engine; `on_step(engine)` (if
     given) is called after every step.  With `keep_logits`, info["logits"]
     holds each request's (tokens, vocab) f32 rows, one an emitted token,
-    the row it was sampled from."""
+    the row it was sampled from.  `engine_kw` adds ServeConfig fields,
+    `draft_model` is the engine's; with `keep_engine`, info["engine"] is
+    the engine; with `cpu_profile` the profiler also records the host's
+    CUDA runtime calls (info["host_launch"])."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import ServeConfig, make_engine
@@ -2083,7 +2323,8 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
         slots=SLOTS, max_len=max_len, block_size=block_size,
         prefill_chunk=max(CHUNK, block_size),   # a whole number of blocks
         speculation=speculation, draft_len=DRAFT, dense_kernel=mode,
-        paged_attn_kernel=mode))
+        paged_attn_kernel=mode, **(engine_kw or {})),
+        draft_model=draft_model)
     rows = {}
     if keep_logits:
         sample = engine._sample
@@ -2096,7 +2337,8 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
     torch.cuda.synchronize()
     if profile:
         from torch.profiler import ProfilerActivity
-        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu_profile else []))
         prof.start()
     for c in counters().values():
         c.n = 0
@@ -2115,11 +2357,16 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
     if profile:
         prof.stop()
         busy = dict.fromkeys([*KERNEL_NAMES, "other"], 0.0)
+        host = {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 key = next((k for k, v in KERNEL_NAMES.items()
                             if v in e.name), "other")
                 busy[key] += e.time_range.elapsed_us() / 1e6
+            elif e.name.startswith(("cudaLaunch", "cudaMemcpy",
+                                    "cudaStreamSynchronize")):
+                n, us = host.get(e.name, (0, 0.0))
+                host[e.name] = (n + 1, us + e.time_range.elapsed_us())
     streams = [results[r] for r in rids]
     ntok = sum(len(s) for s in streams)
     # step-function calls: each runs one logits head
@@ -2143,9 +2390,14 @@ def serve(cfg, params, prompts, *, speculation: bool, mode: str,
             "accepted_tokens": engine.metrics.total("accepted_tokens")}
     if profile:
         info["device_busy_s"] = busy
+        if cpu_profile:
+            info["host_launch"] = {k: {"calls": n, "us": us}
+                                   for k, (n, us) in host.items()}
     if keep_logits:
         info["logits"] = [np.stack(rows[r]) for r in rids]
         del engine._sample      # the wrapper holds the engine: free it now
+    if keep_engine:
+        info["engine"] = engine
     print(f"serve {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
           f"spec={speculation} mode={mode} block={block_size}: {ntok} "
           f"tokens in {dt:.3f}s = "
@@ -2197,7 +2449,7 @@ def check_logits(what: str, ker: dict, ref: dict) -> dict:
 
 
 def check_serving(report, arch: str, path_kernels, f32_kernels,
-                  f32_layers=None, *, bf16_layers=None, long=None,
+                  f32_layers=None, *, bf16_layers=None, hooks=None,
                   f32_note=None, repeat=False):
     """bf16 serve (spec off, on, profiled) at full width (at `bf16_layers`
     layers if set, else full depth), then f32 kernel vs plain greedy
@@ -2213,8 +2465,11 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     token repeated (`repeated_prompts`, which makes the drafter draft on
     these archs); the f32 comparison then takes `random_prompts`.  The f32
     runs' logits rows must agree too (`check_logits`).
-    `long(cfg, params)`, if given, runs on each model while it is resident
-    and its result goes into the report."""
+    `hooks` ({name: fn}): each `fn(cfg, params)` runs on each model while
+    it is resident (bf16, then f32), its result (None: skipped at that
+    dtype) going into the report as runs[f"{name}_bf16"] / [f"{name}_f32"];
+    a result's "launches" count among the kernels line's main-path
+    launches."""
     import torch
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
@@ -2297,8 +2552,7 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
         v for k, v in busy.items() if k.startswith("paged_attention"))
     runs["bf16"]["device_busy_share"] = share
     runs["bf16"]["total_params"] = cfg.total_params()
-    if long is not None:
-        runs["long_bf16"] = long(cfg, params)
+    run_hooks(runs, hooks, cfg, params, "bf16")
     runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"{arch} bf16 decode run device time: {busy} s; under gpp_matmul "
           f"{runs['bf16']['gpp_matmul_device_s']:.4f} s, paged attention "
@@ -2336,14 +2590,20 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
         runs["f32_logits"]["distinct"] = [len(set(t)) for t in f32_kernel]
         print(f"{arch} f32 greedy streams kernel == plain: True "
               f"({cfg.num_layers} layers)")
-        if long is not None:
-            runs["long_f32"] = long(cfg, params)
+        run_hooks(runs, hooks, cfg, params, "f32")
         del params
         torch.cuda.empty_cache()
     report.setdefault("serving", {})[arch] = runs
     report.setdefault("bf16_spec_equal", {})[arch] = spec_equal
     runs["accepted_by_seed"] = accepted
     return runs
+
+
+def run_hooks(runs, hooks, cfg, params, dt: str) -> None:
+    for name, fn in (hooks or {}).items():
+        out = fn(cfg, params)
+        if out is not None:
+            runs[f"{name}_{dt}"] = out
 
 
 LONG_PROMPT, LONG_MAX_LEN = 1200, 1280
@@ -2418,6 +2678,460 @@ def window_long_run(cfg, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 12: the prefix cache, telemetry and draft-model drafting on the paths
+# ---------------------------------------------------------------------------
+
+PREFIX_SYSTEM, PREFIX_MAX_LEN, PREFIX_FOLLOW = 80, 256, 8
+
+
+def prefix_prompts(vocab: int, seed: int):
+    """4 requests sharing an 80-token system prompt (5 blocks), each with
+    its own 5-20-token suffix, and the 8 tokens each of the two follow-up
+    turns appends."""
+    import numpy as np
+    rng = np.random.default_rng(100 + seed)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    prompts = [system + rng.integers(0, vocab, rng.integers(5, 21)).tolist()
+               for _ in range(SLOTS)]
+    return prompts, [rng.integers(0, vocab, PREFIX_FOLLOW).tolist()
+                     for _ in range(2)]
+
+
+def serve_prefix(cfg, params, prompts, follow, *, prefix: bool, mode: str,
+                 defrag: bool = True, keep_logits: bool = False,
+                 max_len: int = PREFIX_MAX_LEN, max_new: int = 16,
+                 track=None):
+    """Two waves through one engine (4 slots, 16-token blocks, max_len
+    256), the prefix cache on or off: request 0, then, once it decodes,
+    requests 1-3 (their 80-token system prompt is in the index by then);
+    `engine.defragment()` (with `defrag`); then two follow-up turns that
+    extend requests 0 and 1's prompt + output by `follow`'s tokens (a
+    match that ends inside a block, so the tail forks copy-on-write).  The
+    cache's invariants are checked after every step (`track(engine)` is
+    called too).  Returns (streams of both waves, info)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import ServeConfig, make_engine
+    engine = make_engine(cfg, params, ServeConfig(
+        slots=SLOTS, max_len=max_len, block_size=BS, prefill_chunk=CHUNK,
+        prefix_cache=prefix, dense_kernel=mode, paged_attn_kernel=mode))
+    rows = {}
+    if keep_logits:
+        sample = engine._sample
+
+        def keep(logits_row, req):
+            rows.setdefault(req.rid, []).append(
+                np.array(logits_row, dtype=np.float32))
+            return sample(logits_row, req)
+        engine._sample = keep
+
+    def step():
+        engine.step()
+        engine.kv.check_invariants(
+            engine.prefix.held_blocks() if engine.prefix else None)
+        if track is not None:
+            track(engine)
+
+    torch.cuda.synchronize()
+    for c in counters().values():
+        c.n = 0
+    t0 = time.perf_counter()
+    rids = [engine.submit(prompts[0], max_new_tokens=max_new)]
+    while engine.result(rids[0]) is None and \
+            engine.scheduler.phase.get(0) != "decode":
+        step()
+    rids += [engine.submit(p, max_new_tokens=max_new) for p in prompts[1:]]
+    while engine.pending:
+        step()
+    first = [engine.result(r) for r in rids]
+    if defrag:
+        engine.defragment()
+        engine.kv.check_invariants(
+            engine.prefix.held_blocks() if engine.prefix else None)
+    later = [engine.submit(prompts[i] + first[i] + f, max_new_tokens=max_new)
+             for i, f in enumerate(follow)]
+    while engine.pending:
+        step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    streams = first + [engine.result(r) for r in later]
+    counts = {k: c.n for k, c in counters().items()}
+    check(all(s is not None and len(s) == max_new for s in streams),
+          f"{cfg.name} prefix={prefix}: a request did not finish")
+    shapes = engine.trace_counts
+    check(shapes["prefill_chunk"] == 1 and shapes["decode"] == 1
+          and shapes["verify"] == 0, f"{cfg.name} prefix: shapes {shapes}")
+    m = engine.metrics
+    ntok = sum(len(x) for x in streams)
+    info = {"prefix": prefix, "defrag": defrag, "mode": mode,
+            "dtype": cfg.dtype, "num_layers": cfg.num_layers,
+            "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
+            "steps": len(m), "launches": counts, "shapes": shapes,
+            "hit_rate": engine.prefix_hit_rate(),
+            "hit_tokens": m.total("prefix_hit_tokens"),
+            "prefix_saved_bytes": m.total("prefix_saved_bytes"),
+            "prefill_tokens": m.total("prefill_tokens"),
+            "blocks_shared_peak": max(r["blocks_shared"] for r in m)}
+    if keep_logits:
+        info["logits"] = [np.stack(rows[r]) for r in rids + later]
+        del engine._sample
+    del engine
+    torch.cuda.empty_cache()
+    return streams, info
+
+
+def prefix_serving(cfg, params):
+    """The prefix cache on the path (`serve_prefix`), prefix on against off:
+    bf16 at prompt seeds 0-2 (streams equal; seed 0 also without the
+    `defragment`: the same streams), f32 at seed 0 with the kernels
+    (streams equal, each emitted token's logits row within LOGITS_RTOL of
+    the off run's).  Gates: some hit (hit rate > 0), the cache's
+    invariants after every step, three step shapes.  Reports hit tokens,
+    prefill tokens saved, `prefix_saved_bytes` and tok/s on vs off."""
+    bf16 = cfg.dtype == "bfloat16"
+    out = {}
+    for seed in (SPEC_SEEDS if bf16 else SPEC_SEEDS[:1]):
+        prompts, follow = prefix_prompts(cfg.vocab_size, seed)
+        off, r_off = serve_prefix(cfg, params, prompts, follow, prefix=False,
+                                  mode="auto", keep_logits=not bf16)
+        on, r_on = serve_prefix(cfg, params, prompts, follow, prefix=True,
+                                mode="auto", keep_logits=not bf16)
+        check(r_on["hit_rate"] > 0 and r_on["hit_tokens"] > 0,
+              f"{cfg.name} prefix seed {seed}: no hit")
+        row = {"streams_equal": on == off, "on": r_on, "off": r_off,
+               "prefill_tokens_saved": r_off["prefill_tokens"]
+               - r_on["prefill_tokens"]}
+        if not bf16:
+            row["logits"] = check_logits(f"{cfg.name} f32 prefix on vs off",
+                                         r_on, r_off)
+        if seed == SPEC_SEEDS[0]:
+            plain, _ = serve_prefix(cfg, params, prompts, follow,
+                                    prefix=True, mode="auto", defrag=False)
+            check(plain == on, f"{cfg.name} prefix: streams differ with and "
+                               "without defragment")
+            row["defragment_transparent"] = True
+        out[seed] = row
+        print(f"{cfg.name} ({cfg.num_layers} layers) {cfg.dtype} prefix "
+              f"seed {seed}: on == off {on == off}; hit rate "
+              f"{r_on['hit_rate']:.2f}, {r_on['hit_tokens']} hit tokens, "
+              f"{row['prefill_tokens_saved']} prefill tokens saved, "
+              f"prefix_saved_bytes {r_on['prefix_saved_bytes']}, peak "
+              f"shared blocks {r_on['blocks_shared_peak']}; tok/s on "
+              f"{r_on['tok_s']:.1f} off {r_off['tok_s']:.1f}", flush=True)
+    unequal = [k for k, v in out.items() if not v["streams_equal"]]
+    check(not unequal, f"{cfg.name} {cfg.dtype}: prefix on != off at prompt "
+                       f"seeds {unequal}")
+    first = out[SPEC_SEEDS[0]]
+    return {"by_seed": out, "launches": first["on"]["launches"],
+            "tok_s_on": first["on"]["tok_s"],
+            "tok_s_off": first["off"]["tok_s"]}
+
+
+PREFIX_LONG = 1100          # gemma3-12b: a shared prefix past its window
+
+
+def prefix_long_run(cfg, params):
+    """gemma3-12b (bf16): two requests sharing a 1,100-token prefix past
+    its 1024-token window, max_len 1280 — request 0 is the prefix itself,
+    request 1 (submitted once request 0 decodes) the prefix and 20 more
+    tokens, so its hit maps the window group's zeroed (expired) entries
+    and forks the 12-token tail; two short requests beside them.  Gates:
+    prefix on == off, a hit of at least 1,088 tokens, and the window
+    group's blocks a lane at most ceil(1024 / 16) + 2."""
+    if cfg.dtype != "bfloat16":
+        return None
+    import numpy as np
+    from repro_torch.models import transformer as tf
+    rng = np.random.default_rng(21)
+    doc = rng.integers(0, cfg.vocab_size, PREFIX_LONG).tolist()
+    prompts = [doc, doc + rng.integers(0, cfg.vocab_size, 20).tolist()] + \
+        random_prompts(cfg.vocab_size, requests=2, seed=22)
+    horizons = tf.group_horizons(cfg)
+    win = math.ceil(cfg.window_size / BS) + 2
+    out = {}
+    for prefix in (False, True):
+        peak = [0] * len(horizons)
+
+        def track(engine):
+            for gi, g in enumerate(engine.kv.groups):
+                peak[gi] = max([peak[gi]] + [len(g.blocks_for(lane))
+                                             for lane in range(SLOTS)])
+
+        streams, info = serve_prefix(cfg, params, prompts, (), prefix=prefix,
+                                     mode="auto", defrag=False,
+                                     max_len=LONG_MAX_LEN, track=track)
+        for h, p in zip(horizons, peak):
+            if h:
+                check(p <= win, f"{cfg.name} shared prefix past its window: "
+                                f"{p} window blocks a lane (bound {win})")
+        info["peak_blocks_by_group"] = peak
+        out["on" if prefix else "off"] = (streams, info)
+    (off, r_off), (on, r_on) = out["off"], out["on"]
+    check(on == off, f"{cfg.name} shared prefix past its window: bf16 "
+                     "prefix on != off")
+    check(r_on["hit_tokens"] >= PREFIX_LONG // BS * BS,
+          f"{cfg.name} shared prefix past its window: hit "
+          f"{r_on['hit_tokens']} tokens")
+    by_group = dict(zip(map(str, horizons), r_on["peak_blocks_by_group"]))
+    print(f"{cfg.name} shared {PREFIX_LONG}-token prefix past its window: "
+          f"on == off True, {r_on['hit_tokens']} hit tokens, blocks a lane "
+          f"by group {by_group} (window bound {win}), tok/s on "
+          f"{r_on['tok_s']:.1f} off "
+          f"{r_off['tok_s']:.1f}", flush=True)
+    return {"on": r_on, "off": r_off, "launches": r_on["launches"],
+            "window_bound": win}
+
+
+OBS_REPEATS = 5
+
+
+def obs_run(cfg, params):
+    """Telemetry on qwen1.5-0.5b (bf16): obs on == off streams; the trace,
+    written and parsed back, holds a span for every request and every
+    step and the modelled kernel lanes; TTFT / TPOT p50 / p99 finite; the
+    utilization report; the overhead (obs on against off, interleaved,
+    best of 5 each: printed, not gated: wall times move 2x with the host);
+    and the host time of a step split into its parts (`engine.host_us`,
+    the obs laps) beside the CUDA runtime calls of a profiled run."""
+    if cfg.dtype != "bfloat16":
+        return None
+    import torch
+    from repro_torch.obs.trace import (PID_KERNEL, PID_REQUESTS,
+                                       TID_COMPUTE, TID_DMA)
+    prompts = random_prompts(cfg.vocab_size, seed=SPEC_SEEDS[0])
+    off, _ = serve(cfg, params, prompts, speculation=False, mode="auto")
+    on, r_on = serve(cfg, params, prompts, speculation=False, mode="auto",
+                     engine_kw=dict(obs=True), keep_engine=True)
+    check(on == off, f"{cfg.name}: obs on changes the streams")
+    engine = r_on.pop("engine")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(REPORT_DIR or tmp) / "obs_trace.json"
+        engine.obs.write_trace(str(path))
+        evs = json.loads(path.read_text())["traceEvents"]
+    steps = [e for e in evs if e.get("name") == "step" and e["ph"] == "X"]
+    reqs = {ph: sorted(e["id"] for e in evs if e["ph"] == ph
+                       and e["pid"] == PID_REQUESTS) for ph in "be"}
+    lanes = {e["tid"] for e in evs if e["pid"] == PID_KERNEL
+             and e["ph"] == "X"}
+    check(len(steps) == len(engine.metrics)
+          and reqs["b"] == reqs["e"] == list(range(len(prompts)))
+          and lanes == {TID_DMA, TID_COMPUTE},
+          f"{cfg.name} trace: {len(steps)} step spans for "
+          f"{len(engine.metrics)} steps, requests {reqs}, lanes {lanes}")
+    req = engine.obs.requests.summary()
+    lat = {k: {q: req[k][q] for q in ("p50", "p99", "count")}
+           for k in ("ttft", "tpot")}
+    check(all(math.isfinite(v[q]) for v in lat.values()
+              for q in ("p50", "p99")), f"{cfg.name}: TTFT / TPOT {lat}")
+    util = engine.metrics.utilization_report()
+    steps_n = len(engine.metrics)
+    split = {k: v / steps_n for k, v in engine.host_us.items()}
+    wall = engine.metrics.total("step_wall_us") / steps_n
+    del engine
+    # overhead: obs on and off in turns, best of OBS_REPEATS each
+    best = {False: [], True: []}
+    for _ in range(OBS_REPEATS):
+        for flag in (False, True):
+            _, r = serve(cfg, params, prompts, speculation=False,
+                         mode="auto", engine_kw=dict(obs=flag))
+            best[flag].append(r["tok_s"])
+    overhead = 1.0 - max(best[True]) / max(best[False])
+    # the CUDA runtime calls of one profiled obs run (host side)
+    _, prof = serve(cfg, params, prompts, speculation=False, mode="auto",
+                    engine_kw=dict(obs=True), profile=True,
+                    cpu_profile=True)
+    out = {"streams_equal": True, "trace_events": len(evs),
+           "step_spans": len(steps), "latency_s": lat,
+           "utilization": util, "tok_s_off": best[False],
+           "tok_s_on": best[True], "overhead": overhead,
+           "host_us_per_step": split, "step_wall_us": wall,
+           "host_launch": prof.get("host_launch", {}),
+           "launches": r_on["launches"]}
+    print(f"{cfg.name} obs: on == off True; trace {len(evs)} events, "
+          f"{len(steps)} step spans; TTFT / TPOT {lat}; utilization "
+          f"{util}; tok/s best of {OBS_REPEATS} off {max(best[False]):.1f} "
+          f"on {max(best[True]):.1f}: overhead {overhead:.4f} (target "
+          f"< 0.05); host us a step {split} of {wall:.1f}; runtime calls "
+          f"{out['host_launch']}", flush=True)
+    return out
+
+
+def draft_forward_check(dcfg, dserved, toks):
+    """The draft model's forward over one (1, 16) window with the kernels
+    (gpp_matmul_tc, RMSNorm and the f32 FMA head at 16 rows) against the
+    plain versions (`dense_kernel="ref"`) on the same tokens.  Gated block
+    by block on the plain run's input, so one block's bf16 rounding does
+    not carry into the next: each row of a block's output within TOL's
+    bf16 rtol of its largest |plain| value, and the head on the plain
+    run's last hidden state, each logits row within LOGITS_RTOL of its
+    largest |plain logit|.  The whole forward's rows, where bf16 rounding
+    does carry through 24 blocks, are reported beside the plain bf16
+    forward's distance from an f32 one (bf16's own spread), not gated.
+    The kernel forward launches those three kernels and no other, the
+    plain one none."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+
+    def row_err(a, b):
+        a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+        return float(((a - b).abs().amax(dim=1)
+                      / b.abs().amax(dim=1)).max())
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(f32(v) for v in tree)
+        return tree.float() if tree.is_floating_point() else tree
+
+    want = ("gpp_matmul_tc", "gpp_matmul", "rmsnorm")
+    rcfg = dataclasses.replace(dcfg, dense_kernel="ref")
+    full = {}
+    for mode, cfg in (("auto", dcfg), ("ref", rcfg)):
+        before = {k: c.n for k, c in counters().items()}
+        with torch.no_grad():
+            logits = tf.forward(dserved, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        ran = {k: c.n - before[k] for k, c in counters().items()}
+        check(all((n > 0) == (mode == "auto" and k in want)
+                  for k, n in ran.items()),
+              f"the draft forward ({mode}) launched {ran}")
+        check(tuple(logits.shape) == (1, DRAFT_WINDOW, dcfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"the draft forward ({mode}): logits {tuple(logits.shape)}")
+        full[mode] = logits
+    with torch.no_grad():
+        x = tf._embed_tokens(dserved, dcfg, toks)
+        pos = torch.arange(DRAFT_WINDOW, device="cuda")[None]
+        block_err = 0.0
+        for kind, p in tf._tree_layers(dserved, dcfg):
+            plain = tf.apply_block(rcfg, kind, p, x, pos)
+            block_err = max(block_err, row_err(
+                tf.apply_block(dcfg, kind, p, x, pos), plain))
+            x = plain
+        head_err = row_err(tf._logits_head(dserved, dcfg, x),
+                           tf._logits_head(dserved, rcfg, x))
+        exact = tf.forward(f32(dserved), dataclasses.replace(
+            rcfg, dtype="float32"), {"tokens": toks})
+    out = {"block_max_rel_err": block_err, "block_tol": TOL["bfloat16"][1],
+           "head_max_rel_err": head_err, "head_tol": LOGITS_RTOL,
+           "forward_max_rel_err": row_err(full["auto"], full["ref"]),
+           "plain_bf16_vs_f32": row_err(full["ref"], exact),
+           "kernel_bf16_vs_f32": row_err(full["auto"], exact)}
+    print(f"draft forward {dcfg.name} (1, {DRAFT_WINDOW}) bf16, max |kernel "
+          f"- plain| / a row's max |plain|: blocks {block_err:.3g} (gate "
+          f"{TOL['bfloat16'][1]}), head {head_err:.3g} (gate "
+          f"{LOGITS_RTOL}); the whole forward {out['forward_max_rel_err']:.3g}"
+          f" (bf16 from f32: plain {out['plain_bf16_vs_f32']:.3g}, kernels "
+          f"{out['kernel_bf16_vs_f32']:.3g})", flush=True)
+    check(block_err <= TOL["bfloat16"][1],
+          f"the draft forward: a block's rows differ by {block_err:.3g}")
+    check(head_err <= LOGITS_RTOL,
+          f"the draft forward: the head's rows differ by {head_err:.3g}")
+    return out
+
+
+def draft_run(cfg, params):
+    """qwen2-7b (bf16, resident) with draft-model drafting: full-width
+    qwen1.5-0.5b (random weights from seed 0; vocabularies 151936 and
+    152064, drafts clamped) drafts for it.  Gates, at prompt seeds 0-2:
+    the streams equal speculation off's, and each run launches exactly the
+    path's kernels (the draft forward: tensor-core gpp_matmul, the FMA
+    head, RMSNorm).  Then qwen1.5-0.5b drafts for itself (the same
+    weights): streams equal speculation off's, and drafts are accepted.
+    Prints the draft forward's device time (profiler, one (1, 16) window)
+    times the forwards a verify step ran, and tok/s with model drafting,
+    n-gram self-drafting and none."""
+    if cfg.dtype != "bfloat16":
+        return None
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    dcfg = registry.get_config("qwen1.5-0.5b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dparams = tf.init_params(dcfg, gen, "cuda")
+    path = ("gpp_matmul_tc", "gpp_matmul", "paged_attention_tc",
+            "paged_attention_merge", "rmsnorm")
+    model_kw = dict(engine_kw=dict(draft_source="model"),
+                    draft_model=(dcfg, dparams), keep_engine=True)
+    out = {"by_seed": {}}
+
+    def launched_only_path(info, what):
+        for k, n in info["launches"].items():
+            check((n > 0) == (k in path),
+                  f"{k} launched {n} times on {what}")
+
+    for seed in SPEC_SEEDS:
+        prompts = repeated_prompts(cfg.vocab_size, seed=seed)
+        off, r_off = serve(cfg, params, prompts, speculation=False,
+                           mode="auto")
+        on, r_on = serve(cfg, params, prompts, speculation=True,
+                         mode="auto", **model_kw)
+        engine = r_on.pop("engine")
+        verify_steps = sum(m["verify_tokens"] > 0 for m in engine.metrics)
+        r_on["draft_forwards"] = engine.draft_forwards
+        r_on["verify_steps"] = verify_steps
+        del engine
+        check(on == off, f"{cfg.name} drafted by {dcfg.name}: streams with "
+                         f"the draft model differ from speculation off "
+                         f"(prompt seed {seed})")
+        launched_only_path(r_on, f"{cfg.name} with a draft model")
+        out["by_seed"][seed] = {"streams_equal": True,
+                                "accepted": r_on["accepted_tokens"],
+                                "drafted": r_on["drafted_tokens"],
+                                "draft_forwards": r_on["draft_forwards"],
+                                "verify_steps": verify_steps}
+        if seed == SPEC_SEEDS[0]:
+            out["launches"] = r_on["launches"]
+            ngram, r_ng = serve(cfg, params, prompts, speculation=True,
+                                mode="auto")
+            check(ngram == off, f"{cfg.name}: n-gram drafts change streams")
+            out["tok_s"] = {"model": r_on["tok_s"], "self": r_ng["tok_s"],
+                            "none": r_off["tok_s"]}
+            fwd_per_verify = r_on["draft_forwards"] / max(1, verify_steps)
+    # the draft forward on one (1, 16) window: against its plain version,
+    # then its device time
+    toks = torch.randint(0, dcfg.vocab_size, (1, DRAFT_WINDOW),
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(5))
+    dserved = tf.serving_params(dparams, dcfg)
+    out["forward_vs_plain"] = draft_forward_check(dcfg, dserved, toks)
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: tf.forward(dserved, dcfg,
+                                              {"tokens": toks}), [()],
+                           iters=20)
+    del dserved
+    out["draft_forward_ms"] = fwd_ms
+    out["draft_forwards_per_verify_step"] = fwd_per_verify
+    out["draft_device_ms_per_verify_step"] = fwd_ms * fwd_per_verify
+    # qwen1.5-0.5b drafting for itself: the same weights, as the target
+    prompts = repeated_prompts(dcfg.vocab_size, seed=SPEC_SEEDS[0])
+    off, _ = serve(dcfg, dparams, prompts, speculation=False, mode="auto")
+    on, r_self = serve(dcfg, dparams, prompts, speculation=True,
+                       mode="auto", **model_kw)
+    del r_self["engine"]
+    check(on == off, f"{dcfg.name} drafting for itself: streams differ")
+    check(r_self["accepted_tokens"] > 0,
+          f"{dcfg.name} drafting for itself: no draft accepted")
+    launched_only_path(r_self, f"{dcfg.name} drafting for itself")
+    out["self_draft"] = {"streams_equal": True,
+                         "accepted": r_self["accepted_tokens"],
+                         "drafted": r_self["drafted_tokens"],
+                         "tok_s": r_self["tok_s"]}
+    del dparams
+    torch.cuda.empty_cache()
+    print(f"{cfg.name} drafted by full-width {dcfg.name}: streams == "
+          f"speculation off at seeds {list(SPEC_SEEDS)}; "
+          f"{out['by_seed']}; draft forward {fwd_ms:.4f} ms device x "
+          f"{fwd_per_verify:.2f} a verify step = "
+          f"{out['draft_device_ms_per_verify_step']:.4f} ms; tok/s "
+          f"{out['tok_s']}; {dcfg.name} drafting for itself: "
+          f"{out['self_draft']}", flush=True)
+    return out
+
+
 def check_mla_block_sizes(report):
     """deepseek-v2-lite-16b at full width, 4 of its 27 layers (1 dense + 3
     MoE), served with 8- and 128-token KV blocks, which the tensor-core MLA
@@ -2468,6 +3182,7 @@ def check_mla_block_sizes(report):
 
 
 def main(argv=None) -> int:
+    global REPORT_DIR
     ap = argparse.ArgumentParser()
     ap.add_argument("--json-out", default=None,
                     help="also write every measurement to this JSON file")
@@ -2496,6 +3211,9 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     print(f"kernel build: {build_s:.1f}s ({per})")
     report = {"card": smi, "build_s": build_s}
+    if args.json_out:
+        REPORT_DIR = Path(args.json_out).parent
+        REPORT_DIR.mkdir(parents=True, exist_ok=True)
 
     gpp_rows, gpp_err = check_gpp(report)
     head_rows = check_head(report)
@@ -2505,14 +3223,17 @@ def main(argv=None) -> int:
     check_moe_layer(report, "deepseek-v2-lite-16b")
     mla_rows = check_mla(report)
     mla_block_rows = check_mla_blocks(report)
+    mla_split_cost(report)
     kimi_grouped_rows = check_grouped_kimi(report)
     check_moe_layer(report, "kimi-k2-1t-a32b")
     seq_rows = check_gemm_sequence(report)
+    check_prefix_starts(report)
     gqa_path = ("gpp_matmul_tc", "gpp_matmul", "paged_attention_tc",
                 "paged_attention_merge", "rmsnorm")
     gqa_f32 = ("gpp_matmul", "paged_attention", "paged_attention_merge",
                "rmsnorm")
-    qwen = check_serving(report, "qwen1.5-0.5b", gqa_path, gqa_f32)
+    qwen = check_serving(report, "qwen1.5-0.5b", gqa_path, gqa_f32,
+                         hooks={"prefix": prefix_serving, "obs": obs_run})
     deepseek = check_serving(report, "deepseek-v2-lite-16b",
                              ("gpp_matmul_tc", "gpp_matmul",
                               "gpp_matmul_grouped_tc",
@@ -2521,7 +3242,7 @@ def main(argv=None) -> int:
                              ("gpp_matmul", "gpp_matmul_grouped",
                               "paged_attention_mla", "paged_attention_merge",
                               "rmsnorm"),
-                             f32_layers=4)
+                             f32_layers=4, hooks={"prefix": prefix_serving})
     blocks = check_mla_block_sizes(report)
     # slice 11: qwen2-7b (query group 7) and h2o-danube-1.8b (head_dim 80:
     # the FMA kernel's bf16 instance) at full width and depth, f32 too;
@@ -2534,12 +3255,14 @@ def main(argv=None) -> int:
     # max_len 128: its expiry is exercised at SMOKE on the CPU
     # (tests/test_torch_serving.py) and, on the card, by the same kernels
     # on gemma3's run past its window
-    check_serving(report, "qwen2-7b", gqa_path, gqa_f32, repeat=True)
+    check_serving(report, "qwen2-7b", gqa_path, gqa_f32, repeat=True,
+                  hooks={"draft": draft_run})
     check_serving(report, "h2o-danube-1.8b",
                   ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
                    "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
     check_serving(report, "gemma3-12b", gqa_path, gqa_f32, f32_layers=12,
-                  long=window_long_run, repeat=True)
+                  hooks={"long": window_long_run, "prefix": prefix_serving,
+                         "prefix_long": prefix_long_run}, repeat=True)
     check_serving(report, "kimi-k2-1t-a32b",
                   ("gpp_matmul_tc", "gpp_matmul", "gpp_matmul_grouped_tc",
                    "paged_attention_tc", "paged_attention_merge", "rmsnorm"),
@@ -2604,8 +3327,12 @@ def main(argv=None) -> int:
         """{path: launches of `counter`} over every served path that ran
         it: the bf16 runs (and gemma3's long run) or the f32 kernel runs."""
         keys = (("f32_kernel", " in f32 ({} layers)"),
-                ("long_f32", " past its window in f32 ({} layers)")) if f32 \
-            else (("bf16", ""), ("long_bf16", " past its window"))
+                ("long_f32", " past its window in f32 ({} layers)"),
+                ("prefix_f32", " prefix cache in f32 ({} layers)")) if f32 \
+            else (("bf16", ""), ("long_bf16", " past its window"),
+                  ("prefix_bf16", " prefix cache"),
+                  ("prefix_long_bf16", " shared prefix past its window"),
+                  ("obs_bf16", " obs"), ("draft_bf16", " draft model"))
         out = {}
         for arch, runs in serving.items():
             for key, label in keys:

@@ -574,6 +574,10 @@ GPP_MM_TC_MAX_RING = 2           # planned rings deeper than ping-pong ran
                                  # slower on the card (PERF.md)
 SM_SMEM_BYTES = 233_472          # an SM's shared memory for its CTAs
 CTA_SMEM_RESERVED = 1_024        # the system's share of it, per CTA
+GPP_MM_TC_THREADS = 256          # a tensor-core CTA's threads (8 warps)
+SM_THREADS = 2_048               # an SM's resident threads
+GPP_MM_TC_REG_CTAS = 3           # CTAs an SM its registers allow (the card
+                                 # held three at decode, PERF.md)
 GPP_MM_TC_PART_PAD = 8           # floats after each partial row (bank
                                  # groups of the fragment stores)
 
@@ -667,6 +671,22 @@ def matmul_tc_smem_bytes(bm: int, bk: int, bn: int, G: int) -> int:
     return max(ring, partial)
 
 
+def tc_ctas_per_sm(smem_bytes: int) -> int:
+    """Tensor-core `gpp_matmul` CTAs one SM holds at once: its shared
+    memory over a CTA's (ring plus the system's share), capped by the
+    threads and the registers a CTA takes."""
+    return min(SM_SMEM_BYTES // (smem_bytes + CTA_SMEM_RESERVED),
+               SM_THREADS // GPP_MM_TC_THREADS, GPP_MM_TC_REG_CTAS)
+
+
+def tc_waves(tiles: int, cluster: int, smem_bytes: int) -> int:
+    """Waves of clusters a launch of `tiles` clusters of `cluster` CTAs
+    runs in: the tiles over the clusters the card holds at once (its SMs x
+    CTAs an SM, over the cluster size)."""
+    resident = H100_SMS * tc_ctas_per_sm(smem_bytes) // cluster
+    return -(-tiles // max(1, resident))
+
+
 def _tc_split(K: int, N: int) -> "tuple[int, int, int]":
     """(block_n, S, block_k) of the tensor-core route, from K and N alone:
     block_k 256, and for each block_n the largest cluster S (at most one
@@ -711,8 +731,12 @@ def plan_matmul_tc_sm90(M: int, K: int, N: int, *,
     a few 64 KB steps.  block_m is M rounded up to 16, 32, 64 or 128 (one
     m-tile at every path shape, so W streams once a launch).  G comes from
     `plan_stream` at H100 rates, clamped to the longest slice and to
-    GPP_MM_TC_MAX_RING, then shrunk until the ring fits the shared memory,
-    down to in-situ.  A pinned `num_bufs` is kept and block_k halves until
+    GPP_MM_TC_MAX_RING; of it and every shallower ring down to in-situ that
+    fits the shared memory, the one whose clusters run in the fewest waves
+    (`tc_waves`) wins, the deepest on a tie: a deeper ring that leaves one
+    CTA an SM where a shallower one fits two can cost a second wave (the
+    GeMM sequence at 128 rows: G = 2 in two waves ran 1.32x G = 1 in one,
+    PERF.md).  A pinned `num_bufs` is kept and block_k halves until
     it fits; `block_n`, `cluster` (up to 16, the non-portable size) and
     `block_k` pins are for tests and sweeps.  Raises when nothing fits."""
     if min(M, K, N) < 1:
@@ -751,9 +775,12 @@ def plan_matmul_tc_sm90(M: int, K: int, N: int, *,
             -(-num_k // S),                # deeper than a slice idles
             GPP_MM_TC_MAX_RING)
         if num_bufs is None:
-            while G > 1 and matmul_tc_smem_bytes(bm, bk, bn,
-                                                 G) > smem_budget:
-                G -= 1
+            tiles = -(-M // bm) * -(-N // bn)
+            fits = [g for g in range(G, 0, -1)
+                    if matmul_tc_smem_bytes(bm, bk, bn, g) <= smem_budget]
+            G = min(fits, key=lambda g: (tc_waves(
+                tiles, S, matmul_tc_smem_bytes(bm, bk, bn, g)), -g),
+                default=1)
         smem = matmul_tc_smem_bytes(bm, bk, bn, G)
         if smem <= smem_budget:
             return MatmulTcClusterPlan(M, K, N, bm, bn, bk, S, G,
@@ -1199,7 +1226,7 @@ PA_MLA_TC_WARPS = 4          # 512 latent columns: 128 a warp
 PA_MLA_TC_MAX_LATENT = 512
 PA_MLA_TC_MAX_BLOCK = 64
 PA_MLA_TC_MAX_CTAS_PER_SM = 4
-PA_MLA_TC_CTAS_PER_SM = 2    # the split aims for two CTAs an SM (sweep)
+PA_TC_MAX_SPLITS = 8         # runs a lane's blocks are cut into, at most
 
 
 def kv_runs(max_blocks: int, kv_splits: int) -> "list[range]":
@@ -1211,6 +1238,19 @@ def kv_runs(max_blocks: int, kv_splits: int) -> "list[range]":
     return [range(s * max_blocks // kv_splits,
                   (s + 1) * max_blocks // kv_splits)
             for s in range(kv_splits)]
+
+
+def tc_kv_splits(max_blocks: int) -> int:
+    """The runs both tensor-core attention kernels (GQA / window and MLA)
+    cut a lane's logical blocks into (`kv_runs`): min(MB, 8), from the
+    table width alone, so a row meets the same runs and its merge rounds
+    the same bits at decode, verify and prefill whatever the batch (one
+    block a run at qwen's and deepseek's MB = 8).  A split from the CTAs
+    each step wants (the MLA planner's earlier one) gave a token's row
+    other bits in a decode step than in a prefill chunk once MB > 8: a
+    prefix hit that reuses decode-written KV then parted bf16 streams
+    from the prefix-off run's (PERF.md)."""
+    return max(1, min(max_blocks, PA_TC_MAX_SPLITS))
 
 
 def mla_tc_row_bytes(latent: int, rope: int) -> int:
@@ -1293,9 +1333,9 @@ def plan_paged_attn_mla_tc_sm90(*, batch: int, rows: int, block_size: int,
                                 ) -> MlaTcPlan:
     """Plan for the tensor-core MLA kernel (csrc/paged_attention.cu).
 
-    rows = heads x queries a lane (16 S), cut into 16-row tiles.  With
-    units = batch x row tiles, kv_splits = min(MB, ceil(2 * 132 / units))
-    runs a unit give two CTAs an SM where the blocks allow: on deepseek's
+    rows = heads x queries a lane (16 S), cut into 16-row tiles.  The runs
+    come from the table width alone, kv_splits = `tc_kv_splits(MB)` =
+    min(MB, 8), so a row rounds alike at every step shape: on deepseek's
     path (MB = 8) every phase splits into 8 runs of one block (32 / 256 /
     160 CTAs at decode / prefill / verify), which the sweep found fastest
     or within 5% of it (PERF.md).  The ring depth comes from `plan_stream`
@@ -1319,9 +1359,7 @@ def plan_paged_attn_mla_tc_sm90(*, batch: int, rows: int, block_size: int,
         raise ValueError("num_bufs >= 1")
     row_tiles = -(-rows // PA_MLA_TC_ROWS)
     units = batch * row_tiles
-    ks = kv_splits if kv_splits is not None else \
-        min(max_blocks,
-            max(1, -(-PA_MLA_TC_CTAS_PER_SM * H100_SMS // units)))
+    ks = kv_splits if kv_splits is not None else tc_kv_splits(max_blocks)
     longest = max(len(r) for r in kv_runs(max_blocks, ks))
     ctas = units * ks
     rb = mla_tc_row_bytes(latent, rope)
@@ -1351,7 +1389,6 @@ PA_GQA_TC_ROWS = 16           # query rows of a tile: one mma m16 tile
 PA_GQA_TC_WARPS = 4           # q.k k-steps and p.v columns split over them
 PA_GQA_TC_HEAD_DIMS = (64, 128, 256)
 PA_GQA_TC_MAX_BLOCK = 64
-PA_GQA_TC_MAX_SPLITS = 8      # runs a lane's blocks are cut into, at most
 PA_GQA_TC_MAX_CTAS_PER_SM = 4
 
 
@@ -1362,14 +1399,6 @@ def gqa_tc_takes(block_size: int, head_dim: int) -> bool:
     m16 / n8 tiles, at most 64 keys a ring slot)."""
     return (head_dim in PA_GQA_TC_HEAD_DIMS and block_size % 16 == 0
             and 16 <= block_size <= PA_GQA_TC_MAX_BLOCK)
-
-
-def gqa_tc_splits(max_blocks: int) -> int:
-    """The runs the tensor-core GQA kernel cuts a lane's logical blocks
-    into (`kv_runs`): min(MB, 8), from the table width alone, so a row
-    meets the same runs, and rounds the same bits, at decode, verify and
-    prefill whatever the batch (one block a run at qwen's MB = 8)."""
-    return max(1, min(max_blocks, PA_GQA_TC_MAX_SPLITS))
 
 
 def gqa_tc_smem_bytes(block_size: int, head_dim: int, G: int) -> int:
@@ -1441,10 +1470,9 @@ def plan_paged_attn_gqa_tc_sm90(*, batch: int, kv_heads: int, rows: int,
     """Plan for the tensor-core GQA / window kernel (csrc/paged_attention.cu).
 
     rows = rep x S query rows a (lane, KV head), cut into 16-row tiles.
-    The runs are `gqa_tc_splits(max_blocks)`: unlike the MLA planner's
-    (which grows its split with fewer units), the cut reads neither the
-    batch nor S, so a row's partials, and the bits of its output, are the
-    same at decode and verify.  The ring depth comes from `plan_stream`
+    The runs are `tc_kv_splits(max_blocks)`, as the MLA planner's: the
+    cut reads neither the batch nor S, so a row's partials, and the bits
+    of its output, are the same at decode and verify.  The ring depth comes from `plan_stream`
     (a block's K and V against its flash step) clamped to the longest run,
     then shrinks so that ceil(CTAs / 132) CTAs (at most 4) share an SM's
     shared memory; the depth changes no arithmetic.  A pinned num_bufs or
@@ -1461,7 +1489,7 @@ def plan_paged_attn_gqa_tc_sm90(*, batch: int, kv_heads: int, rows: int,
     if num_bufs is not None and num_bufs < 1:
         raise ValueError("num_bufs >= 1")
     row_tiles = -(-rows // PA_GQA_TC_ROWS)
-    ks = kv_splits if kv_splits is not None else gqa_tc_splits(max_blocks)
+    ks = kv_splits if kv_splits is not None else tc_kv_splits(max_blocks)
     longest = max(len(r) for r in kv_runs(max_blocks, ks))
     ctas = batch * kv_heads * row_tiles * ks
     G = num_bufs if num_bufs is not None else _ring_depth(

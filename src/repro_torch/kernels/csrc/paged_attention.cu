@@ -1155,7 +1155,7 @@ extern "C" int paged_attention_mla_tc_ctas_per_sm(int bs, int da, int db,
 //     tile holds one live row; rows past rS are neither read nor written.
 //     The runs cut [0, MB) at fixed block boundaries,
 //     [s * MB / ks, (s + 1) * MB / ks) with ks = min(MB, 8)
-//     (core.schedule.gqa_tc_splits): the cut reads neither B nor S, so a
+//     (core.schedule.tc_kv_splits): the cut reads neither B nor S, so a
 //     row meets the same runs at decode and at verify and its output is
 //     the same bits (a block visible to a later row of the lane but not to
 //     this one is a -inf step for it: corr = 1, p = 0, exactly nothing).

@@ -50,7 +50,7 @@ from repro_torch.core.schedule import (GroupedTcPlan, MatmulFmaPlan,
                                       plan_matmul_fma_sm90,
                                       plan_matmul_tc_sm90)
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ACTIVATION_IDS
+from repro_torch.kernels.ref import ACTIVATION_IDS, chunk_issue_schedule
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 W_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -449,3 +449,95 @@ def issue_order_grouped(x: torch.Tensor, w: torch.Tensor,
     gpp_matmul_grouped(x, w, num_bufs=num_bufs, record=rec)
     return (build.read_issue_record(rec), steps, p.num_bufs, p.chunks,
             len(items), len(experts))
+
+
+# ---------------------------------------------------------------------------
+# trace lanes: host-side replays of the chunk schedule (obs)
+# ---------------------------------------------------------------------------
+
+def schedule_lane_events(trace, *, num_steps: int, G: int, C: int,
+                         t0_us: float, dur_us: float, step_bytes: float = 0.0,
+                         live=None, pid: int = 0, tid_dma: int = 0,
+                         tid_compute: int = 1, max_events: int = 256,
+                         name: str = "gpp") -> int:
+    """Render the chunk-issue schedule as copy-vs-compute trace lanes (the
+    reference's `schedule_lane_events`).
+
+    Replays `chunk_issue_schedule(num_steps, G, C)` — the issue pattern a
+    kernel's ring (`csrc/ring.cuh`) follows — and emits two lanes of
+    Chrome trace-event "X" spans into `trace` (an `obs.trace.
+    TraceRecorder`), scaled into the measured call window [t0_us, t0_us +
+    dur_us]:
+
+      tid_dma      chunk copies *started* per step (count + bytes)
+      tid_compute  the step's compute occupancy
+
+    The window is split evenly across LIVE steps (`live(s)` false: the
+    kernel skips the step); the kernel has no per-step clock the host can
+    read without a device sync, so these lanes are a schedule-exact model
+    stretched over the host's wall window, cat="modeled".  Steps coalesce
+    into at most `max_events` buckets per lane.  Returns the events
+    emitted."""
+    if not getattr(trace, "enabled", False) or num_steps <= 0 or dur_us <= 0:
+        return 0
+    sched = chunk_issue_schedule(num_steps, G, C)
+    starts = [0] * num_steps            # chunk copies issued at each step
+    for (step, chunk), at in sched.items():
+        if live is None or live(step):
+            for s in at:
+                starts[s] += 1
+    is_live = [bool(live(s)) if live is not None else True
+               for s in range(num_steps)]
+    n_live = sum(is_live)
+    if n_live == 0:
+        return 0
+    dt = dur_us / n_live
+    chunk_bytes = step_bytes / C if C else 0.0
+    bucket = max(1, -(-num_steps // max_events))
+    emitted = 0
+    t = t0_us                           # start of the current bucket
+    for b0 in range(0, num_steps, bucket):
+        b1 = min(b0 + bucket, num_steps)
+        live_in = sum(is_live[b0:b1])
+        chunks = sum(starts[b0:b1])
+        width = live_in * dt
+        label = (f"{name} step {b0}" if bucket == 1
+                 else f"{name} steps {b0}-{b1 - 1}")
+        if chunks:
+            trace.complete(
+                f"{label} dma", t, width or dt * 0.1, pid=pid, tid=tid_dma,
+                cat="modeled",
+                args={"chunks_started": chunks,
+                      "bytes": chunks * chunk_bytes, "ring": G})
+            emitted += 1
+        if live_in:
+            trace.complete(
+                f"{label} compute", t, width, pid=pid, tid=tid_compute,
+                cat="modeled",
+                args={"grid_steps": b1 - b0, "live_steps": live_in})
+            emitted += 1
+        t += width
+    return emitted
+
+
+def matmul_lane_events(trace, M: int, K: int, N: int, *,
+                       itemsize: int = 4, t0_us: float, dur_us: float,
+                       pid: int = 0, max_events: int = 256) -> int:
+    """Schedule-exact copy/compute lanes for one `gpp_matmul(M, K, N)`
+    call, from the port's own sm_90 plan (what the card runs, not the
+    TPU's tiles): bf16 (itemsize 2) the tensor-core route's
+    `plan_matmul_tc_sm90`, else the FMA route's `plan_matmul_fma_sm90`.
+    Every CTA runs its own ring in parallel, so the lanes replay one CTA's
+    run, CTA 0's (rank 0 of the first tile's cluster on the tensor-core
+    route), over the measured window."""
+    if itemsize == 2:
+        plan = plan_matmul_tc_sm90(M, K, N)
+    else:
+        plan = plan_matmul_fma_sm90(M, K, N, w_itemsize=itemsize)
+    steps = plan.cta_steps(0)
+    G = min(plan.num_bufs, max(1, steps))
+    return schedule_lane_events(
+        trace, num_steps=steps, G=G, C=max(1, min(G - 1, plan.block_k)),
+        t0_us=t0_us, dur_us=dur_us,
+        step_bytes=plan.block_k * plan.block_n * itemsize,
+        pid=pid, max_events=max_events, name="matmul")

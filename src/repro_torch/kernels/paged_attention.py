@@ -55,6 +55,7 @@ from repro_torch.core.schedule import (GqaTcPlan, MlaTcPlan,
                                       plan_paged_attn_gqa_tc_sm90,
                                       plan_paged_attn_mla_tc_sm90)
 from repro_torch.kernels import build
+from repro_torch.kernels.gpp_matmul import schedule_lane_events
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -552,3 +553,29 @@ def issue_order_mla(q: torch.Tensor, c_kv: torch.Tensor,
                    rec_cta=cta)
     return (build.read_issue_record(rec), steps, plan.num_bufs, plan.chunks,
             cta)
+
+
+def paged_lane_events(trace, live_counts: "list[int]", max_blocks: int, *,
+                      G: int = 2, block_bytes: int = 0, t0_us: float,
+                      dur_us: float, pid: int = 0,
+                      max_events: int = 128) -> int:
+    """Copy/compute trace lanes for one paged-attention call (the
+    reference's `paged_lane_events`): the lanes' (B, MB) table walked
+    lane-major, `live_counts[lane]` live blocks of `max_blocks` entries a
+    lane (what the kernels' live-block predicate admits), replayed through
+    the shared chunk schedule at ring depth G (2: the tensor-core plans'
+    ping-pong) and rendered into `trace` over the measured call window.
+    Dead entries cost the kernels neither copy nor compute and get zero
+    width.  On the card the split-KV CTAs walk runs of these blocks at
+    once; the lanes model the schedule, not the timeline (see
+    `kernels.gpp_matmul.schedule_lane_events`)."""
+    B = len(live_counts)
+    steps = B * max_blocks
+    if steps <= 0:
+        return 0
+    G = min(G, steps)
+    return schedule_lane_events(
+        trace, num_steps=steps, G=G, C=max(1, G - 1), t0_us=t0_us,
+        dur_us=dur_us, step_bytes=block_bytes,
+        live=lambda s: (s % max_blocks) < live_counts[s // max_blocks],
+        pid=pid, max_events=max_events, name="kv")

@@ -1,5 +1,6 @@
 """GQA and MLA attention over paged KV pools (the serving slice of
-`repro.models.attention`: GQA :300-512, MLA :515-623).
+`repro.models.attention`: GQA :300-512, MLA :515-623), and their
+full-sequence forms `gqa_forward` / `mla_forward` (:314, :630).
 
 Pool layouts (shared across lanes): GQA k / v (num_blocks, block_size,
 KVH, hd); MLA c_kv (num_blocks, block_size, kv_lora) and k_rope
@@ -213,17 +214,48 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
-def causal_mask(S: int, T: int, q_offset=0, window: "int | None" = None):
+def causal_mask(S: int, T: int, q_offset=0, window: "int | None" = None,
+                device=None):
     """(S, T) mask: query i (global position q_offset+i) sees keys j <= it,
     and within `window` if set.  q_offset: an int or a 0-d tensor (whose
-    device the mask takes)."""
-    device = q_offset.device if isinstance(q_offset, torch.Tensor) else None
+    device the mask takes; else `device`)."""
+    if isinstance(q_offset, torch.Tensor):
+        device = q_offset.device
     qpos = q_offset + torch.arange(S, device=device)[:, None]
     kpos = torch.arange(T, device=device)[None, :]
     m = kpos <= qpos
     if window is not None:
         m &= kpos > qpos - window
     return m
+
+
+ATTN_Q_CHUNK = 512  # query rows a block of full-sequence attention
+
+
+def _sdpa_chunked(q, k, v, scale, *, window=None, chunk=ATTN_Q_CHUNK):
+    """Causal attention over the whole sequence, query rows in blocks of
+    `chunk` (the reference's `_sdpa_chunked`: one (chunk x T) block of
+    logits at a time; a sequence of at most `chunk` rows, or not a whole
+    number of chunks, runs as one block)."""
+    S, T = q.shape[1], k.shape[1]
+    if S <= chunk or S % chunk:
+        return _sdpa(q, k, v, causal_mask(S, T, 0, window, q.device), scale)
+    return torch.cat([
+        _sdpa(q[:, i:i + chunk], k, v,
+              causal_mask(chunk, T, i, window, q.device), scale)
+        for i in range(0, S, chunk)], dim=1)
+
+
+def gqa_forward(p, c: AttnConfig, x, positions):
+    """Full-sequence GQA self-attention (causal, optional window): the
+    projections through `kernels.ops.dense`, the attention in plain torch
+    (as the reference computes it in jnp, outside any Pallas kernel; its
+    `_attend` also dispatches a context-parallel `shard_map` branch, which
+    comes with distribution)."""
+    q, k, v = gqa_project_qkv(p, c, x, positions)
+    out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(c.head_dim),
+                        window=c.window)
+    return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
 
 
 def _paged_gather(pool, tables):
@@ -284,6 +316,20 @@ def _mla_attend(p, c: AttnConfig, q, c_kv, k_rope, mask):
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(nope + c.rope_head_dim))
     return dense(out[..., :nope], p["w_o"], mode=c.dense_mode,
                  contract_dims=2)
+
+
+def mla_forward(p, c: AttnConfig, x, positions):
+    """Full-sequence MLA self-attention: the latent up-projected to
+    per-head K/V, then `_sdpa_chunked` (causal)."""
+    q = _mla_q(p, c, x, positions)
+    c_kv, k_rope = _mla_latent(p, c, x, positions)
+    nope = c.head_dim
+    k_nope = dense(c_kv, p["w_uk"], mode=c.dense_mode)
+    v = dense(c_kv, p["w_uv"], mode=c.dense_mode)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], c.rope_head_dim)], dim=-1)
+    out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(nope + c.rope_head_dim))
+    return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
 
 
 def _mla_absorbed_attend(p, c: AttnConfig, q, ckv, kr, tables, positions,

@@ -9,10 +9,14 @@ superblocks is a Python loop here.
 
 Entry points:
   param_specs / init_params(cfg, generator, device)
+  forward(params, cfg, batch)          full-sequence logits (the draft
+                                       model's rollout)
   paged_cache_specs / init_paged_caches
   prefill_chunk, decode_step_paged, verify_step_paged
 The pools are updated in place (the reference returns new ones); each step
 function still returns (logits, caches) for a like-for-like call shape.
+`forward` runs the reference's resident path; its layer streamer and
+sharding arguments come with distribution.
 """
 from __future__ import annotations
 
@@ -194,16 +198,21 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _layers(params: dict, caches: dict, cfg: ModelConfig):
-    """(kind, params, pools) per layer: the prefix layers, then each
-    superblock's pattern in order (the reference's scan order)."""
-    for kind, p, c in zip(cfg.prefix_pattern, params["prefix"],
-                          caches["prefix"]):
-        yield kind, p, c
+def _tree_layers(tree: dict, cfg: ModelConfig):
+    """(kind, layer) per layer of a params or pools tree: the prefix
+    layers, then each superblock's pattern in order (the reference's scan
+    order)."""
+    yield from zip(cfg.prefix_pattern, tree["prefix"])
     for s in range(cfg.num_superblocks):
         for i, kind in enumerate(cfg.pattern):
-            yield (kind, _index(params["blocks"][f"b{i}"], s),
-                   _index(caches["blocks"][f"b{i}"], s))
+            yield kind, _index(tree["blocks"][f"b{i}"], s)
+
+
+def _layers(params: dict, caches: dict, cfg: ModelConfig):
+    """(kind, params, pools) per layer."""
+    for (kind, p), (_, c) in zip(_tree_layers(params, cfg),
+                                 _tree_layers(caches, cfg)):
+        yield kind, p, c
 
 
 def _block(cfg: ModelConfig, kind: str, p, x, attend):
@@ -235,6 +244,32 @@ def _logits_head(params, cfg: ModelConfig, x):
     head = params["lm_head"]
     return head_logits(x, head["w_out"], head.get("w_out_t"),
                        cfg.dense_kernel)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (the reference's :162-261, resident path)
+# ---------------------------------------------------------------------------
+
+def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions):
+    """One attention block over a whole sequence: causal GQA / window or
+    MLA self-attention, then the MLP or the MoE."""
+    return _block(cfg, kind, p, x, lambda ac, pa, h: (
+        (attn.mla_forward if ac.is_mla else attn.gqa_forward)(
+            pa, ac, h, positions), None))
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict):
+    """Full-sequence forward to f32 logits (B, S, vocab).  batch:
+    {"tokens": (B, S)}.  Projections run `kernels.ops.dense`, MoE layers
+    `dense_grouped`, norms the RMSNorm kernel and the head
+    `layers.head_logits`, as the paged step functions do."""
+    _check_supported(cfg)
+    x = _embed_tokens(params, cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for kind, p in _tree_layers(params, cfg):
+        x = apply_block(cfg, kind, p, x, positions)
+    return _logits_head(params, cfg, x)
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,

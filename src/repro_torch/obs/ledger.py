@@ -30,12 +30,16 @@ long serving runs stop growing per step while aggregate byte accounting
 stays exact.  `retention == 0` (the default) retains everything, which is
 what the existing tests/benchmarks slice into.
 
-This is a copy of `repro.obs.ledger` without `utilization_report`, whose
-simulator-predicted column needs the reference's analytical model and
-simulator; it comes with the port of those modules.
+`utilization_report()` is the paper-facing column: the measured
+distribution of per-step link activity (mean/peak of `hbm_bytes`, plus its
+CoV — 1.0 means perfectly flat, the GPP ideal) next to the utilization the
+cycle-accurate GPP simulator (`core.simulator.simulate_gpp`, the port's
+copy) predicts for a matched rewrite:compute ratio.  A copy of
+`repro.obs.ledger`.
 """
 from __future__ import annotations
 
+import statistics
 from collections import deque
 
 # THE per-step metrics schema, shared by ServingEngine and
@@ -151,6 +155,49 @@ class BandwidthLedger:
     def totals(self) -> dict:
         return {k: self.total(k) for k in STEP_SCHEMA if k != "step"}
 
+    # ------------------------------------------------------ paper column
+    def utilization_report(self, *, sim_macros: int = 32,
+                           sim_rounds: int = 8) -> dict:
+        """Measured vs simulate_gpp-predicted link-utilization summary.
+
+        measured_bw_utilization  mean/peak of per-step hbm_bytes over the
+                                 retained window — 1.0 means every step
+                                 moves the same bytes (perfectly flat, the
+                                 GPP ideal); prefill bursts push it down.
+        hbm_bytes_per_step_cov   the same flatness as a CoV (0 = flat).
+        predicted_bw_utilization bus-busy fraction of the cycle-accurate
+                                 GPP simulator at a rewrite:compute ratio
+                                 matched to the measured step composition
+                                 (weight-stream bytes : total step bytes).
+        """
+        hbm = [float(r["hbm_bytes"]) for r in self._rows]
+        if not hbm or max(hbm) <= 0:
+            return {"measured_bw_utilization": 0.0,
+                    "predicted_bw_utilization": 0.0,
+                    "hbm_bytes_per_step_cov": 0.0,
+                    "steps_measured": len(hbm)}
+        measured = (sum(hbm) / len(hbm)) / max(hbm)
+        mean = sum(hbm) / len(hbm)
+        cov = statistics.pstdev(hbm) / mean if mean else 0.0
+
+        from repro_torch.core.analytical import PimConfig
+        from repro_torch.core.simulator import simulate_gpp
+
+        # map the measured step composition onto the paper's knobs: the
+        # weight stream is the "rewrite", everything else the compute-side
+        # traffic; t_pim/t_rw = ratio  =>  n_in = ratio * size_ou / s.
+        params = self.total("param_bytes") / self.steps if self.steps else 0
+        ratio = max(0.125, (mean - params) / params) if params else 1.0
+        cfg = PimConfig()
+        cfg = cfg.with_(n_in=max(1.0, ratio * cfg.size_ou / cfg.s))
+        sim = simulate_gpp(cfg, sim_macros, sim_rounds)
+        predicted = (sim.bw_busy_cycles / sim.total_cycles
+                     if sim.total_cycles else 0.0)
+        return {"measured_bw_utilization": measured,
+                "predicted_bw_utilization": predicted,
+                "hbm_bytes_per_step_cov": cov,
+                "steps_measured": len(hbm)}
+
     def summary(self) -> dict:
         """Aggregate export unit for metrics snapshots."""
         out = {"steps": self.steps,
@@ -162,4 +209,5 @@ class BandwidthLedger:
             "param_bytes", "kv_write_bytes", "kv_read_bytes",
             "prefix_saved_bytes", "spec_saved_bytes", "hbm_bytes",
             "attn_bytes_gather", "attn_bytes_stream")})
+        out.update(self.utilization_report())
         return out

@@ -550,6 +550,15 @@ class GroupedPagedCache:
             if (gi, d) not in gone]
 
     def free_lane(self, lane: int) -> None:
+        # purge queued copies into the lane's own (forked) blocks: they go
+        # back to the free list, and a fork later in the same step may hand
+        # one out again as another copy's destination (the engine drains a
+        # step's copies as one indexed copy, which needs unique targets)
+        gone = {(gi, b) for gi, g in enumerate(self.groups)
+                for b in g.blocks_for(lane)}
+        self.pending_copies = [
+            (gi, s, d) for gi, s, d in self.pending_copies
+            if (gi, d) not in gone]
         for g in self.groups:
             g.free_lane(lane)
 

@@ -338,3 +338,52 @@ def test_launch_plan_is_cached_per_shape():
     pinned = gm._plan("tc", 4, 1024, 2816, 2, None, cluster=2)
     assert pinned.cluster == 2 and pinned is not a
     assert gm._tc_plan.cache_info().currsize == 2
+
+
+# (block_n, block_k, cluster, G) planned at every bf16 projection (K, N) of
+# the six served archs (chip_smoke.GPP_SHAPES) before the planner weighed
+# waves: the same at 4 (decode), 16 (the draft model's window), 20
+# (verify) and 32 (prefill) rows, so no serving path's plan moves
+SERVING_PLANS = {
+    (1024, 1024): (64, 256, 4, 1), (1024, 2816): (128, 256, 4, 1),
+    (2048, 576): (64, 256, 8, 1), (2048, 2048): (128, 256, 4, 2),
+    (2048, 2816): (128, 256, 4, 2), (2048, 3072): (128, 256, 4, 2),
+    (2048, 7168): (128, 256, 1, 2), (2048, 10944): (128, 256, 1, 2),
+    (2560, 640): (64, 256, 8, 2), (2560, 2560): (128, 256, 4, 2),
+    (2560, 6912): (128, 256, 1, 2), (2816, 1024): (128, 256, 8, 2),
+    (2816, 2048): (128, 256, 4, 2), (3584, 512): (64, 256, 8, 2),
+    (3584, 3584): (128, 256, 2, 2), (3584, 18944): (128, 128, 1, 2),
+    (3840, 2048): (128, 256, 4, 2), (3840, 4096): (128, 256, 2, 2),
+    (3840, 15360): (128, 256, 1, 2), (4096, 3840): (128, 256, 2, 2),
+    (6912, 2560): (128, 256, 4, 2), (7168, 1024): (128, 256, 8, 2),
+    (7168, 2048): (128, 256, 4, 2), (7168, 8192): (128, 256, 1, 2),
+    (7168, 18432): (128, 128, 1, 2), (8192, 7168): (128, 256, 1, 2),
+    (10944, 2048): (128, 256, 4, 2), (15360, 3840): (128, 256, 2, 2),
+    (18432, 7168): (128, 256, 1, 2), (18944, 3584): (128, 256, 2, 2)}
+
+
+@pytest.mark.parametrize("M", (4, 16, 20, 32))
+def test_serving_plans_are_pinned(M):
+    for (K, N), want in SERVING_PLANS.items():
+        p = sched.plan_matmul_tc_sm90(M, K, N)
+        assert (p.block_n, p.block_k, p.cluster, p.num_bufs) == want, (K, N)
+        assert p.block_m == (16 if M <= 16 else 32)
+        # every serving plan runs its clusters in one wave
+        assert sched.tc_waves(p.tiles, p.cluster, p.smem_bytes) == 1
+
+
+@pytest.mark.parametrize("M,G", ((8, 2), (128, 1)))
+def test_ring_depth_weighs_waves(M, G):
+    # the GeMM sequence (8 folded rounds of 4096 x 4096, 256 tiles of 128
+    # columns): at 8 rows the 2-slot ring (72 KB) holds three CTAs an SM,
+    # all 256 tiles at once; at 128 rows it (128 KB) holds one, two waves,
+    # while in situ (96 KB) holds two, one wave, so in situ is planned
+    K, N = WIDE["gemm sequence"]
+    p = sched.plan_matmul_tc_sm90(M, K, N)
+    assert p.num_bufs == G and p.tiles == 256
+    assert sched.tc_waves(p.tiles, p.cluster, p.smem_bytes) == 1
+    two = sched.matmul_tc_smem_bytes(p.block_m, p.block_k, p.block_n, 2)
+    assert sched.tc_waves(p.tiles, 1, two) == (1 if M == 8 else 2)
+    assert sched.tc_ctas_per_sm(p.smem_bytes) == (3 if M == 8 else 2)
+    # a pinned ring is kept whatever its waves
+    assert sched.plan_matmul_tc_sm90(M, K, N, num_bufs=2).num_bufs == 2

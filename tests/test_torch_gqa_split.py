@@ -107,8 +107,8 @@ def test_cut_reads_neither_batch_nor_queries(max_blocks):
         max_blocks=max_blocks, head_dim=hd).kv_splits)
         for B in (1, 4, 64) for rows in (1, 5, 20, 32, 160)
         for kvh in (1, 16) for bs in (16, 64) for hd in (64, 256)}
-    assert cuts == {sched.gqa_tc_splits(max_blocks)}
-    assert sched.gqa_tc_splits(max_blocks) == min(max_blocks, 8)
+    assert cuts == {sched.tc_kv_splits(max_blocks)}
+    assert sched.tc_kv_splits(max_blocks) == min(max_blocks, 8)
 
 
 def test_planned_path_plans():
@@ -255,7 +255,7 @@ def test_a_row_has_the_same_bits_at_decode_and_verify(kvh, window):
                      dtype=torch.float32).bfloat16()
     tables = torch.tensor(rng.permutation(np.arange(1, nb))[:B * MB]
                           .reshape(B, MB), dtype=torch.int32)
-    ks = sched.gqa_tc_splits(MB)
+    ks = sched.tc_kv_splits(MB)
     kw = dict(num_kv_heads=kvh, scale=0.125, kv_splits=ks, window=window)
     for start in ([2, 9], [11, 20]):
         p0 = torch.tensor(start, dtype=torch.int32)

@@ -91,8 +91,7 @@ def test_runs_cover_each_block_once(phase, G, kv_splits):
 
 
 def test_planned_splits_fill_the_sms():
-    # as many runs as the blocks allow toward two CTAs an SM: every path
-    # phase splits into its 8 blocks (32 / 256 / 160 CTAs)
+    # every path phase splits into its 8 blocks (32 / 256 / 160 CTAs)
     for phase, ctas in (("decode", 32), ("prefill", 256), ("verify", 160)):
         plan = _plan(phase)
         assert (plan.kv_splits, plan.ctas) == (8, ctas)
@@ -100,14 +99,18 @@ def test_planned_splits_fill_the_sms():
         # the ring holds the longest run: all of a run's blocks in flight
         assert plan.num_bufs == max(len(plan.run(s))
                                     for s in range(plan.kv_splits)) == 1
-    # fewer blocks than CTAs wanted: one run a block; many units: none
-    wide = sched.plan_paged_attn_mla_tc_sm90(
-        batch=64, rows=80, block_size=16, max_blocks=8, latent=512,
+    # the runs come from the table width alone, min(MB, 8), whatever the
+    # batch and rows (so a row rounds alike at decode, verify and prefill)
+    for MB in (1, 3, 8, 16, 256):
+        splits = {sched.plan_paged_attn_mla_tc_sm90(
+            batch=B, rows=rows, block_size=16, max_blocks=MB, latent=512,
+            rope=64).kv_splits
+            for B, rows in ((64, 80), (2, 16), (4, 16), (1, 512), (4, 80))}
+        assert splits == {min(MB, 8)} == {sched.tc_kv_splits(MB)}
+    one = sched.plan_paged_attn_mla_tc_sm90(
+        batch=64, rows=80, block_size=16, max_blocks=1, latent=512,
         rope=64)
-    assert (wide.kv_splits, wide.workspace_floats(512)) == (1, 0)
-    assert sched.plan_paged_attn_mla_tc_sm90(
-        batch=2, rows=16, block_size=16, max_blocks=256, latent=512,
-        rope=64).kv_splits == 132
+    assert (one.kv_splits, one.workspace_floats(512)) == (1, 0)
     # key rows are whole 128-byte swizzle groups, unpadded at 512 + 64
     assert sched.mla_tc_row_bytes(512, 64) == 1152
     assert sched.mla_tc_row_bytes(32, 8) == 384

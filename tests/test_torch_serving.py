@@ -114,11 +114,23 @@ class TestEngineParity:
             [[r[k] for k in keys] for r in je.metrics]
 
     def test_unported_options_raise(self, smoke):
+        # the prefix cache, obs and draft-model drafting are ported: each
+        # constructs and serves on the CPU when asked for
         _, _, cfg, params = smoke
+        prompts = _prompts(cfg.vocab_size)
+        plain = _run(ServingEngine(cfg, params, ServeConfig(
+            device="cpu", **SERVE)), prompts)
         for kw in (dict(prefix_cache=True), dict(obs=True),
-                   dict(draft_source="model")):
-            with pytest.raises(NotImplementedError):
-                ServingEngine(cfg, params, ServeConfig(device="cpu", **kw))
+                   dict(speculation=True, draft_source="model")):
+            eng = make_engine(cfg, params, ServeConfig(device="cpu", **kw,
+                                                       **SERVE),
+                              draft_model=(cfg, params))
+            assert _run(eng, prompts) == plain
+        # what stays unported raises: the dense-cache engine's archs
+        jcfg = jregistry.get_config("xlstm-1.3b", smoke=True)
+        with pytest.raises(ValueError, match="not ported yet"):
+            ServingEngine(config_from_reference(jcfg), params,
+                          ServeConfig(device="cpu"))
 
     def test_cuda_is_the_default_device(self, smoke):
         _, _, cfg, params = smoke
@@ -278,6 +290,41 @@ class TestCli:
         assert r.returncode == 0, r.stderr
         assert "3 requests, 12 tokens" in r.stdout
         assert "'prefill_chunk': 1" in r.stdout
+
+    def test_dense_engine_raises(self):
+        from repro_torch.launch import serve
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
+                        "cpu", "--engine", "dense"])
+
+    @pytest.mark.parametrize("flags,expect", [
+        (("--prefix-cache", "--prefix-cache-blocks", "4"),
+         "prefix_cache: hit_rate="),
+        (("--speculation", "--draft-source", "model", "--draft-model",
+          "qwen1.5-0.5b"), "source=model"),
+        (("--obs", "--trace-capacity", "64", "--metrics-retention", "2"),
+         "bw_utilization: measured="),
+        (("--trace-out", "{tmp}/t.json", "--metrics-out", "{tmp}/m.jsonl"),
+         "ttft_s: p50="),
+    ], ids=("prefix", "draft-model", "obs", "trace-out"))
+    def test_new_flags_serve_on_cpu(self, flags, expect, tmp_path, capsys):
+        import json
+        from repro_torch.launch import serve
+        flags = [f.format(tmp=tmp_path) for f in flags]
+        prompts = ["--requests", "3", "--max-new", "4", "--slots", "2",
+                   "--max-len", "64"]
+        out = serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
+                          "cpu", *prompts, *flags])
+        text = capsys.readouterr().out
+        assert expect in text and "3 requests, 12 tokens" in text
+        assert out == serve.main(["--arch", "qwen1.5-0.5b", "--smoke",
+                                  "--device", "cpu", *prompts])
+        if "--trace-out" in flags:
+            evs = json.loads((tmp_path / "t.json").read_text())
+            assert evs["traceEvents"]
+            line = json.loads((tmp_path / "m.jsonl").read_text())
+            assert line["requests"]["requests_completed"] == 3
+            assert "measured_bw_utilization" in line["ledger"]
 
     def test_serve_without_cuda_raises(self):
         if torch.cuda.is_available():
