@@ -71,7 +71,8 @@ In order, it:
      MLA, the FMA kernel's bf16 instance at head_dim 80, f32 FMA GQA and
      MLA) and decode / verify with lanes whose tables name the same
      blocks;
-  4. serves full-width qwen1.5-0.5b (random weights from a seed) through
+  4. serves full-width qwen1.5-0.5b (random weights from a seed; 12 of
+     its 24 layers since slice 13) through
      `repro_torch.serving.ServingEngine`: a warm-up run on random prompts,
      whose greedy continuations are then appended to the prompts (so the
      n-gram drafter finds drafts), bf16 with speculation off and on at
@@ -94,8 +95,9 @@ In order, it:
      with every request, step and the modelled kernel lanes, TTFT / TPOT,
      the utilization report, the overhead as the best of 5 interleaved
      runs, the host time of a step split into its parts);
-  5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width and full
-     depth in bf16 (~31 GB of weights); its float32 kernel-vs-plain stream
+  5. the same for deepseek-v2-lite-16b (MLA + MoE) at full width with 9
+     of its 27 layers in bf16 (since slice 13; ~31 GB at full depth); its
+     float32 kernel-vs-plain stream
      check runs at full width with 4 of its 27 layers (1 dense + 3 MoE),
      since full depth in f32 is 62.8 GB of weights; then, at 4 layers, it
      serves bf16 with 8- and 128-token KV blocks (the FMA MLA kernel's
@@ -112,8 +114,9 @@ In order, it:
      bf16 instance), the grouped kernel at kimi's 384 experts and one
      full-width kimi MoE layer (auto vs plain within 1e-2, the experts
      given no routed row); and, after step 5, it serves qwen2-7b and
-     danube at full width and depth (f32 too), gemma3-12b at full width
-     and depth in bf16 and 12 layers in f32, each also with a 1,200-token
+     danube at full width and depth (f32 too; qwen2 at 14 layers in f32),
+     gemma3-12b at full width with 24 layers in bf16 and 12 in f32, gemma3
+     also with a 1,200-token
      request past its window (bf16 spec on == off, the window group's
      blocks plateau, f32 kernel == plain), and kimi-k2 at full width with
      2 of its 61 layers in bf16 (its f32 parity stands on the CPU at
@@ -136,7 +139,31 @@ In order, it:
      planned G must run within 5% of the fastest, and every serving
      shape's tensor-core plan must be the one it was (one wave, the
      deepest ring);
-  8. prints {"kernels": [...]} and, last, the device line.
+  8. (slice 13) with step 3's checks, gpp_matmul at every projection shape
+     of the four non-paged archs (zamba2's w_in / w_bc / w_dt, N = 10240 /
+     128 / 32, and w_out, K = 5120; xlstm's gates, N = 4, its sigmoid
+     output gates and its contract_dims=2 output projection over 4 heads
+     of 512; musicgen's gelu up; llama-3.2-vision's projections and its
+     6400-row cross K / V), decode and prefill rows, bf16 and f32, the bf16
+     decode shapes and the four f32 logits heads timed beside
+     torch.matmul, and RMSNorm at the cross layers' 128-wide per-head
+     rows; then it serves zamba2-2.7b, xlstm-1.3b and qwen1.5-0.5b
+     (`--engine dense`) through `repro_torch.serving.DenseServingEngine`
+     at full width and depth (4 slots, max_len 128, 4 requests x 16
+     tokens, prompts of 6 / 9 / 12 / 15 tokens, so decode runs a call a
+     position group): bf16 with the kernels (warm-up, measured,
+     profiled: device time by kernel and busy share) and plain, f32 with
+     the kernels against plain (equal greedy streams, each emitted
+     token's logits row within LOGITS_RTOL); and runs llama-3.2-vision-11b
+     (4 x 32-token prompts, 1600 patch embeddings a row from the seed) and
+     musicgen-large (frame embeddings from the seed, one a decode step)
+     through `transformer.prefill` + 16 `decode_step` calls at full width
+     and depth, bf16 and f32, with the same gates; each run launches
+     exactly the path's kernels (bf16: the tensor-core gpp_matmul, its FMA
+     route for the f32 logits head once a step-function call, RMSNorm; f32:
+     the FMA gpp_matmul and RMSNorm; no attention or grouped kernel);
+  9. prints {"kernels": [...]} and, last, the device line.  Each phase's
+     seconds are printed as it ends (`phase ...: N s`).
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
 outside a checkout of the repo (no `src/repro_torch` beside it), it exits
@@ -232,31 +259,37 @@ def time_ms(fn, argsets, iters: int = 100) -> float:
 def device_ms(fn, argsets, name=None, iters: int = 50):
     """Device time per call: the summed duration of the kernels the calls
     ran (only those whose name contains `name`, or one of the names of a
-    tuple, if given), from a torch.profiler (CUPTI) trace.  None when the
-    trace holds no device events; the caller then keeps the CUDA-event
-    time."""
+    tuple, if given), from a torch.profiler (CUPTI) trace.  A trace that
+    holds no such event is taken again, up to 3 times (a trace now and
+    then comes back empty); None when all are empty, and the caller then
+    keeps the CUDA-event time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for a in argsets[:2]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*argsets[i % len(argsets)])
-        torch.cuda.synchronize()
     names = (name,) if isinstance(name, str) else name
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (names is None or any(n in e.name for n in names)))
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*argsets[i % len(argsets)])
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (names is None or any(n in e.name for n in names)))
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
-def measure(fn, argsets, name=None) -> "tuple[float, float]":
-    """(device ms, wall ms) per call.  The wall time (CUDA events around
-    back-to-back calls) includes the host's launch cost where that is the
-    larger; the device time is what the card spent."""
-    wall = time_ms(fn, argsets)
-    dev = device_ms(fn, argsets, name)
+def measure(fn, argsets, name=None, iters: int = 100
+            ) -> "tuple[float, float]":
+    """(device ms, wall ms) per call, over `iters` calls (the device time
+    over half as many).  The wall time (CUDA events around back-to-back
+    calls) includes the host's launch cost where that is the larger; the
+    device time is what the card spent."""
+    wall = time_ms(fn, argsets, iters)
+    dev = device_ms(fn, argsets, name, max(1, iters // 2))
     return (dev if dev is not None else wall), wall
 
 
@@ -1132,7 +1165,10 @@ def grouped_time(M, K, N, dtype, *, sets=None, E=DS_E):
     name = KERNEL_NAMES["gpp_matmul_grouped_tc" if dtype == "bfloat16"
                         else "gpp_matmul_grouped"]
     ms, wall = measure(lambda x, w: gpp_matmul_grouped(x, w), sets, name)
-    plain, plain_wall = measure(lambda x, w: dense_grouped_ref(x, w), sets)
+    # the plain version of kimi's 11.3 GB stacks takes ~50 ms a call: a
+    # tenth of the calls
+    plain, plain_wall = measure(lambda x, w: dense_grouped_ref(x, w), sets,
+                                iters=10 if E > DS_E else 100)
     lib, lib_wall = measure(lambda x, w: torch.bmm(x, w), sets)
     b_ms, by = bound(E * (M * K + K * N + M * N) * es,
                      2.0 * E * M * K * N, dtype)
@@ -2140,8 +2176,8 @@ def check_gemm_sequence(report):
             check(tuple(y.shape) == (R, M, N)
                   and bool((err <= atol + rtol * want.float().abs()).all()),
                   f"GeMM sequence M={M} G={G}: max err {float(err.max())}")
-            ms = device_ms(lambda: gm.gpp_matmul(x, w_flat, num_bufs=pin),
-                           [()], name)
+            ms = measure(lambda: gm.gpp_matmul(x, w_flat, num_bufs=pin),
+                         [()], name)[0]
             call_ms, call_wall = measure(
                 lambda: ops.streamed_gemm_sequence(x, ws, num_bufs=pin),
                 [()])
@@ -2471,15 +2507,9 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     a result's "launches" count among the kernels line's main-path
     launches."""
     import torch
-    from repro_torch.models import registry
-    from repro_torch.models import transformer as tf
 
     def model(dtype, num_layers=None):
-        cfg = registry.get_config(arch).with_(dtype=dtype)
-        if num_layers:
-            cfg = cfg.with_(num_layers=num_layers)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        return cfg, tf.init_params(cfg, gen, "cuda")
+        return _model(arch, dtype, num_layers)
 
     runs = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2514,9 +2544,8 @@ def check_serving(report, arch: str, path_kernels, f32_kernels,
     named = {INSTANCE_OF.get(k, k) for k in path_kernels}
     for key in ("bf16", "bf16_spec"):
         counts = runs[key]["launches"]
-        for k, n in counts.items():
-            check((n > 0) == (k in path_kernels),
-                  f"{k} launched {n} times on the {arch} path ({key})")
+        check_path_launches(f"the {arch} path ({key})", counts,
+                            path_kernels)
         # bf16 projections run the tensor-core gpp_matmul; the FMA one runs
         # the f32 logits head, one a step-function call, and the MoE
         # models' f32 router, one a MoE layer (three grouped launches)
@@ -3181,6 +3210,475 @@ def check_mla_block_sizes(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the dense-cache engine and the four non-paged archs
+# ---------------------------------------------------------------------------
+
+# published widths (configs/): zamba2-2.7b (d, d_inner, state, heads, d_ff,
+# vocab), xlstm-1.3b (d, heads, vocab), llama-3.2-vision-11b (d, heads, kv
+# heads, head_dim, d_ff, vocab, patch embeddings), musicgen-large (d, d_ff,
+# vocab)
+Z_D, Z_DI, Z_N, Z_H, Z_F, Z_V = 2560, 5120, 64, 32, 10240, 32000
+X_D, X_H, X_V = 2048, 4, 50304
+LV_D, LV_H, LV_KV, LV_HD, LV_F, LV_V, LV_T = (4096, 32, 8, 128, 14336,
+                                              128256, 1600)
+MG_D, MG_F, MG_V = 2048, 8192, 2048
+STEP_B, STEP_S, STEP_NEW = 4, 32, 16   # the step runs: batch, prompt, steps
+DENSE_LENGTHS = (6, 9, 12, 15)         # served prompts: 4 position groups
+# gpp_matmul on the new paths, (path, projection): (decode rows, prefill
+# rows, K, N, activation).  xlstm's w_o contracts (4 heads x 512) through
+# `ops.dense(contract_dims=2)` (checked there too); llama-vision's cross
+# K/V project every patch embedding of the 4 rows at every step
+DENSE_GPP = {
+    ("zamba2-2.7b", "w_in"): (SLOTS, 15, Z_D, 2 * Z_DI, None),
+    ("zamba2-2.7b", "w_bc"): (SLOTS, 15, Z_D, 2 * Z_N, None),
+    ("zamba2-2.7b", "w_dt"): (SLOTS, 15, Z_D, Z_H, None),
+    ("zamba2-2.7b", "w_out"): (SLOTS, 15, Z_DI, Z_D, None),
+    ("zamba2-2.7b", "shared q/k/v/o"): (SLOTS, 15, Z_D, Z_D, None),
+    ("zamba2-2.7b", "shared gate"): (SLOTS, 15, Z_D, Z_F, "silu"),
+    ("zamba2-2.7b", "shared down"): (SLOTS, 15, Z_F, Z_D, None),
+    ("xlstm-1.3b", "w_q/k/v/o, w_z, w_out"): (SLOTS, 15, X_D, X_D, None),
+    ("xlstm-1.3b", "w_i / w_f"): (SLOTS, 15, X_D, X_H, None),
+    ("xlstm-1.3b", "ogate / w_og"): (SLOTS, 15, X_D, X_D, "sigmoid"),
+    ("musicgen-large", "q/k/v/o"): (STEP_B, STEP_B * STEP_S, MG_D, MG_D,
+                                    None),
+    ("musicgen-large", "w_up"): (STEP_B, STEP_B * STEP_S, MG_D, MG_F,
+                                 "gelu"),
+    ("musicgen-large", "w_down"): (STEP_B, STEP_B * STEP_S, MG_F, MG_D,
+                                   None),
+    ("llama-3.2-vision-11b", "q / o"): (STEP_B, STEP_B * STEP_S, LV_D, LV_D,
+                                        None),
+    ("llama-3.2-vision-11b", "k / v"): (STEP_B, STEP_B * STEP_S, LV_D,
+                                        LV_KV * LV_HD, None),
+    ("llama-3.2-vision-11b", "gate"): (STEP_B, STEP_B * STEP_S, LV_D, LV_F,
+                                       "silu"),
+    ("llama-3.2-vision-11b", "down"): (STEP_B, STEP_B * STEP_S, LV_F, LV_D,
+                                       None),
+    ("llama-3.2-vision-11b", "cross k / v"): (STEP_B * LV_T, STEP_B * LV_T,
+                                              LV_D, LV_KV * LV_HD, None),
+}
+DENSE_HEADS = {"zamba2-2.7b": (Z_D, Z_V), "xlstm-1.3b": (X_D, X_V),
+               "llama-3.2-vision-11b": (LV_D, LV_V),
+               "musicgen-large": (MG_D, MG_V)}
+# the cross layers' per-head q / k RMSNorm: rows of head_dim 128 (q at a
+# decode step and at prefill, k over every patch embedding)
+CROSS_NORM_ROWS = (STEP_B * LV_H, STEP_B * STEP_S * LV_H,
+                   STEP_B * LV_T * LV_KV)
+# the kernels of the new paths: bf16 projections on the tensor-core
+# gpp_matmul, the f32 logits head on its FMA route, RMSNorm; f32 runs the
+# FMA route for every projection; no attention or grouped kernel
+DENSE_PATH = ("gpp_matmul_tc", "gpp_matmul", "rmsnorm")
+DENSE_F32 = ("gpp_matmul", "rmsnorm")
+
+
+def check_dense_gpp(report):
+    """gpp_matmul at every new projection shape (decode and prefill rows,
+    bf16 and f32, the fused silu / gelu / sigmoid epilogues), xlstm's
+    contract_dims=2 output projection through `ops.dense`, the RMSNorm
+    kernel at the cross layers' 128-wide per-head rows, each against its
+    plain version; the bf16 decode shapes and the four f32 logits heads
+    timed beside torch.matmul and their bound."""
+    import torch
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import dense_ref, rmsnorm_ref
+    rows, err = [], {"tc": 0.0, "fma": 0.0}
+    for (path, proj), (m_dec, m_pre, K, N, act) in DENSE_GPP.items():
+        errs = {}
+        for M in dict.fromkeys((m_dec, m_pre)):
+            for dtype in BOTH:
+                e = gpp_case(M, K, N, dtype, act=act, seed=M + N)
+                key = "tc" if dtype == "bfloat16" else "fma"
+                err[key] = max(err[key], e)
+                errs[M, dtype] = e
+                rows.append({"path": path, "proj": proj, "M": M, "K": K,
+                             "N": N, "act": act, "dtype": dtype,
+                             "max_abs_err": e})
+                if (M, dtype) == (m_dec, "bfloat16"):
+                    row = rows[-1]
+        row.update(gpp_time(m_dec, K, N, "bfloat16"))
+        row["plan"] = str(gm._plan("tc", m_dec, K, N, 2, None))
+        print(f"gpp_matmul {path} {proj} {m_dec}x{K}x{N} act={act}: "
+              f"max_abs_err (rows, dtype) "
+              f"{ {f'{m} {d}': round(v, 6) for (m, d), v in errs.items()} }"
+              f"; bf16 ms={row['ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}) plan "
+              f"{row['plan']}", flush=True)
+    # xlstm's output projection: (B, 4, 512) heads contracted against the
+    # (4, 512, 2048) weight in one launch
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for dtype in BOTH:
+        dt = getattr(torch, dtype)
+        x = torch.randn(SLOTS, X_H, X_D // X_H, generator=g,
+                        device="cuda").to(dt)
+        w = (torch.randn(X_H, X_D // X_H, X_D, generator=g, device="cuda")
+             * 0.02).to(dt)
+        before = gm.launches_tc.n + gm.launches.n
+        y = ops.dense(x, w, contract_dims=2)
+        ref = dense_ref(x.reshape(SLOTS, X_D), w.reshape(X_D, X_D))
+        check(gm.launches_tc.n + gm.launches.n - before == 1,
+              "contract_dims=2 took other than one launch")
+        d = (y.float() - ref.float()).abs()
+        atol, rtol = TOL[dtype]
+        check(bool((d <= atol + rtol * ref.float().abs()).all()),
+              f"xlstm w_o contract_dims=2 {dtype}: max err {float(d.max())}")
+        rows.append({"path": "xlstm-1.3b", "proj": "w_o contract_dims=2",
+                     "M": SLOTS, "K": X_D, "N": X_D, "dtype": dtype,
+                     "max_abs_err": float(d.max())})
+    heads = {}
+    for arch, (K, N) in DENSE_HEADS.items():
+        heads[arch] = head_time(SLOTS, K, N)
+        h = heads[arch]
+        print(f"f32 logits head {arch} {SLOTS}x{K}x{N}: ms={h['ms']:.4f} "
+              f"library_ms={h['library_ms']:.4f} plain_ms="
+              f"{h['plain_ms']:.4f} bound_ms={h['bound_ms']:.5f}",
+              flush=True)
+    norms = []
+    for n in CROSS_NORM_ROWS:
+        for dtype in BOTH:
+            dt = getattr(torch, dtype)
+            x = (torch.randn(n, LV_HD, generator=g, device="cuda") * 2).to(dt)
+            scale = (1 + 0.1 * torch.randn(LV_HD, generator=g,
+                                           device="cuda")).to(dt)
+            e, ok = rms_err(rn.rmsnorm(x, scale, RMS_EPS),
+                            rmsnorm_ref(x, scale, RMS_EPS), dtype)
+            check(ok, f"rmsnorm {n} rows of {LV_HD} {dtype}: max err {e}")
+            norms.append({"rows": n, "width": LV_HD, "dtype": dtype,
+                          "max_abs_err": e})
+    print(f"rmsnorm at the cross layers' per-head rows ({LV_HD} wide, "
+          f"{CROSS_NORM_ROWS} rows, f32 and bf16): max_abs_err "
+          f"{max(r['max_abs_err'] for r in norms):.3g}", flush=True)
+    report["dense_gpp"] = {"shapes": rows, "heads": heads,
+                           "cross_norm": norms}
+    return rows, err, heads, norms
+
+
+def dense_prompts(vocab: int, seed: int = 0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=n).tolist() for n in DENSE_LENGTHS]
+
+
+def _profiled(run, profile: bool):
+    """run() under torch.profiler when asked: (result, device seconds by
+    kernel name) — None without a profile."""
+    import torch
+    if not profile:
+        return run(), None
+    from torch.profiler import ProfilerActivity
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    busy = dict.fromkeys([*KERNEL_NAMES, "other"], 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = next((k for k, v in KERNEL_NAMES.items() if v in e.name),
+                       "other")
+            busy[key] += e.time_range.elapsed_us() / 1e6
+    return out, busy
+
+
+def dense_serve(cfg, params, prompts, *, mode: str, profile=False,
+                keep_logits=False, max_new: int = 16):
+    """Serve `prompts` through the dense-cache engine (4 slots, max_len
+    128).  info: tokens, seconds, launches, step-function calls, shapes,
+    and with `keep_logits` each request's f32 logits rows (one an emitted
+    token, the row it was sampled from)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import dense_engine as de
+    from repro_torch.serving.engine import ServeConfig
+
+    engine = de.DenseServingEngine(cfg, params, ServeConfig(
+        slots=SLOTS, max_len=MAX_LEN, dense_kernel=mode))
+    calls = {"prefill": 0, "decode": 0}
+
+    def counted(name, fn):
+        def call(*a):
+            calls[name] += 1
+            return fn(*a)
+        return call
+    engine._prefill = counted("prefill", engine._prefill)
+    engine._decode = counted("decode", engine._decode)
+    rows, sample = {}, de.sample_token
+    if keep_logits:
+        def keep(serve_cfg, rid, idx, row):
+            rows.setdefault(rid, []).append(np.array(row, np.float32))
+            return sample(serve_cfg, rid, idx, row)
+        de.sample_token = keep
+    try:
+        torch.cuda.synchronize()
+        for c in counters().values():
+            c.n = 0
+
+        def run():
+            t0 = time.perf_counter()
+            rids = [engine.submit(p, max_new_tokens=max_new)
+                    for p in prompts]
+            res = engine.run()
+            torch.cuda.synchronize()
+            return [res[r] for r in rids], time.perf_counter() - t0
+        (streams, dt), busy = _profiled(run, profile)
+    finally:
+        de.sample_token = sample
+    counts = {k: c.n for k, c in counters().items()}
+    ntok = sum(len(s) for s in streams)
+    check(all(len(s) == max_new for s in streams), "a request did not finish")
+    check(all(0 <= t < cfg.vocab_size for s in streams for t in s),
+          "token out of range")
+    shapes = engine.trace_counts
+    check(shapes == {"prefill": len(set(map(len, prompts))), "decode": 1},
+          f"{cfg.name} dense engine step shapes {shapes}")
+    decode_steps = sum(m["decode_tokens"] > 0 for m in engine.metrics)
+    check(calls["decode"] > decode_steps,
+          f"{cfg.name}: decode ran one position group a step "
+          f"({calls['decode']} calls, {decode_steps} steps)")
+    info = {"model": cfg.name, "num_layers": cfg.num_layers,
+            "dtype": cfg.dtype, "mode": mode, "engine": "dense",
+            "tokens": ntok, "seconds": dt, "tok_s": ntok / dt,
+            "steps": len(engine.metrics), "calls": calls, "launches": counts,
+            "shapes": shapes, "flatness_cov": engine.flatness_cov()}
+    if busy is not None:
+        info["device_busy_s"] = busy
+    if keep_logits:
+        info["logits"] = [np.stack(rows[r]) for r in range(len(prompts))]
+    print(f"dense serve {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
+          f"mode={mode}: {ntok} tokens in {dt:.3f}s = {ntok / dt:.1f} tok/s, "
+          f"{len(engine.metrics)} steps, calls {calls}, launches {counts}, "
+          f"shapes {shapes}", flush=True)
+    # the counting wrappers hold the engine: free it now, not at a later
+    # garbage collection
+    del engine._prefill, engine._decode, engine
+    torch.cuda.empty_cache()
+    return streams, info
+
+
+def check_path_launches(what: str, counts: dict, path) -> None:
+    for k, n in counts.items():
+        check((n > 0) == (k in path), f"{k} launched {n} times on {what}")
+
+
+def check_busy(what: str, busy: dict, path, seconds: float) -> float:
+    """Device time only under the path's kernels; prints it by kernel and
+    returns the busy share of `seconds`."""
+    named = {INSTANCE_OF.get(k, k) for k in path}
+    for k in KERNEL_NAMES:
+        check((busy[k] > 0) == (k in named),
+              f"{what}: {busy[k]} s of device time under {KERNEL_NAMES[k]}")
+    share = sum(busy.values()) / seconds
+    print(f"{what} device time: "
+          f"{ {k: round(v, 6) for k, v in busy.items() if v} } s, busy "
+          f"share {share:.3f} of {seconds:.3f}s wall", flush=True)
+    return share
+
+
+def _model(arch: str, dtype: str, num_layers=None):
+    """Full-width `arch` in `dtype` (at `num_layers` if set), random
+    weights from seed 0, on the card."""
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    cfg = registry.get_config(arch).with_(dtype=dtype)
+    if num_layers:
+        cfg = cfg.with_(num_layers=num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, tf.init_params(cfg, gen, "cuda")
+
+
+def check_dense_serving(report, arch: str, label=None):
+    """The dense-cache engine at full width and depth: bf16 with the
+    kernels (a warm-up, the measured run, the same run profiled) and
+    plain (its streams' agreement reported), then f32 with the kernels
+    against plain: equal greedy streams, each emitted token's logits row
+    within LOGITS_RTOL.  Each run launches exactly its path's kernels
+    (`DENSE_PATH`, `DENSE_F32`); the bf16 run's one FMA launch a
+    step-function call is its f32 logits head."""
+    import torch
+    label = label or arch
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg, params = _model(arch, "bfloat16")
+    runs["bf16_params_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
+    prompts = dense_prompts(cfg.vocab_size)
+    dense_serve(cfg, params, dense_prompts(cfg.vocab_size, 1), mode="auto")
+    streams, runs["bf16"] = dense_serve(cfg, params, prompts, mode="auto")
+    check_path_launches(f"{label} (bf16)", runs["bf16"]["launches"],
+                        DENSE_PATH)
+    calls = sum(runs["bf16"]["calls"].values())
+    check(runs["bf16"]["launches"]["gpp_matmul"] == calls,
+          f"{label}: {runs['bf16']['launches']['gpp_matmul']} FMA launches "
+          f"for {calls} heads")
+    again, prof = dense_serve(cfg, params, prompts, mode="auto",
+                              profile=True)
+    check(again == streams, f"{label}: the profiled run's streams differ")
+    runs["bf16"]["device_busy_s"] = prof["device_busy_s"]
+    runs["bf16"]["device_busy_share"] = check_busy(
+        f"{label} bf16", prof["device_busy_s"], DENSE_PATH,
+        runs["bf16"]["seconds"])
+    plain, runs["bf16_ref"] = dense_serve(cfg, params, prompts, mode="ref")
+    check(not any(runs["bf16_ref"]["launches"].values()),
+          "the plain run launched a kernel")
+    runs["bf16_tokens_equal_plain"] = sum(
+        a == b for s, t in zip(streams, plain) for a, b in zip(s, t))
+    runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} bf16: {runs['bf16_tokens_equal_plain']} of "
+          f"{len(prompts) * 16} tokens equal to the plain bf16 run's; "
+          f"{cfg.num_layers} layers, {runs['bf16_params_gb']:.1f} GB of "
+          f"weights, peak {runs['bf16']['peak_mem_gb']:.1f} GB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = _model(arch, "float32")
+    ker, runs["f32_kernel"] = dense_serve(cfg, params, prompts, mode="auto",
+                                          keep_logits=True)
+    ref, runs["f32_ref"] = dense_serve(cfg, params, prompts, mode="ref",
+                                       keep_logits=True)
+    check(not any(runs["f32_ref"]["launches"].values()),
+          "the plain run launched a kernel")
+    check_path_launches(f"{label} (f32)", runs["f32_kernel"]["launches"],
+                        DENSE_F32)
+    check(ker == ref, f"{label} f32 greedy streams differ: kernel {ker} "
+                      f"plain {ref}")
+    runs["f32_logits"] = check_logits(f"{label} f32", runs["f32_kernel"],
+                                      runs["f32_ref"])
+    runs["f32_logits"]["distinct"] = [len(set(t)) for t in ker]
+    print(f"{label} f32 greedy streams kernel == plain: True "
+          f"({cfg.num_layers} layers)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    report.setdefault("serving", {})[label] = runs
+    return runs
+
+
+def step_inputs(cfg, dtype):
+    """The step runs' inputs from seed 0: the prompt (tokens, or frame
+    embeddings), the patch embeddings `enc` (cross layers), and the frame
+    embedding of each decode step (musicgen)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    if cfg.input_mode == "tokens":
+        x = torch.randint(0, cfg.vocab_size, (STEP_B, STEP_S), generator=g,
+                          device="cuda", dtype=torch.int32)
+        nxt = None
+    else:
+        x = torch.randn(STEP_B, STEP_S, cfg.d_model, generator=g,
+                        device="cuda").to(dt)
+        nxt = [torch.randn(STEP_B, 1, cfg.d_model, generator=g,
+                           device="cuda").to(dt) for _ in range(STEP_NEW)]
+    enc = (torch.randn(STEP_B, cfg.encoder_tokens, cfg.d_model, generator=g,
+                       device="cuda").to(dt) if cfg.encoder_tokens else None)
+    return x, enc, nxt
+
+
+def step_run(cfg, params, inputs, *, mode: str, profile=False):
+    """`transformer.prefill` then STEP_NEW `decode_step` calls (max_len
+    STEP_S + STEP_NEW).  A token model takes its greedy token back; an
+    embedding model takes the seeded frame embedding of the step.  Returns
+    (greedy tokens (B, 1 + STEP_NEW), info with each row's f32 logits)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    x, enc, nxt = inputs
+    c = cfg.with_(dense_kernel=mode)
+    batch = {"tokens" if cfg.input_mode == "tokens" else "embeds": x}
+    if enc is not None:
+        batch["enc"] = enc
+    torch.cuda.synchronize()
+    for k in counters().values():
+        k.n = 0
+
+    def run():
+        t0 = time.perf_counter()
+        logits, caches = tf.prefill(params, c, batch,
+                                    max_len=STEP_S + STEP_NEW)
+        out = [logits[:, -1].float().cpu().numpy()]
+        for t in range(STEP_NEW):
+            tok = logits[:, -1].argmax(-1, keepdim=True).int()
+            inp = tok if nxt is None else nxt[t]
+            logits, caches = tf.decode_step(params, c, inp, caches,
+                                            STEP_S + t, enc=enc)
+            out.append(logits[:, -1].float().cpu().numpy())
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    (rows, dt), busy = _profiled(run, profile)
+    counts = {k: v.n for k, v in counters().items()}
+    rows = np.stack(rows, axis=1)                      # (B, 1 + NEW, V)
+    check(bool(np.isfinite(rows).all()), f"{cfg.name}: non-finite logits")
+    toks = rows.argmax(-1)
+    info = {"model": cfg.name, "num_layers": cfg.num_layers,
+            "dtype": cfg.dtype, "mode": mode, "engine": "steps",
+            "tokens": int(toks.size), "seconds": dt,
+            "tok_s": toks.size / dt, "calls": 1 + STEP_NEW,
+            "launches": counts, "logits": list(rows)}
+    if busy is not None:
+        info["device_busy_s"] = busy
+    print(f"steps {cfg.name} ({cfg.num_layers} layers) {cfg.dtype} "
+          f"mode={mode}: prefill {STEP_B}x{STEP_S} + {STEP_NEW} decode "
+          f"steps in {dt:.3f}s, launches {counts}", flush=True)
+    return toks, info
+
+
+def check_step_model(report, arch: str, f32_layers=None):
+    """llama-3.2-vision-11b / musicgen-large through prefill + decode_step
+    at full width: bf16 at full depth with the kernels (profiled: device
+    time by kernel, busy share) and plain, then f32 (at `f32_layers` if
+    set) with the kernels against plain: the same greedy tokens at every
+    step and each logits row within LOGITS_RTOL."""
+    import torch
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _model(arch, "bfloat16")
+    from repro_torch.models import transformer as tf
+    params = tf.serving_params(params, cfg)
+    inputs = step_inputs(cfg, "bfloat16")
+    step_run(cfg, params, inputs, mode="auto")             # warm-up
+    toks, runs["bf16"] = step_run(cfg, params, inputs, mode="auto")
+    runs["bf16"].pop("logits")
+    again, prof = step_run(cfg, params, inputs, mode="auto", profile=True)
+    check(bool((again == toks).all()),
+          f"{arch}: the profiled run's tokens differ")
+    runs["bf16"]["device_busy_s"] = prof["device_busy_s"]
+    check_path_launches(f"{arch} steps (bf16)", runs["bf16"]["launches"],
+                        DENSE_PATH)
+    check(runs["bf16"]["launches"]["gpp_matmul"] == 1 + STEP_NEW,
+          f"{arch}: {runs['bf16']['launches']['gpp_matmul']} FMA launches "
+          f"for {1 + STEP_NEW} heads")
+    runs["bf16"]["device_busy_share"] = check_busy(
+        f"{arch} bf16 steps", runs["bf16"]["device_busy_s"], DENSE_PATH,
+        runs["bf16"]["seconds"])
+    plain, runs["bf16_ref"] = step_run(cfg, params, inputs, mode="ref")
+    runs["bf16_ref"].pop("logits")
+    check(not any(runs["bf16_ref"]["launches"].values()),
+          "the plain run launched a kernel")
+    runs["bf16_tokens_equal_plain"] = int((toks == plain).sum())
+    runs["bf16"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{arch} bf16: {runs['bf16_tokens_equal_plain']} of {toks.size} "
+          f"greedy tokens equal to the plain bf16 run's; {cfg.num_layers} "
+          f"layers, peak {runs['bf16']['peak_mem_gb']:.1f} GB", flush=True)
+    del params, inputs
+    torch.cuda.empty_cache()
+    cfg, params = _model(arch, "float32", f32_layers)
+    params = tf.serving_params(params, cfg)
+    inputs = step_inputs(cfg, "float32")
+    ker, runs["f32_kernel"] = step_run(cfg, params, inputs, mode="auto")
+    ref, runs["f32_ref"] = step_run(cfg, params, inputs, mode="ref")
+    check_path_launches(f"{arch} steps (f32)",
+                        runs["f32_kernel"]["launches"], DENSE_F32)
+    check(bool((ker == ref).all()),
+          f"{arch} f32 greedy tokens differ: kernel {ker} plain {ref}")
+    runs["f32_logits"] = check_logits(f"{arch} f32", runs["f32_kernel"],
+                                      runs["f32_ref"])
+    print(f"{arch} f32 greedy tokens kernel == plain: True "
+          f"({cfg.num_layers} layers)", flush=True)
+    del params, inputs
+    torch.cuda.empty_cache()
+    report.setdefault("serving", {})[arch] = runs
+    return runs
+
+
 def main(argv=None) -> int:
     global REPORT_DIR
     ap = argparse.ArgumentParser()
@@ -3215,26 +3713,44 @@ def main(argv=None) -> int:
         REPORT_DIR = Path(args.json_out).parent
         REPORT_DIR.mkdir(parents=True, exist_ok=True)
 
-    gpp_rows, gpp_err = check_gpp(report)
-    head_rows = check_head(report)
-    pa_rows = check_paged(report)
-    rms_rows = check_rmsnorm(report)
-    grouped_rows, grouped_err = check_grouped(report)
-    check_moe_layer(report, "deepseek-v2-lite-16b")
-    mla_rows = check_mla(report)
-    mla_block_rows = check_mla_blocks(report)
-    mla_split_cost(report)
-    kimi_grouped_rows = check_grouped_kimi(report)
-    check_moe_layer(report, "kimi-k2-1t-a32b")
-    seq_rows = check_gemm_sequence(report)
-    check_prefix_starts(report)
+    phase_s = report["phase_s"] = {}
+
+    def ph(name, fn, *a, **kw):
+        """Run one phase and keep its seconds."""
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f}s", flush=True)
+        return out
+
+    gpp_rows, gpp_err = ph("gpp", check_gpp, report)
+    head_rows = ph("head", check_head, report)
+    pa_rows = ph("paged", check_paged, report)
+    rms_rows = ph("rmsnorm", check_rmsnorm, report)
+    grouped_rows, grouped_err = ph("grouped", check_grouped, report)
+    ph("moe deepseek", check_moe_layer, report, "deepseek-v2-lite-16b")
+    mla_rows = ph("mla", check_mla, report)
+    mla_block_rows = ph("mla blocks", check_mla_blocks, report)
+    ph("mla split", mla_split_cost, report)
+    kimi_grouped_rows = ph("grouped kimi", check_grouped_kimi, report)
+    ph("moe kimi", check_moe_layer, report, "kimi-k2-1t-a32b")
+    seq_rows = ph("gemm sequence", check_gemm_sequence, report)
+    ph("prefix starts", check_prefix_starts, report)
+    dense_rows, dense_err, dense_heads, dense_norms = ph(
+        "dense gpp", check_dense_gpp, report)
     gqa_path = ("gpp_matmul_tc", "gpp_matmul", "paged_attention_tc",
                 "paged_attention_merge", "rmsnorm")
     gqa_f32 = ("gpp_matmul", "paged_attention", "paged_attention_merge",
                "rmsnorm")
-    qwen = check_serving(report, "qwen1.5-0.5b", gqa_path, gqa_f32,
-                         hooks={"prefix": prefix_serving, "obs": obs_run})
-    deepseek = check_serving(report, "deepseek-v2-lite-16b",
+    # since slice 13, to leave the script room for its phases (the host
+    # moved the whole run 20-35% between calls): qwen1.5-0.5b at 12 of its
+    # 24 layers, deepseek-v2-lite-16b at 9 of its 27 in bf16 (the dense
+    # layer and 8 MoE layers; 4 in f32 as before)
+    qwen = ph("serve qwen", check_serving, report, "qwen1.5-0.5b", gqa_path,
+              gqa_f32, bf16_layers=12, f32_layers=12,
+              hooks={"prefix": prefix_serving, "obs": obs_run})
+    deepseek = ph("serve deepseek", check_serving, report,
+                  "deepseek-v2-lite-16b",
                              ("gpp_matmul_tc", "gpp_matmul",
                               "gpp_matmul_grouped_tc",
                               "paged_attention_mla_tc",
@@ -3242,8 +3758,9 @@ def main(argv=None) -> int:
                              ("gpp_matmul", "gpp_matmul_grouped",
                               "paged_attention_mla", "paged_attention_merge",
                               "rmsnorm"),
-                             f32_layers=4, hooks={"prefix": prefix_serving})
-    blocks = check_mla_block_sizes(report)
+                             f32_layers=4, bf16_layers=9,
+                             hooks={"prefix": prefix_serving})
+    blocks = ph("mla block sizes", check_mla_block_sizes, report)
     # slice 11: qwen2-7b (query group 7) and h2o-danube-1.8b (head_dim 80:
     # the FMA kernel's bf16 instance) at full width and depth, f32 too;
     # gemma3-12b at full width and depth in bf16, 12 layers in f32 (two
@@ -3255,15 +3772,19 @@ def main(argv=None) -> int:
     # max_len 128: its expiry is exercised at SMOKE on the CPU
     # (tests/test_torch_serving.py) and, on the card, by the same kernels
     # on gemma3's run past its window
-    check_serving(report, "qwen2-7b", gqa_path, gqa_f32, repeat=True,
-                  hooks={"draft": draft_run})
-    check_serving(report, "h2o-danube-1.8b",
-                  ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
-                   "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
-    check_serving(report, "gemma3-12b", gqa_path, gqa_f32, f32_layers=12,
-                  hooks={"long": window_long_run, "prefix": prefix_serving,
-                         "prefix_long": prefix_long_run}, repeat=True)
-    check_serving(report, "kimi-k2-1t-a32b",
+    # since slice 13, to leave the script room for its phases: qwen2-7b
+    # in f32 at 14 of its 28 layers, gemma3-12b in bf16 at 24 of its 48
+    # (four 5:1 superblocks)
+    ph("serve qwen2", check_serving, report, "qwen2-7b", gqa_path, gqa_f32,
+       f32_layers=14, repeat=True, hooks={"draft": draft_run})
+    ph("serve danube", check_serving, report, "h2o-danube-1.8b",
+       ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
+        "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
+    ph("serve gemma3", check_serving, report, "gemma3-12b", gqa_path,
+       gqa_f32, f32_layers=12, bf16_layers=24,
+       hooks={"long": window_long_run, "prefix": prefix_serving,
+              "prefix_long": prefix_long_run}, repeat=True)
+    ph("serve kimi", check_serving, report, "kimi-k2-1t-a32b",
                   ("gpp_matmul_tc", "gpp_matmul", "gpp_matmul_grouped_tc",
                    "paged_attention_tc", "paged_attention_merge", "rmsnorm"),
                   None, bf16_layers=2, repeat=True,
@@ -3271,6 +3792,15 @@ def main(argv=None) -> int:
                            "with the reference stands on the CPU at SMOKE "
                            "(tests/test_torch_models.py, "
                            "test_torch_serving.py)")
+    # slice 13: the dense-cache engine (zamba2, xlstm, and qwen1.5 under
+    # --engine dense) and the step functions of the two embedding archs,
+    # all at full width and depth
+    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+        ph(f"dense {arch}", check_dense_serving, report, arch)
+    ph("dense qwen", check_dense_serving, report, "qwen1.5-0.5b",
+       label="qwen1.5-0.5b --engine dense")
+    for arch in ("llama-3.2-vision-11b", "musicgen-large"):
+        ph(f"steps {arch}", check_step_model, report, arch)
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
@@ -3364,12 +3894,15 @@ def main(argv=None) -> int:
          "path": ", ".join(serving),
          "launches": sum(tc_by_path.values()),
          "launches_by_path": tc_by_path,
-         "max_abs_err": gpp_err["tc"],
+         "max_abs_err": max(gpp_err["tc"], dense_err["tc"]),
          "tol": "atol 2e-2 + rtol 2e-2 x |plain| (bf16)",
          "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
                   "bf16 (every shape of both paths: --json-out)",
          "fma_ms": g["fma_ms"],
          "slice11_decode_shapes": gpp_new,
+         "slice13_decode_shapes": {
+             f"{r['path']} {r['proj']} {r['M']}x{r['K']}x{r['N']}":
+                 {k: r[k] for k in at_new} for r in dense_rows if "ms" in r},
          "gemm_sequence": seq,
          "worst_prefill_verify_vs_library": max(
              (r["ms"] / r["library_ms"], f"{r['path']} {r['phase']} "
@@ -3387,7 +3920,7 @@ def main(argv=None) -> int:
                  "models' f32 router); f32 runs",
          "launches": sum(by_path("gpp_matmul").values()),
          "launches_by_path": fma_by_path,
-         "max_abs_err": max(gpp_err["fma"],
+         "max_abs_err": max(gpp_err["fma"], dense_err["fma"],
                             max(r["max_abs_err"] for r in head_rows)),
          "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 and int8 W as "
                 "bf16",
@@ -3400,6 +3933,10 @@ def main(argv=None) -> int:
                                 if r["proj"] == "router"
                                 and r["path"] == "deepseek-v2-lite-16b"},
          "logits_head": head_by_shape,
+         "slice13_heads": {f"{a} {SLOTS}x{k}x{n}": {
+             x: dense_heads[a][x] for x in ("ms", "library_ms", "plain_ms",
+                                            "bound_ms")}
+             for a, (k, n) in DENSE_HEADS.items()},
          **{k: gr[k] for k in numbers}},
         {"name": "paged_attention_tc", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3465,8 +4002,10 @@ def main(argv=None) -> int:
          "path": ", ".join(serving),
          "launches": sum(by_path("rmsnorm").values()),
          "launches_by_path": by_path("rmsnorm"),
-         "max_abs_err": max(r["max_abs_err"] for r in rms_rows),
-         "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step",
+         "max_abs_err": max(r["max_abs_err"] for r in rms_rows
+                            + dense_norms),
+         "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step (also the "
+                "cross layers' 128-wide per-head rows)",
          "shape": f"qwen decode {SLOTS}x{D} bf16 (widths 512-2048, 1-32 "
                   "rows: --json-out)",
          **{k: rq[k] for k in numbers}},

@@ -28,7 +28,12 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """Nested dicts/lists of numpy arrays -> the same tree of tensors."""
+    """Nested dicts/lists of numpy arrays -> the same tree of tensors
+    (None leaves, a cross layer's empty cache, stay None).  Every leaf
+    keeps its dtype: the f32 leaves of a bf16 model (the SSM's A_log / D /
+    dt_bias, the xLSTM gate biases) stay f32."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -69,11 +69,11 @@ class ModelConfig:
     # serving (paged-KV engine defaults; ServeConfig overrides)
     serve_block_size: int = 16       # tokens per paged-KV block
     serve_token_budget: int = 0      # flat per-step token target; 0 = auto
-    prefix_cache: bool = False       # radix-tree prefix reuse (later slice)
+    prefix_cache: bool = False       # radix-tree prefix reuse
     prefix_cache_blocks: int = 0
     speculation: bool = False        # speculative decoding via verify steps
     draft_len: int = 4               # max draft tokens per lane per verify
-    obs: bool = False                # telemetry facade (later slice)
+    obs: bool = False                # telemetry facade (repro_torch.obs)
     obs_trace_capacity: int = 65536
     metrics_retention: int = 0       # ledger rows kept (0 = unbounded)
 
@@ -102,31 +102,46 @@ class ModelConfig:
         d, f, hd = self.d_model, self.d_ff, self.resolved_head_dim
         H, KV = self.num_heads, self.num_kv_heads
         base = kind.split(":")[0]
-        if base not in ("dense", "shared_attn", "moe"):
-            raise ValueError(f"{kind!r} blocks are not part of this port yet")
         n_mlp = d * f * (3 if self.act == "swiglu" else 2)
-        if self.kv_lora_rank:
-            r, rr = self.kv_lora_rank, self.rope_head_dim
-            a = d * (r + rr) + r * H * hd * 2 + H * hd * d
-            if self.q_lora_rank:
-                a += d * self.q_lora_rank + self.q_lora_rank * H * (hd + rr)
+        if base in ("dense", "shared_attn", "moe"):
+            if self.kv_lora_rank:
+                r, rr = self.kv_lora_rank, self.rope_head_dim
+                a = d * (r + rr) + r * H * hd * 2 + H * hd * d
+                if self.q_lora_rank:
+                    a += (d * self.q_lora_rank
+                          + self.q_lora_rank * H * (hd + rr))
+                else:
+                    a += d * H * (hd + rr)
             else:
-                a += d * H * (hd + rr)
-        else:
-            a = d * H * hd + 2 * d * KV * hd + H * hd * d
-        if base == "moe":
-            fm = self.moe_d_ff or f
-            ffn = d * fm * (3 if self.act == "swiglu" else 2)
-            return (a + self.experts_per_token * ffn
-                    + self.num_shared_experts * ffn + d * self.num_experts)
-        return a + n_mlp
+                a = d * H * hd + 2 * d * KV * hd + H * hd * d
+            if base == "moe":
+                fm = self.moe_d_ff or f
+                ffn = d * fm * (3 if self.act == "swiglu" else 2)
+                return (a + self.experts_per_token * ffn
+                        + self.num_shared_experts * ffn
+                        + d * self.num_experts)
+            return a + n_mlp
+        if base == "mamba":
+            di, N = self.ssm_expansion * d, self.ssm_state_dim
+            return d * 2 * di + d * 2 * N + d * H + di * d
+        if base == "mlstm":
+            return (3 * d * H * (d // H) + 2 * d * H + H * (d // H) * d
+                    + d * d + n_mlp)
+        if base == "slstm":
+            return 3 * d * d + 2 * d * H + n_mlp
+        if base == "cross":
+            return d * H * hd + 2 * d * KV * hd + H * hd * d + n_mlp
+        raise ValueError(kind)
 
     def active_params(self) -> int:
         """Per-token parameter count (embedding + every layer's weights;
-        MoE counts the top-k experts)."""
+        MoE counts the top-k experts; the shared attention block once, as
+        its one parameter set is reused by every superblock)."""
         n = sum(self._block_params(k) for k in self.prefix_pattern)
         n += sum(self._block_params(k) * self.num_superblocks
-                 for k in self.pattern)
+                 for k in self.pattern if not k.startswith("shared_attn"))
+        if any(k.startswith("shared_attn") for k in self.pattern):
+            n += self._block_params("shared_attn")
         if self.input_mode == "tokens":
             n += self.vocab_size * self.d_model
         if not self.tie_embeddings:

@@ -74,25 +74,36 @@ def _split_acc(x: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
     computes an f32 partial over its run's k-steps of the tile, and the
     partials are summed in segment order.  Each row is computed by itself
     (a vector-matrix product of fixed shape a segment), so a row's bits
-    depend on the row and the plan's k-cuts alone, as the kernel's do."""
+    depend on the row and the plan's k-cuts alone, as the kernel's do.
+
+    The walk issues one tiny product a row, a segment and a tile (~10^5 at
+    a logits head), so it runs on one intra-op thread: a thread pool's
+    hand-off costs more than such a product, and far more when other
+    processes hold the cores."""
     E, M, K = x.shape
     N = w.shape[2]
-    bm, bn, bk = plan.block_m, plan.block_n, plan.block_k
+    bm, bn, bk, nk = plan.block_m, plan.block_n, plan.block_k, plan.num_k
     acc = torch.zeros(E, M, N, dtype=torch.float32, device=x.device)
-    for t in range(plan.tiles):
-        nt, mt = plan.tile(t)
-        e = plan.expert(t)
-        rows = slice(mt * bm, min(M, (mt + 1) * bm))
-        cols = slice(nt * bn, min(N, (nt + 1) * bn))
-        total = None
-        for i in plan.segments(t):
-            ks = [plan.unit(u)[1] for u in plan.cta_units(i)
-                  if plan.unit(u)[0] == t]
-            k0, k1 = ks[0] * bk, min(K, (ks[-1] + 1) * bk)
-            wk = w[e, k0:k1, cols].float()
-            part = torch.stack([r @ wk for r in x[e, rows, k0:k1].float()])
-            total = part if total is None else total + part
-        acc[e, rows, cols] = total
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for t in range(plan.tiles):
+            nt, mt = plan.tile(t)
+            e = plan.expert(t)
+            rows = slice(mt * bm, min(M, (mt + 1) * bm))
+            cols = slice(nt * bn, min(N, (nt + 1) * bn))
+            total = None
+            for i in plan.segments(t):
+                run = plan.cta_units(i)
+                k0 = max(run.start - t * nk, 0) * bk
+                k1 = min(K, (min(run.stop - t * nk, nk)) * bk)
+                wk = w[e, k0:k1, cols].float()
+                part = torch.stack([r @ wk
+                                    for r in x[e, rows, k0:k1].float()])
+                total = part if total is None else total + part
+            acc[e, rows, cols] = total
+    finally:
+        torch.set_num_threads(threads)
     return acc
 
 

@@ -1,12 +1,17 @@
-"""Serving CLI: batched requests through the paged-KV engine on the card.
+"""Serving CLI: batched requests through the paged-KV engine, or the
+dense-cache engine for the recurrent archs, on the card.
 
   python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 6 --max-new 16
+  python -m repro_torch.launch.serve --arch zamba2-2.7b     # dense engine
+  python -m repro_torch.launch.serve --arch qwen1.5-0.5b --engine dense
 
 runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU (tests,
 smoke runs).  Without CUDA and without `--device cpu` it raises.  Flags are
-the reference CLI's (`repro.launch.serve`), plus `--device`; `--engine
-dense` (the reference's dense-cache engine) is not ported yet and raises.
+the reference CLI's (`repro.launch.serve`), plus `--device`.  `--engine
+auto` takes the paged engine where the arch allows it, else the dense one;
+embedding-input archs (musicgen, llama-3.2-vision) are refused, as the
+reference refuses them.
 
   --prefix-cache [--prefix-cache-blocks N]   shared-prefix KV reuse
   --speculation --draft-source model --draft-model ARCH   draft-model drafts
@@ -28,8 +33,9 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--engine", choices=("auto", "paged", "dense"),
                     default="auto",
-                    help="paged (auto) or dense; the dense-cache engine is "
-                         "not ported yet")
+                    help="paged, dense (the dense-cache engine: whole-"
+                         "prompt prefill, one decode call a lane position) "
+                         "or auto (paged where the arch allows it)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="paged-KV block size (0 = cfg.serve_block_size)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
@@ -88,9 +94,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cpu only when asked for")
     args = ap.parse_args(argv)
-    if args.engine == "dense":
-        raise NotImplementedError(
-            "the dense-cache serving engine is not ported yet")
     obs = args.obs
     if obs is None and (args.trace_out or args.metrics_out):
         obs = True
@@ -101,10 +104,15 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import registry
     from repro_torch.models import transformer as tf
-    from repro_torch.serving.engine import ServeConfig, make_engine
+    from repro_torch.serving.dense_engine import DenseServingEngine
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            make_engine)
 
-    device = resolve_device(args.device)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{args.arch} takes embedding inputs; serve the "
+                         "token archs (stub frontends have no tokenizer)")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = tf.init_params(cfg, gen, device)
     serve = ServeConfig(
@@ -122,7 +130,13 @@ def main(argv=None):
         dcfg = registry.get_config(args.draft_model, smoke=args.smoke)
         dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
         draft_model = (dcfg, tf.init_params(dcfg, dgen, device))
-    engine = make_engine(cfg, params, serve, draft_model=draft_model)
+    if args.engine == "paged":
+        engine = ServingEngine(cfg, params, serve, draft_model=draft_model)
+    elif args.engine == "dense":
+        engine = DenseServingEngine(cfg, params, serve)
+    else:
+        engine = make_engine(cfg, params, serve, draft_model=draft_model)
+    kind = type(engine).__name__
 
     rng = np.random.default_rng(0)
     rids = []
@@ -140,17 +154,17 @@ def main(argv=None):
         print(f"request {rid}: {len(results[rid])} tokens -> "
               f"{results[rid][:8]}...")
     print(f"{len(rids)} requests, {total_tokens} tokens in {dt:.2f}s "
-          f"({total_tokens / dt:.1f} tok/s aggregate, {device})")
+          f"({total_tokens / dt:.1f} tok/s aggregate, {kind}, {device})")
     peak_blocks = max(m["blocks_in_use"] for m in engine.metrics)
     print(f"steps={len(engine.metrics)} tokens/step_cov="
           f"{engine.flatness_cov():.3f} peak_blocks={peak_blocks} "
           f"shapes={engine.trace_counts}")
-    if engine.prefix is not None:
+    if getattr(engine, "prefix", None) is not None:
         print(f"prefix_cache: hit_rate={engine.prefix_hit_rate():.2f} "
               f"hit_tokens={engine.metrics.total('prefix_hit_tokens')} "
               f"saved_bytes={engine.metrics.total('prefix_saved_bytes')} "
               f"blocks_held={engine.prefix.blocks_held}")
-    if engine.draft_len:
+    if getattr(engine, "draft_len", 0):
         print(f"speculation: drafted={engine.metrics.total('drafted_tokens')} "
               f"accepted={engine.metrics.total('accepted_tokens')} "
               f"acceptance_rate={engine.acceptance_rate():.2f} "

@@ -1,20 +1,28 @@
-"""GQA and MLA attention over paged KV pools (the serving slice of
-`repro.models.attention`: GQA :300-512, MLA :515-623), and their
-full-sequence forms `gqa_forward` / `mla_forward` (:314, :630).
+"""GQA, MLA and cross attention: the reference's `repro.models.attention`
+in torch.
 
-Pool layouts (shared across lanes): GQA k / v (num_blocks, block_size,
-KVH, hd); MLA c_kv (num_blocks, block_size, kv_lora) and k_rope
-(num_blocks, block_size, rope_dim) — the compressed latent, not full K/V,
-is what pages through the pools.  A lane's logical block b (absolute
-positions [b*bs, (b+1)*bs)) lives at physical block `tables[lane, b]`;
-block 0 is the reserved null block.
-
-Unlike the reference, whose functions return new arrays, the three pool
-writers update the pools IN PLACE (`index_put_`) and return them, so one
-set of device pools serves every step.  Reads go through
-`kernels.ops.paged_attn` (the CUDA paged-attention kernel on the card; for
-MLA its latent form, after absorbing w_uk into q).  All attention math
-accumulates in f32.
+Three cache forms:
+  * paged pools (the serving slice, :300-623) — GQA k / v (num_blocks,
+    block_size, KVH, hd); MLA c_kv (num_blocks, block_size, kv_lora) and
+    k_rope (num_blocks, block_size, rope_dim): the compressed latent, not
+    full K/V, pages through the pools.  A lane's logical block b (absolute
+    positions [b*bs, (b+1)*bs)) lives at physical block `tables[lane, b]`;
+    block 0 is the reserved null block.  The three pool writers update the
+    pools IN PLACE (`index_put_`) and return them, so one set of device
+    pools serves every step.  Reads go through `kernels.ops.paged_attn`
+    (the CUDA paged-attention kernel on the card; for MLA its latent form,
+    after absorbing w_uk into q).
+  * dense per-lane caches (the dense-cache engine's, :101-117, :322-380,
+    :644-670) — GQA k / v (B, span, KVH, hd), span = max_len, or on a
+    window layer min(max_len, window) used as a ring (slot pos % span); MLA
+    c_kv / k_rope (B, max_len, ...).  As in the reference these functions
+    return new caches and leave their inputs as they were: a decode writes
+    position `pos` of every row, and the engine keeps only its group's rows.
+  * none — full-sequence `gqa_forward` / `mla_forward`, and cross
+    attention over encoder embeddings (:672-685), whose K/V are recomputed
+    from `enc` every call.
+The attention itself is plain torch, as the reference's is jnp outside any
+Pallas kernel.  All attention math accumulates in f32.
 """
 from __future__ import annotations
 
@@ -81,6 +89,32 @@ def attn_specs(c: AttnConfig) -> dict:
         sp["b_k"] = Spec((c.num_kv_heads, c.head_dim), c.dtype)
         sp["b_v"] = Spec((c.num_kv_heads, c.head_dim), c.dtype)
     return sp
+
+
+def cross_attn_specs(c: AttnConfig) -> dict:
+    """Cross attention: queries from the text, K/V from encoder embeddings,
+    per-head RMSNorm on q and k."""
+    return {
+        "w_q": Spec((c.d_model, c.num_heads, c.head_dim), c.dtype),
+        "w_k": Spec((c.d_model, c.num_kv_heads, c.head_dim), c.dtype),
+        "w_v": Spec((c.d_model, c.num_kv_heads, c.head_dim), c.dtype),
+        "w_o": Spec((c.num_heads, c.head_dim, c.d_model), c.dtype),
+        "q_norm": Spec((c.head_dim,), c.dtype),
+        "k_norm": Spec((c.head_dim,), c.dtype),
+    }
+
+
+def cache_specs(c: AttnConfig, batch: int, max_len: int) -> dict:
+    """Dense per-lane cache specs of one layer; a window layer keeps a
+    ring of min(max_len, window) positions."""
+    if c.is_mla:
+        return {
+            "c_kv": Spec((batch, max_len, c.kv_lora_rank), c.dtype),
+            "k_rope": Spec((batch, max_len, c.rope_head_dim), c.dtype),
+        }
+    span = min(max_len, c.window) if c.window else max_len
+    shape = (batch, span, c.num_kv_heads, c.head_dim)
+    return {"k": Spec(shape, c.dtype), "v": Spec(shape, c.dtype)}
 
 
 def paged_cache_specs(c: AttnConfig, num_blocks: int,
@@ -258,6 +292,64 @@ def gqa_forward(p, c: AttnConfig, x, positions):
     return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
 
 
+def _write_at(cache, slot: int, vals):
+    """A copy of `cache` (B, T, ...) with vals (B, 1, ...) at `slot`, the
+    start clamped into range as `lax.dynamic_update_slice` clamps it."""
+    out = cache.clone()
+    slot = min(max(slot, 0), cache.shape[1] - 1)
+    out[:, slot] = vals[:, 0]
+    return out
+
+
+def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int):
+    """Prefill over a dense cache: returns (out, {"k", "v"}) with the
+    cache laid out for `gqa_decode` (a window layer's last span positions
+    at their ring slots pos % span)."""
+    B, S, _ = x.shape
+    q, k, v = gqa_project_qkv(p, c, x, positions)
+    out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(c.head_dim),
+                        window=c.window)
+    span = min(max_len, c.window) if c.window else max_len
+    kc = torch.zeros((B, span, c.num_kv_heads, c.head_dim), dtype=k.dtype,
+                     device=k.device)
+    vc = torch.zeros_like(kc)
+    if c.window and S > span:
+        rows = torch.arange(B, device=k.device)[:, None]
+        slots = positions[:, -span:].long() % span
+        kc[rows, slots] = k[:, -span:]
+        vc[rows, slots] = v[:, -span:]
+    else:
+        n = min(S, span)
+        kc[:, :n] = k[:, :n]
+        vc[:, :n] = v[:, :n]
+    return (dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2),
+            {"k": kc, "v": vc})
+
+
+def gqa_decode(p, c: AttnConfig, x, cache, pos: int):
+    """One-token decode over a dense cache at the one position `pos` of
+    every row.  x: (B, 1, D).  A window layer's entry j holds the absolute
+    position p' = pos - ((pos - j) % span), visible while p' >= 0 and
+    within the window."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = gqa_project_qkv(p, c, x, positions)
+    span = cache["k"].shape[1]
+    slot = pos % span if c.window else pos
+    kc = _write_at(cache["k"], slot, k)
+    vc = _write_at(cache["v"], slot, v)
+    kpos = torch.arange(span, device=x.device)
+    if c.window:
+        kpos = pos - ((pos - kpos) % span)
+        valid = (kpos >= 0) & (kpos >= pos - (c.window - 1))
+    else:
+        valid = kpos <= pos
+    mask = valid[None, None, :].expand(B, 1, span)
+    out = _sdpa(q, kc, vc, mask, 1.0 / math.sqrt(c.head_dim))
+    return (dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2),
+            {"k": kc, "v": vc})
+
+
 def _paged_gather(pool, tables):
     """(nb, bs, ...) x (B, MB) -> (B, MB*bs, ...): each lane's logical KV
     sequence, position-ordered."""
@@ -330,6 +422,36 @@ def mla_forward(p, c: AttnConfig, x, positions):
         *k_nope.shape[:3], c.rope_head_dim)], dim=-1)
     out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(nope + c.rope_head_dim))
     return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
+
+
+def mla_prefill(p, c: AttnConfig, x, positions, max_len: int):
+    """MLA prefill over a dense latent cache (B, max_len, ...)."""
+    B = x.shape[0]
+    out = mla_forward(p, c, x, positions)
+    c_kv, k_rope = _mla_latent(p, c, x, positions)
+    ckv = torch.zeros((B, max_len, c.kv_lora_rank), dtype=c_kv.dtype,
+                      device=x.device)
+    kr = torch.zeros((B, max_len, c.rope_head_dim), dtype=k_rope.dtype,
+                     device=x.device)
+    n = min(c_kv.shape[1], max_len)
+    ckv[:, :n] = c_kv[:, :n]
+    kr[:, :n] = k_rope[:, :n]
+    return out, {"c_kv": ckv, "k_rope": kr}
+
+
+def mla_decode(p, c: AttnConfig, x, cache, pos: int):
+    """One-token MLA decode over a dense latent cache at position `pos`
+    of every row: the plain read (`_mla_attend`)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = _mla_q(p, c, x, positions)
+    c_kv, k_rope = _mla_latent(p, c, x, positions)
+    ckv = _write_at(cache["c_kv"], pos, c_kv)
+    kr = _write_at(cache["k_rope"], pos, k_rope)
+    T = ckv.shape[1]
+    mask = (torch.arange(T, device=x.device) <= pos)[None, None, :].expand(
+        B, 1, T)
+    return _mla_attend(p, c, q, ckv, kr, mask), {"c_kv": ckv, "k_rope": kr}
 
 
 def _mla_absorbed_attend(p, c: AttnConfig, q, ckv, kr, tables, positions,
@@ -412,3 +534,23 @@ def mla_verify_paged(p, c: AttnConfig, x, cache, tables, positions, active,
     out = _mla_paged_attend(p, c, q, ckv, kr, tables, positions,
                             prefill=False)
     return out, {"c_kv": ckv, "k_rope": kr}
+
+
+# ---------------------------------------------------------------------------
+# cross attention (text queries over encoder embeddings)
+# ---------------------------------------------------------------------------
+
+def cross_attn_forward(p, c: AttnConfig, x, enc):
+    """x: (B, S, D) text; enc: (B, T, D) patch / frame embeddings.  q and k
+    get a per-head RMSNorm (rows of head_dim, through the RMSNorm kernel on
+    the card); no mask, and nothing is cached: K/V are projected from
+    `enc` every call, as the reference does."""
+    q = dense(x, p["w_q"], mode=c.dense_mode)
+    k = dense(enc, p["w_k"], mode=c.dense_mode)
+    v = dense(enc, p["w_v"], mode=c.dense_mode)
+    q = rmsnorm({"scale": p["q_norm"]}, q, mode=c.dense_mode)
+    k = rmsnorm({"scale": p["k_norm"]}, k, mode=c.dense_mode)
+    mask = torch.ones((x.shape[1], enc.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(c.head_dim))
+    return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)

@@ -1,22 +1,30 @@
-"""Backbone for paged serving: the paged slice of
-`repro.models.transformer` — dense and MoE blocks over GQA or MLA
-attention.
+"""Backbone assembler: the reference's `repro.models.transformer` in torch —
+attention (GQA / window / MLA), MoE, Mamba2, xLSTM and cross-attention
+blocks composed into the ten architectures.
 
-Parameters and pools keep the reference's tree layout: stacked superblock
-leaves carry a leading (num_superblocks, ...) dim, so `pool[i]` / `w[i]` is
+Parameters and caches keep the reference's tree layout: stacked superblock
+leaves carry a leading (num_superblocks, ...) dim, so `w[i]` / `pool[i]` is
 a contiguous view for the kernels, and the reference's `jax.lax.scan` over
-superblocks is a Python loop here.
+superblocks is a Python loop here.  A "shared_attn" block (zamba2) has one
+parameter set, `params["shared"]`, reused by every superblock; its KV cache
+is still one a superblock (stacked under "blocks").
 
 Entry points:
   param_specs / init_params(cfg, generator, device)
-  forward(params, cfg, batch)          full-sequence logits (the draft
-                                       model's rollout)
+  forward(params, cfg, batch)          full-sequence logits; batch holds
+                                       "tokens" or "embeds", and "enc"
+                                       for cross layers
+  cache_specs, prefill, decode_step    the dense-cache step functions
+                                       (every block kind)
   paged_cache_specs / init_paged_caches
   prefill_chunk, decode_step_paged, verify_step_paged
-The pools are updated in place (the reference returns new ones); each step
-function still returns (logits, caches) for a like-for-like call shape.
-`forward` runs the reference's resident path; its layer streamer and
-sharding arguments come with distribution.
+                                       the paged step functions
+                                       (attention-cache token models)
+The paged pools are updated in place (the reference returns new ones);
+`prefill` and `decode_step` return new caches as the reference does, and
+leave the caches they were given as they were.  `forward` runs the
+reference's resident path; its layer streamer and sharding arguments come
+with distribution.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Spec, embed, embed_specs,
                                        head_logits, init_from_specs,
                                        map_specs, mlp, mlp_specs, rmsnorm,
@@ -54,6 +64,19 @@ def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoeConfig:
         dtype=cfg.torch_dtype, dense_kernel=cfg.dense_kernel)
 
 
+def _ssm_cfg(cfg: ModelConfig) -> ssm_mod.SsmConfig:
+    return ssm_mod.SsmConfig(
+        d_model=cfg.d_model, d_inner=cfg.ssm_expansion * cfg.d_model,
+        d_state=cfg.ssm_state_dim, n_heads=cfg.num_heads,
+        dtype=cfg.torch_dtype, dense_mode=cfg.dense_kernel)
+
+
+def _xlstm_cfg(cfg: ModelConfig) -> xlstm_mod.XlstmConfig:
+    return xlstm_mod.XlstmConfig(
+        d_model=cfg.d_model, n_heads=cfg.num_heads, dtype=cfg.torch_dtype,
+        dense_mode=cfg.dense_kernel)
+
+
 def supports_paged(cfg: ModelConfig) -> bool:
     kinds = tuple(cfg.prefix_pattern) + tuple(cfg.pattern)
     return (cfg.input_mode == "tokens"
@@ -61,36 +84,61 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """The paged step functions serve token models of attention-cache
+    blocks; the others run on the dense-cache engine."""
     if not supports_paged(cfg):
+        bad = [k for k in tuple(cfg.prefix_pattern) + tuple(cfg.pattern)
+               if k.split(":")[0] not in PAGED_BLOCK_KINDS]
         raise ValueError(
-            f"{cfg.name}: this port serves token models of "
-            f"{PAGED_BLOCK_KINDS} blocks; kinds "
-            f"{tuple(cfg.prefix_pattern) + tuple(cfg.pattern)} are not "
-            "ported yet")
+            f"{cfg.name}: paged KV serves token models of attention-cache "
+            f"blocks {PAGED_BLOCK_KINDS} only; unsupported kinds {bad} or "
+            f"input {cfg.input_mode!r} (use the dense-cache engine)")
 
 
 def block_specs(cfg: ModelConfig, kind: str) -> dict:
     d, dt = cfg.d_model, cfg.torch_dtype
-    sp = {
-        "ln1": rmsnorm_specs(d, dt),
-        "attn": attn.attn_specs(_attn_cfg(cfg, kind)),
-        "ln2": rmsnorm_specs(d, dt),
-    }
-    if kind.split(":")[0] == "moe":
-        sp["moe"] = moe_mod.moe_specs(_moe_cfg(cfg))
-    else:
-        sp["mlp"] = mlp_specs(d, cfg.d_ff, dt, cfg.act)
-    return sp
+    base = kind.split(":")[0]
+    if base in ("dense", "shared_attn", "moe", "cross"):
+        sp = {
+            "ln1": rmsnorm_specs(d, dt),
+            "attn": (attn.cross_attn_specs if base == "cross"
+                     else attn.attn_specs)(_attn_cfg(cfg, kind)),
+            "ln2": rmsnorm_specs(d, dt),
+        }
+        if base == "moe":
+            sp["moe"] = moe_mod.moe_specs(_moe_cfg(cfg))
+        else:
+            sp["mlp"] = mlp_specs(d, cfg.d_ff, dt, cfg.act)
+        return sp
+    if base == "mamba":
+        return {"ln": rmsnorm_specs(d, dt),
+                "ssm": ssm_mod.ssm_specs(_ssm_cfg(cfg))}
+    if base in ("mlstm", "slstm"):
+        mix = (xlstm_mod.mlstm_specs if base == "mlstm"
+               else xlstm_mod.slstm_specs)(_xlstm_cfg(cfg))
+        sp = {"ln1": rmsnorm_specs(d, dt), "mix": mix}
+        if cfg.d_ff:  # xlstm-1.3b has d_ff == 0: mixer-only blocks
+            sp["ln2"] = rmsnorm_specs(d, dt)
+            sp["mlp"] = mlp_specs(d, cfg.d_ff, dt, cfg.act)
+        return sp
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _is_shared(kind: str) -> bool:
+    return kind.startswith("shared_attn")
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
-    sp: dict = {"embed": embed_specs(cfg.vocab_size, cfg.d_model,
-                                     cfg.torch_dtype)}
+    sp: dict = {}
+    if cfg.input_mode == "tokens":
+        sp["embed"] = embed_specs(cfg.vocab_size, cfg.d_model,
+                                  cfg.torch_dtype)
     sp["prefix"] = [block_specs(cfg, k) for k in cfg.prefix_pattern]
     sp["blocks"] = {f"b{i}": stack_specs(block_specs(cfg, k),
                                          cfg.num_superblocks)
-                    for i, k in enumerate(cfg.pattern)}
+                    for i, k in enumerate(cfg.pattern) if not _is_shared(k)}
+    if any(_is_shared(k) for k in cfg.pattern):
+        sp["shared"] = block_specs(cfg, "shared_attn")
     sp["final_norm"] = rmsnorm_specs(cfg.d_model, cfg.torch_dtype)
     if not cfg.tie_embeddings:
         sp["lm_head"] = {"w_out": Spec((cfg.vocab_size, cfg.d_model),
@@ -201,32 +249,40 @@ def _index(tree, i: int):
 def _tree_layers(tree: dict, cfg: ModelConfig):
     """(kind, layer) per layer of a params or pools tree: the prefix
     layers, then each superblock's pattern in order (the reference's scan
-    order)."""
+    order).  A shared block's parameters are `tree["shared"]` in every
+    superblock; a layer with no cache (cross) yields None."""
     yield from zip(cfg.prefix_pattern, tree["prefix"])
     for s in range(cfg.num_superblocks):
         for i, kind in enumerate(cfg.pattern):
-            yield kind, _index(tree["blocks"][f"b{i}"], s)
+            if _is_shared(kind) and "shared" in tree:
+                yield kind, tree["shared"]
+            else:
+                sub = tree["blocks"].get(f"b{i}")
+                yield kind, None if sub is None else _index(sub, s)
 
 
 def _layers(params: dict, caches: dict, cfg: ModelConfig):
-    """(kind, params, pools) per layer."""
+    """(kind, params, pools or cache) per layer."""
     for (kind, p), (_, c) in zip(_tree_layers(params, cfg),
                                  _tree_layers(caches, cfg)):
         yield kind, p, c
 
 
-def _block(cfg: ModelConfig, kind: str, p, x, attend):
-    """One block: attention (`attend(attn_cfg, params, h)` runs the step's
-    GQA or MLA function, as the config says), then the MoE or the MLP."""
-    h, _ = attend(_attn_cfg(cfg, kind), p["attn"],
-                  rmsnorm(p["ln1"], x, mode=cfg.dense_kernel))
-    x = x + h
+def _ffn(cfg: ModelConfig, kind: str, p: dict, x):
+    """The second half of an attention block: norm, then MoE or MLP."""
     h = rmsnorm(p["ln2"], x, mode=cfg.dense_kernel)
     if kind.split(":")[0] == "moe":
-        h = moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h)
-    else:
-        h = mlp(p["mlp"], h, cfg.act, dense_mode=cfg.dense_kernel)
-    return x + h
+        return x + moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h)
+    return x + mlp(p["mlp"], h, cfg.act, dense_mode=cfg.dense_kernel)
+
+
+def _block(cfg: ModelConfig, kind: str, p, x, attend):
+    """One attention block: attention (`attend(attn_cfg, params, h)` runs
+    the step's GQA or MLA function, as the config says, and returns (h,
+    cache)), then the MoE or the MLP.  Returns (x, cache)."""
+    h, cache = attend(_attn_cfg(cfg, kind), p["attn"],
+                      rmsnorm(p["ln1"], x, mode=cfg.dense_kernel))
+    return _ffn(cfg, kind, p, x + h), cache
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -247,29 +303,194 @@ def _logits_head(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (the reference's :162-261, resident path)
+# full-sequence forward and the dense-cache step functions (the reference's
+# :162-261, :288-400, :730-801)
 # ---------------------------------------------------------------------------
 
-def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions):
-    """One attention block over a whole sequence: causal GQA / window or
-    MLA self-attention, then the MLP or the MoE."""
-    return _block(cfg, kind, p, x, lambda ac, pa, h: (
-        (attn.mla_forward if ac.is_mla else attn.gqa_forward)(
-            pa, ac, h, positions), None))
+def _mix(cfg: ModelConfig, kind: str, p: dict, step: str, h, *state):
+    """The Mamba2 or xLSTM mixer of `kind` at `step` (forward / prefill /
+    decode) on the normed input h."""
+    base = kind.split(":")[0]
+    if base == "mamba":
+        return getattr(ssm_mod, f"ssm_{step}")(p["ssm"], _ssm_cfg(cfg), h,
+                                               *state)
+    return getattr(xlstm_mod, f"{base}_{step}")(p["mix"], _xlstm_cfg(cfg),
+                                                h, *state)
+
+
+def _mixer_block(cfg: ModelConfig, kind: str, p: dict, x, step: str,
+                 *state):
+    """A recurrent block: the mixer on the normed input, the residual, and
+    for xLSTM the MLP when d_ff.  Returns (x, state) (None at forward)."""
+    mamba = kind.split(":")[0] == "mamba"
+    out = _mix(cfg, kind, p, step, rmsnorm(p["ln" if mamba else "ln1"], x,
+                                           mode=cfg.dense_kernel), *state)
+    y, st = (out, None) if step == "forward" else out
+    x = x + y
+    if not mamba and cfg.d_ff:
+        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, mode=cfg.dense_kernel),
+                    cfg.act, dense_mode=cfg.dense_kernel)
+    return x, st
+
+
+def _cross_block(cfg: ModelConfig, kind: str, p: dict, x, enc):
+    h = attn.cross_attn_forward(p["attn"], _attn_cfg(cfg, kind),
+                                rmsnorm(p["ln1"], x, mode=cfg.dense_kernel),
+                                enc)
+    return _ffn(cfg, kind, p, x + h)
+
+
+def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions,
+                enc=None):
+    """One block over a whole sequence: causal GQA / window or MLA
+    self-attention then the MLP or the MoE; Mamba2 or xLSTM; or cross
+    attention over `enc` then the MLP."""
+    base = kind.split(":")[0]
+    if base in ("dense", "shared_attn", "moe"):
+        return _block(cfg, kind, p, x, lambda ac, pa, h: (
+            (attn.mla_forward if ac.is_mla else attn.gqa_forward)(
+                pa, ac, h, positions), None))[0]
+    if base == "cross":
+        return _cross_block(cfg, kind, p, x, enc)
+    return _mixer_block(cfg, kind, p, x, "forward")[0]
+
+
+def _inputs(params, cfg: ModelConfig, batch: dict):
+    """The first layer's input and the encoder embeddings, in the model's
+    dtype."""
+    if cfg.input_mode == "tokens":
+        x = _embed_tokens(params, cfg, batch["tokens"])
+    else:
+        x = batch["embeds"].to(cfg.torch_dtype)
+    enc = batch.get("enc")
+    return x, None if enc is None else enc.to(cfg.torch_dtype)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict):
     """Full-sequence forward to f32 logits (B, S, vocab).  batch:
-    {"tokens": (B, S)}.  Projections run `kernels.ops.dense`, MoE layers
+    {"tokens": (B, S)} or {"embeds": (B, S, D)}, with "enc": (B, T, D) for
+    cross layers.  Projections run `kernels.ops.dense`, MoE layers
     `dense_grouped`, norms the RMSNorm kernel and the head
-    `layers.head_logits`, as the paged step functions do."""
-    _check_supported(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"])
+    `layers.head_logits`, as the step functions do."""
+    x, enc = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for kind, p in _tree_layers(params, cfg):
-        x = apply_block(cfg, kind, p, x, positions)
+        x = apply_block(cfg, kind, p, x, positions, enc)
     return _logits_head(params, cfg, x)
+
+
+def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
+                       max_len: int):
+    base = kind.split(":")[0]
+    if base in ("dense", "shared_attn", "moe"):
+        return attn.cache_specs(_attn_cfg(cfg, kind), batch, max_len)
+    if base == "mamba":
+        return ssm_mod.ssm_state_specs(_ssm_cfg(cfg), batch)
+    if base == "mlstm":
+        return xlstm_mod.mlstm_state_specs(_xlstm_cfg(cfg), batch)
+    if base == "slstm":
+        return xlstm_mod.slstm_state_specs(_xlstm_cfg(cfg), batch)
+    if base == "cross":
+        return None   # K/V come from the encoder embeddings every call
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """Dense cache specs: per prefix layer a dict (None for cross), and
+    per pattern position with a cache its leaves stacked over the
+    superblocks, (S, batch, ...): a leaf under "blocks" has its lane axis
+    at 1 (`is_stacked_cache_path`)."""
+    blocks = {}
+    for i, k in enumerate(cfg.pattern):
+        cs = _block_cache_specs(cfg, k, batch, max_len)
+        if cs is not None:
+            blocks[f"b{i}"] = stack_specs(cs, cfg.num_superblocks)
+    return {"prefix": [_block_cache_specs(cfg, k, batch, max_len)
+                       for k in cfg.prefix_pattern],
+            "blocks": blocks}
+
+
+def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
+                   enc, max_len: int):
+    """One block over the prompt.  Returns (x, cache or None)."""
+    base = kind.split(":")[0]
+    if base in ("dense", "shared_attn", "moe"):
+        return _block(cfg, kind, p, x, lambda ac, pa, h: (
+            attn.mla_prefill if ac.is_mla else attn.gqa_prefill)(
+                pa, ac, h, positions, max_len))
+    if base == "cross":
+        return _cross_block(cfg, kind, p, x, enc), None
+    return _mixer_block(cfg, kind, p, x, "prefill")
+
+
+def _block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int,
+                  enc):
+    """One block at one position.  Returns (x, new cache or None)."""
+    base = kind.split(":")[0]
+    if base in ("dense", "shared_attn", "moe"):
+        return _block(cfg, kind, p, x, lambda ac, pa, h: (
+            attn.mla_decode if ac.is_mla else attn.gqa_decode)(
+                pa, ac, h, cache, pos))
+    if base == "cross":
+        return _cross_block(cfg, kind, p, x, enc), None
+    return _mixer_block(cfg, kind, p, x, "decode", cache)
+
+
+def _stack(trees: list):
+    """Per-superblock cache dicts -> one dict of stacked (S, ...) leaves."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def _run_layers(cfg: ModelConfig, x, layers, step):
+    """Run `step(kind, p, c, x)` -> (x, new cache) over `layers`, (kind,
+    params, cache) in the reference's scan order.  Returns (x, the new
+    caches in `cache_specs`' layout)."""
+    n, per = len(cfg.prefix_pattern), {}
+    prefix = []
+    for j, (kind, p, c) in enumerate(layers):
+        x, new = step(kind, p, c, x)
+        if j < n:
+            prefix.append(new)
+        elif new is not None:
+            per.setdefault(f"b{(j - n) % len(cfg.pattern)}", []).append(new)
+    return x, {"prefix": prefix,
+               "blocks": {k: _stack(v) for k, v in per.items()}}
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int):
+    """The whole prompt at once.  batch: {"tokens": (B, S)} or {"embeds":
+    (B, S, D)}, with "enc" for cross layers.  Returns (last-position
+    logits (B, 1, vocab) f32, caches in `cache_specs`' layout at batch B,
+    attention caches sized for max_len)."""
+    x, enc = _inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, caches = _run_layers(
+        cfg, x, ((kind, p, None) for kind, p in _tree_layers(params, cfg)),
+        lambda kind, p, _, x: _block_prefill(cfg, kind, p, x, positions,
+                                             enc, max_len))
+    return _logits_head(params, cfg, x[:, -1:]), caches
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens_or_embeds, caches,
+                pos: int, enc=None):
+    """One decode step at the one absolute position `pos` of every row.
+    tokens: (B, 1) ints, or (B, 1, D) embeddings for an embedding-input
+    model; enc: (B, T, D) for cross layers.  Every row's KV is written at
+    `pos` and every row's recurrent state advances: a caller whose rows sit
+    at other positions keeps only the rows at `pos` (the dense-cache
+    engine).  Returns (logits (B, 1, vocab) f32, new caches); `caches` is
+    left as it was."""
+    x, enc = _inputs(params, cfg, (
+        {"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
+        else {"embeds": tokens_or_embeds}) | (
+        {} if enc is None else {"enc": enc}))
+
+    x, new = _run_layers(
+        cfg, x, _layers(params, caches, cfg),
+        lambda kind, p, c, x: _block_decode(cfg, kind, p, x, c, pos, enc))
+    return _logits_head(params, cfg, x), new
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,
@@ -281,7 +502,7 @@ def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         row = _group_table(cfg, kind, table_row)
-        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, row=row: (
+        x, _ = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, row=row: (
             attn.mla_prefill_paged if ac.is_mla else attn.gqa_prefill_paged)(
                 pa, ac, h, c, row, start_pos))
     logits = _logits_head(params, cfg, x[:, last_idx:last_idx + 1])
@@ -297,7 +518,7 @@ def decode_step_paged(params: dict, cfg: ModelConfig, tokens, caches,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         tb = _group_table(cfg, kind, tables)
-        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
+        x, _ = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
             attn.mla_decode_paged if ac.is_mla else attn.gqa_decode_paged)(
                 pa, ac, h, c, tb, positions, active))
     return _logits_head(params, cfg, x), caches
@@ -312,7 +533,7 @@ def verify_step_paged(params: dict, cfg: ModelConfig, tokens, caches,
     x = _embed_tokens(params, cfg, tokens)
     for kind, p, c in _layers(params, caches, cfg):
         tb = _group_table(cfg, kind, tables)
-        x = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
+        x, _ = _block(cfg, kind, p, x, lambda ac, pa, h, c=c, tb=tb: (
             attn.mla_verify_paged if ac.is_mla else attn.gqa_verify_paged)(
                 pa, ac, h, c, tb, positions, active, nvalid))
     return _logits_head(params, cfg, x), caches

@@ -134,14 +134,14 @@ def _to_device(tree, device: torch.device):
 
 
 def _pool_leaves(tree, path=()):
-    """(path, pool) for every tensor of a paged-cache tree."""
+    """(path, tensor) for every tensor of a cache tree."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _pool_leaves(v, path + (k,))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _pool_leaves(v, path + (i,))
-    else:
+    elif tree is not None:            # a cross layer's dense cache is None
         yield path, tree
 
 
@@ -154,9 +154,7 @@ class ServingEngine:
             cfg = cfg.with_(dense_kernel=serve.dense_kernel)
         if serve.paged_attn_kernel is not None:
             cfg = cfg.with_(paged_attn_kernel=serve.paged_attn_kernel)
-        if not tf.supports_paged(cfg):
-            raise ValueError(f"{cfg.name}: paged serving of these blocks is "
-                             "not ported yet")
+        tf._check_supported(cfg)
         self.device = resolve_device(serve.device)
         self.cfg = cfg
         self.serve = serve
@@ -718,6 +716,10 @@ class ServingEngine:
 
 def make_engine(cfg: ModelConfig, params: dict, serve: ServeConfig,
                 draft_model: "tuple[ModelConfig, dict] | None" = None):
-    """The paged engine; architectures it cannot serve raise (the reference's
-    dense-cache fallback engine is not ported yet)."""
-    return ServingEngine(cfg, params, serve, draft_model=draft_model)
+    """The paged engine when the architecture supports it, else the
+    dense-cache engine (recurrent blocks; no speculation there)."""
+    if tf.supports_paged(cfg if serve.dense_kernel is None
+                         else cfg.with_(dense_kernel=serve.dense_kernel)):
+        return ServingEngine(cfg, params, serve, draft_model=draft_model)
+    from repro_torch.serving.dense_engine import DenseServingEngine
+    return DenseServingEngine(cfg, params, serve)

@@ -1175,3 +1175,73 @@ def test_rmsnorm_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="width"):
         rn.rmsnorm(torch.zeros(2, 64, device=cuda),
                    torch.ones(32, device=cuda))
+
+
+@pytest.mark.parametrize("shape", ((4, 2048, 4), (15, 2048, 4),
+                                   (4, 2560, 32), (4, 2560, 128),
+                                   (4, 5120, 2560), (128, 2048, 8192)))
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_gpp_dense_path_shapes_match_plain(cuda, shape, dtype):
+    # the dense-cache archs' narrow and wide projections (xlstm's gates at
+    # N = 4, zamba2's w_dt / w_bc / w_out, musicgen's gelu up) on both
+    # routes, with the sigmoid and gelu epilogues
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(K, N, generator=g, device=cuda) * 0.02).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    for act in (None, "sigmoid", "gelu"):
+        y = gm.gpp_matmul(x, w, activation=act)
+        ref = dense_ref(x, w, activation=act)
+        torch.testing.assert_close(y.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+def test_contract_two_dims_is_one_launch(cuda, dtype):
+    # xlstm's output projection: 4 heads of 512 contracted in one launch
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(4, 4, 512, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(4, 512, 2048, generator=g, device=cuda) * 0.02).to(dtype)
+    n = gm.launches_tc.n + gm.launches.n
+    y = ops.dense(x, w, contract_dims=2)
+    assert gm.launches_tc.n + gm.launches.n - n == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(
+        y.float(), dense_ref(x.reshape(4, 2048), w.reshape(2048, 2048))
+        .float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("rows", (128, 4096, 51200))
+def test_rmsnorm_takes_per_head_rows(cuda, rows):
+    # the cross layers' q / k norm: rows of head_dim 128
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, 128, generator=g, device=cuda) * 2).to(dtype)
+        s = (1 + 0.1 * torch.randn(128, generator=g, device=cuda)).to(dtype)
+        tol = 1e-5 if dtype == torch.float32 else 1.6e-2
+        torch.testing.assert_close(rn.rmsnorm(x, s).float(),
+                                   rmsnorm_ref(x, s).float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("arch", ("zamba2-2.7b", "xlstm-1.3b"))
+def test_dense_engine_kernels_match_plain(cuda, arch):
+    # the dense-cache engine at SMOKE in f32: the kernels' greedy streams
+    # are the plain run's
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.dense_engine import DenseServingEngine
+    from repro_torch.serving.engine import ServeConfig
+    cfg = registry.get_config(arch, smoke=True).with_(dtype="float32")
+    params = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            cuda)
+    prompts = [[1, 2, 3, 4, 5], [7, 8, 9], [11, 12, 13, 14, 15, 16, 17]]
+    out = {}
+    for mode in ("auto", "ref"):
+        eng = DenseServingEngine(cfg, params, ServeConfig(
+            slots=2, max_len=32, dense_kernel=mode))
+        rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        res = eng.run()
+        out[mode] = [res[r] for r in rids]
+    assert out["auto"] == out["ref"]

@@ -1,8 +1,9 @@
 """The port's full-sequence `transformer.forward` against the JAX
 package's `repro.models.transformer.forward` on the CPU, at float32 on the
-SMOKE configs of the six archs the port serves, with the same parameters
-(JAX `init_params`, carried over by `repro_torch.bridge`) and the same
-numpy-seeded tokens.  Logits agree within 2e-4 (absolute, and relative to
+SMOKE configs of the ten archs, with the same parameters (JAX
+`init_params`, carried over by `repro_torch.bridge`) and the same
+numpy-seeded tokens (frame embeddings for musicgen; for llama-3.2-vision
+also patch embeddings, `enc`, for its cross layers).  Logits agree within 2e-4 (absolute, and relative to
 the largest |logit|: f32 sums taken in another order), and the greedy
 token of every position is the same.  One case runs a sequence longer than
 the query block (lowered to 8 rows), so the blocked causal masks
@@ -35,9 +36,24 @@ def arch(request):
     return jcfg, jparams, config_from_reference(jcfg), tree_to_torch(jparams)
 
 
-def _tokens(vocab, B=2, S=16, seed=0):
-    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(
-        np.int32)
+def _batch(cfg, B=2, S=16, seed=0):
+    """The forward's numpy batch: tokens or frame embeddings, and enc for
+    cross layers."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+    else:
+        b = {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)}
+    if cfg.encoder_tokens:
+        b["enc"] = rng.standard_normal(
+            (B, cfg.encoder_tokens, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 def _close(got, want):
@@ -50,18 +66,18 @@ def _close(got, want):
 
 def test_forward_logits_match_jax(arch):
     jcfg, jparams, cfg, params = arch
-    toks = _tokens(cfg.vocab_size)
-    want = jtf.forward(jparams, jcfg, {"tokens": toks})
-    got = tf.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
+    batch = _batch(cfg)
+    want = jtf.forward(jparams, jcfg, batch)
+    got = tf.forward(params, cfg, _torch(batch))
     _close(got, want)
 
 
 def test_forward_blocks_long_sequences(arch, monkeypatch):
     # 24 positions in query blocks of 8: past every SMOKE window (16)
     jcfg, jparams, cfg, params = arch
-    toks = _tokens(cfg.vocab_size, B=1, S=24, seed=1)
-    want = jtf.forward(jparams, jcfg, {"tokens": toks})
+    batch = _batch(cfg, B=1, S=24, seed=1)
+    want = jtf.forward(jparams, jcfg, batch)
     monkeypatch.setattr(attn._sdpa_chunked, "__kwdefaults__", {
         "window": None, "chunk": 8})
-    got = tf.forward(params, cfg, {"tokens": torch.from_numpy(toks)})
+    got = tf.forward(params, cfg, _torch(batch))
     _close(got, want)

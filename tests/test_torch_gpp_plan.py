@@ -387,3 +387,61 @@ def test_ring_depth_weighs_waves(M, G):
     assert sched.tc_ctas_per_sm(p.smem_bytes) == (3 if M == 8 else 2)
     # a pinned ring is kept whatever its waves
     assert sched.plan_matmul_tc_sm90(M, K, N, num_bufs=2).num_bufs == 2
+
+
+# (block_n, block_k, cluster, G) planned at every bf16 projection (K, N) of
+# the dense-cache paths (chip_smoke.DENSE_GPP): zamba2's w_in / w_bc / w_dt
+# (N = 10240 / 128 / 32) and w_out (K = 5120), its shared block; xlstm's
+# gates (N = 4), its 2048-wide projections (the sigmoid output gates, and
+# w_o, 4 heads of 512 contracted as one 2048-row K); musicgen's gelu up and
+# its down; llama-3.2-vision's q / o, k / v, gate and down.  The same at 4
+# (decode), 15 (a prompt), 16, 20, 32 and 128 (a 4 x 32 step prefill)
+# rows but for G, which is 1 (in situ) at 128 rows but at two shapes
+DENSE_PLANS = {
+    (2560, 10240): (128, 256, 1, 2), (2560, 128): (64, 256, 8, 2),
+    (2560, 32): (128, 256, 8, 2), (5120, 2560): (128, 256, 4, 2),
+    (2560, 2560): (128, 256, 4, 2), (10240, 2560): (128, 256, 4, 2),
+    (2048, 2048): (128, 256, 4, 2), (2048, 4): (128, 256, 8, 1),
+    (2048, 8192): (128, 256, 1, 2), (8192, 2048): (128, 256, 4, 2),
+    (4096, 4096): (128, 256, 2, 2), (4096, 1024): (128, 256, 8, 2),
+    (4096, 14336): (128, 256, 1, 2), (14336, 4096): (128, 256, 2, 2)}
+SAME_G_AT_128 = {(2560, 128), (2048, 4)}
+
+
+@pytest.mark.parametrize("M", (4, 15, 16, 20, 32, 128))
+def test_dense_path_plans_are_pinned(M):
+    for (K, N), (bn, bk, S, G) in DENSE_PLANS.items():
+        p = sched.plan_matmul_tc_sm90(M, K, N)
+        if M == 128 and (K, N) not in SAME_G_AT_128:
+            G = 1
+        assert (p.block_n, p.block_k, p.cluster, p.num_bufs) == \
+            (bn, bk, S, G), (M, K, N)
+        assert p.block_m == (16 if M <= 16 else 32 if M <= 32 else 128)
+        assert sched.tc_waves(p.tiles, p.cluster, p.smem_bytes) == 1
+        # every rank has k-steps; the tiles pad N by less than one tile
+        assert p.cluster <= p.num_k and p.n_tiles * p.block_n < N + 128
+
+
+def test_cross_kv_plan_is_pinned():
+    # llama-3.2-vision's cross K / V project 4 x 1600 patch embeddings
+    # (6400 rows) at every step: 50 m-tiles of 128 rows, clusters of 8 over
+    # K = 4096, in situ (192 KB of shared memory, one CTA an SM)
+    p = sched.plan_matmul_tc_sm90(6400, 4096, 1024)
+    assert (p.block_m, p.block_n, p.block_k, p.cluster, p.num_bufs) == \
+        (128, 128, 256, 8, 1)
+    assert p.m_tiles == 50 and p.tiles == 400
+    assert sched.tc_waves(p.tiles, p.cluster, p.smem_bytes) == 25
+
+
+@pytest.mark.parametrize("K,N", ((2560, 32000), (2048, 50304),
+                                 (4096, 128256), (2048, 2048)))
+def test_dense_path_head_plans_are_pinned(K, N):
+    # the f32 logits heads of zamba2, xlstm, llama-3.2-vision and musicgen
+    # on the FMA route (f32 x against the bf16 table): block_k 256, all
+    # 132 SMs, a 2-slot ring, and the same k-cuts at 1 and 4 rows
+    plans = [sched.plan_matmul_fma_sm90(M, K, N, w_itemsize=2)
+             for M in (1, 4)]
+    for p in plans:
+        assert (p.block_m, p.block_k, p.grid, p.num_bufs) == (4, 256, 132, 2)
+    assert [plans[0].cta_units(i) for i in range(132)] == \
+        [plans[1].cta_units(i) for i in range(132)]

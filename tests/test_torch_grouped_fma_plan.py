@@ -347,7 +347,7 @@ def test_head_rows_do_not_depend_on_the_batch(arch):
     K, N = HEADS[arch]
     g = torch.Generator().manual_seed(5)
     x = torch.randn(32, K, generator=g)
-    w = (torch.randn(K, N, generator=g) * 0.02).bfloat16()
+    w = torch.randn(K, N, generator=g, dtype=torch.bfloat16).mul_(0.02)
     rows = {M: dense_split_ref(x[:M], w, sched.plan_matmul_fma_sm90(
         M, K, N, w_itemsize=2)) for M in (1, 4, 20, 32)}
     for M, y in rows.items():

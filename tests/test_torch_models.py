@@ -327,17 +327,22 @@ class TestParamsAndBridge:
             for k in jtf.layer_group_keys(jcfg))
 
     def test_registry_holds_the_six_paged_archs(self):
-        assert set(registry.ARCH_NAMES) == {
-            "qwen1.5-0.5b", "deepseek-v2-lite-16b", *NEW_ARCHS}
-        assert set(registry.ARCH_NAMES) < set(jregistry.ARCH_NAMES)
-        # the dense-engine archs (zamba2, xlstm, musicgen, llama-3.2-vision)
-        # are not ported: not listed, and their configs raise in the model
-        for arch in set(jregistry.ARCH_NAMES) - set(registry.ARCH_NAMES):
-            with pytest.raises(KeyError, match="unknown arch"):
-                registry.get_config(arch)
-            cfg = config_from_reference(jregistry.get_config(arch, True))
-            with pytest.raises(ValueError, match="not ported yet"):
-                tf.param_specs(cfg)
+        # the six paged archs and, since the dense-cache slice, the
+        # reference's other four: the registry is the reference's
+        assert {"qwen1.5-0.5b", "deepseek-v2-lite-16b", *NEW_ARCHS} < set(
+            registry.ARCH_NAMES)
+        assert set(registry.ARCH_NAMES) == set(jregistry.ARCH_NAMES)
+        # the four others have no paged form: the paged cache refuses them
+        # (the reference's does too) and they run on the dense-cache
+        # engine or through prefill / decode_step
+        for arch in ("zamba2-2.7b", "xlstm-1.3b", "musicgen-large",
+                     "llama-3.2-vision-11b"):
+            cfg = registry.get_config(arch, smoke=True)
+            assert not tf.supports_paged(cfg)
+            assert not jtf.supports_paged(jregistry.get_config(arch, True))
+            with pytest.raises(ValueError, match="dense-cache engine"):
+                tf.paged_cache_specs(cfg, 8, 16)
+            assert tf.param_specs(cfg)["blocks"]
 
     def test_bridge_carries_moe_and_mla_leaves(self):
         jcfg, cfg = _smoke("float32", "deepseek-v2-lite-16b")

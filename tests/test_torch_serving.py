@@ -126,9 +126,10 @@ class TestEngineParity:
                                                        **SERVE),
                               draft_model=(cfg, params))
             assert _run(eng, prompts) == plain
-        # what stays unported raises: the dense-cache engine's archs
+        # the paged engine refuses the recurrent archs, as the reference's
+        # paged cache does: they run on the dense-cache engine
         jcfg = jregistry.get_config("xlstm-1.3b", smoke=True)
-        with pytest.raises(ValueError, match="not ported yet"):
+        with pytest.raises(ValueError, match="use the dense-cache engine"):
             ServingEngine(config_from_reference(jcfg), params,
                           ServeConfig(device="cpu"))
 
@@ -291,11 +292,41 @@ class TestCli:
         assert "3 requests, 12 tokens" in r.stdout
         assert "'prefill_chunk': 1" in r.stdout
 
-    def test_dense_engine_raises(self):
+    def test_dense_engine_serves_on_cpu_when_asked(self, capsys):
+        # --engine dense serves a paged arch on the dense-cache engine: the
+        # same greedy streams as the paged engine at f32 is the engine
+        # tests' business; here the CLI runs it and says which engine
         from repro_torch.launch import serve
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
-                        "cpu", "--engine", "dense"])
+        args = ["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
+                "--requests", "3", "--max-new", "4", "--slots", "2",
+                "--max-len", "64"]
+        out = serve.main(args + ["--engine", "dense"])
+        text = capsys.readouterr().out
+        assert "3 requests, 12 tokens" in text
+        assert "DenseServingEngine" in text and "'decode': 1" in text
+        assert sorted(out) == [0, 1, 2]
+        assert all(len(v) == 4 for v in out.values())
+
+    @pytest.mark.parametrize("arch", ("zamba2-2.7b", "xlstm-1.3b"))
+    def test_auto_sends_recurrent_archs_to_the_dense_engine(self, arch,
+                                                            capsys):
+        from repro_torch.launch import serve
+        serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--requests", "3", "--max-new", "4", "--slots", "2",
+                    "--max-len", "64"])
+        text = capsys.readouterr().out
+        assert "3 requests, 12 tokens" in text
+        assert "DenseServingEngine" in text
+
+    @pytest.mark.parametrize("arch,error,match", [
+        ("musicgen-large", SystemExit, "takes embedding inputs"),
+        ("llama-3.2-vision-11b", ValueError, "encoder embeddings")])
+    def test_embedding_archs_are_refused(self, arch, error, match):
+        # musicgen with the reference's message; llama-3.2-vision takes
+        # tokens, and the dense-cache engine refuses its cross layers
+        from repro_torch.launch import serve
+        with pytest.raises(error, match=match):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
     @pytest.mark.parametrize("flags,expect", [
         (("--prefix-cache", "--prefix-cache-blocks", "4"),
