@@ -162,7 +162,27 @@ In order, it:
      exactly the path's kernels (bf16: the tensor-core gpp_matmul, its FMA
      route for the f32 logits head once a step-function call, RMSNorm; f32:
      the FMA gpp_matmul and RMSNorm; no attention or grouped kernel);
-  9. prints {"kernels": [...]} and, last, the device line.  Each phase's
+  9. (slice 14) training: the tensor-core gpp_matmul at qwen's projections
+     over 4 x 1024 rows, the f32 FMA head at a 512-position chunk (2048
+     rows) and the grouped tensor-core kernel at deepseek's training
+     capacity, timed beside their plain versions and torch.matmul /
+     torch.bmm; then qwen1.5-0.5b at full width and depth, bf16, AdamW,
+     batch 4 x 1024, block remat: one loss and gradient on the kernel
+     route against the plain route in bf16 (every leaf at cosine >= 0.99,
+     a leaf whose exact gradient is 0 both norms under 1e-3 of the
+     global) and in f32 (each leaf within 1e-3 of its scale), launching
+     only gpp_matmul_tc, gpp_matmul (the f32 head) and rmsnorm,
+     recomputation included, and the plain route none; 8 AdamW steps at
+     lr 1e-3 descending; an async checkpoint after step 8 restored into a
+     fresh tree bit for bit, a step from each with equal losses; the CLI
+     (`launch.train.main`, SMOKE widths) for 4 steps with a checkpoint
+     every 2, then resumed to 6; an Adafactor step; tok/s, peak memory
+     and one profiled step's device time by part; then
+     deepseek-v2-lite-16b at full width with 2 layers, bf16, 4 x 512: the
+     same route check (the router and every expert stack among the
+     leaves), the grouped kernel launched at the training capacity, the
+     aux load-balance loss on both routes within 1e-5, one AdamW step;
+ 10. prints {"kernels": [...]} and, last, the device line.  Each phase's
      seconds are printed as it ends (`phase ...: N s`).
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -3679,6 +3699,566 @@ def check_step_model(report, arch: str, f32_layers=None):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# slice 14: training (loss, remat, AdamW / Adafactor, data, checkpoints)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 1024      # qwen: two 512-token cross-entropy chunks
+DS_TRAIN_S, DS_TRAIN_LAYERS = 512, 2   # deepseek: the dense layer + 1 MoE
+TRAIN_PATH = ("gpp_matmul_tc", "gpp_matmul", "rmsnorm")
+TRAIN_MOE = TRAIN_PATH + ("gpp_matmul_grouped_tc",)
+TRAIN_F32 = ("gpp_matmul", "rmsnorm")
+TRAIN_STEPS, TRAIN_LR = 8, 1e-3   # tests/test_system.py's micro-train
+# bf16: the loss's relative error, a leaf's gradient cosine (sound runs
+# read >= 0.99991), a null leaf's share of the global norm
+BF16_LOSS_RTOL, GRAD_COS, GRAD_NULL = 1e-3, 0.999, 1e-3
+F32_LOSS_RTOL, F32_GRAD_RTOL = 1e-5, 1e-3
+# product kernels PyTorch's matmuls launch (cuBLAS / CUTLASS): the kernels'
+# backward products (inside `kernels.ops.BACKWARD_RANGE`) and, outside it,
+# the plain attention's einsums (forward, remat and backward)
+LIBRARY_PRODUCTS = ("gemm", "Gemm", "xmma", "cutlass", "sm90_")
+
+
+def train_batch(cfg, B: int, S: int, step: int = 0):
+    """Batch `step` of the ported `TokenPipeline` (seed 0), on the card."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    pipe = TokenPipeline(cfg, DataConfig(seed=0, batch=B, seq_len=S))
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in pipe.batch_at(step).items()}
+
+
+def named_leaves(tree) -> dict:
+    from repro_torch.checkpoint.manager import _flatten_with_names
+    return _flatten_with_names(tree)
+
+
+def counted(fn, *a):
+    """fn(*a) with every launch count set to 0 just before; returns (out,
+    counts)."""
+    import torch
+    torch.cuda.synchronize()
+    for c in counters().values():
+        c.n = 0
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, {k: c.n for k, c in counters().items()}
+
+
+def grad_routes(what: str, cfg, params, batch, path):
+    """One loss and gradient on the kernel route (the path's kernels,
+    recomputation included, and no others) and on the plain route
+    (`dense_kernel="ref"`: none of the port's kernels), on the card.
+    Returns (kernel (loss, grads), plain (loss, grads), kernel counts)."""
+    from repro_torch.launch.steps import value_and_grad
+    ker, counts = counted(value_and_grad, cfg, params, batch)
+    check_path_launches(f"{what} kernel route", counts, path)
+    plain, pcounts = counted(value_and_grad, cfg.with_(dense_kernel="ref"),
+                             params, batch)
+    check(not any(pcounts.values()),
+          f"{what}: the plain route launched {pcounts}")
+    for name, g in named_leaves(ker[1]).items():
+        check(bool(g.float().isfinite().all()),
+              f"{what}: a non-finite gradient at {name}")
+    print(f"{what}: launches on the kernel route (fwd, remat, bwd) "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return ker, plain, counts
+
+
+def compare_bf16_grads(what: str, ker, plain) -> dict:
+    """bf16: the loss within BF16_LOSS_RTOL; each leaf's gradient at cosine
+    >= GRAD_COS with the plain one, but for a leaf whose exact gradient is
+    0, where a cosine means nothing: both its norms under GRAD_NULL of the
+    global norm.  Those are the leaves whose plain gradient is exactly 0:
+    deepseek's unstacked layer 0 inits its 1-D `kv_norm` to zeros, as the
+    reference does, so its attention's values are 0 and every attention
+    leaf but `kv_norm` gets no gradient.  (The k bias, whose gradient is
+    small, is held to the cosine.)  Every leaf's cosine and share of the
+    global norm are kept."""
+    import torch
+    (lk, gk), (lp, gp) = ker, plain
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    gk, gp = named_leaves(gk), named_leaves(gp)
+    total = math.sqrt(sum(float(g.float().square().sum())
+                          for g in gp.values()))
+    leaves, null = {}, []
+    for name, a in gk.items():
+        a, b = a.float().flatten(), gp[name].float().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        leaves[name] = {"cosine": float(torch.dot(a, b)) / max(na * nb,
+                                                               1e-30),
+                        "norm_share": nb / total,
+                        "kernel_norm_share": na / total}
+        if nb == 0.0:
+            null.append(name)
+    ranked = sorted((v["cosine"], n) for n, v in leaves.items()
+                    if n not in null)
+    shares = {n: (leaves[n]["kernel_norm_share"], leaves[n]["norm_share"])
+              for n in null}
+    print(f"{what} bf16: loss {float(lk):.6f} vs plain {float(lp):.6f} "
+          f"({rel:.3g}); least gradient cosines "
+          f"{[(round(c, 6), n) for c, n in ranked[:4]]}; null leaves' "
+          f"norms / the global norm (kernel, plain) {shares}", flush=True)
+    check(rel <= BF16_LOSS_RTOL, f"{what}: bf16 loss {float(lk)} vs plain "
+                       f"{float(lp)} ({rel:.3g} relative)")
+    for n in null:
+        check(max(leaves[n]["norm_share"], leaves[n]["kernel_norm_share"])
+              < GRAD_NULL, f"{what}: {n}'s gradient norms {leaves[n]}")
+    check(ranked[0][0] >= GRAD_COS, f"{what}: bf16 gradient of "
+                                    f"{ranked[0][1]} at cosine "
+                                    f"{ranked[0][0]:.5f} with the plain one")
+    return {"loss": float(lk), "plain_loss": float(lp), "loss_rel": rel,
+            "least_cosine": ranked[0][0], "least_cosine_leaf": ranked[0][1],
+            "null_leaves": null, "global_norm": total, "leaves": leaves}
+
+
+def compare_f32_grads(what: str, ker, plain) -> dict:
+    """f32: the loss within F32_LOSS_RTOL relative; each leaf within
+    F32_GRAD_RTOL x max(its largest |plain| value, 1e-3 x the largest over
+    all leaves)."""
+    (lk, gk), (lp, gp) = ker, plain
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    check(rel <= F32_LOSS_RTOL, f"{what}: f32 loss {float(lk)} vs plain "
+                                f"{float(lp)} ({rel:.3g} relative)")
+    gk, gp = named_leaves(gk), named_leaves(gp)
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = (-1.0, "")
+    for name, a in gk.items():
+        b = gp[name]
+        err = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                               1e-3 * top)
+        worst = max(worst, (err, name))
+    check(worst[0] <= F32_GRAD_RTOL, f"{what}: f32 gradient of {worst[1]} "
+                                     f"off by {worst[0]:.3g} of its scale")
+    print(f"{what} f32: loss {float(lk):.8f} vs plain {float(lp):.8f} "
+          f"({rel:.3g}); worst leaf {worst[1]} at {worst[0]:.3g} of its "
+          f"scale (gate {F32_GRAD_RTOL})", flush=True)
+    return {"loss": float(lk), "plain_loss": float(lp), "loss_rel": rel,
+            "worst_leaf_rel": worst[0], "worst_leaf": worst[1]}
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (-0.0 is not 0.0)."""
+    import torch
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return (a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in named_leaves(tree).values())
+
+
+def profiled_split(fn) -> "tuple[object, dict, float]":
+    """fn() under torch.profiler: (its result, device seconds under
+    gpp_matmul tc / FMA, rmsnorm, the kernels' backward (its library
+    products and the rest, by the kernels launched from inside
+    `kernels.ops.BACKWARD_RANGE`), the library's other products (the plain
+    attention's einsums) and everything else, the wall seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.kernels.ops import BACKWARD_RANGE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = dict.fromkeys(("gpp_matmul_tc", "gpp_matmul",
+                           "gpp_matmul_grouped_tc", "rmsnorm",
+                           "backward_products", "backward_other",
+                           "library_products", "other"), 0.0)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    for e in events:
+        # a range recorded on the CPU also shows on the device's timeline
+        # (a user annotation spanning its kernels): not a kernel
+        if e.device_type != cuda or e.name == BACKWARD_RANGE or getattr(
+                e, "is_user_annotation", False):
+            continue
+        key = next((k for k in split if k in KERNEL_NAMES
+                    and KERNEL_NAMES[k] in e.name), None)
+        if key is None:
+            key = ("library_products" if any(n in e.name for n in
+                                             LIBRARY_PRODUCTS) else "other")
+        split[key] += e.time_range.elapsed_us() / 1e6
+    # the device kernels that the CPU ops under the backward ranges
+    # launched (each op keeps its own in `kernels`) move to their own keys
+    seen, stack = set(), [e for e in events if e.device_type != cuda
+                          and e.name == BACKWARD_RANGE]
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        stack.extend(e.cpu_children)
+        for k in e.kernels:
+            if any(name in k.name for name in KERNEL_NAMES.values()):
+                continue
+            product = any(n in k.name for n in LIBRARY_PRODUCTS)
+            split["backward_products" if product else "backward_other"] += \
+                k.duration / 1e6
+            split["library_products" if product else "other"] -= \
+                k.duration / 1e6
+    check(min(split.values()) > -1e-6, f"the profiled split counts a "
+                                       f"kernel twice: {split}")
+    return out, split, wall
+
+
+def check_train_qwen(report):
+    """qwen1.5-0.5b at full width and depth (24 layers), AdamW, batch 4 x
+    1024 (two cross-entropy chunks), block remat: (1) one loss and
+    gradient on the kernel route against the plain route in bf16 and in
+    f32 (launches of the path's kernels only, and none on the plain
+    route); (2) 8 AdamW steps at a constant 1e-3, the last loss below the
+    first; (3) an async checkpoint after step 8, restored into a fresh
+    tree bit for bit, one step from each with equal losses; (4) the CLI
+    (`--smoke`), 4 steps with a checkpoint every 2, then resumed to 6;
+    (5) one Adafactor step; (6) tok/s over the timed steps, peak memory,
+    and one profiled step's device time by part and busy share."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adafactor as adaf
+    from repro_torch.optim import adamw
+    arch = "qwen1.5-0.5b"
+    out, seconds = {}, {}
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _model(arch, "bfloat16")
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S)
+    value_and_grad(cfg, params, batch)                     # warm-up
+    ker, plain, counts = grad_routes(f"train {arch}", cfg, params, batch,
+                                     TRAIN_PATH)
+    out["bf16"] = compare_bf16_grads(f"train {arch}", ker, plain)
+    out["bf16"].update(launches=counts, num_layers=cfg.num_layers)
+    del ker, plain
+    seconds["routes bf16"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    optc = adamw.AdamWConfig(lr=TRAIN_LR)
+    state = adamw.adamw_init(params)
+    losses, step_s = [], []
+    p, o = params, state
+    for i in range(TRAIN_STEPS):
+        b = train_batch(cfg, TRAIN_B, TRAIN_S, i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, g = value_and_grad(cfg, p, b)
+        p, o, _ = adamw.adamw_update(optc, g, o, p)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t1)
+        del g
+    check(all(map(math.isfinite, losses)), f"train {arch}: losses {losses}")
+    check(losses[-1] < losses[0], f"train {arch}: no descent {losses}")
+    timed = step_s[1:]
+    out["descent"] = {"losses": losses, "step_s": step_s,
+                      "tok_s": TRAIN_B * TRAIN_S * len(timed) / sum(timed)}
+    print(f"train {arch} AdamW lr {TRAIN_LR}: losses "
+          f"{[round(x, 4) for x in losses]}; {out['descent']['tok_s']:.0f} "
+          f"tok/s over steps 2-{TRAIN_STEPS}", flush=True)
+    seconds["descent"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        mgr.save(TRAIN_STEPS, {"p": p, "o": o}, blocking=False)
+        mgr.wait()
+        fresh = {"p": tf.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")}
+        fresh["o"] = adamw.adamw_init(fresh["p"])
+        restored, at = mgr.restore(fresh)
+        del fresh
+    check(at == TRAIN_STEPS, f"restored step {at}")
+    live = named_leaves({"p": p, "o": o})
+    for name, r in named_leaves(restored).items():
+        check(same_bits(r, live[name]),
+              f"train {arch}: checkpoint leaf {name} differs")
+    b = train_batch(cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS)
+    l_restored = float(value_and_grad(cfg, restored["p"], b)[0])
+    l_live = float(value_and_grad(cfg, p, b)[0])
+    check(l_restored == l_live, f"train {arch}: the restored state's loss "
+                                f"{l_restored} != the live one's {l_live}")
+    out["checkpoint"] = {"leaves": len(live), "bytes": tree_bytes(restored),
+                         "loss": l_live}
+    print(f"train {arch} checkpoint: {len(live)} leaves "
+          f"({out['checkpoint']['bytes'] / 1e9:.2f} GB) restored bit for "
+          f"bit; a step from each: loss {l_restored} == {l_live}",
+          flush=True)
+    del restored
+    seconds["checkpoint"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    step = make_train_step(cfg.with_(optimizer="adafactor"), optc)
+    fs = adaf.adafactor_init(params)
+    _, fs2, m = step.fn(params, fs, b, 0)
+    ada = float(m["loss"])
+    check(math.isfinite(ada), f"train {arch}: Adafactor loss {ada}")
+    out["adafactor"] = {"loss": ada, "state_bytes": tree_bytes(fs2),
+                        "adamw_state_bytes": tree_bytes(o)}
+    print(f"train {arch} Adafactor step: loss {ada:.4f}; state "
+          f"{out['adafactor']['state_bytes'] / 1e6:.1f} MB against AdamW's "
+          f"{out['adafactor']['adamw_state_bytes'] / 1e6:.1f} MB",
+          flush=True)
+    del fs, fs2
+    seconds["adafactor"] = time.perf_counter() - t
+
+    # the device time of one profiled step (loss, gradient, AdamW) over
+    # the wall time of an unprofiled one (the timed steps' mean)
+    t = time.perf_counter()
+    _, split, wall = profiled_split(lambda: adamw.adamw_update(
+        optc, value_and_grad(cfg, p, b)[1], o, p))
+    busy = sum(split.values())
+    step_wall = sum(timed) / len(timed)
+    check(split["backward_products"] > 0, f"train {arch}: no device time "
+          f"inside the kernels' backward ranges {split}")
+    out["profile"] = {"device_s": split, "busy_share": busy / step_wall,
+                      "step_wall_s": step_wall, "profiled_wall_s": wall,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"train {arch} profiled step: device "
+          f"{ {k: round(v, 4) for k, v in split.items()} } s, busy "
+          f"{busy / step_wall:.3f} of a {step_wall:.3f}s step ("
+          f"{wall:.3f}s profiled); peak {out['profile']['peak_mem_gb']:.1f} "
+          f"GB", flush=True)
+    del p, o, params, state
+    torch.cuda.empty_cache()
+    seconds["profile"] = time.perf_counter() - t
+
+    # the CLI at SMOKE widths: its checkpoints of the full model's AdamW
+    # state would be 4.6 GB each (the full width ran above)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        logs = []
+        for steps in (4, 6):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli = train_cli.main(["--arch", arch, "--smoke", "--steps",
+                                      str(steps), "--ckpt-every", "2",
+                                      "--ckpt-dir", d])
+            logs.append(buf.getvalue())
+            check(all(map(math.isfinite, cli)), f"CLI losses {cli}")
+            out.setdefault("cli_losses", []).append(cli)
+    check("resumed from step" not in logs[0], "the first CLI call resumed")
+    check("resumed from step 4" in logs[1],
+          f"the second CLI call did not resume from step 4: {logs[1]}")
+    first, second = ([round(x, 4) for x in c] for c in out["cli_losses"])
+    print(f"train {arch} CLI: --steps 4 --ckpt-every 2 losses {first}, "
+          f"then --steps 6 resumed from step 4: {second}", flush=True)
+    seconds["cli"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    cfg, params = _model(arch, "float32")
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S)
+    ker, plain, counts = grad_routes(f"train {arch} f32", cfg, params,
+                                     batch, TRAIN_F32)
+    out["f32_kernel"] = compare_f32_grads(f"train {arch}", ker, plain)
+    out["f32_kernel"].update(launches=counts, num_layers=cfg.num_layers)
+    del ker, plain, params
+    torch.cuda.empty_cache()
+    seconds["routes f32"] = time.perf_counter() - t
+    out["seconds"] = seconds
+    print(f"train {arch} seconds: "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }", flush=True)
+    report.setdefault("serving", {})[f"train {arch}"] = out
+    return out
+
+
+def check_train_deepseek(report):
+    """deepseek-v2-lite-16b at full width with 2 layers (the dense layer 0
+    and one MoE layer), bf16, batch 4 x 512: the kernel route against the
+    plain one (the router and every expert stack among the leaves), the
+    grouped tensor-core kernel launched at the training capacity, the aux
+    load-balance loss on both routes (f32 router, on the final hidden
+    states), one AdamW step."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    arch = "deepseek-v2-lite-16b"
+    out, t = {}, time.perf_counter()
+    cfg, params = _model(arch, "bfloat16", DS_TRAIN_LAYERS)
+    batch = train_batch(cfg, TRAIN_B, DS_TRAIN_S)
+    mc = tf._moe_cfg(cfg)
+    T = TRAIN_B * DS_TRAIN_S
+    G = moe_mod._dispatch_groups(mc, T)
+    rows = G * moe_mod.capacity(mc, T // G)
+    from repro_torch.kernels import gpp_matmul as gm
+    shapes = []
+    launch = gm._launch_grouped
+
+    def seen(x, *a, **kw):
+        shapes.append(tuple(x.shape))
+        return launch(x, *a, **kw)
+    gm._launch_grouped = seen
+    try:
+        ker, plain, counts = grad_routes(f"train {arch}", cfg, params,
+                                         batch, TRAIN_MOE)
+    finally:
+        gm._launch_grouped = launch
+    check(bool(shapes) and all(s[:2] == (cfg.num_experts, rows)
+                               for s in shapes),
+          f"train {arch}: grouped launches at {set(shapes)}, not "
+          f"({cfg.num_experts}, {rows}, ...)")
+    out["bf16"] = compare_bf16_grads(f"train {arch}", ker, plain)
+    out["bf16"].update(launches=counts, num_layers=DS_TRAIN_LAYERS,
+                       grouped_shapes=sorted(set(shapes)))
+    del ker, plain
+    with torch.no_grad():
+        h = tf.hidden_states(params, cfg, batch)
+        p0 = tf._index(params["blocks"]["b0"]["moe"], 0)
+        aux_k = float(moe_mod.aux_load_balance_loss(p0, mc, h))
+        aux_p = float(moe_mod.aux_load_balance_loss(
+            p0, dataclasses.replace(mc, dense_kernel="ref"), h))
+    check(abs(aux_k - aux_p) <= 1e-5, f"train {arch}: aux loss {aux_k} vs "
+                                      f"plain {aux_p}")
+    out["aux_loss"] = {"kernel": aux_k, "plain": aux_p}
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    state = adamw.adamw_init(params)
+    _, _, m = step.fn(params, state, batch, 0)
+    check(math.isfinite(float(m["loss"])), f"train {arch}: AdamW loss")
+    out["adamw_loss"] = float(m["loss"])
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t
+    print(f"train {arch} ({DS_TRAIN_LAYERS} layers): grouped launches at "
+          f"{sorted(set(shapes))}; aux loss {aux_k:.8f} vs plain "
+          f"{aux_p:.8f}; AdamW step loss {out['adamw_loss']:.4f}; peak "
+          f"{out['peak_mem_gb']:.1f} GB", flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+    report.setdefault("serving", {})[f"train {arch}"] = out
+    return out
+
+
+TRAIN_GPP = {"qkv (bias)": (D, D, True), "gate_up": (D, F, False),
+              "down": (F, D, False)}
+
+
+def event_times(fns: dict, sets, iters: int) -> dict:
+    """{key: ms a call} of each function over `sets`, by CUDA events
+    (`time_ms`).  The training shapes' calls take 0.1-35 ms, so the
+    host's launch cost is a few percent of them, and CUDA events do not
+    drop a call as a profiler trace now and then does."""
+    return {k: time_ms(fn, sets, iters) for k, fn in fns.items()}
+
+
+def check_train_kernels(report):
+    """The kernels at the training shapes, each first held element by
+    element against its plain version on its own route (TOL; the head as
+    `check_head` holds it; RMSNorm as `rms_err` does, at qwen's 4 x 1024
+    and deepseek's 4 x 512 rows), then timed by CUDA events beside its
+    plain version, the library's call and its bound: the tensor-core
+    gpp_matmul at qwen's projections over 4 x 1024 rows, the FMA f32 head
+    at one 512-position chunk (2048 x 1024 x 151936: f32 x against the
+    bf16 table's (d, vocab) copy; the library multiplies the f32 table)
+    and the grouped tensor-core kernel at deepseek's training capacity."""
+    import torch
+    from repro_torch.kernels import gpp_matmul as gm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
+    from repro_torch.kernels.ref import (dense_grouped_ref, dense_ref,
+                                         rmsnorm_ref)
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(3)
+    M = TRAIN_B * TRAIN_S
+    for proj, (K, N, bias) in TRAIN_GPP.items():
+        err = gpp_case(M, K, N, "bfloat16", bias=bias, seed=3)
+        sets = [(torch.randn(M, K, generator=g, device="cuda").bfloat16(),
+                 (torch.randn(K, N, generator=g, device="cuda")
+                  * 0.02).bfloat16(),
+                 (torch.randn(N, generator=g, device="cuda")
+                  * 0.1).bfloat16() if bias else None)
+                for _ in range(copies_for(K * N * 2))]
+        rows.append({"kernel": "gpp_matmul_tc", "proj": proj, "M": M,
+                     "K": K, "N": N, "max_abs_err": err, **event_times({
+                         "ms": lambda x, w, b: gpp_matmul(x, w, bias=b),
+                         "plain_ms": lambda x, w, b: dense_ref(x, w, bias=b),
+                         "library_ms": lambda x, w, b: torch.matmul(x, w)
+                         if b is None else torch.addmm(b, x, w)}, sets, 50)})
+        rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(
+            (M * K + K * N + M * N + (N if bias else 0)) * 2,
+            2.0 * M * K * N, "bfloat16")
+        del sets
+    hm, V = TRAIN_B * 512, 151936
+    table = (torch.randn(V, D, generator=g, device="cuda") * 0.02).bfloat16()
+    sets = [(torch.randn(hm, D, generator=g, device="cuda"),
+             table.t().contiguous(), table.float())]
+    fma = gm.launches.n
+    y = ops.dense(*sets[0][:2])
+    check(gm.launches.n == fma + 1, "train head: not the FMA route")
+    ref = dense_ref(*sets[0][:2])
+    d = (y - ref).abs()
+    err = float(d.max())
+    check(bool(torch.isfinite(y).all())
+          and bool((d <= 2e-4 + 2e-4 * ref.abs()).all()),
+          f"train head {hm}x{D}x{V}: max err {err}")
+    del y, ref, d
+    rows.append({"kernel": "gpp_matmul", "proj": "f32 head", "M": hm,
+                 "K": D, "N": V, "max_abs_err": err, **event_times({
+                     "ms": lambda x, wt, _: ops.dense(x, wt),
+                     "plain_ms": lambda x, wt, _: dense_ref(x, wt),
+                     "library_ms": lambda x, _, t32: x @ t32.t()}, sets, 10)})
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(
+        hm * D * 4 + D * V * 2 + hm * V * 4, 2.0 * hm * D * V, "float32")
+    del sets, table
+    torch.cuda.empty_cache()
+    cfg = registry.get_config("deepseek-v2-lite-16b")
+    mc = tf._moe_cfg(cfg)
+    T = TRAIN_B * DS_TRAIN_S
+    G = moe_mod._dispatch_groups(mc, T)
+    cap = G * moe_mod.capacity(mc, T // G)
+    for proj, (K, N) in DS_PROJ.items():
+        sets = [grouped_inputs(cap, K, N, "bfloat16", seed=i)
+                for i in range(copies_for(DS_E * K * N * 2))]
+        err = grouped_check(*sets[0], what="training capacity")
+        rows.append({"kernel": "gpp_matmul_grouped_tc", "proj": proj,
+                     "E": DS_E, "M": cap, "K": K, "N": N,
+                     "max_abs_err": err, **event_times({
+                         "ms": lambda x, w: gpp_matmul_grouped(x, w),
+                         "plain_ms": lambda x, w: dense_grouped_ref(x, w),
+                         "library_ms": torch.bmm}, sets, 50)})
+        rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(
+            DS_E * (cap * K + K * N + cap * N) * 2,
+            2.0 * DS_E * cap * K * N, "bfloat16")
+        del sets
+    norms = {}
+    for arch, (n, width) in {"qwen1.5-0.5b": (M, D),
+                             "deepseek-v2-lite-16b": (T, DS_D)}.items():
+        x = (torch.randn(n, width, generator=g, device="cuda")
+             * 2).bfloat16()
+        scale = (1 + 0.1 * torch.randn(width, generator=g,
+                                       device="cuda")).bfloat16()
+        before = rn.launches_rmsnorm.n
+        y = rn.rmsnorm(x, scale, RMS_EPS)
+        check(rn.launches_rmsnorm.n == before + 1, "rmsnorm did not launch")
+        err, ok = rms_err(y, rmsnorm_ref(x, scale, RMS_EPS), "bfloat16")
+        check(ok and bool(torch.isfinite(y.float()).all()),
+              f"train rmsnorm {arch} {n}x{width}: max err {err}")
+        norms[f"{arch} {n}x{width}"] = err
+    for r in rows:
+        shape = "x".join(str(r[k]) for k in ("E", "M", "K", "N") if k in r)
+        print(f"train shape {r['kernel']} {r['proj']} {shape}: max_abs_err="
+              f"{r['max_abs_err']:.3g} ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+              f"({r['ms'] / r['library_ms']:.2f}x) bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    print(f"train shape rmsnorm bf16 max_abs_err {norms}", flush=True)
+    report["train_kernels"] = rows
+    report["train_rmsnorm_max_abs_err"] = norms
+    return rows, norms
+
+
 def main(argv=None) -> int:
     global REPORT_DIR
     ap = argparse.ArgumentParser()
@@ -3801,6 +4381,12 @@ def main(argv=None) -> int:
        label="qwen1.5-0.5b --engine dense")
     for arch in ("llama-3.2-vision-11b", "musicgen-large"):
         ph(f"steps {arch}", check_step_model, report, arch)
+    # slice 14: training, its kernels at the training shapes, then qwen1.5
+    # at full width and depth and deepseek at full width with 2 layers
+    train_rows, train_norms = ph("train kernels", check_train_kernels,
+                                 report)
+    ph("train qwen", check_train_qwen, report)
+    ph("train deepseek", check_train_deepseek, report)
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
@@ -3873,6 +4459,17 @@ def main(argv=None) -> int:
                     out[arch + label.format(layers)] = n
         return out
 
+    def train_by(kernel):
+        """The training-shape times of one kernel, by projection."""
+        return {f"{r['proj']} " + "x".join(str(r[k]) for k in
+                                           ("E", "M", "K", "N") if k in r):
+                {k: r[k] for k in at_new if k in r}
+                for r in train_rows if r["kernel"] == kernel}
+
+    def train_err(kernel):
+        return max(r["max_abs_err"] for r in train_rows
+                   if r["kernel"] == kernel)
+
     tc_by_path = by_path("gpp_matmul_tc")
     fma_by_path = {**by_path("gpp_matmul"), **by_path("gpp_matmul", True)}
     head_by_shape = {f"{r['arch']} {r['phase']} {r['M']}x{r['K']}x{r['N']}":
@@ -3894,7 +4491,8 @@ def main(argv=None) -> int:
          "path": ", ".join(serving),
          "launches": sum(tc_by_path.values()),
          "launches_by_path": tc_by_path,
-         "max_abs_err": max(gpp_err["tc"], dense_err["tc"]),
+         "max_abs_err": max(gpp_err["tc"], dense_err["tc"],
+                            train_err("gpp_matmul_tc")),
          "tol": "atol 2e-2 + rtol 2e-2 x |plain| (bf16)",
          "shape": f"qwen decode up-projection {g['M']}x{g['K']}x{g['N']} "
                   "bf16 (every shape of both paths: --json-out)",
@@ -3904,6 +4502,7 @@ def main(argv=None) -> int:
              f"{r['path']} {r['proj']} {r['M']}x{r['K']}x{r['N']}":
                  {k: r[k] for k in at_new} for r in dense_rows if "ms" in r},
          "gemm_sequence": seq,
+         "train_shapes": train_by("gpp_matmul_tc"),
          "worst_prefill_verify_vs_library": max(
              (r["ms"] / r["library_ms"], f"{r['path']} {r['phase']} "
               f"{r['proj']} {r['M']}x{r['K']}x{r['N']}")
@@ -3921,7 +4520,8 @@ def main(argv=None) -> int:
          "launches": sum(by_path("gpp_matmul").values()),
          "launches_by_path": fma_by_path,
          "max_abs_err": max(gpp_err["fma"], dense_err["fma"],
-                            max(r["max_abs_err"] for r in head_rows)),
+                            max(r["max_abs_err"] for r in head_rows),
+                            train_err("gpp_matmul")),
          "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 and int8 W as "
                 "bf16",
          "shape": f"deepseek decode router {gr['M']}x{gr['K']}x{gr['N']} "
@@ -3933,6 +4533,7 @@ def main(argv=None) -> int:
                                 if r["proj"] == "router"
                                 and r["path"] == "deepseek-v2-lite-16b"},
          "logits_head": head_by_shape,
+         "train_head": train_by("gpp_matmul"),
          "slice13_heads": {f"{a} {SLOTS}x{k}x{n}": {
              x: dense_heads[a][x] for x in ("ms", "library_ms", "plain_ms",
                                             "bound_ms")}
@@ -4002,8 +4603,9 @@ def main(argv=None) -> int:
          "path": ", ".join(serving),
          "launches": sum(by_path("rmsnorm").values()),
          "launches_by_path": by_path("rmsnorm"),
-         "max_abs_err": max(r["max_abs_err"] for r in rms_rows
-                            + dense_norms),
+         "max_abs_err": max([r["max_abs_err"] for r in rms_rows
+                             + dense_norms] + list(train_norms.values())),
+         "train_shapes_max_abs_err": train_norms,
          "tol": "f32 1e-5 + 1e-5 x |plain|; bf16 one bf16 step (also the "
                 "cross layers' 128-wide per-head rows)",
          "shape": f"qwen decode {SLOTS}x{D} bf16 (widths 512-2048, 1-32 "
@@ -4025,7 +4627,9 @@ def main(argv=None) -> int:
              arch: {ph: v["expert_bytes_unrouted_share"]
                     for ph, v in out.items() if ph != "peak_mem_gb"}
              for arch, out in report["moe_layer"].items()},
-         "max_abs_err": grouped_err["tc"],
+         "max_abs_err": max(grouped_err["tc"],
+                            train_err("gpp_matmul_grouped_tc")),
+         "train_capacity": train_by("gpp_matmul_grouped_tc"),
          "shape": f"decode gate/up {gg['E']}x{gg['M']}x{gg['K']}x{gg['N']} "
                   "bf16",
          **{k: gg[k] for k in numbers}},

@@ -17,8 +17,10 @@ from repro_torch.configs.base import ModelConfig
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:             # e.g. a view of a jax array
+    a = np.asarray(a)
+    # a C-order copy when needed (a view of a jax array is read-only);
+    # not np.ascontiguousarray, which makes a 0-d array (a step count) 1-d
+    if not (a.flags.c_contiguous and a.flags.writeable):
         a = a.copy()
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -46,3 +48,14 @@ def config_from_reference(ref_cfg) -> ModelConfig:
     config object of the same name (fields the port lacks are ignored)."""
     return ModelConfig(**{f.name: getattr(ref_cfg, f.name)
                           for f in dataclasses.fields(ModelConfig)})
+
+
+def opt_state_from_numpy(tree, device="cpu"):
+    """The reference's optimizer state as numpy trees -> the port's:
+    AdamW's {"mu", "nu", "count"} or Adafactor's {"factors", "count"}
+    (each leaf keeps its dtype: f32 moments and factors, an int32
+    count)."""
+    if set(tree) not in ({"mu", "nu", "count"}, {"factors", "count"}):
+        raise ValueError(f"not an AdamW or Adafactor state: keys "
+                         f"{sorted(tree)}")
+    return params_from_numpy(tree, device)

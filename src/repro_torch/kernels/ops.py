@@ -10,6 +10,18 @@ models' RMSNorm (which the reference leaves to XLA), routed by mode:
   kernel  the CUDA kernel; raises on a CPU tensor
   ref     the plain PyTorch path, for tests and kernel-vs-plain comparisons
 
+On a CUDA tensor that carries a gradient (training), each kernel runs
+inside an `autograd.Function` (`DenseKernel`, `DenseGroupedKernel`,
+`RmsnormKernel`): the forward launches the kernel, the backward runs the
+plain maths, as the reference's custom VJPs do (`_dense_kernel_bwd`:
+recompute through the fused-epilogue oracle and pull back).  The products
+of the backward run in f32 through `torch.matmul` / `torch.bmm`, outside
+any kernel of the port, as the reference's run in XLA, inside a profiler
+range named `BACKWARD_RANGE` that opens after the saved tensors are
+unpacked (so a block remat's recomputation, which the unpacking runs,
+stays outside it).  Without a gradient the wrappers are called as they
+are.
+
 The plain path of each is the kernel's plain version (`kernels.ref`):
 `dense_ref` / `dense_grouped_ref` accumulate in f32 and run the epilogue in
 f32, as the kernels do.  (The reference's own CPU paths, `_dense_ref_path`
@@ -33,9 +45,11 @@ from repro_torch.kernels.gpp_matmul import gpp_matmul, gpp_matmul_grouped
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.ref import (ACTIVATIONS, dense_grouped_ref,
-                                     dense_ref, paged_attn_ref, rmsnorm_ref)
+                                     dense_ref, grouped_ref_chunk,
+                                     paged_attn_ref, rmsnorm_ref)
 
 DENSE_MODES = ("auto", "ref", "kernel")
+BACKWARD_RANGE = "repro_torch.kernel_backward"
 
 
 def resolve_mode(mode: str, t: torch.Tensor) -> str:
@@ -48,6 +62,157 @@ def resolve_mode(mode: str, t: torch.Tensor) -> str:
         raise ValueError("mode='kernel' launches a CUDA kernel and needs "
                          "CUDA tensors")
     return mode
+
+
+def _grad_wanted(*ts) -> bool:
+    """True when autograd records an op on any of these tensors."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _no_scale_grad(w_scale) -> None:
+    if isinstance(w_scale, torch.Tensor) and w_scale.requires_grad:
+        raise ValueError("w_scale (the int8 dequant scale) takes no "
+                         "gradient: no training path quantizes its weights")
+
+
+def _epilogue_grad(acc_fn, g: torch.Tensor, w_scale, bias, activation):
+    """The f32 gradient at the accumulator of act(acc * w_scale + bias),
+    given the gradient g of its output (cast back to f32, as the cast to
+    x.dtype pulls back), and the gradient at the pre-activation, whose
+    sum over rows is the bias's.  acc_fn() recomputes the f32 accumulator
+    when the activation needs its input; w_scale and bias come in f32,
+    shaped to broadcast against it."""
+    gf = g.float()
+    if activation in (None, "none"):
+        dpre = gf
+    else:
+        pre = acc_fn()
+        if w_scale is not None:
+            pre = pre * w_scale
+        if bias is not None:
+            pre = pre + bias
+        with torch.enable_grad():
+            pre = pre.detach().requires_grad_()
+            dpre, = torch.autograd.grad(ACTIVATIONS[activation](pre), pre,
+                                        gf)
+    dacc = dpre if w_scale is None else dpre * w_scale
+    return dacc, dpre
+
+
+class DenseKernel(torch.autograd.Function):
+    """`gpp_matmul` with the reference's VJP (`_dense_kernel`): the forward
+    launches the kernel; the backward runs the plain maths of `dense_ref`
+    on the saved x and W (the pre-activation recomputed in f32 when the
+    activation needs it), each gradient in its input's dtype.  An int8 W
+    and w_scale take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, w_scale, activation):
+        _no_scale_grad(w_scale)
+        ctx.save_for_backward(x, w, bias)
+        ctx.w_scale, ctx.activation = w_scale, activation
+        return gpp_matmul(x, w, bias=bias, w_scale=w_scale,
+                          activation=activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            return DenseKernel._pull_back(ctx, g, x, w, bias)
+
+    @staticmethod
+    def _pull_back(ctx, g, x, w, bias):
+        sc = None if ctx.w_scale is None else torch.as_tensor(
+            ctx.w_scale, dtype=torch.float32, device=g.device).reshape(1, -1)
+        dacc, dpre = _epilogue_grad(
+            lambda: x.float() @ w.float(), g, sc,
+            None if bias is None else bias.float().reshape(1, -1),
+            ctx.activation)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (dacc @ w.float().t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().t() @ dacc).to(w.dtype)
+        if bias is not None and ctx.needs_input_grad[2]:
+            db = dpre.sum(0).reshape(bias.shape).to(bias.dtype)
+        return dx, dw, db, None, None
+
+
+class DenseGroupedKernel(torch.autograd.Function):
+    """`gpp_matmul_grouped` with the reference's VJP
+    (`_dense_grouped_kernel`): the forward launches the kernel, the
+    backward runs `dense_grouped_ref`'s maths expert by expert in chunks of
+    experts (`grouped_ref_chunk`, so no f32 copy of a whole stack is
+    made), each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, w_scale, activation):
+        _no_scale_grad(w_scale)
+        ctx.save_for_backward(x, w, bias)
+        ctx.w_scale, ctx.activation = w_scale, activation
+        return gpp_matmul_grouped(x, w, bias=bias, w_scale=w_scale,
+                                  activation=activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            return DenseGroupedKernel._pull_back(ctx, g, x, w, bias)
+
+    @staticmethod
+    def _pull_back(ctx, g, x, w, bias):
+        E, _, K = x.shape
+        N = w.shape[2]
+        sc = None if ctx.w_scale is None else torch.as_tensor(
+            ctx.w_scale, dtype=torch.float32, device=g.device)
+        want_x, want_w, want_b = ctx.needs_input_grad[:3]
+        dx = torch.empty_like(x) if want_x else None
+        dw = torch.empty_like(w) if want_w else None
+        db = torch.empty_like(bias) if bias is not None and want_b else None
+        step = grouped_ref_chunk(E, K, N)
+        for e0 in range(0, E, step):
+            e = slice(e0, e0 + step)
+            wf = w[e].float()
+            esc = (None if sc is None else
+                   sc if sc.dim() == 0 else sc[e].reshape(len(sc[e]), 1, -1))
+            dacc, dpre = _epilogue_grad(
+                lambda: torch.bmm(x[e].float(), wf), g[e], esc,
+                None if bias is None else bias[e].float()[:, None, :],
+                ctx.activation)
+            if dx is not None:
+                dx[e] = torch.bmm(dacc, wf.transpose(1, 2)).to(x.dtype)
+            if dw is not None:
+                dw[e] = torch.bmm(x[e].float().transpose(1, 2),
+                                  dacc).to(w.dtype)
+            if db is not None:
+                db[e] = dpre.sum(1).to(bias.dtype)
+        return dx, dw, db, None, None
+
+
+class RmsnormKernel(torch.autograd.Function):
+    """The RMSNorm kernel with a plain backward: the forward launches
+    `rmsnorm_kernel`, the backward pulls back through `rmsnorm_ref`
+    recomputed on the saved x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_kernel.rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE), \
+                torch.enable_grad():
+            xx = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            ss = scale.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = rmsnorm_ref(xx, ss, ctx.eps)
+            wrt = [t for t in (xx, ss) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, g))
+        return (next(grads) if xx.requires_grad else None,
+                next(grads) if ss.requires_grad else None, None)
 
 
 def plan_ring_depth(M: int, K: int, block_n: int,
@@ -148,6 +313,9 @@ def dense(x: torch.Tensor, w: torch.Tensor, *, bias=None, w_scale=None,
     if resolve_mode(mode, x) == "ref":
         y2 = dense_ref(x2, w2, bias=bias, w_scale=w_scale,
                        activation=activation)
+    elif _grad_wanted(x2, w2, bias, w_scale):
+        y2 = DenseKernel.apply(x2.contiguous(), w2.contiguous(), bias,
+                               w_scale, activation)
     else:
         y2 = gpp_matmul(x2.contiguous(), w2.contiguous(), bias=bias,
                         w_scale=w_scale, activation=activation)
@@ -172,6 +340,9 @@ def dense_grouped(x: torch.Tensor, w: torch.Tensor, *, bias=None,
     if resolve_mode(mode, x) == "ref":
         return dense_grouped_ref(x, w, bias=bias, w_scale=w_scale,
                                  activation=activation)
+    if _grad_wanted(x, w, bias, w_scale):
+        return DenseGroupedKernel.apply(x.contiguous(), w, bias, w_scale,
+                                        activation)
     return gpp_matmul_grouped(x.contiguous(), w, bias=bias, w_scale=w_scale,
                               activation=activation)
 
@@ -211,4 +382,6 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6,
     them, "ref" its plain version (`kernels.ref.rmsnorm_ref`)."""
     if resolve_mode(mode, x) == "ref":
         return rmsnorm_ref(x, p["scale"], eps)
+    if _grad_wanted(x, p["scale"]):
+        return RmsnormKernel.apply(x, p["scale"], eps)
     return rmsnorm_kernel.rmsnorm(x, p["scale"], eps)

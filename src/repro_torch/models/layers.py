@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, the MLP, embedding and the tied LM head.
+"""Shared layers: RMSNorm, RoPE, the MLP, embedding, the LM heads and the
+cross-entropy loss.
 
 Copies of `repro.models.layers` in torch, on plain dicts of tensors.  Norms
 and rotary maths run in f32; RMSNorm goes through `kernels.ops.rmsnorm`
@@ -12,6 +13,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import dense
@@ -31,6 +33,26 @@ def map_specs(fn, tree, path=()):
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, path + (k,)) for k, v in tree.items()}
     return [map_specs(fn, v, path + (i,)) for i, v in enumerate(tree)]
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts / lists (and of trees of the same
+    structure in `rest`), keeping the structure (sequences become
+    lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts / lists, in `tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def stack_specs(specs, n: int):
@@ -155,3 +177,43 @@ def unembed(p: dict, x: torch.Tensor, mode: str = "auto") -> torch.Tensor:
     """Logits in f32 against the (vocab, d) embedding (`head_logits`, on
     the serving copy `embedding_t` when the caller made one)."""
     return head_logits(x, p["embedding"], p.get("embedding_t"), mode)
+
+
+def lm_head(p: dict, x: torch.Tensor, mode: str = "auto") -> torch.Tensor:
+    """f32 logits against the untied head's live (vocab, d) `w_out`, never
+    its serving copy `w_out_t`: the training head, whose gradient must
+    reach the table it reads."""
+    return head_logits(x, p["w_out"], None, mode)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL; logits f32 (B, S, V), labels int (B, S)."""
+    return torch.mean(_token_nll(logits, labels))
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
+def _chunk_nll(head_fn, xc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    return torch.sum(_token_nll(head_fn(xc), lc))
+
+
+def cross_entropy_chunked(head_fn, x: torch.Tensor, labels: torch.Tensor,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean token NLL without the whole (B, S, V) logits: the sequence in
+    chunks of `chunk` positions, each projected to f32 logits by
+    `head_fn`, reduced to its summed NLL and recomputed in the backward
+    (`torch.utils.checkpoint`), so the peak holds one chunk's logits (the
+    reference's `jax.checkpoint`-ed scan).  When S is not a whole number of
+    chunks the sequence is one chunk, as in the reference."""
+    B, S, _ = x.shape
+    if S % chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        total = total + checkpoint(_chunk_nll, head_fn, x[:, i:i + chunk],
+                                   labels[:, i:i + chunk],
+                                   use_reentrant=False)
+    return total / (B * S)

@@ -183,3 +183,22 @@ def moe_apply(p, c: MoeConfig, x: torch.Tensor) -> torch.Tensor:
         out = out + dense(hs, sh["w_down"],
                           mode=c.dense_kernel).reshape(B, S, D)
     return out
+
+
+def aux_load_balance_loss(p, c: MoeConfig, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance auxiliary loss (the reference's): E x the
+    sum over experts of (the share of tokens whose top expert it is) x
+    (its mean router probability).  The router runs through `dense` at
+    `router_dtype`, as in `_dispatch`; `transformer.loss_fn` does not add
+    it."""
+    D = x.shape[-1]
+    xt = x.reshape(-1, D)
+    w = p["router"]
+    if c.router_dtype != torch.float32:
+        w = w.to(c.router_dtype)
+    logits = dense(xt.to(c.router_dtype), w, mode=c.dense_kernel)
+    probs = torch.softmax(logits, dim=-1)
+    top_e = torch.argmax(probs, dim=-1)
+    frac = (torch.bincount(top_e, minlength=c.num_experts).float()
+            / xt.shape[0])
+    return c.num_experts * torch.sum(frac * torch.mean(probs, dim=0))

@@ -14,6 +14,10 @@ Entry points:
   forward(params, cfg, batch)          full-sequence logits; batch holds
                                        "tokens" or "embeds", and "enc"
                                        for cross layers
+  hidden_states, loss_fn(params, cfg, batch)
+                                       the training forward (block remat)
+                                       and its chunked cross entropy over
+                                       batch["labels"]
   cache_specs, prefill, decode_step    the dense-cache step functions
                                        (every block kind)
   paged_cache_specs / init_paged_caches
@@ -29,6 +33,7 @@ with distribution.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -36,10 +41,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (Spec, embed, embed_specs,
-                                       head_logits, init_from_specs,
-                                       map_specs, mlp, mlp_specs, rmsnorm,
-                                       rmsnorm_specs, stack_specs, unembed)
+from repro_torch.models.layers import (Spec, cross_entropy_chunked, embed,
+                                       embed_specs, head_logits,
+                                       init_from_specs, map_specs,
+                                       mlp, mlp_specs, rmsnorm,
+                                       rmsnorm_specs, stack_specs,
+                                       tree_leaves, unembed)
 
 PAGED_BLOCK_KINDS = ("dense", "moe")
 
@@ -366,18 +373,55 @@ def _inputs(params, cfg: ModelConfig, batch: dict):
     return x, None if enc is None else enc.to(cfg.torch_dtype)
 
 
+def _backbone(params: dict, cfg: ModelConfig, batch: dict):
+    """The layers over the whole sequence, before the final norm.  When
+    autograd records (a parameter carries a gradient) and `cfg.remat` is
+    "block", each superblock layer runs under `torch.utils.checkpoint`
+    (non-reentrant): the backward recomputes it from its input, as the
+    reference's `jax.checkpoint` around its scan body does (the prefix
+    layers, outside the scan there, keep their activations here too)."""
+    x, enc = _inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    remat = (cfg.remat == "block" and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree_leaves(params)))
+    n_prefix = len(cfg.prefix_pattern)
+    for j, (kind, p) in enumerate(_tree_layers(params, cfg)):
+        if remat and j >= n_prefix:
+            x = checkpoint(apply_block, cfg, kind, p, x, positions, enc,
+                           use_reentrant=False)
+        else:
+            x = apply_block(cfg, kind, p, x, positions, enc)
+    return x
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict):
     """Full-sequence forward to f32 logits (B, S, vocab).  batch:
     {"tokens": (B, S)} or {"embeds": (B, S, D)}, with "enc": (B, T, D) for
     cross layers.  Projections run `kernels.ops.dense`, MoE layers
     `dense_grouped`, norms the RMSNorm kernel and the head
     `layers.head_logits`, as the step functions do."""
-    x, enc = _inputs(params, cfg, batch)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    for kind, p in _tree_layers(params, cfg):
-        x = apply_block(cfg, kind, p, x, positions, enc)
-    return _logits_head(params, cfg, x)
+    return _logits_head(params, cfg, _backbone(params, cfg, batch))
+
+
+def hidden_states(params: dict, cfg: ModelConfig, batch: dict):
+    """The forward up to and including the final norm: no LM head."""
+    return rmsnorm(params["final_norm"], _backbone(params, cfg, batch),
+                   mode=cfg.dense_kernel)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The training loss: mean token NLL of batch["labels"] (B, S) over
+    `hidden_states`, in 512-position chunks (`cross_entropy_chunked`).
+    The head reads the live table (`embed.embedding` tied, `lm_head.w_out`
+    untied), never a serving copy, so its gradient reaches the table; a
+    tied table gets its gradient through both the lookup and the head."""
+    x = hidden_states(params, cfg, batch)
+    table = (params["embed"]["embedding"] if cfg.tie_embeddings
+             else params["lm_head"]["w_out"])
+    return cross_entropy_chunked(
+        lambda xc: head_logits(xc, table, None, cfg.dense_kernel), x,
+        batch["labels"], chunk=512)
 
 
 def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,

@@ -1,0 +1,102 @@
+"""AdamW with global-norm clipping and a cosine schedule (the port's copy of
+`repro.optim.adamw`), on trees of tensors (nested dicts / lists).
+
+The reference's choices are kept: moments are f32 whatever the parameter
+dtype, `count` is an int32 scalar, the update runs in f32 and is cast to
+the parameter's dtype, and weight decay applies to every leaf, norms and
+biases included.  `compress="bf16"` rounds the gradients to bf16 first
+(the reference does so before its gradient all-reduce; at world size 1
+only the rounding remains).  The update is functional: it returns new
+trees and leaves the ones it was given as they were.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.models.layers import (Spec, map_specs, tree_leaves,
+                                       tree_map)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    compress: "str | None" = None     # None | "bf16" gradient compression
+
+
+def adamw_init(params):
+    """Moment state (f32, on each parameter's device) shaped like params;
+    count is an int32 scalar."""
+    dev = tree_leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def adamw_state_specs(param_specs):
+    def f32(_, s: Spec):
+        return Spec(s.shape, torch.float32)
+    return {"mu": map_specs(f32, param_specs),
+            "nu": map_specs(f32, param_specs),
+            "count": Spec((), torch.int32)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(leaf^2), in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for leaf in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, state, params, lr=None):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
+    if cfg.compress == "bf16":
+        grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
+    grads = tree_map(lambda g: g.float(), grads)
+
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    grads = tree_map(lambda g: g * scale, grads)
+
+    count = state["count"] + 1
+    b1c = 1.0 - torch.pow(cfg.b1, count.float())
+    b2c = 1.0 - torch.pow(cfg.b2, count.float())
+    lr_t = torch.as_tensor(cfg.lr if lr is None else lr,
+                           dtype=torch.float32, device=count.device)
+
+    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g,
+                  state["mu"], grads)
+    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g,
+                  state["nu"], grads)
+
+    def upd(p, m, v):
+        pf = p.float()
+        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+            + cfg.weight_decay * pf
+        return (pf - lr_t * step).to(p.dtype)
+
+    new_params = tree_map(upd, params, mu, nu)
+    return new_params, {"mu": mu, "nu": nu, "count": count}, {
+        "grad_norm": gnorm, "lr": lr_t}
+
+
+def cosine_lr(step, *, peak: float, warmup: int, total: int,
+              floor_frac: float = 0.1) -> torch.Tensor:
+    """Linear warm-up to `peak` over `warmup` steps, then a cosine down to
+    floor_frac x peak at `total`, in f32 (a 0-d tensor on step's device,
+    the CPU for a Python int)."""
+    s = torch.as_tensor(step).to(torch.float32)
+    warm = peak * s / max(1, warmup)
+    prog = torch.clamp((s - warmup) / max(1, total - warmup), 0.0, 1.0)
+    cos = peak * (floor_frac + (1 - floor_frac) * 0.5
+                  * (1 + torch.cos(math.pi * prog)))
+    return torch.where(s < warmup, warm, cos)

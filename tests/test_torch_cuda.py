@@ -1245,3 +1245,68 @@ def test_dense_engine_kernels_match_plain(cuda, arch):
         res = eng.run()
         out[mode] = [res[r] for r in rids]
     assert out["auto"] == out["ref"]
+
+
+def _grads_on(cuda, fn, *ts):
+    """fn over leaf copies of ts, pulled back with a seeded cotangent:
+    (output, gradients)."""
+    ts = [t.detach().requires_grad_() for t in ts]
+    y = fn(*ts)
+    g = torch.randn(y.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(5), device=cuda).to(y.dtype)
+    return y, torch.autograd.grad(y, ts, g)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("act", (None, "silu", "gelu"))
+def test_dense_gradients_through_the_kernel(cuda, dtype, act):
+    # a CUDA tensor that carries a gradient launches the kernel once (the
+    # backward is the plain maths) and gets the plain route's gradients
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(4, 64, 1024, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(1024, 16, 64, generator=g, device=cuda) * 0.02).to(dtype)
+    b = (torch.randn(16, 64, generator=g, device=cuda) * 0.1).to(dtype)
+    before = (gm.launches.n, gm.launches_tc.n)
+    yk, gk = _grads_on(cuda, lambda x, w, b: ops.dense(
+        x, w, bias=b, activation=act), x, w, b)
+    ran = (gm.launches.n - before[0], gm.launches_tc.n - before[1])
+    assert ran == ((0, 1) if dtype == torch.bfloat16 else (1, 0))
+    yp, gp = _grads_on(cuda, lambda x, w, b: ops.dense(
+        x, w, bias=b, activation=act, mode="ref"), x, w, b)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(yk.float(), yp.float(), rtol=tol, atol=tol)
+    for a, e in zip(gk, gp):
+        assert a.dtype == e.dtype == dtype
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().flatten(), e.float().flatten(), dim=0)
+        assert float(cos) > (0.999 if dtype == torch.bfloat16 else 0.999999)
+
+
+def test_grouped_and_rmsnorm_gradients_through_the_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(64, 240, 2048, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(64, 2048, 1408, generator=g, device=cuda)
+         * 0.02).bfloat16()
+    before = gm.launches_grouped_tc.n
+    yk, gk = _grads_on(cuda, lambda x, w: ops.dense_grouped(
+        x, w, activation="silu"), x, w)
+    assert gm.launches_grouped_tc.n - before == 1
+    yp, gp = _grads_on(cuda, lambda x, w: ops.dense_grouped(
+        x, w, activation="silu", mode="ref"), x, w)
+    assert bool(torch.isfinite(yk.float()).all())
+    torch.testing.assert_close(yk.float(), yp.float(), rtol=2e-2, atol=2e-2)
+    for a, e in zip(gk, gp):
+        cos = torch.nn.functional.cosine_similarity(
+            a.float().flatten(), e.float().flatten(), dim=0)
+        assert a.dtype == torch.bfloat16 and float(cos) > 0.999
+    xs = torch.randn(8, 1024, generator=g, device=cuda)
+    s = 1 + 0.1 * torch.randn(1024, generator=g, device=cuda)
+    before = rn.launches_rmsnorm.n
+    yk, gk = _grads_on(cuda, lambda x, s: ops.rmsnorm({"scale": s}, x),
+                       xs, s)
+    assert rn.launches_rmsnorm.n - before == 1
+    yp, gp = _grads_on(cuda, lambda x, s: ops.rmsnorm({"scale": s}, x,
+                                                      mode="ref"), xs, s)
+    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-5)
+    for a, e in zip(gk, gp):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-6)

@@ -27,7 +27,7 @@ def _imported(path: Path):
 def test_port_files_found():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "gpp_matmul.py", "paged_attention.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "train.py", "adamw.py", "manager.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
