@@ -182,7 +182,18 @@ In order, it:
      same route check (the router and every expert stack among the
      leaves), the grouped kernel launched at the training capacity, the
      aux load-balance loss on both routes within 1e-5, one AdamW step;
- 10. prints {"kernels": [...]} and, last, the device line.  Each phase's
+ 10. (slice 15) the layer streamer (`core.streamer`): qwen1.5-0.5b at
+     full width and depth in bf16 with its 24 stacked layers resting in
+     pinned host memory (617 MB), the embedding and final norm on the
+     card; at 4 x 1024 and 4 x 16 tokens, resident (all on the card) and
+     insitu, naive_pp and gpp at G = 2, 3, 4 and the planned rings, the
+     fetches host-to-device copies on a side stream: hidden states and
+     logits equal resident's bit for bit, the bytes a step flat at one
+     layer, launches, the median of 5 timed passes, peak HBM; the
+     host-to-device rate and `plan_stream`'s rings at the bf16 peak and at
+     resident's measured compute; a remat gradient under gpp (G = 3)
+     equal to resident's (`check_layer_streaming`);
+ 11. prints {"kernels": [...]} and, last, the device line.  Each phase's
      seconds are printed as it ends (`phase ...: N s`).
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -4259,6 +4270,298 @@ def check_train_kernels(report):
     return rows, norms
 
 
+# slice 15: the layer streamer (core.streamer) at qwen1.5-0.5b's full width
+# and depth, its 24 layers resting in pinned host memory
+STREAM_SHAPES = ((4, 1024), (4, 16))   # training's tokens; a copy-bound pass
+STREAM_RINGS = (2, 3, 4)
+STREAM_WARM, STREAM_TIMED = 2, 5
+STREAM_GRAD_RING = 3
+STREAM_PATH = ("gpp_matmul_tc", "gpp_matmul", "rmsnorm")
+
+
+def event_ms(fn, warm: int, timed: int) -> "tuple[float, list, float]":
+    """(median, all) ms of `timed` calls of fn by CUDA events, each its own
+    pair of events, after `warm` calls; and the median ms the host took to
+    issue a call (from its start to its return, before the card
+    finishes)."""
+    import statistics
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(timed):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        host.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times), times, statistics.median(host)
+
+
+def h2d_rate(nbytes: int) -> "tuple[float, float]":
+    """(bytes / s, ms) of one contiguous pinned host buffer of `nbytes`
+    copied to the card, median of 10."""
+    import torch
+    src = torch.ones(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms, _, _ = event_ms(lambda: dst.copy_(src, non_blocking=True), 2, 10)
+    check(bool(dst.eq(1).all()), "host-to-device copy")
+    return nbytes / (ms * 1e-3), ms
+
+
+def layer_flops(cfg, B: int, S: int) -> float:
+    """One layer's operations on B x S tokens: 2 a weight of its
+    projections a token, and the plain attention's two products over
+    every score (it computes the masked ones too)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import map_specs, tree_leaves
+    sizes = map_specs(lambda _, s: math.prod(s.shape) if len(s.shape) > 1
+                      else 0, tf.block_specs(cfg, cfg.pattern[0]))
+    width = cfg.num_heads * cfg.resolved_head_dim
+    return 2.0 * B * S * sum(tree_leaves(sizes)) + 4.0 * B * S * S * width
+
+
+def recording(rec: list):
+    """Every `stream_layers` call of the transformer appends its issue
+    record to `rec` until the returned undo is called."""
+    from repro_torch.models import transformer as tf
+    inner = tf.stream_layers
+
+    def recorded(*a, **kw):
+        return inner(*a, record=rec, **kw)
+    tf.stream_layers = recorded
+    return lambda: setattr(tf, "stream_layers", inner)
+
+
+def step_bytes(rec: list) -> dict:
+    out = {}
+    for step, _, _, nbytes in rec:
+        out[step] = out.get(step, 0) + nbytes
+    return out
+
+
+def check_layer_streaming(report):
+    """qwen1.5-0.5b at full width and all 24 layers, bf16, random weights
+    from seed 0; `params["blocks"]` (the 24 stacked layers) copied into
+    pinned host memory, the embedding and the final norm on the card.  For
+    4 x 1024 and 4 x 16 tokens: resident (every layer on the card, the
+    yardstick), then insitu, naive_pp and gpp at G = 2, 3, 4 and the rings
+    `plan_stream` plans at the bf16 peak and at the compute time resident
+    measured a layer, each with `StreamSettings(chunk_dim=0)` (a chunk is a
+    contiguous run of rows): the hidden states and logits equal resident's
+    bit for bit, the tensor-core `gpp_matmul` and RMSNorm launched in each
+    streamed pass (the FMA head too in the logits pass), the bytes each
+    step issued flat at one layer after the prologue, the median of 5
+    timed hidden-state passes by CUDA events after 2 warm-ups, and the
+    peak HBM.  Also the host-to-device rate on one layer's contiguous
+    pinned bytes, and the loss and every gradient leaf of a remat step at
+    4 x 1024 under gpp (G = 3) against resident's (resident twice first:
+    equal if resident repeats itself, else no further from it than it is
+    from itself)."""
+    import torch
+    from repro_torch.core.schedule import plan_stream
+    from repro_torch.core.streamer import StreamSettings
+    from repro_torch.launch.steps import stream_specs, value_and_grad
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_leaves, tree_map
+    arch, card = "qwen1.5-0.5b", report["card"]
+    out = report["layer_streaming"] = {"card": card}
+    cfg, params = _model(arch, "bfloat16")
+    check(cfg.num_layers == 24 and cfg.num_superblocks == 24,
+          f"{arch}: {cfg.num_layers} layers")
+    host = tree_map(lambda t: t.cpu().pin_memory(), params["blocks"])
+    check(all(t.is_pinned() for t in tree_leaves(host)), "pinned blocks")
+    streamed = {**params, "blocks": host}
+    layer_params = sum(t[0].numel() for t in tree_leaves(host))
+    layer_bytes = sum(t[0].numel() * t.element_size()
+                      for t in tree_leaves(host))
+    rate, copy_ms = h2d_rate(layer_bytes)
+    out.update(layer_params=layer_params, layer_bytes=layer_bytes,
+               blocks_bytes=layer_bytes * cfg.num_layers,
+               h2d_bytes_per_s=rate, h2d_layer_ms=copy_ms)
+    print(f"layer streaming [{card}]: {arch} {cfg.num_layers} layers, "
+          f"{layer_params:,} parameters a layer ({layer_bytes / 1e6:.2f} "
+          f"MB), {layer_bytes * cfg.num_layers / 1e6:.1f} MB of blocks in "
+          f"pinned host memory; host-to-device {rate / 1e9:.2f} GB/s "
+          f"({copy_ms:.4f} ms for one layer's contiguous pinned bytes)",
+          flush=True)
+    specs = stream_specs(cfg)
+
+    def settings(mode, G=4):
+        return cfg.with_(stream=StreamSettings(mode=mode, ring_depth=G,
+                                               chunk_dim=0))
+
+    # resident first, the blocks on the card: the yardstick's bits and times
+    ref, shapes = {}, {}
+    with torch.no_grad():
+        for B, S in STREAM_SHAPES:
+            fb = {"tokens": train_batch(cfg, B, S)["tokens"]}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms, times, host_ms = event_ms(
+                lambda: tf.hidden_states(params, cfg, fb), STREAM_WARM,
+                STREAM_TIMED)
+            peak = torch.cuda.max_memory_allocated()
+            ref[B, S] = (tf.hidden_states(params, cfg, fb),
+                         tf.forward(params, cfg, fb))
+            shapes[f"{B}x{S}"] = {"resident": {
+                "ms": ms, "times": times, "host_ms": host_ms,
+                "base_gb": base / 1e9, "peak_gb": peak / 1e9}}
+    # the gradient's yardstick, twice
+    gb = train_batch(cfg, TRAIN_B, TRAIN_S)
+    res = [value_and_grad(cfg, params, gb) for _ in range(2)]
+    res = [(loss, {k: v.cpu() for k, v in named_leaves(g).items()})
+           for loss, g in res]
+    del params                       # the card keeps no layer from here on
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(STREAM_PATH, 0)
+    for B, S in STREAM_SHAPES:
+        key = f"{B}x{S}"
+        row = shapes[key]
+        fb = {"tokens": train_batch(cfg, B, S)["tokens"]}
+        hid_ref, logits_ref = ref[B, S]
+        flops = layer_flops(cfg, B, S)
+        t_layer = row["resident"]["ms"] * 1e-3 / cfg.num_layers
+        plans = {}
+        for name, fps in (("peak 989e12", PEAK_OPS["bfloat16"]),
+                          ("measured", flops / t_layer)):
+            p = plan_stream(block_bytes=layer_bytes, compute_flops=flops,
+                            flops_per_s=fps, transfer_bytes_per_s=rate,
+                            max_ring=8)
+            L = cfg.num_layers
+            plans[name] = {
+                "G": p.ring_depth, "chunks": p.chunks,
+                "t_compute_ms": p.t_compute * 1e3,
+                "t_transfer_ms": p.t_transfer * 1e3,
+                "insitu_ms": L * (p.t_compute + p.t_transfer) * 1e3,
+                "ping_pong_ms": (p.t_transfer
+                                 + L * max(p.t_compute, p.t_transfer)) * 1e3}
+            print(f"layer streaming {key} plan_stream at {name} "
+                  f"({fps:.4g} FLOP/s, {flops / 1e9:.3f} GFLOP a layer; "
+                  f"{rate / 1e9:.2f} GB/s): G={p.ring_depth} chunks="
+                  f"{p.chunks} t_compute={p.t_compute * 1e3:.4f} ms "
+                  f"t_transfer={p.t_transfer * 1e3:.4f} ms; predicted "
+                  f"insitu {plans[name]['insitu_ms']:.3f} ms, ping-pong "
+                  f"{plans[name]['ping_pong_ms']:.3f} ms [{card}]",
+                  flush=True)
+        row["plans"] = plans
+        rings = sorted({*STREAM_RINGS, *(p["G"] for p in plans.values())})
+        variants = [("insitu", 4), ("naive_pp", 4)] + [("gpp", g)
+                                                       for g in rings]
+        res_ms = row["resident"]["ms"]
+        r = row["resident"]
+        print(f"layer streaming {key} resident: {res_ms:.3f} ms a pass "
+              f"(hidden states; {r['times']}; the host issued it in "
+              f"{r['host_ms']:.3f} ms); peak "
+              f"{r['peak_gb'] - r['base_gb']:.3f} GB above the "
+              f"{r['base_gb']:.3f} GB held before the pass [{card}]",
+              flush=True)
+        for mode, G in variants:
+            name = mode if mode != "gpp" else f"gpp G={G}"
+            c = settings(mode, G)
+            rec = []
+            undo = recording(rec)
+            try:
+                with torch.no_grad():
+                    hid, counts = counted(tf.hidden_states, streamed, c, fb,
+                                          None, *specs)
+                    logits, lcounts = counted(tf.forward, streamed, c, fb,
+                                              None, *specs)
+            finally:
+                undo()
+            check(same_bits(hid, hid_ref),
+                  f"{key} {name}: hidden states differ from resident's")
+            check(same_bits(logits, logits_ref),
+                  f"{key} {name}: logits differ from resident's")
+            check_path_launches(f"{key} {name} hidden states", counts,
+                                ("gpp_matmul_tc", "rmsnorm"))
+            check_path_launches(f"{key} {name} logits", lcounts,
+                                STREAM_PATH)
+            for k in STREAM_PATH:
+                launches[k] += counts[k] + lcounts[k]
+            per = step_bytes(rec[:len(rec) // 2])
+            prologue = per.pop(-1, 0)
+            check(set(per.values()) == {layer_bytes}
+                  and len(per) == cfg.num_layers,
+                  f"{key} {name}: bytes a step {sorted(set(per.values()))}, "
+                  f"one layer is {layer_bytes}")
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ms, times, host_ms = event_ms(
+                    lambda: tf.hidden_states(streamed, c, fb, None, *specs),
+                    STREAM_WARM, STREAM_TIMED)
+                peak = torch.cuda.max_memory_allocated()
+            row[name] = {"ms": ms, "times": times, "host_ms": host_ms,
+                         "x_resident": ms / res_ms,
+                         "prologue_bytes": prologue,
+                         "step_bytes": sorted(set(per.values())),
+                         "base_gb": base / 1e9, "peak_gb": peak / 1e9,
+                         "launches": {k: counts[k] + lcounts[k]
+                                      for k in STREAM_PATH}}
+            print(f"layer streaming {key} {name}: {ms:.3f} ms a pass "
+                  f"({ms / res_ms:.3f}x resident; {times}; the host issued "
+                  f"it in {host_ms:.3f} ms); bytes a step "
+                  f"{layer_bytes} (one layer) after a {prologue}-byte "
+                  f"prologue; peak {(peak - base) / 1e9:.3f} GB above the "
+                  f"{base / 1e9:.3f} GB held before the pass; hidden states "
+                  f"and "
+                  f"logits == resident bit for bit; launches "
+                  f"{row[name]['launches']} [{card}]", flush=True)
+    out["shapes"] = shapes
+
+    # the gradient: a remat step under gpp (G = 3), host leaves' gradients
+    # brought back to the host
+    t = time.perf_counter()
+    c = settings("gpp", STREAM_GRAD_RING)
+    (loss, grads), counts = counted(value_and_grad, c, streamed, gb, None,
+                                    *specs)
+    grad_s = time.perf_counter() - t
+    check_path_launches("streamed gradient", counts, STREAM_PATH)
+    for k in STREAM_PATH:
+        launches[k] += counts[k]
+    grads = named_leaves(grads)
+    (l0, g0), (l1, g1) = res
+    repeats = float(l0) == float(l1) and all(torch.equal(g0[k], g1[k])
+                                             for k in g0)
+    worst = {}
+    for k, g in grads.items():
+        d = float((g.cpu().float() - g0[k].float()).abs().max())
+        self_d = float((g1[k].float() - g0[k].float()).abs().max())
+        worst[k] = (d, self_d)
+        check(d == 0.0 if repeats else d <= self_d,
+              f"streamed gradient {k}: {d} from resident's "
+              f"(resident from itself {self_d})")
+    check(float(loss) == float(l0) if repeats
+          else abs(float(loss) - float(l0)) <= abs(float(l1) - float(l0)),
+          f"streamed loss {float(loss)} against resident's {float(l0)}, "
+          f"{float(l1)}")
+    bits = sum(same_bits(g.cpu(), g0[k]) for k, g in grads.items())
+    out["grad"] = {"ring": STREAM_GRAD_RING, "tokens": [TRAIN_B, TRAIN_S],
+                   "loss": float(loss), "resident_loss": float(l0),
+                   "resident_repeats": repeats, "leaves": len(grads),
+                   "leaves_same_bits": bits, "seconds": grad_s,
+                   "launches": {k: counts[k] for k in STREAM_PATH},
+                   "host_leaves": sum(not g.is_cuda
+                                      for g in grads.values())}
+    print(f"layer streaming grad gpp G={STREAM_GRAD_RING} remat "
+          f"{TRAIN_B}x{TRAIN_S}: loss {float(loss)!r} (resident "
+          f"{float(l0)!r}, again {float(l1)!r}); {len(grads)} leaves "
+          f"({out['grad']['host_leaves']} brought back to the host) equal "
+          f"resident's, {bits} of them bit for bit; {grad_s:.2f} s; launches "
+          f"{out['grad']['launches']} [{card}]", flush=True)
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     global REPORT_DIR
     ap = argparse.ArgumentParser()
@@ -4387,6 +4690,9 @@ def main(argv=None) -> int:
                                  report)
     ph("train qwen", check_train_qwen, report)
     ph("train deepseek", check_train_deepseek, report)
+    # slice 15: the layer streamer, qwen1.5-0.5b's 24 layers from pinned
+    # host memory
+    streaming = ph("layer streaming", check_layer_streaming, report)
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
@@ -4470,8 +4776,13 @@ def main(argv=None) -> int:
         return max(r["max_abs_err"] for r in train_rows
                    if r["kernel"] == kernel)
 
-    tc_by_path = by_path("gpp_matmul_tc")
-    fma_by_path = {**by_path("gpp_matmul"), **by_path("gpp_matmul", True)}
+    stream_key = "qwen1.5-0.5b layer streaming (24 layers from host memory)"
+    tc_by_path = {**by_path("gpp_matmul_tc"),
+                  stream_key: streaming["launches"]["gpp_matmul_tc"]}
+    fma_by_path = {**by_path("gpp_matmul"), **by_path("gpp_matmul", True),
+                   stream_key: streaming["launches"]["gpp_matmul"]}
+    rms_by_path = {**by_path("rmsnorm"),
+                   stream_key: streaming["launches"]["rmsnorm"]}
     head_by_shape = {f"{r['arch']} {r['phase']} {r['M']}x{r['K']}x{r['N']}":
                      {k: r[k] for k in ("ms", "library_ms", "plain_ms",
                                         "bound_ms")}
@@ -4503,6 +4814,10 @@ def main(argv=None) -> int:
                  {k: r[k] for k in at_new} for r in dense_rows if "ms" in r},
          "gemm_sequence": seq,
          "train_shapes": train_by("gpp_matmul_tc"),
+         "layer_streaming_ms": {
+             shape: {mode: r["ms"] for mode, r in row.items()
+                     if isinstance(r, dict) and "ms" in r}
+             for shape, row in streaming["shapes"].items()},
          "worst_prefill_verify_vs_library": max(
              (r["ms"] / r["library_ms"], f"{r['path']} {r['phase']} "
               f"{r['proj']} {r['M']}x{r['K']}x{r['N']}")
@@ -4517,7 +4832,8 @@ def main(argv=None) -> int:
                    "summed by their last CTA)",
          "path": "every served path (its f32 logits head; the MoE "
                  "models' f32 router); f32 runs",
-         "launches": sum(by_path("gpp_matmul").values()),
+         "launches": sum(by_path("gpp_matmul").values())
+         + streaming["launches"]["gpp_matmul"],
          "launches_by_path": fma_by_path,
          "max_abs_err": max(gpp_err["fma"], dense_err["fma"],
                             max(r["max_abs_err"] for r in head_rows),
@@ -4601,8 +4917,8 @@ def main(argv=None) -> int:
          "kernel": "rmsnorm_kernel (row-invariant: a CTA a row, threads "
                    "from the width)",
          "path": ", ".join(serving),
-         "launches": sum(by_path("rmsnorm").values()),
-         "launches_by_path": by_path("rmsnorm"),
+         "launches": sum(rms_by_path.values()),
+         "launches_by_path": rms_by_path,
          "max_abs_err": max([r["max_abs_err"] for r in rms_rows
                              + dense_norms] + list(train_norms.values())),
          "train_shapes_max_abs_err": train_norms,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streamer import StreamSettings
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -43,11 +44,17 @@ def params_from_numpy(tree, device="cpu"):
     return tensor_from_numpy(np.asarray(tree), device)
 
 
+def _fields(cls, ref) -> dict:
+    return {f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)}
+
+
 def config_from_reference(ref_cfg) -> ModelConfig:
     """The port's ModelConfig with every field read from the reference
-    config object of the same name (fields the port lacks are ignored)."""
-    return ModelConfig(**{f.name: getattr(ref_cfg, f.name)
-                          for f in dataclasses.fields(ModelConfig)})
+    config object of the same name (fields the port lacks are ignored);
+    the reference's `StreamSettings` becomes the port's."""
+    kw = _fields(ModelConfig, ref_cfg)
+    kw["stream"] = StreamSettings(**_fields(StreamSettings, kw["stream"]))
+    return ModelConfig(**kw)
 
 
 def opt_state_from_numpy(tree, device="cpu"):

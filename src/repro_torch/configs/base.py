@@ -1,15 +1,17 @@
 """Model configuration dataclass (the port's copy of `repro.configs.base`).
 
 Field names match the reference's `ModelConfig` one for one, so a config can
-be rebuilt field by field from the reference's (`repro_torch.bridge`).  The
-reference's `stream` field (its JAX layer streamer's settings) is not part of
-this copy; it comes with the streaming slice.  `jdtype` is `torch_dtype`.
+be rebuilt field by field from the reference's (`repro_torch.bridge`).
+`stream` holds the layer streamer's settings (`core.streamer.StreamSettings`,
+the port's copy of the reference's).  `jdtype` is `torch_dtype`.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.core.streamer import StreamSettings
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -58,6 +60,7 @@ class ModelConfig:
     embed_scale: bool = False        # gemma-style sqrt(d) embedding scaling
     dtype: str = "bfloat16"
     subquadratic: bool = False
+    stream: StreamSettings = StreamSettings()
     dense_kernel: str = "auto"       # kernels.ops.dense routing for every
                                      # projection: auto | ref | kernel —
                                      # auto launches the CUDA gpp_matmul on

@@ -8,9 +8,10 @@ Layers:
   simulator      cycle-accurate discrete-event simulation (Verilog stand-in)
   dse            design-phase exploration (Fig 6, Table II)
   runtime_adapt  runtime bandwidth adaptation (Fig 7)
-
-The reference's `streamer` (its JAX layer-streaming executors) is not part
-of the port yet.
+  streamer       the four strategies at layer scale: `stream_layers` runs
+                 a model's stacked layers resident, in situ, naive
+                 ping-pong or GPP, fetching them from FSDP shards or host
+                 memory
 """
 from repro_torch.core.analytical import PimConfig, STRATEGIES
 from repro_torch.core.schedule import (Schedule, ScheduleOp, StreamPlan,

@@ -1,6 +1,9 @@
 """The train step (the port's copy of `repro.launch.steps.make_train_step`)
-at world size 1, with no mesh: the reference's shardings, its serve-step
-builders and its layer streamer come with distribution (ROADMAP §1.8).
+at world size 1, with no mesh; with `cfg.stream.mode` other than
+"resident" its loss streams the superblocks through the layer streamer
+(`stream_specs`, the reference's `_stream_pspecs`).  The reference's
+shardings and its serve-step builders come with the sharded steps
+(ROADMAP §1.8b).
 
     bundle = make_train_step(cfg, optc)
     params, opt_state, metrics = bundle.fn(params, opt_state, batch, step)
@@ -22,6 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.optim import adafactor as adaf
@@ -33,13 +37,26 @@ class StepBundle:
     fn: Any                      # (params, opt_state, batch, step) -> ...
 
 
-def value_and_grad(cfg: ModelConfig, params, batch):
+def stream_specs(cfg: ModelConfig, mesh=None,
+                 rules: "shd.ShardRules | None" = None):
+    """(shard_specs, full_specs) for ONE superblock's leaves, the
+    streamer's arguments (a shared block is not streamed)."""
+    rules = rules or shd.ShardRules()
+    one = {f"b{i}": tf.block_specs(cfg, k)
+           for i, k in enumerate(cfg.pattern) if not tf._is_shared(k)}
+    return (shd.sharded_pspecs_one_layer(one, mesh, rules),
+            shd.gathered_pspecs(one, mesh, rules))
+
+
+def value_and_grad(cfg: ModelConfig, params, batch, mesh=None,
+                   shard_specs=None, full_specs=None):
     """(loss, grads): `transformer.loss_fn` and its gradient for every
     parameter leaf, in the tree's layout and each leaf's dtype; zeros for
     a leaf the loss does not read (a serving copy of the head's table,
-    `transformer.serving_params`), as JAX gives."""
+    `transformer.serving_params`), as JAX gives.  The specs stream the
+    superblocks as `cfg.stream` says."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = tf.loss_fn(live, cfg, batch)
+    loss = tf.loss_fn(live, cfg, batch, mesh, shard_specs, full_specs)
     grads = iter(torch.autograd.grad(loss, tree_leaves(live),
                                      allow_unused=True))
     return loss.detach(), tree_map(
@@ -52,8 +69,11 @@ def make_train_step(cfg: ModelConfig,
     optc = optc or opt.AdamWConfig()
     adafactor = cfg.optimizer == "adafactor"
 
+    specs = (stream_specs(cfg) if cfg.stream.mode != "resident"
+             else (None, None))
+
     def train_step(params, opt_state, batch, step):
-        loss, grads = value_and_grad(cfg, params, batch)
+        loss, grads = value_and_grad(cfg, params, batch, None, *specs)
         lr = opt.cosine_lr(step, peak=optc.lr, warmup=200, total=10_000)
         if adafactor:
             params, opt_state, metrics = adaf.adafactor_update(

@@ -7,10 +7,11 @@
 
 runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU.
 Without CUDA and without `--device cpu` it raises.  Flags are the
-reference CLI's plus `--device`; `--devices` takes 0 or 1, `--mesh` only a
-one-device layout (`auto`, `1x1`) and `--stream-mode` only `resident`:
-meshes and layer streaming come with distribution (ROADMAP §1.8), and
-anything else raises.
+reference CLI's plus `--device`; `--stream-mode` takes the four modes of
+the layer streamer (`core.streamer`; at world size 1 every leaf is whole
+on the device, so only gpp's ring copies), `--devices` 0 or 1 and `--mesh`
+only a one-device layout (`auto`, `1x1`): meshes come with the sharded
+steps (ROADMAP §1.8b), and anything else raises.
 
 Fault tolerance in the loop, as in the reference: deterministic data
 (seed, step), async atomic checkpoints every --ckpt-every steps, resume
@@ -28,7 +29,7 @@ import collections
 import statistics
 import time
 
-DISTRIBUTION = "comes with distribution (ROADMAP §1.8)"
+DISTRIBUTION = "comes with the sharded steps (ROADMAP §1.8b)"
 
 
 class StepWatchdog:
@@ -55,9 +56,6 @@ def _check_one_device(args) -> None:
                          f"{DISTRIBUTION}")
     if args.mesh not in ("auto", "1x1"):
         raise ValueError(f"--mesh {args.mesh}: a mesh {DISTRIBUTION}")
-    if args.stream_mode not in (None, "resident"):
-        raise ValueError(f"--stream-mode {args.stream_mode}: layer "
-                         f"streaming {DISTRIBUTION}")
 
 
 def main(argv=None):
@@ -91,6 +89,7 @@ def main(argv=None):
     import torch
 
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.streamer import StreamSettings
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.device import resolve_device
     from repro_torch.launch.steps import make_train_step
@@ -101,6 +100,9 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
+    if args.stream_mode:
+        cfg = cfg.with_(stream=StreamSettings(
+            mode=args.stream_mode, ring_depth=cfg.stream.ring_depth))
     print(f"device: {dev} (world size 1)")
 
     bundle = make_train_step(cfg, adam.AdamWConfig(lr=args.lr))

@@ -11,10 +11,11 @@ is still one a superblock (stacked under "blocks").
 
 Entry points:
   param_specs / init_params(cfg, generator, device)
-  forward(params, cfg, batch)          full-sequence logits; batch holds
+  forward(params, cfg, batch, mesh, shard_specs, full_specs)
+                                       full-sequence logits; batch holds
                                        "tokens" or "embeds", and "enc"
                                        for cross layers
-  hidden_states, loss_fn(params, cfg, batch)
+  hidden_states, loss_fn(params, cfg, batch, mesh, shard_specs, full_specs)
                                        the training forward (block remat)
                                        and its chunked cross entropy over
                                        batch["labels"]
@@ -26,9 +27,10 @@ Entry points:
                                        (attention-cache token models)
 The paged pools are updated in place (the reference returns new ones);
 `prefill` and `decode_step` return new caches as the reference does, and
-leave the caches they were given as they were.  `forward` runs the
-reference's resident path; its layer streamer and sharding arguments come
-with distribution.
+leave the caches they were given as they were.  `forward` streams the
+superblocks through `core.streamer.stream_layers` when `cfg.stream.mode`
+is not "resident" and per-superblock specs are given (`launch.steps.
+stream_specs`), as the reference does; otherwise the layers run resident.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.streamer import stream_layers
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -373,50 +376,83 @@ def _inputs(params, cfg: ModelConfig, batch: dict):
     return x, None if enc is None else enc.to(cfg.torch_dtype)
 
 
-def _backbone(params: dict, cfg: ModelConfig, batch: dict):
+def _backbone(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
+              shard_specs=None, full_specs=None):
     """The layers over the whole sequence, before the final norm.  When
     autograd records (a parameter carries a gradient) and `cfg.remat` is
     "block", each superblock layer runs under `torch.utils.checkpoint`
     (non-reentrant): the backward recomputes it from its input, as the
     reference's `jax.checkpoint` around its scan body does (the prefix
-    layers, outside the scan there, keep their activations here too)."""
+    layers, outside the scan there, keep their activations here too).
+
+    Streamed (`cfg.stream.mode` not "resident" and `shard_specs` given):
+    the prefix layers and a shared block run resident, and the stacked
+    `params["blocks"]` go through `stream_layers`, one superblock a step,
+    remat around the whole superblock as the reference's."""
     x, enc = _inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and any(t.requires_grad for t in tree_leaves(params)))
     n_prefix = len(cfg.prefix_pattern)
-    for j, (kind, p) in enumerate(_tree_layers(params, cfg)):
-        if remat and j >= n_prefix:
-            x = checkpoint(apply_block, cfg, kind, p, x, positions, enc,
-                           use_reentrant=False)
-        else:
+    if cfg.stream.mode == "resident" or shard_specs is None:
+        for j, (kind, p) in enumerate(_tree_layers(params, cfg)):
+            if remat and j >= n_prefix:
+                x = checkpoint(apply_block, cfg, kind, p, x, positions, enc,
+                               use_reentrant=False)
+            else:
+                x = apply_block(cfg, kind, p, x, positions, enc)
+        return x
+
+    for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
+        x = apply_block(cfg, kind, p, x, positions, enc)
+    shared = params.get("shared")
+
+    def superblock(x, ws):
+        for i, kind in enumerate(cfg.pattern):
+            p = shared if _is_shared(kind) else ws[f"b{i}"]
             x = apply_block(cfg, kind, p, x, positions, enc)
-    return x
+        return x
+
+    def stream_apply(x, ws):
+        if remat:
+            return checkpoint(superblock, x, ws, use_reentrant=False)
+        return superblock(x, ws)
+
+    return stream_layers(stream_apply, x, params["blocks"],
+                         cfg.num_superblocks, settings=cfg.stream, mesh=mesh,
+                         shard_specs=shard_specs, full_specs=full_specs)
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict):
+def forward(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
+            shard_specs=None, full_specs=None):
     """Full-sequence forward to f32 logits (B, S, vocab).  batch:
     {"tokens": (B, S)} or {"embeds": (B, S, D)}, with "enc": (B, T, D) for
     cross layers.  Projections run `kernels.ops.dense`, MoE layers
     `dense_grouped`, norms the RMSNorm kernel and the head
-    `layers.head_logits`, as the step functions do."""
-    return _logits_head(params, cfg, _backbone(params, cfg, batch))
+    `layers.head_logits`, as the step functions do.  `mesh`,
+    `shard_specs` and `full_specs` (one superblock's leaves, resting and
+    gathered) stream the superblocks as `cfg.stream` says."""
+    return _logits_head(params, cfg, _backbone(params, cfg, batch, mesh,
+                                               shard_specs, full_specs))
 
 
-def hidden_states(params: dict, cfg: ModelConfig, batch: dict):
+def hidden_states(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
+                  shard_specs=None, full_specs=None):
     """The forward up to and including the final norm: no LM head."""
-    return rmsnorm(params["final_norm"], _backbone(params, cfg, batch),
-                   mode=cfg.dense_kernel)
+    return rmsnorm(params["final_norm"],
+                   _backbone(params, cfg, batch, mesh, shard_specs,
+                             full_specs), mode=cfg.dense_kernel)
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
+            shard_specs=None, full_specs=None) -> torch.Tensor:
     """The training loss: mean token NLL of batch["labels"] (B, S) over
     `hidden_states`, in 512-position chunks (`cross_entropy_chunked`).
     The head reads the live table (`embed.embedding` tied, `lm_head.w_out`
     untied), never a serving copy, so its gradient reaches the table; a
     tied table gets its gradient through both the lookup and the head."""
-    x = hidden_states(params, cfg, batch)
+    x = hidden_states(params, cfg, batch, mesh, shard_specs, full_specs)
     table = (params["embed"]["embedding"] if cfg.tie_embeddings
              else params["lm_head"]["w_out"])
     return cross_entropy_chunked(

@@ -9,7 +9,8 @@ step taken from each state with equal losses.  The train step of
 `--device cpu --smoke`: checkpoints, resume from the latest committed
 step (also from a mid-run checkpoint, to the losses of an uninterrupted
 run), its checkpoint labels beside the reference CLI's (one step apart
-mid-run), and its refusal of meshes and layer streaming (ROADMAP §1.8)."""
+mid-run), its refusal of meshes (ROADMAP §1.8b), and `--stream-mode`
+insitu / naive_pp / gpp giving resident's losses bit for bit."""
 import re
 import shutil
 
@@ -205,11 +206,24 @@ def test_cli_labels_beside_the_reference_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag,value", (("devices", 2), ("mesh", "2x2"),
-                                        ("mesh", "production"),
-                                        ("stream_mode", "gpp")))
+                                        ("mesh", "production")))
 def test_cli_refuses_distribution(tmp_path, capsys, flag, value):
-    with pytest.raises(ValueError, match="ROADMAP §1.8"):
+    with pytest.raises(ValueError, match="ROADMAP §1.8b"):
         _cli(tmp_path, 1, capsys, **{flag: value})
+
+
+_RESIDENT: dict = {}
+
+
+@pytest.mark.parametrize("mode", ("insitu", "naive_pp", "gpp"))
+def test_cli_streams_as_resident(tmp_path, capsys, mode):
+    # world size 1: every leaf is whole on the device, gpp copies it
+    # through its ring; the same ops on the same bytes
+    if not _RESIDENT:
+        _RESIDENT["losses"] = _cli(tmp_path / "resident", 3, capsys,
+                                   stream_mode="resident")[0]
+    losses, _ = _cli(tmp_path / mode, 3, capsys, stream_mode=mode)
+    assert losses == _RESIDENT["losses"] and len(losses) == 3
 
 
 def test_cli_takes_one_device_layouts(tmp_path, capsys):
