@@ -113,8 +113,9 @@ In order, it:
      past it at max_len 1280; danube's head_dim 80 on the FMA kernel's
      bf16 instance), the grouped kernel at kimi's 384 experts and one
      full-width kimi MoE layer (auto vs plain within 1e-2, the experts
-     given no routed row); and, after step 5, it serves qwen2-7b and
-     danube at full width and depth (f32 too; qwen2 at 14 layers in f32),
+     given no routed row); and, after step 5, it serves qwen2-7b at full
+     width with 14 of its 28 layers and danube at full width and depth
+     (f32 too),
      gemma3-12b at full width with 24 layers in bf16 and 12 in f32, gemma3
      also with a 1,200-token
      request past its window (bf16 spec on == off, the window group's
@@ -147,9 +148,10 @@ In order, it:
      6400-row cross K / V), decode and prefill rows, bf16 and f32, the bf16
      decode shapes and the four f32 logits heads timed beside
      torch.matmul, and RMSNorm at the cross layers' 128-wide per-head
-     rows; then it serves zamba2-2.7b, xlstm-1.3b and qwen1.5-0.5b
-     (`--engine dense`) through `repro_torch.serving.DenseServingEngine`
-     at full width and depth (4 slots, max_len 128, 4 requests x 16
+     rows; then it serves zamba2-2.7b (30 of 54 layers), xlstm-1.3b (24
+     of 48) and qwen1.5-0.5b (`--engine dense`, all 24) through
+     `repro_torch.serving.DenseServingEngine` at full width (4 slots,
+     max_len 128, 4 requests x 16
      tokens, prompts of 6 / 9 / 12 / 15 tokens, so decode runs a call a
      position group): bf16 with the kernels (warm-up, measured,
      profiled: device time by kernel and busy share) and plain, f32 with
@@ -193,7 +195,19 @@ In order, it:
      host-to-device rate and `plan_stream`'s rings at the bf16 peak and at
      resident's measured compute; a remat gradient under gpp (G = 3)
      equal to resident's (`check_layer_streaming`);
- 11. prints {"kernels": [...]} and, last, the device line.  Each phase's
+ 11. (slice 16) the sharded steps (`launch.steps`) on a 1x1 ("data",
+     "model") mesh over NCCL (one card: every collective runs over a group
+     of one rank; parity across ranks stands on gloo CPU ranks,
+     tests/test_torch_dist_*.py): deepseek-v2-lite-16b at full width with
+     its dense layer and 3 MoE layers, `make_prefill_step` (4 x 32,
+     `_moe_shard_map`) and 16 `make_decode_step`s (`_moe_shard_map_serve`),
+     at a capacity that drops no token, bf16 against the plain route (on
+     the kernel run's expert choices) and f32 against the plain route and
+     the mesh-less steps; qwen1.5-0.5b's
+     full-width train step bit for bit the mesh-less step's; and
+     `_sdpa_kv_chunked` against `_sdpa` at qwen2-7b's heads, T = 4096
+     (`check_sharded_steps`);
+ 12. prints {"kernels": [...]} and, last, the device line.  Each phase's
      seconds are printed as it ends (`phase ...: N s`).
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -203,6 +217,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -3518,8 +3533,9 @@ def _model(arch: str, dtype: str, num_layers=None):
     return cfg, tf.init_params(cfg, gen, "cuda")
 
 
-def check_dense_serving(report, arch: str, label=None):
-    """The dense-cache engine at full width and depth: bf16 with the
+def check_dense_serving(report, arch: str, label=None, num_layers=None):
+    """The dense-cache engine at full width and depth (at `num_layers` if
+    set): bf16 with the
     kernels (a warm-up, the measured run, the same run profiled) and
     plain (its streams' agreement reported), then f32 with the kernels
     against plain: equal greedy streams, each emitted token's logits row
@@ -3531,7 +3547,7 @@ def check_dense_serving(report, arch: str, label=None):
     runs = {}
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    cfg, params = _model(arch, "bfloat16")
+    cfg, params = _model(arch, "bfloat16", num_layers)
     runs["bf16_params_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
     prompts = dense_prompts(cfg.vocab_size)
     dense_serve(cfg, params, dense_prompts(cfg.vocab_size, 1), mode="auto")
@@ -3561,7 +3577,7 @@ def check_dense_serving(report, arch: str, label=None):
           f"weights, peak {runs['bf16']['peak_mem_gb']:.1f} GB", flush=True)
     del params
     torch.cuda.empty_cache()
-    cfg, params = _model(arch, "float32")
+    cfg, params = _model(arch, "float32", num_layers)
     ker, runs["f32_kernel"] = dense_serve(cfg, params, prompts, mode="auto",
                                           keep_logits=True)
     ref, runs["f32_ref"] = dense_serve(cfg, params, prompts, mode="ref",
@@ -4006,7 +4022,7 @@ def check_train_qwen(report):
     seconds["checkpoint"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    step = make_train_step(cfg.with_(optimizer="adafactor"), optc)
+    step = make_train_step(cfg.with_(optimizer="adafactor"), optc=optc)
     fs = adaf.adafactor_init(params)
     _, fs2, m = step.fn(params, fs, b, 0)
     ada = float(m["loss"])
@@ -4131,7 +4147,7 @@ def check_train_deepseek(report):
     check(abs(aux_k - aux_p) <= 1e-5, f"train {arch}: aux loss {aux_k} vs "
                                       f"plain {aux_p}")
     out["aux_loss"] = {"kernel": aux_k, "plain": aux_p}
-    step = make_train_step(cfg, adamw.AdamWConfig(lr=TRAIN_LR))
+    step = make_train_step(cfg, optc=adamw.AdamWConfig(lr=TRAIN_LR))
     state = adamw.adamw_init(params)
     _, _, m = step.fn(params, state, batch, 0)
     check(math.isfinite(float(m["loss"])), f"train {arch}: AdamW loss")
@@ -4562,6 +4578,424 @@ def check_layer_streaming(report):
     return out
 
 
+SHARDED_DS = ("gpp_matmul_tc", "gpp_matmul", "gpp_matmul_grouped_tc",
+              "rmsnorm")
+SHARDED_DS_F32 = ("gpp_matmul", "gpp_matmul_grouped", "rmsnorm")
+SHARDED_B, SHARDED_S, SHARDED_N = 4, 32, 16   # prefill 4 x 32, 16 decodes
+SHARDED_LAYERS = 4             # deepseek: its dense layer and 3 MoE layers
+KV_CHUNK_CASE = (28, 4, 128, 4096)            # qwen2-7b's heads, T
+
+
+def _sharded_serve(mesh, cfg, params, prompt, nxt):
+    """`make_prefill_step` then `make_decode_step` SHARDED_N times on the
+    mesh, the given tokens fed (no sampling): the logits of every step,
+    (B, 1 + N, vocab), and the peak HBM of each step kind."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    T = SHARDED_S + SHARDED_N
+    pre = steps.make_prefill_step(
+        cfg, mesh, ShapeConfig("prefill", T, SHARDED_B, "prefill"))
+    dec = steps.make_decode_step(
+        cfg, mesh, ShapeConfig("decode", T, SHARDED_B, "decode"))
+    peak = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = pre.fn(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    peak["prefill_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out = [logits]
+    for i in range(SHARDED_N):
+        logits, caches = dec.fn(params, nxt[i], caches, SHARDED_S + i)
+        out.append(logits)
+    torch.cuda.synchronize()
+    peak["decode_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(dec.meta["cfg"].moe_serve_resident,
+          "the decode step keeps the experts resident")
+    return torch.cat(out, dim=1), peak
+
+
+def _meshless_serve(cfg, params, prompt, nxt):
+    """The same tokens through the mesh-less `transformer.prefill` /
+    `decode_step`."""
+    import torch
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        logits, caches = tf.prefill(params, cfg, {"tokens": prompt},
+                                    SHARDED_S + SHARDED_N)
+        out = [logits]
+        for i in range(SHARDED_N):
+            logits, caches = tf.decode_step(params, cfg, nxt[i], caches,
+                                            SHARDED_S + i)
+            out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def _row_err(got, want) -> float:
+    """max over rows of max |got - want| / the row's largest |want|."""
+    w = want.float()
+    return float(((got.float() - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp(min=1e-30)).max())
+
+
+@contextlib.contextmanager
+def _calls(module, *names):
+    """Count the calls of module-level functions inside the block."""
+    calls = dict.fromkeys(names, 0)
+    inner = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **kw):
+            calls[n] += 1
+            return inner[n](*a, **kw)
+        return f
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(module, n, inner[n])
+
+
+class _TopK:
+    """Stands for `torch` inside a module: every attribute is torch's but
+    `topk`, which records its indices (`forced` None) or returns the
+    recorded ones, in order, with their values gathered from its input;
+    `moved` counts the choices its own top-k would have changed."""
+
+    def __init__(self, forced=None):
+        self.indices = [] if forced is None else None
+        self.forced = None if forced is None else iter(forced)
+        self.moved = self.choices = 0
+
+    def __getattr__(self, name):
+        import torch
+        return getattr(torch, name)
+
+    def topk(self, x, k, dim=-1):
+        import torch
+        values, idx = torch.topk(x, k, dim=dim)
+        if self.forced is None:
+            self.indices.append(idx)
+            return values, idx
+        want = next(self.forced)
+        self.moved += int((torch.sort(want, dim)[0]
+                           != torch.sort(idx, dim)[0]).any(dim).sum())
+        self.choices += idx.numel() // k
+        return torch.gather(x, dim, want), want
+
+
+@contextlib.contextmanager
+def _experts(module, forced=None):
+    """`module`'s top-k recorded (forced None) or forced (`_TopK`)."""
+    real = module.torch
+    module.torch = _TopK(forced)
+    try:
+        yield module.torch
+    finally:
+        module.torch = real
+
+
+def _sharded_deepseek(out, mesh, card, launches):
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    arch = "deepseek-v2-lite-16b"
+    gen = torch.Generator().manual_seed(5)
+    cfg0 = registry.get_config(arch).with_(num_layers=SHARDED_LAYERS)
+    prompt = torch.randint(0, cfg0.vocab_size, (SHARDED_B, SHARDED_S),
+                           generator=gen).cuda()
+    nxt = torch.randint(0, cfg0.vocab_size, (SHARDED_N, SHARDED_B, 1),
+                        generator=gen).cuda()
+    res = out["deepseek"] = {"layers": SHARDED_LAYERS,
+                             "prefill": [SHARDED_B, SHARDED_S],
+                             "decode_steps": SHARDED_N}
+    # bf16, the kernels against the plain route, at a capacity that drops
+    # no token (C = T at E / k), so a token routed apart on the two routes
+    # moves no other token's slot; drops are held to the reference on the
+    # CPU (tests/test_torch_dist_world1.py)
+    cfg, params = _model(arch, "bfloat16", SHARDED_LAYERS)
+    check(cfg.prefix_pattern == ("dense",) and cfg.num_superblocks == 3,
+          f"{arch}: {cfg.prefix_pattern} + {cfg.num_superblocks} MoE")
+    cfg = cfg.with_(moe_capacity_factor=cfg.num_experts
+                    / cfg.experts_per_token)
+    t = time.perf_counter()
+    with _calls(moe_mod, "_moe_shard_map", "_moe_shard_map_serve") as calls, \
+            _experts(moe_mod) as chosen:
+        (ker, peak), counts = counted(_sharded_serve, mesh, cfg, params,
+                                      prompt, nxt)
+    res["bf16_s"] = time.perf_counter() - t
+    # 3 MoE layers: once each in the prefill, once each a decode step
+    check(calls == {"_moe_shard_map": 3,
+                    "_moe_shard_map_serve": 3 * SHARDED_N},
+          f"sharded {arch}: MoE forms called {calls}")
+    res["moe_forms"] = calls
+    check_path_launches(f"sharded {arch} bf16", counts, SHARDED_DS)
+    # bf16 rounds the two routes' hidden states apart, and the router's
+    # top-6 of 64 near-uniform random-weight probabilities moves with them
+    # (a token routed apart is another function): the plain run takes the
+    # kernel run's expert choices, its own counted
+    with _experts(moe_mod, chosen.indices) as forced:
+        (plain, _), pcounts = counted(_sharded_serve, mesh,
+                                      cfg.with_(dense_kernel="ref"), params,
+                                      prompt, nxt)
+    check_path_launches(f"sharded {arch} bf16 plain", pcounts, ())
+    # the same weights in f32 on the same expert choices: how far bf16
+    # itself puts each route
+    p32 = tree_map(lambda t: t.float(), params)
+    with _experts(moe_mod, chosen.indices):
+        (ref32, _), _ = counted(_sharded_serve, mesh,
+                                cfg.with_(dtype="float32"), p32, prompt, nxt)
+    del p32
+    # the path's bf16 tolerance, 2e-2 + 2e-2 x |plain|, with |plain| a row's
+    # largest |logit| (as the f32 gates read a row's scale): through 4
+    # layers bf16 puts either route ~0.03 from the f32 run of the same
+    # weights, the two routes ~0.02 apart, so a few of a step's 409,600
+    # logits near 0 sit past the elementwise reading (counted, printed)
+    err = (ker.float() - plain.float()).abs()
+    bound = 2e-2 + 2e-2 * plain.float().abs()
+    row_bound = 2e-2 + 2e-2 * plain.float().abs().amax(-1, keepdim=True)
+    res["bf16_elementwise_over"] = int((err > bound).sum())
+    res["bf16_logits"] = err.numel()
+    res["bf16_by_step"] = [
+        {"max_abs_err": float(err[:, i].max()),
+         "over": int((err[:, i] > bound[:, i]).sum()),
+         "max_abs_logit": float(plain[:, i].float().abs().max()),
+         "kernel_vs_f32": float((ker[:, i].float() - ref32[:, i]).abs()
+                                .max()),
+         "plain_vs_f32": float((plain[:, i].float() - ref32[:, i]).abs()
+                               .max())}
+        for i in range(1 + SHARDED_N)]
+    print(f"sharded steps [{card}]: {arch} bf16 kernel vs plain by step "
+          f"(max |err|, elements over 2e-2 + 2e-2 x |plain| of "
+          f"{err[:, 0].numel()}, max |logit|, kernel / plain from the f32 "
+          f"run of the same weights): "
+          + "; ".join(f"{r['max_abs_err']:.4f} {r['over']} "
+                      f"{r['max_abs_logit']:.3f} {r['kernel_vs_f32']:.4f} / "
+                      f"{r['plain_vs_f32']:.4f}"
+                      for r in res["bf16_by_step"]), flush=True)
+    check(bool((err <= row_bound).all()),
+          f"sharded {arch} bf16: logits {float(err.max())} from the plain "
+          f"route's (2e-2 + 2e-2 x a row's largest |plain|)")
+    # the row bound is loose: also hold the kernels' own error, each step's
+    # distance from the f32 run against the plain route's from it, and the
+    # elements past the elementwise reading to 1e-5 of the logits
+    for i, r in enumerate(res["bf16_by_step"]):
+        check(r["kernel_vs_f32"] <= 1.5 * r["plain_vs_f32"] + 5e-3,
+              f"sharded {arch} bf16 step {i}: kernel route "
+              f"{r['kernel_vs_f32']} from the f32 run, plain route "
+              f"{r['plain_vs_f32']} (bound 1.5 x plain + 5e-3)")
+    check(res["bf16_elementwise_over"] <= 1e-5 * err.numel(),
+          f"sharded {arch} bf16: {res['bf16_elementwise_over']} of "
+          f"{err.numel()} logits past 2e-2 + 2e-2 x |plain| (at most 1e-5 "
+          f"of them)")
+    res.update(bf16_launches=counts, bf16_peak=peak,
+               bf16_max_abs_err=float(err.max()),
+               bf16_plain_topk_moved=forced.moved,
+               bf16_topk_choices=forced.choices)
+    for k in SHARDED_DS:
+        launches[k] = launches.get(k, 0) + counts[k]
+    del params, ker, plain
+    torch.cuda.empty_cache()
+    # f32 at the same capacity: the mesh steps' one dispatch group then
+    # equals the mesh-less steps' groups
+    cfg = cfg.with_(dtype="float32")
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    (ker, peak), counts = counted(_sharded_serve, mesh, cfg, params, prompt,
+                                  nxt)
+    check_path_launches(f"sharded {arch} f32", counts, SHARDED_DS_F32)
+    (plain, _), pcounts = counted(_sharded_serve, mesh,
+                                  cfg.with_(dense_kernel="ref"), params,
+                                  prompt, nxt)
+    check_path_launches(f"sharded {arch} f32 plain", pcounts, ())
+    meshless = _meshless_serve(cfg, params, prompt, nxt)
+    e_plain, e_meshless = _row_err(ker, plain), _row_err(ker, meshless)
+    check(e_plain <= 1e-3, f"sharded {arch} f32: logits rows {e_plain} of "
+          f"their scale from the plain route's")
+    check(e_meshless <= 1e-3, f"sharded {arch} f32: logits rows "
+          f"{e_meshless} of their scale from the mesh-less steps'")
+    res.update(f32_launches=counts, f32_peak=peak, f32_vs_plain=e_plain,
+               f32_vs_meshless=e_meshless)
+    for k in SHARDED_DS_F32:
+        launches[f"{k} f32"] = launches.get(f"{k} f32", 0) + counts[k]
+    del params, ker, plain, meshless
+    torch.cuda.empty_cache()
+    print(f"sharded steps [{card}]: {arch} {SHARDED_LAYERS} layers on the "
+          f"1x1 NCCL mesh, prefill {SHARDED_B}x{SHARDED_S} (_moe_shard_map) "
+          f"+ {SHARDED_N} decode steps (_moe_shard_map_serve): bf16 logits "
+          f"within 2e-2 + 2e-2 x a row's largest |plain| of the plain route "
+          f"on the kernel run's expert choices (max "
+          f"{res['bf16_max_abs_err']:.3e}; "
+          f"{res['bf16_elementwise_over']} of {res['bf16_logits']} past "
+          f"2e-2 + 2e-2 x |plain| elementwise, at most 1e-5 of them; each "
+          f"step's kernel route within 1.5 x the plain route's distance "
+          f"from the f32 run + 5e-3; the "
+          f"plain run's own top-k would have moved "
+          f"{res['bf16_plain_topk_moved']} of {res['bf16_topk_choices']} "
+          f"tokens' choices), launches {res['bf16_launches']}, "
+          f"peak prefill {res['bf16_peak']['prefill_gb']:.3f} GB decode "
+          f"{res['bf16_peak']['decode_gb']:.3f} GB; f32 rows {e_plain:.3e} "
+          f"of their scale from plain, {e_meshless:.3e} from the mesh-less "
+          f"steps at capacity {cfg.moe_capacity_factor:.3f}", flush=True)
+
+
+def _sharded_qwen_train(out, mesh, card, launches):
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    arch = "qwen1.5-0.5b"
+    cfg, params = _model(arch, "bfloat16")
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S)
+    one = steps.make_train_step(cfg)
+    on = steps.make_step(cfg, mesh, ShapeConfig("t", TRAIN_S, TRAIN_B,
+                                                "train"))
+    res = out["qwen_train"] = {"tokens": [TRAIN_B, TRAIN_S],
+                               "layers": cfg.num_layers}
+    # the loss and every gradient leaf
+    l1, g1 = steps.value_and_grad(cfg, params, batch)
+    (l2, g2), counts = counted(on.meta["loss_and_grads"], params, batch)
+    check_path_launches("sharded qwen gradient", counts, TRAIN_PATH)
+    check(same_bits(l1, l2), f"sharded qwen loss {float(l2)!r} against the "
+          f"mesh-less {float(l1)!r}")
+    g1, g2 = named_leaves(g1), named_leaves(g2)
+    check(set(g1) == set(g2), "sharded qwen: gradient leaves")
+    for k in g1:
+        check(same_bits(g1[k], g2[k]), f"sharded qwen gradient {k}")
+    del g1, g2
+    # one AdamW step each: the loss, grad norm and every updated leaf
+    steps_s, peaks, news = {}, {}, {}
+    for name, b in (("meshless", one), ("mesh", on)):
+        for i in range(2):                   # the second is timed
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            (p, _, m), c = counted(b.fn, params, adamw.adamw_init(params),
+                                   batch, 0)
+            steps_s[name] = time.perf_counter() - t
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            if name == "mesh":
+                check_path_launches("sharded qwen train step", c,
+                                    TRAIN_PATH)
+                if i == 0:
+                    for k in TRAIN_PATH:
+                        launches[k] = launches.get(k, 0) + c[k]
+            news[name] = (named_leaves(p), m)
+    (p1, m1), (p2, m2) = news["meshless"], news["mesh"]
+    for k in ("loss", "grad_norm"):
+        check(same_bits(m1[k], m2[k]), f"sharded qwen step {k}: "
+              f"{float(m2[k])!r} against {float(m1[k])!r}")
+    for k in p1:
+        check(same_bits(p1[k], p2[k]), f"sharded qwen updated {k}")
+    tok = TRAIN_B * TRAIN_S
+    res.update(loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]),
+               leaves=len(p1), launches=counts,
+               tok_s={k: tok / v for k, v in steps_s.items()},
+               step_s=steps_s, peak_gb=peaks)
+    del params, news, p1, p2
+    torch.cuda.empty_cache()
+    print(f"sharded steps [{card}]: {arch} train step ({cfg.num_layers} "
+          f"layers, {TRAIN_B}x{TRAIN_S}, bf16, AdamW, remat) on the 1x1 NCCL "
+          f"mesh == the mesh-less step bit for bit (loss {res['loss']!r}, "
+          f"grad norm {res['grad_norm']!r}, every gradient leaf and "
+          f"{res['leaves']} updated leaves); tok/s mesh-less "
+          f"{res['tok_s']['meshless']:.0f}, mesh {res['tok_s']['mesh']:.0f}; "
+          f"peak {peaks}", flush=True)
+
+
+def _kv_chunked(out, card):
+    """`_sdpa_kv_chunked` against `_sdpa` at qwen2-7b's 28 / 4 heads x 128,
+    T = 4096: the whole q, and a quarter of q at q_offset 1024 (a
+    context-parallel rank's rows), causal and with gemma3's 1024 window,
+    in f32 (2e-4 + 2e-4 x |plain|) and bf16 (2e-2 + 2e-2 x |plain|)."""
+    import math
+    import torch
+    from repro_torch.models.attention import (_sdpa, _sdpa_kv_chunked,
+                                              causal_mask)
+    H, KVH, hd, T = KV_CHUNK_CASE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    scale = 1.0 / math.sqrt(hd)
+    rows = out["kv_chunked"] = []
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.randn((1, T, h, hd), generator=gen, device="cuda")
+                   .to(dtype) for h in (H, KVH, KVH))
+        for window in (None, 1024):
+            for lo, n in ((0, T), (1024, T // 4)):
+                qq = q[:, lo:lo + n]
+                want = _sdpa(qq, k, v, causal_mask(n, T, lo, window,
+                                                   q.device), scale)
+                got = _sdpa_kv_chunked(qq, k, v, scale, window=window,
+                                       q_offset=lo)
+                err = (got.float() - want.float()).abs()
+                ok = bool((err <= tol + tol * want.float().abs()).all())
+                what = (f"_sdpa_kv_chunked {str(dtype)[6:]} window {window} "
+                        f"rows {lo}:{lo + n}")
+                check(ok, f"{what}: {float(err.max())} from _sdpa")
+                rows.append({"dtype": str(dtype)[6:], "window": window,
+                             "q_offset": lo, "rows": n,
+                             "max_abs_err": float(err.max())})
+        del q, k, v
+    torch.cuda.empty_cache()
+    print(f"sharded steps [{card}]: _sdpa_kv_chunked == _sdpa within "
+          f"tolerance at {H}/{KVH} heads x {hd}, T {T}: "
+          + "; ".join(f"{r['dtype']} w{r['window']} @{r['q_offset']} "
+                      f"{r['max_abs_err']:.2e}" for r in rows), flush=True)
+
+
+def check_sharded_steps(report):
+    """The sharded step builders on a 1x1 ("data", "model") NCCL mesh (one
+    card, so every collective runs over a group of one rank; parity across
+    ranks stands on gloo CPU ranks, tests/test_torch_dist_*.py): (1)
+    deepseek-v2-lite-16b at full width with its dense layer and 3 MoE
+    layers, `make_prefill_step` (4 x 32, through `_moe_shard_map`) and 16
+    `make_decode_step`s on its caches (`moe_serve_resident`, through
+    `_moe_shard_map_serve`) at a capacity that drops no token: bf16
+    launches of the path's kernels and the logits against the same steps
+    on the plain route (which takes the kernel run's expert choices: bf16
+    rounding moves the top-k of near-uniform random-weight routers), f32
+    logits against the plain route and the mesh-less prefill / decode;
+    (2) qwen1.5-0.5b's full-width train step (`make_step`,
+    4 x 1024, bf16, AdamW, remat) bit for bit the mesh-less step's: loss,
+    every gradient leaf, grad norm, every updated leaf; tok/s of both;
+    (3) `_sdpa_kv_chunked` against `_sdpa`.  Prints the NCCL start-up
+    seconds, each step's peak HBM and the phase's seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_rank, make_cuda_mesh
+    card = report["card"]
+    out = report["sharded_steps"] = {"card": card}
+    t0 = time.perf_counter()
+    store = tempfile.TemporaryDirectory()
+    init_rank(0, 1, f"{store.name}/store", "nccl")
+    try:
+        mesh = make_cuda_mesh(1, 1)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)                  # the communicator is up
+        torch.cuda.synchronize()
+        check(float(one) == 1.0, "an all-reduce over one rank")
+        out["nccl_start_s"] = time.perf_counter() - t0
+        print(f"sharded steps [{card}]: NCCL process group of one rank and "
+              f"a 1x1 mesh up in {out['nccl_start_s']:.2f} s", flush=True)
+        launches = out["launches"] = {}
+        _sharded_deepseek(out, mesh, card, launches)
+        _sharded_qwen_train(out, mesh, card, launches)
+        _kv_chunked(out, card)
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sharded steps [{card}]: {out['seconds']:.1f} s; launches "
+          f"{launches}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     global REPORT_DIR
     ap = argparse.ArgumentParser()
@@ -4657,9 +5091,11 @@ def main(argv=None) -> int:
     # on gemma3's run past its window
     # since slice 13, to leave the script room for its phases: qwen2-7b
     # in f32 at 14 of its 28 layers, gemma3-12b in bf16 at 24 of its 48
-    # (four 5:1 superblocks)
+    # (four 5:1 superblocks); since slice 16, when a slow host took the
+    # script to 1,106 s of its 1,200, qwen2-7b in bf16 at 14 too
     ph("serve qwen2", check_serving, report, "qwen2-7b", gqa_path, gqa_f32,
-       f32_layers=14, repeat=True, hooks={"draft": draft_run})
+       f32_layers=14, bf16_layers=14, repeat=True,
+       hooks={"draft": draft_run})
     ph("serve danube", check_serving, report, "h2o-danube-1.8b",
        ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
         "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
@@ -4677,9 +5113,12 @@ def main(argv=None) -> int:
                            "test_torch_serving.py)")
     # slice 13: the dense-cache engine (zamba2, xlstm, and qwen1.5 under
     # --engine dense) and the step functions of the two embedding archs,
-    # all at full width and depth
-    for arch in ("zamba2-2.7b", "xlstm-1.3b"):
-        ph(f"dense {arch}", check_dense_serving, report, arch)
+    # all at full width and depth; since slice 16, for the script's time,
+    # zamba2-2.7b at 30 of its 54 layers (5 of its 9 6-layer superblocks)
+    # and xlstm-1.3b at 24 of its 48
+    for arch, layers in (("zamba2-2.7b", 30), ("xlstm-1.3b", 24)):
+        ph(f"dense {arch}", check_dense_serving, report, arch,
+           num_layers=layers)
     ph("dense qwen", check_dense_serving, report, "qwen1.5-0.5b",
        label="qwen1.5-0.5b --engine dense")
     for arch in ("llama-3.2-vision-11b", "musicgen-large"):
@@ -4693,6 +5132,10 @@ def main(argv=None) -> int:
     # slice 15: the layer streamer, qwen1.5-0.5b's 24 layers from pinned
     # host memory
     streaming = ph("layer streaming", check_layer_streaming, report)
+    # slice 16: the sharded steps on a 1x1 NCCL mesh
+    sharded = ph("sharded steps", check_sharded_steps, report)
+    shard_key = "sharded steps (1x1 NCCL mesh)"
+    shard_n = sharded["launches"]
 
     g = next(r for r in gpp_rows if r["path"] == "qwen1.5-0.5b"
              and r["phase"] == "decode" and r["proj"] == "gate_up"
@@ -4778,11 +5221,18 @@ def main(argv=None) -> int:
 
     stream_key = "qwen1.5-0.5b layer streaming (24 layers from host memory)"
     tc_by_path = {**by_path("gpp_matmul_tc"),
-                  stream_key: streaming["launches"]["gpp_matmul_tc"]}
+                  stream_key: streaming["launches"]["gpp_matmul_tc"],
+                  shard_key: shard_n["gpp_matmul_tc"]}
     fma_by_path = {**by_path("gpp_matmul"), **by_path("gpp_matmul", True),
-                   stream_key: streaming["launches"]["gpp_matmul"]}
+                   stream_key: streaming["launches"]["gpp_matmul"],
+                   shard_key: shard_n["gpp_matmul"],
+                   shard_key + " f32": shard_n["gpp_matmul f32"]}
     rms_by_path = {**by_path("rmsnorm"),
-                   stream_key: streaming["launches"]["rmsnorm"]}
+                   stream_key: streaming["launches"]["rmsnorm"],
+                   shard_key: shard_n["rmsnorm"],
+                   shard_key + " f32": shard_n["rmsnorm f32"]}
+    grouped_by_path = {**by_path("gpp_matmul_grouped_tc"),
+                       shard_key: shard_n["gpp_matmul_grouped_tc"]}
     head_by_shape = {f"{r['arch']} {r['phase']} {r['M']}x{r['K']}x{r['N']}":
                      {k: r[k] for k in ("ms", "library_ms", "plain_ms",
                                         "bound_ms")}
@@ -4932,8 +5382,8 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/gpp_matmul.py:606",
          "kernel": "gpp_matmul_grouped_tc_kernel (bf16 x and W)",
          "path": ", ".join(by_path("gpp_matmul_grouped_tc")),
-         "launches": sum(by_path("gpp_matmul_grouped_tc").values()),
-         "launches_by_path": by_path("gpp_matmul_grouped_tc"),
+         "launches": sum(grouped_by_path.values()),
+         "launches_by_path": grouped_by_path,
          "kimi_by_shape": {
              f"{r['phase']} {r['proj']} {r['E']}x{r['M']}x{r['K']}x{r['N']}":
                  {k: r[k] for k in ("ms", "library_ms", "plain_ms",
@@ -4956,9 +5406,15 @@ def main(argv=None) -> int:
                    "split-K FMA body of gpp_matmul.cuh over the expert "
                    "axis)",
          "path": "deepseek-v2-lite-16b in f32 "
-                 f"({deepseek['f32_kernel']['num_layers']} layers)",
+                 f"({deepseek['f32_kernel']['num_layers']} layers); "
+                 f"{shard_key} f32",
          "launches":
-             deepseek["f32_kernel"]["launches"]["gpp_matmul_grouped"],
+             deepseek["f32_kernel"]["launches"]["gpp_matmul_grouped"]
+             + shard_n["gpp_matmul_grouped f32"],
+         "launches_by_path": {
+             "deepseek-v2-lite-16b in f32": deepseek["f32_kernel"][
+                 "launches"]["gpp_matmul_grouped"],
+             shard_key + " f32": shard_n["gpp_matmul_grouped f32"]},
          "max_abs_err": grouped_err["fma"],
          "tol": "atol 2e-4 + rtol 2e-4 x |plain| (f32); bf16 x as bf16",
          "shape": f"decode gate/up {gf['E']}x{gf['M']}x{gf['K']}x{gf['N']} "

@@ -18,8 +18,14 @@ in the other, bit for bit.  The bits come from the tensor itself
 (`view(torch.int16)`): no ml_dtypes.
 
 `save(..., blocking=False)` snapshots the tree to host memory and writes
-it in a background thread; `wait()` joins it.  The reference's elastic
-re-sharding onto another mesh comes with distribution.
+it in a background thread; `wait()` joins it.
+
+On a mesh each rank holds pieces of the leaves (`dist.sharding`):
+`save(..., specs=, mesh=)` gathers whole leaves (every rank calls it) and
+rank 0 writes them in the same format, so a checkpoint does not depend on
+the mesh that wrote it; `restore(..., shardings=specs, mesh=)` reads whole
+leaves and cuts this rank's pieces, onto any mesh (the reference's elastic
+resume).
 """
 from __future__ import annotations
 
@@ -113,9 +119,18 @@ class CheckpointManager:
         self._thread: "threading.Thread | None" = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree, *, blocking: bool = True) -> str:
+    def save(self, step: int, tree, *, blocking: bool = True, specs=None,
+             mesh=None) -> str:
         """Write a checkpoint for `step`.  Atomic: the commit marker goes
-        last.  The tree is copied to host memory before this returns."""
+        last.  The tree is copied to host memory before this returns.
+        With `specs` the leaves are the rank's pieces on `mesh`: every rank
+        calls this, the whole leaves are gathered, and rank 0 writes."""
+        if specs is not None:
+            import torch.distributed as dist
+            from repro_torch.dist.sharding import gather_tree
+            tree = gather_tree(tree, specs, mesh)
+            if dist.get_rank() != 0:
+                return os.path.join(self.dir, f"step_{step}")
         named = {k: _to_host(v) for k, v in _flatten_with_names(tree).items()}
         structure = _treedef(tree)
         if blocking:
@@ -175,11 +190,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, example_tree, step: "int | None" = None):
+    def restore(self, example_tree, step: "int | None" = None, *,
+                shardings=None, mesh=None):
         """Restore into the structure of `example_tree` (nested dicts /
         lists of tensors): each leaf shape-checked against the example's,
-        then cast to its dtype and moved to its device.  Returns (tree,
-        step)."""
+        then cast to its dtype and moved to its device.  With `shardings`
+        (a spec tree of the example's structure) the example holds this
+        rank's pieces on `mesh`: each stored whole leaf is checked against
+        the piece's shape times its axes and cut to the rank's piece.
+        Returns (tree, step)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no committed checkpoints in {self.dir}")
@@ -192,14 +211,48 @@ class CheckpointManager:
         if manifest["shard_sha256"][str(self.host_id)] != _sha256(shard_file):
             raise IOError(f"checkpoint {path} corrupt (hash mismatch)")
         dtypes = manifest.get("dtypes", {})
+        specs = {} if shardings is None else _flatten_with_names(
+            _spec_leaves(shardings))
         with np.load(shard_file) as data:
             def leaf(name, ex):
                 t = _from_host(data[name], dtypes.get(name, ""))
-                if tuple(t.shape) != tuple(ex.shape):
+                spec = specs.get(name)
+                want = _whole_shape(ex.shape, spec, mesh)
+                if tuple(t.shape) != want:
                     raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                     f"{tuple(ex.shape)}")
+                                     f"{want}")
+                if spec is not None:
+                    from repro_torch.dist.sharding import piece
+                    t = piece(t, spec.spec, mesh)
                 return t.to(device=ex.device, dtype=ex.dtype)
             return _map_named(leaf, example_tree), step
+
+
+class _SpecLeaf:
+    """A spec held as one leaf (a spec is a tuple, which the tree walkers
+    read as a sequence)."""
+
+    def __init__(self, spec):
+        self.spec = spec
+
+
+def _spec_leaves(specs):
+    from repro_torch.dist.sharding import map_spec_tree
+    return map_spec_tree(_SpecLeaf, specs)
+
+
+def _whole_shape(shape, spec: "_SpecLeaf | None", mesh) -> tuple:
+    """A piece's shape times the sizes of the axes its dims are split
+    over."""
+    if spec is None:
+        return tuple(shape)
+    from repro_torch.dist.sharding import axis_sizes, entry_axes
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, e in enumerate(spec.spec):
+        for a in entry_axes(e):
+            out[d] *= sizes.get(a, 1)
+    return tuple(out)
 
 
 def _map_named(fn, tree, prefix: str = ""):

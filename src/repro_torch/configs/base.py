@@ -162,3 +162,27 @@ class ModelConfig:
                  + sum(k.startswith("moe") for k in self.prefix_pattern))
         return self.active_params() + n_moe * (
             self.num_experts - self.experts_per_token) * ffn
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cells_for(cfg: ModelConfig) -> list[str]:
+    """The assigned (arch x shape) cells: long_500k only for sub-quadratic."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        names.append("long_500k")
+    return names

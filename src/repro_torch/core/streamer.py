@@ -21,7 +21,10 @@ j-(G-1) ... j-1; at step i chunk (G-1-k) of layer min(i+k, L-1) goes into
 slot (i+k) % G, for k = 1..G-1, after a prologue that fills slots 0..G-2
 with layers 0..G-2 whole.
 
-Where the leaves rest decides what a fetch is (no flag does):
+Where the leaves rest decides what a fetch is (no flag does).  A leaf
+may also be split over the model axis (tensor parallelism): that dim stays
+the rank's piece, and only the FSDP dim is gathered.
+
 
   identity       the leaves are whole on the compute device (world size
                  1; the reference's `mesh=None`): insitu and naive_pp hand
@@ -60,9 +63,11 @@ import dataclasses
 import torch
 
 from repro_torch.core.schedule import StreamPlan, plan_stream
+from repro_torch.dist.collectives import all_gather, reduce_scatter
 from repro_torch.dist.sharding import axis_sizes
 
 MODES = ("resident", "insitu", "naive_pp", "gpp")
+TP_AXIS = "model"    # a leaf's tensor-parallel dim: it stays local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,12 +191,14 @@ def _leaves(stacked_ws, settings, mesh, shard_specs, full_specs):
                     break
         shape = list(w.shape[1:])
         group = None
-        if dim is not None:
-            if set(_names(shard[dim])) != {settings.fsdp_axis}:
+        for entry in (shard or ()):
+            axes = set(_names(entry))
+            if not axes <= {settings.fsdp_axis, TP_AXIS} or len(axes) > 1:
                 raise NotImplementedError(
-                    f"{path}: a dim sharded over {shard[dim]} (more than "
-                    f"the FSDP axis) comes with the sharded steps "
-                    f"(ROADMAP §1.8b)")
+                    f"{path}: a dim sharded over {entry} (other than the "
+                    f"FSDP axis or the model axis alone) comes with "
+                    f"ROADMAP §1.8b-2")
+        if dim is not None:
             if not hasattr(mesh, "get_group"):
                 raise ValueError(
                     f"{path}: FSDP shards over {settings.fsdp_axis!r} need "
@@ -285,7 +292,7 @@ class _Fetcher:
                 if lf.fsdp_dim is None:
                     parts = [piece]
                 else:
-                    parts = _all_gather(piece, lf)
+                    parts = all_gather(piece, lf.group, lf.n)
                 for dst, part in zip(regions, parts):
                     dst.copy_(part, non_blocking=self.cuda)
                     nbytes += dst.numel() * dst.element_size()
@@ -310,29 +317,6 @@ class _Fetcher:
                                         for i in range(len(self.leaves))))
 
 
-def _all_gather(piece: torch.Tensor, lf: _Leaf):
-    """Every rank's `piece` (rank order) over the leaf's FSDP group."""
-    import torch.distributed as dist
-    piece = piece.contiguous()
-    out = torch.empty((lf.n, *piece.shape), dtype=piece.dtype,
-                      device=piece.device)
-    parts = list(out.unbind(0))
-    # the list forms: torch 2.13 deprecates the *_into_tensor /
-    # reduce_scatter_tensor calls, and 2.11 has no *_single ones
-    dist.all_gather(parts, piece, group=lf.group)
-    return parts
-
-
-def _reduce_scatter(g: torch.Tensor, lf: _Leaf) -> torch.Tensor:
-    """This rank's shard of the sum over the group of `g` (one layer,
-    gathered) along the FSDP dim."""
-    import torch.distributed as dist
-    parts = [p.contiguous() for p in g.chunk(lf.n, dim=lf.fsdp_dim)]
-    out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=lf.group)
-    return out
-
-
 class _Gathered(torch.autograd.Function):
     """Joins a layer's fetched buffers to the resting leaves it was fetched
     from: forward hands the buffers on, backward brings each gradient back
@@ -353,7 +337,7 @@ class _Gathered(torch.autograd.Function):
                 continue
             g = g.to(lf.src.device)
             if lf.fsdp_dim is not None:
-                g = _reduce_scatter(g, lf)
+                g = reduce_scatter(g, lf.fsdp_dim, lf.group, lf.n)
             out.append(g)
         return (None, None, *([None] * len(ctx.leaves)), *out)
 

@@ -1,5 +1,6 @@
 """Sharding policy: parameter specs -> per-leaf dim specs (the port's copy
-of `repro.dist.sharding`, the parts the layer streamer reads).
+of `repro.dist.sharding`), and the cuts that stand for the reference's
+`device_put(x, NamedSharding)`.
 
 One rule object (`ShardRules`) decides where a tensor lives:
 
@@ -20,9 +21,14 @@ mesh is anything `axis_sizes` reads: None (one device), a mapping of axis
 name to size, or a `torch.distributed.device_mesh.DeviceMesh`.  Placement
 is shape-driven (a dim must divide the axis size, else the leaf stays
 whole on that dim), so the SMOKE configs on a small mesh and the full
-widths go through the same code.  The cache placement (`cache_pspecs`)
-and the tensor-parallel compute forms come with the sharded steps
-(ROADMAP §1.8b).
+widths go through the same code.
+
+Each rank holds the local piece of every leaf that its spec names:
+`shard_tree` cuts whole leaves into the calling rank's pieces (dim d of a
+leaf split over the axes of its entry, the first axis outermost), and
+`gather_tree` puts whole leaves back together (a collective: every rank
+calls it).  `leaf_axes` names the axes a leaf is split over, which the
+optimizer's global norm sums over.
 """
 from __future__ import annotations
 
@@ -153,3 +159,126 @@ def gathered_pspecs(tree, mesh, rules: ShardRules):
     return _map_with_path(
         lambda path, s: _leaf_pspec(s.shape, 0, _leaf_name(path), mesh,
                                     rules, fsdp=False), tree)
+
+
+# ---------------------------------------------------------------------------
+# cache placement
+# ---------------------------------------------------------------------------
+
+def cache_pspecs(tree, mesh, rules: ShardRules, batch: int):
+    """KV-cache / recurrent-state placement: batch over the dp axes when it
+    divides them; otherwise (long-context B < dp, e.g. long_500k at B=1)
+    the SEQUENCE dim is sharded over dp instead, so a 500k-token cache
+    never has to fit one device."""
+    sizes = axis_sizes(mesh)
+    dpn = _axis_size(sizes, rules.dp_axes)
+    dp_entry = _axes_entry(rules.dp_axes)
+
+    def f(path, s):
+        if s is None:                     # a layer with no cache (cross)
+            return None
+        lead = 1 if _is_stacked(path) else 0
+        dims: "list[Any]" = [None] * len(s.shape)
+        if dpn > 1:
+            if batch % dpn == 0:
+                dims[lead] = dp_entry
+            elif (len(s.shape) > lead + 1
+                  and s.shape[lead + 1] % dpn == 0):
+                dims[lead + 1] = dp_entry
+        return tuple(dims)
+
+    return _map_with_path(f, tree)
+
+
+# ---------------------------------------------------------------------------
+# the rank's pieces
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry) -> "tuple[str, ...]":
+    """The axes of one spec entry (None: none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def leaf_axes(spec) -> "tuple[str, ...]":
+    """Every axis a leaf is split over, in dim order."""
+    return tuple(a for e in (spec or ()) for a in entry_axes(e))
+
+
+def drop_axes(specs, axes):
+    """The spec tree with `axes` taken out of every entry (what a leaf looks
+    like once it is gathered over them)."""
+    axes = set(axes)
+
+    def one(spec):
+        out = []
+        for e in spec:
+            kept = tuple(a for a in entry_axes(e) if a not in axes)
+            out.append(None if not kept else
+                       kept[0] if len(kept) == 1 else kept)
+        return tuple(out)
+    return map_spec_tree(one, specs)
+
+
+def map_spec_tree(fn, specs, *rest):
+    """fn(spec, *leaves) over a spec tree (a spec is a tuple of entries;
+    nested dicts / lists hold them), with trees of the same structure in
+    `rest`.  None (a layer with no cache) stays None."""
+    if specs is None:
+        return None
+    if isinstance(specs, dict):
+        return {k: map_spec_tree(fn, v, *(r[k] for r in rest))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_spec_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(specs)]
+    return fn(specs, *rest)
+
+
+def piece(t, spec, mesh):
+    """This rank's piece of a whole tensor `t` under `spec`: along each dim,
+    block r of its entry's axes (the first axis outermost).  A leaf split
+    over no axis comes back as it is; a piece is a copy of its own."""
+    sizes = axis_sizes(mesh)
+    out = t
+    for d, e in enumerate(spec or ()):
+        for a in entry_axes(e):
+            n = sizes.get(a, 1)
+            if n == 1:
+                continue
+            if out.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(out.shape)} does not "
+                                 f"divide over {a!r} ({n})")
+            per = out.shape[d] // n
+            out = out.narrow(d, mesh.get_local_rank(a) * per, per)
+    return out if out is t else out.contiguous().clone()
+
+
+def whole(t, spec, mesh):
+    """The whole tensor from this rank's piece `t` under `spec` (all-gather
+    over each split axis, innermost first); every rank of those axes must
+    call it."""
+    import torch
+    # here, not at the top: dist.collectives imports this module
+    from repro_torch.dist.collectives import all_gather
+    sizes = axis_sizes(mesh)
+    out = t
+    for d, e in enumerate(spec or ()):
+        for a in reversed(entry_axes(e)):
+            n = sizes.get(a, 1)
+            if n > 1:
+                out = torch.cat(all_gather(out, mesh.get_group(a), n), dim=d)
+    return out
+
+
+def shard_tree(tree, specs, mesh):
+    """The calling rank's pieces of a tree of whole tensors (the port's
+    `device_put(tree, NamedSharding(mesh, specs))`)."""
+    return map_spec_tree(lambda s, t: piece(t, s, mesh), specs, tree)
+
+
+def gather_tree(tree, specs, mesh):
+    """Whole leaves from the ranks' pieces (every rank calls it and gets
+    them all)."""
+    return map_spec_tree(lambda s, t: whole(t, s, mesh), specs, tree)

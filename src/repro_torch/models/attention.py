@@ -23,6 +23,28 @@ Three cache forms:
     from `enc` every call.
 The attention itself is plain torch, as the reference's is jnp outside any
 Pallas kernel.  All attention math accumulates in f32.
+
+Under a mesh whose model axis is larger than one rank (`dist.collectives`),
+`gqa_forward`, `gqa_prefill` and `gqa_decode` take a tensor-parallel form
+chosen from the layer's specs (`_tp_form`):
+  heads   the q heads divide the model axis (w_o's spec splits its heads):
+          a copy at the entry, the rank's q heads (w_q gathered from its
+          head_dim split and cut to its heads), k / v for every kv head on
+          every rank, of which the rank attends the ones its q heads read,
+          w_o row-parallel, then a reduce
+  cp      otherwise, when S divides the axis and S > 1 (the reference's
+          `_attend` context-parallel branch): the projections run whole on
+          every model rank, rank r attends its S/tp query rows at q_offset
+          r*S/tp against the whole k / v (`_sdpa_kv_chunked`), projects
+          them through w_o, and the rows are gathered back
+  whole   otherwise (a decode step of heads that do not divide): every
+          model rank computes the layer whole
+Dense caches keep every kv head on every model rank, as `cache_pspecs`
+places them.  A decode whose cache is split on its sequence dim over the dp
+axis (`cache_pspecs`' long-context case, B < dp) attends over the rank's
+positions, returns (max, sum, acc) and merges the ranks' parts with a
+log-sum-exp all-reduce; the write at `pos` lands on the rank that holds
+that slot.  The reference gets this from GSPMD; here it is written out.
 """
 from __future__ import annotations
 
@@ -31,6 +53,10 @@ import math
 
 import torch
 
+from repro_torch.dist.collectives import (all_reduce, copy_to, current,
+                                          gather_from, reduce_from,
+                                          spec_dim, take, tp_par)
+from repro_torch.dist.sharding import entry_axes
 from repro_torch.kernels.ops import dense, paged_attn, resolve_paged_attn_mode
 from repro_torch.models.layers import Spec, rmsnorm, rope
 
@@ -280,12 +306,154 @@ def _sdpa_chunked(q, k, v, scale, *, window=None, chunk=ATTN_Q_CHUNK):
         for i in range(0, S, chunk)], dim=1)
 
 
-def gqa_forward(p, c: AttnConfig, x, positions):
+ATTN_KV_CHUNK = 1024  # key-block size for context-parallel attention
+
+
+def _sdpa_parts(q, k, v, mask, scale):
+    """Unnormalized attention of q against a block of keys: (m, l, acc)
+    with m the rows' max logit (-inf where every key is masked), l the sum
+    of exp(logit - m) and acc the f32 sum of exp(logit - m) v.  q: (B, S,
+    H, hd); mask (S, T) or (B, S, T).  m, l: (B, KVH, rep, S); acc: (B, S,
+    KVH, rep, dv).  The casts are `_sdpa`'s."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    rep = H // KVH
+    qr = (q.float() * scale).to(k.dtype).reshape(B, S, KVH, rep, hd)
+    logits = torch.einsum("bsgrh,btgh->bgrst", qr.float(), k.float())
+    msk = mask[:, None, None] if mask.dim() == 3 else mask
+    logits = logits.masked_fill(~msk, float("-inf"))
+    m = torch.amax(logits, dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    p = torch.exp(logits - m_safe[..., None])
+    acc = torch.einsum("bgrst,btgh->bsgrh", p.to(v.dtype).float(), v.float())
+    return m, torch.sum(p, dim=-1), acc
+
+
+def _sdpa_kv_chunked(q, k, v, scale, *, window=None, chunk=ATTN_KV_CHUNK,
+                     q_offset=0):
+    """Online-softmax attention over blocks of `chunk` keys (the
+    reference's `_sdpa_kv_chunked`).  q's rows may be a sequence shard
+    (context parallelism): `q_offset` is their global position for the
+    causal and window masks; a row whose keys are all masked so far keeps
+    m = -inf.  Peak memory is one (S x chunk) block of logits.  A T that is
+    not a whole number of blocks, or at most one, runs `_sdpa`."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    KVH = k.shape[2]
+    rep = H // KVH
+    vd = v.shape[-1]
+    if T % chunk or T <= chunk:
+        return _sdpa(q, k, v, causal_mask(S, T, q_offset, window, q.device),
+                     scale)
+    dev = q.device
+    m = torch.full((B, KVH, rep, S), float("-inf"), device=dev)
+    l = torch.zeros((B, KVH, rep, S), device=dev)
+    acc = torch.zeros((B, S, KVH, rep, vd), device=dev)
+    zero = torch.zeros((), device=dev)
+    for j in range(T // chunk):
+        kc = k[:, j * chunk:(j + 1) * chunk]
+        vc = v[:, j * chunk:(j + 1) * chunk]
+        # query i is global position q_offset+i; keys are at j*chunk + t
+        mask = causal_mask(S, chunk, q_offset - j * chunk, window, dev)
+        mj, lj, aj = _sdpa_parts(q, kc, vc, mask, scale)
+        m_new = torch.maximum(m, mj)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+        cj = torch.where(torch.isfinite(mj), torch.exp(mj - m_safe), zero)
+        l = l * corr + lj * cj
+        acc = (acc * corr.permute(0, 3, 1, 2)[..., None]
+               + aj * cj.permute(0, 3, 1, 2)[..., None])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S, H, vd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forms (module docstring)
+# ---------------------------------------------------------------------------
+
+def _tp_form(spec, S: int, par) -> str:
+    if spec_dim(spec["w_o"]) == 0:
+        return "heads"
+    if S > 1 and S % par.tp == 0:
+        return "cp"
+    return "whole"
+
+
+def _kv_heads(k, r: int, Hl: int, rep: int):
+    """The kv heads that q heads r*Hl .. (r+1)*Hl-1 read, in an order that
+    keeps each q head on its own kv head: a run of kv heads when the q
+    heads cover whole groups, the one kv head when they sit inside one
+    group, else one kv head a q head."""
+    if Hl % rep == 0:
+        return k.narrow(2, r * Hl // rep, Hl // rep)
+    if rep % Hl == 0:
+        return k.narrow(2, r * Hl // rep, 1)
+    idx = torch.arange(r * Hl, (r + 1) * Hl, device=k.device) // rep
+    return k.index_select(2, idx)
+
+
+def _tp_qkv(p, c: AttnConfig, x, positions, spec, par, form: str):
+    """(q, k, v) of the form: q the rank's heads in the heads form, else
+    every head; k / v every kv head.  In the heads and cp forms x enters
+    through a copy (each rank's work is a part)."""
+    partial = form != "whole"
+    xin = copy_to(x, par) if partial else x
+    qwant = (None, "model", None) if form == "heads" else None
+    w = {"w_q": take(p["w_q"], spec["w_q"], qwant, par, partial=partial)}
+    if "b_q" in p:
+        w["b_q"] = take(p["b_q"], spec["b_q"],
+                        qwant[1:] if qwant else None, par, partial=partial)
+    for n in ("w_k", "w_v", "b_k", "b_v"):
+        if n in p:
+            w[n] = take(p[n], spec[n], None, par, partial=partial)
+    q, k, v = gqa_project_qkv(w, c, xin, positions)
+    return q, k, v
+
+
+def _tp_out(p, c: AttnConfig, out, spec, par, form: str):
+    """The output projection of the form: row-parallel then a reduce
+    (heads), or whole."""
+    if form == "heads":
+        wo = take(p["w_o"], spec["w_o"], ("model", None, None), par)
+        return reduce_from(dense(out, wo, mode=c.dense_mode, contract_dims=2),
+                           par)
+    wo = take(p["w_o"], spec["w_o"], None, par, partial=form != "whole")
+    return dense(out, wo, mode=c.dense_mode, contract_dims=2)
+
+
+def _tp_attention(p, c: AttnConfig, x, positions, spec, par):
+    """Full-sequence attention under the model axis: (out projected, k, v
+    with every kv head)."""
+    S = x.shape[1]
+    form = _tp_form(spec, S, par)
+    q, k, v = _tp_qkv(p, c, x, positions, spec, par, form)
+    scale = 1.0 / math.sqrt(c.head_dim)
+    r = par.rank("model")
+    if form == "heads":
+        Hl = q.shape[2]
+        rep = c.num_heads // c.num_kv_heads
+        out = _sdpa_chunked(q, _kv_heads(k, r, Hl, rep),
+                            _kv_heads(v, r, Hl, rep), scale, window=c.window)
+        return _tp_out(p, c, out, spec, par, form), k, v
+    if form == "cp":
+        Sl = S // par.tp
+        out = _sdpa_kv_chunked(q.narrow(1, r * Sl, Sl), k, v, scale,
+                               window=c.window, q_offset=r * Sl)
+        y = _tp_out(p, c, out, spec, par, form)
+        return gather_from(y, 1, par), k, v
+    out = _sdpa_chunked(q, k, v, scale, window=c.window)
+    return _tp_out(p, c, out, spec, par, form), k, v
+
+
+def gqa_forward(p, c: AttnConfig, x, positions, spec=None):
     """Full-sequence GQA self-attention (causal, optional window): the
     projections through `kernels.ops.dense`, the attention in plain torch
-    (as the reference computes it in jnp, outside any Pallas kernel; its
-    `_attend` also dispatches a context-parallel `shard_map` branch, which
-    comes with distribution)."""
+    (as the reference computes it in jnp, outside any Pallas kernel).
+    Under the model axis, the form of the module docstring."""
+    par = tp_par()
+    if par is not None and spec is not None:
+        return _tp_attention(p, c, x, positions, spec, par)[0]
     q, k, v = gqa_project_qkv(p, c, x, positions)
     out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(c.head_dim),
                         window=c.window)
@@ -301,14 +469,20 @@ def _write_at(cache, slot: int, vals):
     return out
 
 
-def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int):
+def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int, spec=None):
     """Prefill over a dense cache: returns (out, {"k", "v"}) with the
     cache laid out for `gqa_decode` (a window layer's last span positions
-    at their ring slots pos % span)."""
+    at their ring slots pos % span).  The cache holds every kv head, under
+    the model axis too."""
     B, S, _ = x.shape
-    q, k, v = gqa_project_qkv(p, c, x, positions)
-    out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(c.head_dim),
-                        window=c.window)
+    par = tp_par()
+    if par is not None and spec is not None:
+        y, k, v = _tp_attention(p, c, x, positions, spec, par)
+    else:
+        q, k, v = gqa_project_qkv(p, c, x, positions)
+        out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(c.head_dim),
+                            window=c.window)
+        y = dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
     span = min(max_len, c.window) if c.window else max_len
     kc = torch.zeros((B, span, c.num_kv_heads, c.head_dim), dtype=k.dtype,
                      device=k.device)
@@ -322,32 +496,88 @@ def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int):
         n = min(S, span)
         kc[:, :n] = k[:, :n]
         vc[:, :n] = v[:, :n]
-    return (dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2),
-            {"k": kc, "v": vc})
+    return y, {"k": kc, "v": vc}
 
 
-def gqa_decode(p, c: AttnConfig, x, cache, pos: int):
+def _seq_axis(cache_spec):
+    """The axis a dense cache's sequence dim is split over (None: whole)."""
+    if cache_spec is None:
+        return None
+    axes = entry_axes(next(iter(cache_spec.values()))[1])
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"a cache sequence over {axes} comes with ROADMAP §1.8b-2")
+    return axes[0] if axes else None
+
+
+def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
+               cache_spec=None):
     """One-token decode over a dense cache at the one position `pos` of
     every row.  x: (B, 1, D).  A window layer's entry j holds the absolute
     position p' = pos - ((pos - j) % span), visible while p' >= 0 and
-    within the window."""
+    within the window.  Under a mesh: the model axis's form (module
+    docstring), and a cache split on its sequence dim (`cache_spec`)
+    attended in parts merged across its axis."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = gqa_project_qkv(p, c, x, positions)
-    span = cache["k"].shape[1]
-    slot = pos % span if c.window else pos
-    kc = _write_at(cache["k"], slot, k)
-    vc = _write_at(cache["v"], slot, v)
-    kpos = torch.arange(span, device=x.device)
+    par = tp_par()
+    form = None
+    if par is not None and spec is not None:
+        form = _tp_form(spec, 1, par)
+        q, k, v = _tp_qkv(p, c, x, positions, spec, par, form)
+    else:
+        q, k, v = gqa_project_qkv(p, c, x, positions)
+    axis = _seq_axis(cache_spec)
+    seq = current() if axis is not None else None
+    n_loc = cache["k"].shape[1]
+    parts = seq.size(axis) if seq is not None else 1
+    span = n_loc * parts
+    slot = min(max(pos % span if c.window else pos, 0), span - 1)
+    r = seq.rank(axis) if seq is not None else 0
+    if slot // n_loc == r:
+        kc = _write_at(cache["k"], slot - r * n_loc, k)
+        vc = _write_at(cache["v"], slot - r * n_loc, v)
+    else:
+        kc, vc = cache["k"].clone(), cache["v"].clone()
+    kpos = r * n_loc + torch.arange(n_loc, device=x.device)
     if c.window:
         kpos = pos - ((pos - kpos) % span)
         valid = (kpos >= 0) & (kpos >= pos - (c.window - 1))
     else:
         valid = kpos <= pos
-    mask = valid[None, None, :].expand(B, 1, span)
-    out = _sdpa(q, kc, vc, mask, 1.0 / math.sqrt(c.head_dim))
-    return (dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2),
-            {"k": kc, "v": vc})
+    mask = valid[None, None, :].expand(B, 1, n_loc)
+    ka, va = kc, vc
+    if form == "heads":
+        Hl = q.shape[2]
+        rep = c.num_heads // c.num_kv_heads
+        rk = par.rank("model")
+        ka, va = _kv_heads(kc, rk, Hl, rep), _kv_heads(vc, rk, Hl, rep)
+    scale = 1.0 / math.sqrt(c.head_dim)
+    if seq is None:
+        out = _sdpa(q, ka, va, mask, scale)
+    else:
+        out = _merge_parts(*_sdpa_parts(q, ka, va, mask, scale), seq, axis,
+                           q.shape, q.dtype)
+    if form is not None:
+        y = _tp_out(p, c, out, spec, par, form)
+    else:
+        y = dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
+    return y, {"k": kc, "v": vc}
+
+
+def _merge_parts(m, l, acc, par, axis: str, qshape, dtype):
+    """Attention over every rank's keys from the ranks' (m, l, acc): the
+    log-sum-exp merge, all-reduced over `axis`."""
+    zero = torch.zeros((), device=m.device)
+    m_g = all_reduce(m, par, (axis,), op="max")
+    m_safe = torch.where(torch.isfinite(m_g), m_g, zero)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+    l_g = all_reduce(l * corr, par, (axis,))
+    acc_g = all_reduce(acc * corr.permute(0, 3, 1, 2)[..., None], par,
+                       (axis,))
+    out = acc_g / torch.clamp(l_g, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    B, S, H, _ = qshape
+    return out.reshape(B, S, H, acc.shape[-1]).to(dtype)
 
 
 def _paged_gather(pool, tables):

@@ -6,6 +6,20 @@ and rotary maths run in f32; RMSNorm goes through `kernels.ops.rmsnorm`
 (the row-invariant CUDA kernel on the card) and every MLP projection
 through `kernels.ops.dense` (the CUDA gpp_matmul on the card, silu fused
 into the gate projection's epilogue).
+
+Under a mesh whose model axis is larger than one rank (`dist.collectives.
+tp_par`), `mlp`, `embed` and the heads take their tensor-parallel forms,
+chosen from the leaf's spec (which dim it splits over "model"), never from
+the config:
+  mlp     gate / up column-parallel (d_ff on "model") with a copy at the
+          region's entry, down row-parallel with a reduce at its exit;
+          with d_ff whole, every model rank computes it all
+  embed   the vocab on "model": a rank looks up the tokens in its vocab
+          range, zeros for the rest, then a reduce; d_model on "model":
+          the lookup, then a gather of the columns
+  heads   the table's vocab on "model": local logits, then a gather along
+          the vocab; its d_model on "model" (the untied head's spec): a
+          rank's columns of x against its columns, then a reduce
 """
 from __future__ import annotations
 
@@ -15,6 +29,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.collectives import (copy_to, gather_from,
+                                          reduce_from, spec_dim, take,
+                                          tp_par)
+from repro_torch.dist.sharding import entry_axes
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import dense
 
@@ -145,8 +163,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def model_only(spec) -> tuple:
+    """A leaf's spec with every axis but "model" taken out."""
+    return tuple("model" if "model" in entry_axes(e) else None
+                 for e in (spec or ()))
+
+
 def mlp(p: dict, x: torch.Tensor, act: str,
-        dense_mode: str = "auto") -> torch.Tensor:
+        dense_mode: str = "auto", spec: "dict | None" = None) -> torch.Tensor:
+    par = tp_par()
+    if par is not None and spec is not None:
+        return _mlp_tp(p, x, act, dense_mode, spec, par)
     if act == "swiglu":
         h = (dense(x, p["w_gate"], activation="silu", mode=dense_mode)
              * dense(x, p["w_up"], mode=dense_mode))
@@ -155,8 +182,59 @@ def mlp(p: dict, x: torch.Tensor, act: str,
     return dense(h, p["w_down"], mode=dense_mode)
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+def _mlp_tp(p, x, act, dense_mode, spec, par):
+    ins = ("w_gate", "w_up") if act == "swiglu" else ("w_up",)
+    if all(spec_dim(spec[n]) == 1 for n in ins) and \
+            spec_dim(spec["w_down"]) == 0:
+        w = {n: take(p[n], spec[n], (None, "model"), par) for n in ins}
+        w["w_down"] = take(p["w_down"], spec["w_down"], ("model", None), par)
+        return reduce_from(mlp(w, copy_to(x, par), act, dense_mode), par)
+    w = {n: take(p[n], spec[n], None, par, partial=False)
+         for n in ins + ("w_down",)}
+    return mlp(w, x, act, dense_mode)
+
+
+def embed(p: dict, tokens: torch.Tensor,
+          spec: "dict | None" = None) -> torch.Tensor:
+    par = tp_par()
+    if par is None or spec is None:
+        return p["embedding"][tokens]
+    sp = spec["embedding"]
+    md = spec_dim(sp)
+    # whole on every model rank (md None): every rank looks up every row
+    table = take(p["embedding"], sp, model_only(sp), par,
+                 partial=md is not None)
+    if md == 0:
+        n = table.shape[0]
+        local = tokens - par.rank("model") * n
+        inside = (local >= 0) & (local < n)
+        rows = table[local.clamp(0, n - 1)]
+        rows = torch.where(inside[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        return reduce_from(rows, par)
+    if md == 1:
+        return gather_from(table[tokens], -1, par)
+    return table[tokens]
+
+
+def head_logits_tp(x: torch.Tensor, table: torch.Tensor, spec,
+                   mode: str = "auto") -> torch.Tensor:
+    """`head_logits` of x against a (vocab, d) table that may be split over
+    the model axis (module docstring); whole f32 logits on every rank."""
+    par = tp_par()
+    if par is None or spec is None:
+        return head_logits(x, table, None, mode)
+    md = spec_dim(spec)
+    table = take(table, spec, model_only(spec), par, partial=md is not None)
+    if md == 0:
+        return gather_from(head_logits(copy_to(x, par), table, None, mode),
+                           -1, par)
+    if md == 1:
+        n = table.shape[1]
+        xr = copy_to(x, par).narrow(-1, par.rank("model") * n, n)
+        return reduce_from(head_logits(xr, table, None, mode), par)
+    return head_logits(x, table, None, mode)
 
 
 def head_logits(x: torch.Tensor, table: torch.Tensor,

@@ -12,8 +12,25 @@ the reference.  Shared experts are a plain MLP beside the routed ones.
 
 Capacity: C = max(8, ceil(Tg * top_k / E * capacity_factor)) per group.
 
-The reference's mesh paths (`_moe_shard_map*`, expert parallelism across
-chips) are not part of this port yet.
+Under a mesh (`dist.collectives.on_mesh`, with the layer's specs) the
+reference's explicit schedules run instead, with its conditions
+(`moe_apply`):
+  _moe_shard_map        training / prefill: ONE group of the rank's T_local
+                        tokens at C = capacity(c, T_local) (not the
+                        mesh-less path's dispatch groups: with dropped
+                        tokens the two differ, as in the reference); the
+                        rank's expert slice (E on "model"), its data-split
+                        weights gathered over "data", then a reduce over
+                        "model"
+  _moe_shard_map_serve  decode (`serve_resident`): every token of the
+                        batch, experts over "model" and d_ff over "data",
+                        resident, then one reduce over ("model", "data"),
+                        never over "pod"
+The reference routes `dense_grouped`'s "auto" to its plain path under a
+mesh, because a `pallas_call` on sharded arrays would make XLA gather
+them; a torch rank's tensors are already its own, so here "auto" stays the
+kernel on a CUDA tensor (`gpp_matmul_grouped` on the rank's E_local
+experts) and the plain version on the CPU.  That changes no number.
 """
 from __future__ import annotations
 
@@ -22,8 +39,10 @@ import math
 
 import torch
 
+from repro_torch.dist.collectives import (copy_to, current, gather_from,
+                                          reduce_from, take)
 from repro_torch.kernels.ops import dense, dense_grouped
-from repro_torch.models.layers import Spec
+from repro_torch.models.layers import Spec, mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +58,7 @@ class MoeConfig:
     router_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.bfloat16
     dispatch_groups: int = 16      # token groups
+    serve_resident: bool = False   # decode: resident E:model x d_ff:data
     dense_kernel: str = "auto"     # kernels.ops.dense/dense_grouped routing
 
 
@@ -159,11 +179,97 @@ def _combine(out_buf: torch.Tensor, meta, Tg: int, dtype) -> torch.Tensor:
     return out
 
 
-def moe_apply(p, c: MoeConfig, x: torch.Tensor) -> torch.Tensor:
+def _routed_local(p, c: MoeConfig, xt, C: int, n_local: int, r: int):
+    """One group of tokens xt (T, D): dispatch, run model rank r's expert
+    slice (E_local = n_local experts from r * n_local), combine; the
+    result is the rank's partial, which the caller sums over "model"."""
+    T, D = xt.shape
+    buf, meta = _dispatch(p, c, xt[None], C)            # (1, E, C, D)
+    lo = r * n_local
+    out_e = _grouped_ffn(p["w_gate"], p["w_up"], p["w_down"],
+                         buf[0, lo:lo + n_local], c.act, c.dense_kernel)
+    E = c.num_experts
+    # back into the full-E frame so the combine's gather stays as it is
+    pad = (lambda n: out_e.new_zeros((n, *out_e.shape[1:])))
+    out_buf = torch.cat([pad(lo), out_e, pad(E - lo - n_local)])
+    return _combine(out_buf[None], meta, T, xt.dtype)[0]
+
+
+def _moe_shard_map(p, c: MoeConfig, x: torch.Tensor, par, spec):
+    """Routed experts on the rank's tokens (module docstring): x (B, S, D)
+    the rank's rows; the expert stacks' pieces as `spec` names them
+    (E on "model", and maybe d_model on "data"); the router whole."""
+    B, S, D = x.shape
+    C = capacity(c, B * S)
+    n_local = c.num_experts // par.tp
+    w = {"router": take(p["router"], spec["router"], None, par)}
+    for n in ("w_gate", "w_up", "w_down"):
+        # the "rewrite": this rank's expert slice gathered over "data"
+        w[n] = take(p[n], spec[n], ("model", None, None), par)
+    out = _routed_local(w, c, copy_to(x, par).reshape(-1, D), C, n_local,
+                        par.rank("model"))
+    return reduce_from(out, par).reshape(B, S, D)
+
+
+def _moe_shard_map_serve(p, c: MoeConfig, x: torch.Tensor, par, spec):
+    """Decode-time routed experts with RESIDENT weights: E over "model",
+    d_ff over the dp axis, no weight gathered; every token of the batch
+    (tiny at decode) on every rank, each computing its (E_local x d_ff
+    slice) partial, summed over "model" and the dp axis, never "pod"
+    (the weights are whole across pods)."""
+    B, S, D = x.shape
+    dp_ax = par.dp_axis
+    split = par.batch_split and par.dp > 1
+    xs = gather_from(x, 0, par, dp_ax) if split else x
+    T = xs.shape[0] * S
+    C = capacity(c, T)
+    n_local = c.num_experts // par.tp
+    # each dp rank's work on the router is a part too (its d_ff slice)
+    w = {"router": copy_to(take(p["router"], spec["router"], None, par),
+                           par, dp_ax),
+         "w_gate": take(p["w_gate"], spec["w_gate"],
+                        ("model", None, dp_ax), par),
+         "w_up": take(p["w_up"], spec["w_up"], ("model", None, dp_ax), par),
+         "w_down": take(p["w_down"], spec["w_down"],
+                        ("model", dp_ax, None), par)}
+    out = _routed_local(w, c, copy_to(copy_to(xs, par), par, dp_ax)
+                        .reshape(T, D), C, n_local, par.rank("model"))
+    out = reduce_from(reduce_from(out, par), par, dp_ax).reshape(-1, S, D)
+    if split:
+        # each dp rank keeps its rows: their gradients sum over dp again
+        out = copy_to(out, par, dp_ax).narrow(0, par.rank(dp_ax) * B, B)
+    return out
+
+
+def _mesh_dispatch(c: MoeConfig, T: int, par) -> "str | None":
+    """The reference's choice (moe.py:279-300): the serve form for a
+    decode-sized batch of resident experts, else the shard-map form, when
+    the experts divide the model axis."""
+    if par is None or c.num_experts % par.tp:
+        return None
+    T_all = T * par.dp if par.batch_split else T
+    if c.serve_resident and T_all <= 4096:
+        return "serve"
+    return "shard_map"
+
+
+def moe_apply(p, c: MoeConfig, x: torch.Tensor, spec=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D): grouped dispatch, the routed experts, the
-    combine, plus the shared experts."""
+    combine, plus the shared experts.  Under a mesh with the layer's
+    `spec`, the routed experts take the mesh forms of the module
+    docstring and the shared experts the MLP's tensor-parallel form."""
     B, S, D = x.shape
     T = B * S
+    par = current() if spec is not None else None
+    form = _mesh_dispatch(c, T, par)
+    if form is not None:
+        routed = (_moe_shard_map_serve if form == "serve"
+                  else _moe_shard_map)(p, c, x, par, spec)
+        if c.num_shared_experts:
+            routed = routed + mlp(p["shared"], x.reshape(T, D), c.act,
+                                  c.dense_kernel,
+                                  spec=spec.get("shared")).reshape(B, S, D)
+        return routed
     G = _dispatch_groups(c, T)
     Tg = T // G
     C = capacity(c, Tg)

@@ -31,8 +31,21 @@ leave the caches they were given as they were.  `forward` streams the
 superblocks through `core.streamer.stream_layers` when `cfg.stream.mode`
 is not "resident" and per-superblock specs are given (`launch.steps.
 stream_specs`), as the reference does; otherwise the layers run resident.
+
+On a mesh (`specs`, the parameter spec tree the rank's pieces follow, and
+the ambient mesh of `dist.collectives.on_mesh`, which the step builders of
+`launch.steps` enter): a layer that is not streamed has its FSDP dims
+gathered one layer at a time before it computes (ZeRO-3, `dist.
+collectives.take`, again in a block's remat), and the blocks run the
+tensor-parallel forms of `layers`, `attention` and `moe` when the model
+axis is larger than one rank.  This slice brings those forms for the GQA /
+window attention, MLP, MoE, embedding and head; MLA, Mamba2, xLSTM, cross
+and shared attention raise at a model axis above one (ROADMAP §1.8b-2) and
+run data parallel at one.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -40,16 +53,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streamer import stream_layers
 from repro_torch.device import resolve_device
+from repro_torch.dist.collectives import NEXT, current, on_mesh, take, tp_par
+from repro_torch.dist.sharding import drop_axes
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Spec, cross_entropy_chunked, embed,
                                        embed_specs, head_logits,
+                                       head_logits_tp,
                                        init_from_specs, map_specs,
                                        mlp, mlp_specs, rmsnorm,
                                        rmsnorm_specs, stack_specs,
-                                       tree_leaves, unembed)
+                                       tree_leaves, tree_map, unembed)
 
 PAGED_BLOCK_KINDS = ("dense", "moe")
 
@@ -71,7 +87,8 @@ def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoeConfig:
         num_experts=cfg.num_experts, experts_per_token=cfg.experts_per_token,
         num_shared_experts=cfg.num_shared_experts,
         capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
-        dtype=cfg.torch_dtype, dense_kernel=cfg.dense_kernel)
+        dtype=cfg.torch_dtype, serve_resident=cfg.moe_serve_resident,
+        dense_kernel=cfg.dense_kernel)
 
 
 def _ssm_cfg(cfg: ModelConfig) -> ssm_mod.SsmConfig:
@@ -250,9 +267,12 @@ def init_paged_caches(specs: dict, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def _index(tree, i: int):
-    """Layer i of a stacked tree: views, no copies."""
+    """Layer i of a stacked tree: views, no copies.  A spec (a tuple of
+    entries) drops its stack dim's entry."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tree[1:]
     return tree[i]
 
 
@@ -278,33 +298,83 @@ def _layers(params: dict, caches: dict, cfg: ModelConfig):
         yield kind, p, c
 
 
-def _ffn(cfg: ModelConfig, kind: str, p: dict, x):
+def _sub(spec, key):
+    return None if spec is None else spec.get(key)
+
+
+def _ffn(cfg: ModelConfig, kind: str, p: dict, x, spec=None):
     """The second half of an attention block: norm, then MoE or MLP."""
     h = rmsnorm(p["ln2"], x, mode=cfg.dense_kernel)
     if kind.split(":")[0] == "moe":
-        return x + moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h)
-    return x + mlp(p["mlp"], h, cfg.act, dense_mode=cfg.dense_kernel)
+        return x + moe_mod.moe_apply(p["moe"], _moe_cfg(cfg), h,
+                                     spec=_sub(spec, "moe"))
+    return x + mlp(p["mlp"], h, cfg.act, dense_mode=cfg.dense_kernel,
+                   spec=_sub(spec, "mlp"))
 
 
-def _block(cfg: ModelConfig, kind: str, p, x, attend):
+def _block(cfg: ModelConfig, kind: str, p, x, attend, spec=None):
     """One attention block: attention (`attend(attn_cfg, params, h)` runs
     the step's GQA or MLA function, as the config says, and returns (h,
     cache)), then the MoE or the MLP.  Returns (x, cache)."""
     h, cache = attend(_attn_cfg(cfg, kind), p["attn"],
                       rmsnorm(p["ln1"], x, mode=cfg.dense_kernel))
-    return _ffn(cfg, kind, p, x + h), cache
+    return _ffn(cfg, kind, p, x + h, spec), cache
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens):
-    x = embed(params["embed"], tokens)
+def _check_tp(cfg: ModelConfig, kind: str) -> None:
+    """The block kinds whose tensor-parallel forms this port has (GQA /
+    window attention with an MLP or a MoE); the others raise at a model
+    axis above one rank."""
+    base = kind.split(":")[0]
+    if tp_par() is not None and (base not in ("dense", "moe")
+                                 or cfg.kv_lora_rank):
+        what = "MLA" if base in ("dense", "moe") else base
+        raise NotImplementedError(
+            f"{cfg.name}: the tensor-parallel form of a {what} block comes "
+            f"with {NEXT}")
+
+
+def _zero(p, spec):
+    """(p with its FSDP dims gathered over the ambient mesh's FSDP axis,
+    the spec it then has): ZeRO-3 for a layer that is not streamed.  No
+    mesh or no spec: (p, spec) as they are."""
+    par = current()
+    if par is None or spec is None:
+        return p, spec
+    axes = par.rules.fsdp_axes
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"FSDP over {axes} (the kimi-scale rule) comes with {NEXT}")
+    full = drop_axes(spec, axes)
+    # a gather whose backward reduce-scatters; no copy over "model", as
+    # each model rank's work on a leaf whole there is the whole work
+    return tree_map(lambda w, s, f: take(w, s, f, par, partial=False),
+                    p, spec, full), full
+
+
+def _embed_tokens(params, cfg: ModelConfig, tokens, spec=None):
+    p, sp = _zero(params["embed"], _sub(spec, "embed"))
+    x = embed(p, tokens, sp)
     if cfg.embed_scale:
         # the factor rounded to x's dtype first, as the reference does
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
     return x
 
 
-def _logits_head(params, cfg: ModelConfig, x):
+def _head_table(params, cfg: ModelConfig, spec=None):
+    """(the live logits table, its spec once gathered over FSDP)."""
+    key, name = (("embed", "embedding") if cfg.tie_embeddings
+                 else ("lm_head", "w_out"))
+    p, sp = _zero({name: params[key][name]},
+                  None if spec is None else {name: spec[key][name]})
+    return p[name], None if sp is None else sp[name]
+
+
+def _logits_head(params, cfg: ModelConfig, x, spec=None):
     x = rmsnorm(params["final_norm"], x, mode=cfg.dense_kernel)
+    if spec is not None and current() is not None:
+        table, tsp = _head_table(params, cfg, spec)
+        return head_logits_tp(x, table, tsp, cfg.dense_kernel)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, cfg.dense_kernel)
     head = params["lm_head"]
@@ -351,25 +421,29 @@ def _cross_block(cfg: ModelConfig, kind: str, p: dict, x, enc):
 
 
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions,
-                enc=None):
+                enc=None, spec=None):
     """One block over a whole sequence: causal GQA / window or MLA
     self-attention then the MLP or the MoE; Mamba2 or xLSTM; or cross
-    attention over `enc` then the MLP."""
+    attention over `enc` then the MLP.  `spec`: the block's specs on a
+    mesh (module docstring)."""
     base = kind.split(":")[0]
+    if spec is not None:
+        _check_tp(cfg, kind)
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            (attn.mla_forward if ac.is_mla else attn.gqa_forward)(
-                pa, ac, h, positions), None))[0]
+            attn.mla_forward(pa, ac, h, positions) if ac.is_mla else
+            attn.gqa_forward(pa, ac, h, positions, _sub(spec, "attn")),
+            None), spec)[0]
     if base == "cross":
         return _cross_block(cfg, kind, p, x, enc)
     return _mixer_block(cfg, kind, p, x, "forward")[0]
 
 
-def _inputs(params, cfg: ModelConfig, batch: dict):
+def _inputs(params, cfg: ModelConfig, batch: dict, specs=None):
     """The first layer's input and the encoder embeddings, in the model's
     dtype."""
     if cfg.input_mode == "tokens":
-        x = _embed_tokens(params, cfg, batch["tokens"])
+        x = _embed_tokens(params, cfg, batch["tokens"], specs)
     else:
         x = batch["embeds"].to(cfg.torch_dtype)
     enc = batch.get("enc")
@@ -377,7 +451,7 @@ def _inputs(params, cfg: ModelConfig, batch: dict):
 
 
 def _backbone(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
-              shard_specs=None, full_specs=None):
+              shard_specs=None, full_specs=None, specs=None):
     """The layers over the whole sequence, before the final norm.  When
     autograd records (a parameter carries a gradient) and `cfg.remat` is
     "block", each superblock layer runs under `torch.utils.checkpoint`
@@ -388,30 +462,49 @@ def _backbone(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
     Streamed (`cfg.stream.mode` not "resident" and `shard_specs` given):
     the prefix layers and a shared block run resident, and the stacked
     `params["blocks"]` go through `stream_layers`, one superblock a step,
-    remat around the whole superblock as the reference's."""
-    x, enc = _inputs(params, cfg, batch)
+    remat around the whole superblock as the reference's.
+
+    On a mesh (`specs`; module docstring) a layer that is not streamed is
+    gathered over FSDP inside its remat, and streamed blocks get the
+    gathered specs (`full_specs`)."""
+    x, enc = _inputs(params, cfg, batch, specs)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     remat = (cfg.remat == "block" and torch.is_grad_enabled()
              and any(t.requires_grad for t in tree_leaves(params)))
     n_prefix = len(cfg.prefix_pattern)
+
+    def run(kind, p, x, sp):
+        p, sp = _zero(p, sp)
+        return apply_block(cfg, kind, p, x, positions, enc, sp)
+
     if cfg.stream.mode == "resident" or shard_specs is None:
-        for j, (kind, p) in enumerate(_tree_layers(params, cfg)):
-            if remat and j >= n_prefix:
-                x = checkpoint(apply_block, cfg, kind, p, x, positions, enc,
-                               use_reentrant=False)
+        for j, (kind, p, sp) in enumerate(_with_specs(
+                _tree_layers(params, cfg), specs, cfg)):
+            if specs is None:
+                fn, args = apply_block, (cfg, kind, p, x, positions, enc)
             else:
-                x = apply_block(cfg, kind, p, x, positions, enc)
+                fn, args = run, (kind, p, x, sp)
+            if remat and j >= n_prefix:
+                x = checkpoint(fn, *args, use_reentrant=False)
+            else:
+                x = fn(*args)
         return x
 
-    for kind, p in zip(cfg.prefix_pattern, params["prefix"]):
-        x = apply_block(cfg, kind, p, x, positions, enc)
-    shared = params.get("shared")
+    for j, (kind, p) in enumerate(zip(cfg.prefix_pattern, params["prefix"])):
+        x = run(kind, p, x, None if specs is None else specs["prefix"][j])
+    shared, shared_spec = params.get("shared"), None
+    if shared is not None and specs is not None:
+        shared, shared_spec = _zero(shared, specs["shared"])
 
     def superblock(x, ws):
         for i, kind in enumerate(cfg.pattern):
-            p = shared if _is_shared(kind) else ws[f"b{i}"]
-            x = apply_block(cfg, kind, p, x, positions, enc)
+            if _is_shared(kind):
+                p, sp = shared, shared_spec
+            else:
+                p = ws[f"b{i}"]
+                sp = None if specs is None else full_specs[f"b{i}"]
+            x = apply_block(cfg, kind, p, x, positions, enc, sp)
         return x
 
     def stream_apply(x, ws):
@@ -425,39 +518,54 @@ def _backbone(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
-            shard_specs=None, full_specs=None):
+            shard_specs=None, full_specs=None, specs=None):
     """Full-sequence forward to f32 logits (B, S, vocab).  batch:
     {"tokens": (B, S)} or {"embeds": (B, S, D)}, with "enc": (B, T, D) for
     cross layers.  Projections run `kernels.ops.dense`, MoE layers
     `dense_grouped`, norms the RMSNorm kernel and the head
     `layers.head_logits`, as the step functions do.  `mesh`,
     `shard_specs` and `full_specs` (one superblock's leaves, resting and
-    gathered) stream the superblocks as `cfg.stream` says."""
-    return _logits_head(params, cfg, _backbone(params, cfg, batch, mesh,
-                                               shard_specs, full_specs))
+    gathered) stream the superblocks as `cfg.stream` says; `specs` runs
+    the rank's pieces on the mesh (module docstring)."""
+    with _ambient(mesh, specs):
+        return _logits_head(params, cfg, _backbone(
+            params, cfg, batch, mesh, shard_specs, full_specs, specs),
+            specs)
+
+
+def _ambient(mesh, specs):
+    """The mesh made ambient for a call given `specs`, unless a step builder
+    already made it so."""
+    if specs is None or current() is not None:
+        return contextlib.nullcontext()
+    return on_mesh(mesh)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
-                  shard_specs=None, full_specs=None):
+                  shard_specs=None, full_specs=None, specs=None):
     """The forward up to and including the final norm: no LM head."""
-    return rmsnorm(params["final_norm"],
-                   _backbone(params, cfg, batch, mesh, shard_specs,
-                             full_specs), mode=cfg.dense_kernel)
+    with _ambient(mesh, specs):
+        return rmsnorm(params["final_norm"],
+                       _backbone(params, cfg, batch, mesh, shard_specs,
+                                 full_specs, specs), mode=cfg.dense_kernel)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, mesh=None,
-            shard_specs=None, full_specs=None) -> torch.Tensor:
+            shard_specs=None, full_specs=None, specs=None) -> torch.Tensor:
     """The training loss: mean token NLL of batch["labels"] (B, S) over
     `hidden_states`, in 512-position chunks (`cross_entropy_chunked`).
     The head reads the live table (`embed.embedding` tied, `lm_head.w_out`
     untied), never a serving copy, so its gradient reaches the table; a
-    tied table gets its gradient through both the lookup and the head."""
-    x = hidden_states(params, cfg, batch, mesh, shard_specs, full_specs)
-    table = (params["embed"]["embedding"] if cfg.tie_embeddings
-             else params["lm_head"]["w_out"])
-    return cross_entropy_chunked(
-        lambda xc: head_logits(xc, table, None, cfg.dense_kernel), x,
-        batch["labels"], chunk=512)
+    tied table gets its gradient through both the lookup and the head.  On
+    a mesh the head takes its tensor-parallel form (`layers.
+    head_logits_tp`)."""
+    with _ambient(mesh, specs):
+        x = hidden_states(params, cfg, batch, mesh, shard_specs, full_specs,
+                          specs)
+        table, tsp = _head_table(params, cfg, specs)
+        return cross_entropy_chunked(
+            lambda xc: head_logits_tp(xc, table, tsp, cfg.dense_kernel), x,
+            batch["labels"], chunk=512)
 
 
 def _block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
@@ -492,26 +600,41 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 
 
 def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
-                   enc, max_len: int):
+                   enc, max_len: int, spec=None):
     """One block over the prompt.  Returns (x, cache or None)."""
     base = kind.split(":")[0]
+    if spec is not None:
+        _check_tp(cfg, kind)
+        p, spec = _zero(p, spec)
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            attn.mla_prefill if ac.is_mla else attn.gqa_prefill)(
-                pa, ac, h, positions, max_len))
+            attn.mla_prefill(pa, ac, h, positions, max_len) if ac.is_mla
+            else attn.gqa_prefill(pa, ac, h, positions, max_len,
+                                  _sub(spec, "attn"))), spec)
     if base == "cross":
         return _cross_block(cfg, kind, p, x, enc), None
     return _mixer_block(cfg, kind, p, x, "prefill")
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int,
-                  enc):
-    """One block at one position.  Returns (x, new cache or None)."""
+                  enc, spec=None, cache_spec=None):
+    """One block at one position.  Returns (x, new cache or None).  A
+    cache split on its sequence dim (`cache_spec`) is read by the GQA /
+    window decode only."""
     base = kind.split(":")[0]
+    if spec is not None:
+        _check_tp(cfg, kind)
+        p, spec = _zero(p, spec)
+    if cache_spec is not None and attn._seq_axis(cache_spec) is not None \
+            and (base not in ("dense", "moe") or cfg.kv_lora_rank):
+        raise NotImplementedError(
+            f"{cfg.name}: a {kind} cache split on its sequence dim comes "
+            f"with {NEXT}")
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            attn.mla_decode if ac.is_mla else attn.gqa_decode)(
-                pa, ac, h, cache, pos))
+            attn.mla_decode(pa, ac, h, cache, pos) if ac.is_mla else
+            attn.gqa_decode(pa, ac, h, cache, pos, _sub(spec, "attn"),
+                            cache_spec)), spec)
     if base == "cross":
         return _cross_block(cfg, kind, p, x, enc), None
     return _mixer_block(cfg, kind, p, x, "decode", cache)
@@ -528,8 +651,8 @@ def _run_layers(cfg: ModelConfig, x, layers, step):
     caches in `cache_specs`' layout)."""
     n, per = len(cfg.prefix_pattern), {}
     prefix = []
-    for j, (kind, p, c) in enumerate(layers):
-        x, new = step(kind, p, c, x)
+    for j, item in enumerate(layers):
+        x, new = step(*item, x)
         if j < n:
             prefix.append(new)
         elif new is not None:
@@ -538,39 +661,61 @@ def _run_layers(cfg: ModelConfig, x, layers, step):
                "blocks": {k: _stack(v) for k, v in per.items()}}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int):
+def _with_specs(items, specs, cfg: ModelConfig):
+    """(*item, layer spec) for each layer's item (None without specs)."""
+    if specs is None:
+        return ((*it, None) for it in items)
+    return ((*it, sp) for it, (_, sp) in zip(items,
+                                            _tree_layers(specs, cfg)))
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int,
+            mesh=None, specs=None):
     """The whole prompt at once.  batch: {"tokens": (B, S)} or {"embeds":
     (B, S, D)}, with "enc" for cross layers.  Returns (last-position
     logits (B, 1, vocab) f32, caches in `cache_specs`' layout at batch B,
-    attention caches sized for max_len)."""
-    x, enc = _inputs(params, cfg, batch)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, caches = _run_layers(
-        cfg, x, ((kind, p, None) for kind, p in _tree_layers(params, cfg)),
-        lambda kind, p, _, x: _block_prefill(cfg, kind, p, x, positions,
-                                             enc, max_len))
-    return _logits_head(params, cfg, x[:, -1:]), caches
+    attention caches sized for max_len).  `specs`: the rank's pieces on
+    the mesh (module docstring); the caches hold the rank's rows, every
+    position."""
+    with _ambient(mesh, specs):
+        x, enc = _inputs(params, cfg, batch, specs)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, caches = _run_layers(
+            cfg, x, _with_specs(((kind, p, None) for kind, p in
+                                 _tree_layers(params, cfg)), specs, cfg),
+            lambda kind, p, _, sp, x: _block_prefill(
+                cfg, kind, p, x, positions, enc, max_len, sp))
+        return _logits_head(params, cfg, x[:, -1:], specs), caches
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens_or_embeds, caches,
-                pos: int, enc=None):
+                pos: int, enc=None, mesh=None, specs=None,
+                cache_specs=None):
     """One decode step at the one absolute position `pos` of every row.
     tokens: (B, 1) ints, or (B, 1, D) embeddings for an embedding-input
     model; enc: (B, T, D) for cross layers.  Every row's KV is written at
     `pos` and every row's recurrent state advances: a caller whose rows sit
     at other positions keeps only the rows at `pos` (the dense-cache
     engine).  Returns (logits (B, 1, vocab) f32, new caches); `caches` is
-    left as it was."""
-    x, enc = _inputs(params, cfg, (
-        {"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
-        else {"embeds": tokens_or_embeds}) | (
-        {} if enc is None else {"enc": enc}))
-
-    x, new = _run_layers(
-        cfg, x, _layers(params, caches, cfg),
-        lambda kind, p, c, x: _block_decode(cfg, kind, p, x, c, pos, enc))
-    return _logits_head(params, cfg, x), new
+    left as it was.  `specs` / `cache_specs`: the rank's pieces of the
+    parameters and of the caches on the mesh (module docstring)."""
+    with _ambient(mesh, specs):
+        x, enc = _inputs(params, cfg, (
+            {"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
+            else {"embeds": tokens_or_embeds}) | (
+            {} if enc is None else {"enc": enc}), specs)
+        items = _with_specs(_layers(params, caches, cfg), specs, cfg)
+        if cache_specs is not None:
+            items = ((*it, csp) for it, (_, csp) in zip(
+                items, _tree_layers(cache_specs, cfg)))
+        else:
+            items = ((*it, None) for it in items)
+        x, new = _run_layers(
+            cfg, x, items,
+            lambda kind, p, c, sp, csp, x: _block_decode(
+                cfg, kind, p, x, c, pos, enc, sp, csp))
+        return _logits_head(params, cfg, x, specs), new
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,

@@ -5,8 +5,9 @@ The reference's choices are kept: moments are f32 whatever the parameter
 dtype, `count` is an int32 scalar, the update runs in f32 and is cast to
 the parameter's dtype, and weight decay applies to every leaf, norms and
 biases included.  `compress="bf16"` rounds the gradients to bf16 first
-(the reference does so before its gradient all-reduce; at world size 1
-only the rounding remains).  The update is functional: it returns new
+(the reference does so before its gradient all-reduce; the port's steps
+all-reduce after the update's input is made, so only the rounding
+remains).  The update is functional: it returns new
 trees and leaves the ones it was given as they were.
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.dist.collectives import all_reduce, current
+from repro_torch.dist.sharding import leaf_axes
 from repro_torch.models.layers import (Spec, map_specs, tree_leaves,
                                        tree_map)
 
@@ -50,20 +53,33 @@ def adamw_state_specs(param_specs):
             "count": Spec((), torch.int32)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(leaf^2), in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(leaf^2), in f32.  On the ambient
+    mesh with `specs` (the leaves' pieces): each leaf's sum over its piece
+    is all-reduced over the axes it is split on (`sharding.leaf_axes`) and
+    nowhere else, so a replicated leaf counts once."""
+    par = current()
+    if specs is None or par is None:
+        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                              for leaf in tree_leaves(tree)))
+
+    def one(leaf, spec):
+        x = torch.sum(torch.square(leaf.float()))
+        axes = leaf_axes(spec)
+        return all_reduce(x, par, axes) if axes else x
+    return torch.sqrt(sum(tree_leaves(tree_map(one, tree, specs))))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state, params, lr=None):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
+def adamw_update(cfg: AdamWConfig, grads, state, params, lr=None,
+                 specs=None):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
+    `specs`: the leaves' pieces on the ambient mesh (`global_norm`)."""
     if cfg.compress == "bf16":
         grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
     grads = tree_map(lambda g: g.float(), grads)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     grads = tree_map(lambda g: g * scale, grads)
 

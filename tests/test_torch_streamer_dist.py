@@ -3,10 +3,10 @@ process group, mirroring `tests/test_distributed.py::TestStreamerDistributed`
 (and its gradient test) on the port.
 
 More than one rank runs on gloo only, as CPU processes: this file runs
-itself as a script (`python tests/test_torch_streamer_dist.py WORLD PORT
-OUT CASES`) that spawns WORLD ranks, each of which calls
-`torch.distributed.init_process_group("gloo", "tcp://localhost:PORT")`,
-builds `launch.mesh.make_host_mesh(WORLD, 1)` and runs the named cases;
+itself as a script (`python tests/test_torch_streamer_dist.py WORLD OUT
+CASES`) that starts WORLD gloo ranks meeting at a file store
+(`launch.mesh.spawn_ranks`), each of which builds
+`launch.mesh.make_host_mesh(WORLD, 1)` and runs the named cases;
 rank 0 writes what they measured to OUT as JSON, and the tests below hold
 it to the tolerances.  Two spawns in all (4 ranks, then 2):
 
@@ -31,7 +31,6 @@ it to the tolerances.  Two spawns in all (4 ranks, then 2):
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -205,45 +204,29 @@ def _case_qwen(rank, n, mesh):
 CASES = {"toy": _case_toy, "grads": _case_grads, "qwen": _case_qwen}
 
 
-def _rank(rank, world, port, out_path, cases):
-    import torch
-    import torch.distributed as dist
+def _rank(rank, world, out_path, cases):
     from repro_torch.launch.mesh import make_host_mesh
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        mesh = make_host_mesh(world, 1)
-        out = {c: CASES[c](rank, world, mesh) for c in cases}
-        if rank == 0:
-            Path(out_path).write_text(json.dumps(out))
-    finally:
-        dist.destroy_process_group()
+    mesh = make_host_mesh(world, 1)
+    out = {c: CASES[c](rank, world, mesh) for c in cases}
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(out))
 
 
 def _main(argv):
-    import torch.multiprocessing as mp
-    world, port, out_path, cases = int(argv[0]), int(argv[1]), argv[2], \
-        argv[3].split(",")
-    mp.spawn(_rank, args=(world, port, out_path, cases), nprocs=world)
+    from repro_torch.launch.mesh import spawn_ranks
+    spawn_ranks(_rank, int(argv[0]), argv[1], argv[2].split(","))
 
 
 # ---------------------------------------------------------------------------
 # the tests
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(world: int, cases: str, tmp) -> dict:
     out = tmp / f"ranks{world}.json"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
-        [sys.executable, __file__, str(world), str(_free_port()), str(out),
-         cases], capture_output=True, text=True, timeout=240, env=env,
+        [sys.executable, __file__, str(world), str(out), cases],
+        capture_output=True, text=True, timeout=240, env=env,
         cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(out.read_text())

@@ -9,7 +9,8 @@ step taken from each state with equal losses.  The train step of
 `--device cpu --smoke`: checkpoints, resume from the latest committed
 step (also from a mid-run checkpoint, to the losses of an uninterrupted
 run), its checkpoint labels beside the reference CLI's (one step apart
-mid-run), its refusal of meshes (ROADMAP §1.8b), and `--stream-mode`
+mid-run), its refusal of a mesh without the cards for it, and
+`--stream-mode`
 insitu / naive_pp / gpp giving resident's losses bit for bit."""
 import re
 import shutil
@@ -116,7 +117,7 @@ def test_train_step_matches_the_reference_composition(optimizer):
         want, _, jm = jax.jit(lambda g, p, lr: jadam.adamw_update(
             optc, g, jadam.adamw_init(p), p, lr=lr))(g, jparams, lr)
         state = adamw.adamw_init(params)
-    bundle = make_train_step(cfg, adamw.AdamWConfig(lr=2e-3))
+    bundle = make_train_step(cfg, optc=adamw.AdamWConfig(lr=2e-3))
     new, new_state, m = bundle.fn(params, state, {
         k: torch.from_numpy(v) for k, v in batch.items()}, step)
     assert ("factors" in new_state) == (optimizer == "adafactor")
@@ -208,8 +209,11 @@ def test_cli_labels_beside_the_reference_cli(tmp_path, capsys):
 @pytest.mark.parametrize("flag,value", (("devices", 2), ("mesh", "2x2"),
                                         ("mesh", "production")))
 def test_cli_refuses_distribution(tmp_path, capsys, flag, value):
-    with pytest.raises(ValueError, match="ROADMAP §1.8b"):
-        _cli(tmp_path, 1, capsys, **{flag: value})
+    # a mesh runs one NCCL rank a card, with no fallback: without the cards
+    # (none here) the CLI refuses it; gloo ranks (--device cpu) are in
+    # tests/test_torch_dist_cli.py
+    with pytest.raises(RuntimeError, match="cards"):
+        _cli(tmp_path, 1, capsys, device="cuda", **{flag: value})
 
 
 _RESIDENT: dict = {}
