@@ -114,9 +114,9 @@ In order, it:
      bf16 instance), the grouped kernel at kimi's 384 experts and one
      full-width kimi MoE layer (auto vs plain within 1e-2, the experts
      given no routed row); and, after step 5, it serves qwen2-7b at full
-     width with 14 of its 28 layers and danube at full width and depth
+     width with 8 of its 28 layers and danube at full width and depth
      (f32 too),
-     gemma3-12b at full width with 24 layers in bf16 and 12 in f32, gemma3
+     gemma3-12b at full width with 12 layers in bf16 and f32, gemma3
      also with a 1,200-token
      request past its window (bf16 spec on == off, the window group's
      blocks plateau, f32 kernel == plain), and kimi-k2 at full width with
@@ -148,8 +148,8 @@ In order, it:
      6400-row cross K / V), decode and prefill rows, bf16 and f32, the bf16
      decode shapes and the four f32 logits heads timed beside
      torch.matmul, and RMSNorm at the cross layers' 128-wide per-head
-     rows; then it serves zamba2-2.7b (30 of 54 layers), xlstm-1.3b (24
-     of 48) and qwen1.5-0.5b (`--engine dense`, all 24) through
+     rows; then it serves zamba2-2.7b (18 of 54 layers), xlstm-1.3b (16
+     of 48) and qwen1.5-0.5b (`--engine dense`, 12 of 24) through
      `repro_torch.serving.DenseServingEngine` at full width (4 slots,
      max_len 128, 4 requests x 16
      tokens, prompts of 6 / 9 / 12 / 15 tokens, so decode runs a call a
@@ -204,9 +204,12 @@ In order, it:
      at a capacity that drops no token, bf16 against the plain route (on
      the kernel run's expert choices) and f32 against the plain route and
      the mesh-less steps; qwen1.5-0.5b's
-     full-width train step bit for bit the mesh-less step's; and
-     `_sdpa_kv_chunked` against `_sdpa` at qwen2-7b's heads, T = 4096
-     (`check_sharded_steps`);
+     full-width train step bit for bit the mesh-less step's;
+     `_sdpa_kv_chunked` against `_sdpa` at qwen2-7b's heads, T = 4096;
+     (slice 17) xlstm-1.3b's Adafactor train step (4 of 48 layers) against
+     the mesh-less one, zamba2-2.7b (one superblock, B = 1) and
+     llama-3.2-vision-11b (one superblock, its cross layer) through the
+     prefill and decode steps (`check_sharded_steps`);
  12. prints {"kernels": [...]} and, last, the device line.  Each phase's
      seconds are printed as it ends (`phase ...: N s`).
 
@@ -4583,52 +4586,60 @@ SHARDED_DS = ("gpp_matmul_tc", "gpp_matmul", "gpp_matmul_grouped_tc",
 SHARDED_DS_F32 = ("gpp_matmul", "gpp_matmul_grouped", "rmsnorm")
 SHARDED_B, SHARDED_S, SHARDED_N = 4, 32, 16   # prefill 4 x 32, 16 decodes
 SHARDED_LAYERS = 4             # deepseek: its dense layer and 3 MoE layers
+SHARDED_XL_LAYERS = 4          # xlstm: 2 mLSTM + 2 sLSTM of 48
+SHARDED_Z = (6, 1, 256)        # zamba2: one superblock; prefill 1 x 256
+SHARDED_LV = (5, 4, 32)        # llama-vision: one superblock; prefill 4 x 32
 KV_CHUNK_CASE = (28, 4, 128, 4096)            # qwen2-7b's heads, T
 
 
-def _sharded_serve(mesh, cfg, params, prompt, nxt):
-    """`make_prefill_step` then `make_decode_step` SHARDED_N times on the
-    mesh, the given tokens fed (no sampling): the logits of every step,
+def _sharded_serve(mesh, cfg, params, prompt, nxt, enc=None):
+    """`make_prefill_step` over `prompt` (B, S) then `make_decode_step`
+    len(nxt) times on the mesh, the given tokens fed (no sampling), `enc`
+    the encoder embeddings of a cross layer: the logits of every step,
     (B, 1 + N, vocab), and the peak HBM of each step kind."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
-    T = SHARDED_S + SHARDED_N
+    B, S = prompt.shape
+    T = S + len(nxt)
     pre = steps.make_prefill_step(
-        cfg, mesh, ShapeConfig("prefill", T, SHARDED_B, "prefill"))
+        cfg, mesh, ShapeConfig("prefill", T, B, "prefill"))
     dec = steps.make_decode_step(
-        cfg, mesh, ShapeConfig("decode", T, SHARDED_B, "decode"))
+        cfg, mesh, ShapeConfig("decode", T, B, "decode"))
+    batch = {"tokens": prompt} | ({} if enc is None else {"enc": enc})
     peak = {}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    logits, caches = pre.fn(params, {"tokens": prompt})
+    logits, caches = pre.fn(params, batch)
     torch.cuda.synchronize()
     peak["prefill_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     torch.cuda.reset_peak_memory_stats()
     out = [logits]
-    for i in range(SHARDED_N):
-        logits, caches = dec.fn(params, nxt[i], caches, SHARDED_S + i)
+    for i in range(len(nxt)):
+        logits, caches = dec.fn(params, nxt[i], caches, S + i, enc)
         out.append(logits)
     torch.cuda.synchronize()
     peak["decode_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    check(dec.meta["cfg"].moe_serve_resident,
-          "the decode step keeps the experts resident")
+    if cfg.num_experts:
+        check(dec.meta["cfg"].moe_serve_resident,
+              "the decode step keeps the experts resident")
     return torch.cat(out, dim=1), peak
 
 
-def _meshless_serve(cfg, params, prompt, nxt):
+def _meshless_serve(cfg, params, prompt, nxt, enc=None):
     """The same tokens through the mesh-less `transformer.prefill` /
     `decode_step`."""
     import torch
     from repro_torch.models import transformer as tf
+    S = prompt.shape[1]
+    batch = {"tokens": prompt} | ({} if enc is None else {"enc": enc})
     with torch.no_grad():
-        logits, caches = tf.prefill(params, cfg, {"tokens": prompt},
-                                    SHARDED_S + SHARDED_N)
+        logits, caches = tf.prefill(params, cfg, batch, S + len(nxt))
         out = [logits]
-        for i in range(SHARDED_N):
+        for i in range(len(nxt)):
             logits, caches = tf.decode_step(params, cfg, nxt[i], caches,
-                                            SHARDED_S + i)
+                                            S + i, enc=enc)
             out.append(logits)
     return torch.cat(out, dim=1)
 
@@ -4910,6 +4921,195 @@ def _sharded_qwen_train(out, mesh, card, launches):
           f"peak {peaks}", flush=True)
 
 
+def _ulps(a, b) -> float:
+    """The largest |a - b| over one step of a's dtype at a (the spacing of
+    a's binade; the smallest normal's at 0)."""
+    import torch
+    fi = torch.finfo(a.dtype)
+    af = a.float()
+    _, e = torch.frexp(af.abs().clamp(min=fi.tiny))
+    step = fi.eps * torch.pow(2.0, (e - 1).float())
+    return float(((af - b.float()).abs() / step).max())
+
+
+def _sharded_xlstm_train(out, mesh, card, launches):
+    """xlstm-1.3b at full width, SHARDED_XL_LAYERS layers (mLSTM + sLSTM
+    superblocks), Adafactor, one train step on the 1x1 mesh against one
+    mesh-less: the loss and every gradient leaf (as each step hands them
+    to `adafactor_update`) bit for bit, every updated leaf within one
+    step of its dtype at each element; each step timed after a mesh-less
+    warm-up."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adafactor
+    arch = "xlstm-1.3b"
+    t = time.perf_counter()
+    cfg, params = _model(arch, "bfloat16", SHARDED_XL_LAYERS)
+    cfg = cfg.with_(optimizer="adafactor")
+    check(cfg.pattern == ("mlstm", "slstm") and cfg.num_superblocks == 2,
+          f"{arch}: {cfg.pattern} x {cfg.num_superblocks}")
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S)
+    res = out["xlstm_train"] = {"tokens": [TRAIN_B, TRAIN_S],
+                                "layers": cfg.num_layers,
+                                "optimizer": "adafactor"}
+    grads = []
+    inner = adafactor.adafactor_update
+
+    def update(c, g, *a, **kw):
+        grads.append(named_leaves(g))
+        return inner(c, g, *a, **kw)
+    steps_s, peaks, news = {}, {}, {}
+    one = steps.make_train_step(cfg)
+    on = steps.make_step(cfg, mesh, ShapeConfig("t", TRAIN_S, TRAIN_B,
+                                                "train"))
+    adafactor.adafactor_update = update
+    try:
+        # the first (mesh-less) run warms the allocator; the two after it
+        # are timed
+        for name, b in (("meshless", one), ("mesh", on),
+                        ("meshless again", one)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            (p, _, m), c = counted(b.fn, params,
+                                   adafactor.adafactor_init(params), batch,
+                                   0)
+            steps_s[name] = time.perf_counter() - t1
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            check_path_launches(f"sharded xlstm train step ({name})", c,
+                                TRAIN_PATH)
+            if name == "mesh":
+                res["launches"] = c
+                for k in TRAIN_PATH:
+                    launches[k] = launches.get(k, 0) + c[k]
+            if name != "meshless again":
+                news[name] = (named_leaves(p), m)
+            del p
+    finally:
+        adafactor.adafactor_update = inner
+    steps_s["meshless"] = steps_s.pop("meshless again")
+    (p1, m1), (p2, m2) = news["meshless"], news["mesh"]
+    check(same_bits(m1["loss"], m2["loss"]), f"sharded xlstm loss "
+          f"{float(m2['loss'])!r} against the mesh-less "
+          f"{float(m1['loss'])!r}")
+    g1, g2 = grads[:2]
+    check(set(g1) == set(g2), "sharded xlstm: gradient leaves")
+    for k in g1:
+        check(same_bits(g1[k], g2[k]), f"sharded xlstm gradient {k}")
+    ulps = {k: _ulps(p1[k], p2[k]) for k in p1}
+    differ = sum(int((p1[k] != p2[k]).sum()) for k in p1)
+    worst = max(ulps, key=ulps.get)
+    check(ulps[worst] <= 1.0, f"sharded xlstm updated {worst}: "
+          f"{ulps[worst]} steps of its dtype from the mesh-less update")
+    tok = TRAIN_B * TRAIN_S
+    res.update(loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]),
+               leaves=len(p1), max_ulps=ulps[worst],
+               elements_differing=differ,
+               tok_s={k: tok / v for k, v in steps_s.items()},
+               step_s=steps_s, peak_gb=peaks,
+               seconds=time.perf_counter() - t)
+    del params, news, p1, p2, grads, g1, g2
+    torch.cuda.empty_cache()
+    print(f"sharded steps [{card}]: {arch} Adafactor train step "
+          f"({cfg.num_layers} layers, {TRAIN_B}x{TRAIN_S}, bf16, remat) on "
+          f"the 1x1 NCCL mesh: loss {res['loss']!r} and every gradient leaf "
+          f"bit for bit the mesh-less step's; {res['leaves']} updated leaves "
+          f"within {res['max_ulps']} steps of their dtype "
+          f"({differ} elements differ); tok/s mesh-less "
+          f"{res['tok_s']['meshless']:.0f}, mesh {res['tok_s']['mesh']:.0f}; "
+          f"peak {peaks}; launches {res['launches']}; "
+          f"{res['seconds']:.1f} s", flush=True)
+
+
+def _sharded_serve_model(out, mesh, card, launches, arch, layers, B, S,
+                         key):
+    """`arch` at full width, `layers` layers, `make_prefill_step` (B x S)
+    and SHARDED_N `make_decode_step`s on the 1x1 mesh (encoder embeddings
+    for a cross layer), bf16 on the kernel and the plain routes and f32 on
+    the same weights: each step's bf16 kernel route within 1.5 x the plain
+    route's distance from the f32 run + 5e-3 (deepseek's gate: both
+    routes round bf16 apart); the f32 logits against the plain route and
+    the mesh-less `prefill` / `decode_step`, rows within 1e-3 of their
+    scale; the launches of each run and its peak HBM."""
+    import torch
+    from repro_torch.models.layers import tree_map
+    t = time.perf_counter()
+    cfg, params = _model(arch, "bfloat16", layers)
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen).cuda()
+    nxt = torch.randint(0, cfg.vocab_size, (SHARDED_N, B, 1),
+                        generator=gen).cuda()
+    enc = None
+    if cfg.encoder_tokens:
+        enc = torch.randn((B, cfg.encoder_tokens, cfg.d_model),
+                          generator=gen).cuda()
+    res = out[key] = {"layers": layers, "pattern": list(cfg.pattern),
+                      "prefill": [B, S], "decode_steps": SHARDED_N}
+    (ker, peak), counts = counted(_sharded_serve, mesh, cfg, params, prompt,
+                                  nxt, enc)
+    check_path_launches(f"sharded {arch} bf16", counts, TRAIN_PATH)
+    (plain, _), pcounts = counted(_sharded_serve, mesh,
+                                  cfg.with_(dense_kernel="ref"), params,
+                                  prompt, nxt, enc)
+    check_path_launches(f"sharded {arch} bf16 plain", pcounts, ())
+    res.update(bf16_launches=counts, bf16_peak=peak)
+    for k in TRAIN_PATH:
+        launches[k] = launches.get(k, 0) + counts[k]
+    params = tree_map(lambda w: w.float(), params)
+    cfg = cfg.with_(dtype="float32")
+    (f32, peak), counts = counted(_sharded_serve, mesh, cfg, params, prompt,
+                                  nxt, enc)
+    check_path_launches(f"sharded {arch} f32", counts, TRAIN_F32)
+    err = (ker.float() - plain.float()).abs()
+    res["bf16_by_step"] = [
+        {"max_abs_err": float(err[:, i].max()),
+         "row_err": _row_err(ker[:, i], plain[:, i]),
+         "max_abs_logit": float(plain[:, i].float().abs().max()),
+         "kernel_vs_f32": float((ker[:, i].float() - f32[:, i]).abs().max()),
+         "plain_vs_f32": float((plain[:, i].float() - f32[:, i]).abs()
+                               .max())}
+        for i in range(1 + SHARDED_N)]
+    for i, r in enumerate(res["bf16_by_step"]):
+        check(r["kernel_vs_f32"] <= 1.5 * r["plain_vs_f32"] + 5e-3,
+              f"sharded {arch} bf16 step {i}: kernel route "
+              f"{r['kernel_vs_f32']} from the f32 run, plain route "
+              f"{r['plain_vs_f32']} (bound 1.5 x plain + 5e-3)")
+    del ker, plain
+    (plain, _), pcounts = counted(_sharded_serve, mesh,
+                                  cfg.with_(dense_kernel="ref"), params,
+                                  prompt, nxt, enc)
+    check_path_launches(f"sharded {arch} f32 plain", pcounts, ())
+    meshless = _meshless_serve(cfg, params, prompt, nxt, enc)
+    e_plain, e_meshless = _row_err(f32, plain), _row_err(f32, meshless)
+    check(e_plain <= 1e-3, f"sharded {arch} f32: logits rows {e_plain} of "
+          f"their scale from the plain route's")
+    check(e_meshless <= 1e-3, f"sharded {arch} f32: logits rows "
+          f"{e_meshless} of their scale from the mesh-less steps'")
+    res.update(f32_launches=counts, f32_peak=peak, f32_vs_plain=e_plain,
+               f32_vs_meshless=e_meshless,
+               seconds=time.perf_counter() - t)
+    for k in TRAIN_F32:
+        launches[f"{k} f32"] = launches.get(f"{k} f32", 0) + counts[k]
+    del params, f32, plain, meshless
+    torch.cuda.empty_cache()
+    print(f"sharded steps [{card}]: {arch} {layers} layers "
+          f"{tuple(cfg.pattern)} on the 1x1 NCCL mesh, prefill {B}x{S}"
+          f"{'' if enc is None else f' over {cfg.encoder_tokens} patch embeddings'}"
+          f" + {SHARDED_N} decode steps: bf16 kernel / plain route from the "
+          f"f32 run of the same weights by step (kernel vs plain max |err|, "
+          f"of a row's largest |plain|): "
+          + "; ".join(f"{r['kernel_vs_f32']:.4f} / {r['plain_vs_f32']:.4f} "
+                      f"({r['max_abs_err']:.4f}, {r['row_err']:.4f})"
+                      for r in res["bf16_by_step"])
+          + f"; launches {res['bf16_launches']}, peak prefill "
+          f"{res['bf16_peak']['prefill_gb']:.3f} GB decode "
+          f"{res['bf16_peak']['decode_gb']:.3f} GB; f32 rows {e_plain:.3e} "
+          f"of their scale from plain, {e_meshless:.3e} from the mesh-less "
+          f"steps, launches {counts}; {res['seconds']:.1f} s", flush=True)
+
+
 def _kv_chunked(out, card):
     """`_sdpa_kv_chunked` against `_sdpa` at qwen2-7b's 28 / 4 heads x 128,
     T = 4096: the whole q, and a quarter of q at q_offset 1024 (a
@@ -4964,8 +5164,28 @@ def check_sharded_steps(report):
     (2) qwen1.5-0.5b's full-width train step (`make_step`,
     4 x 1024, bf16, AdamW, remat) bit for bit the mesh-less step's: loss,
     every gradient leaf, grad norm, every updated leaf; tok/s of both;
-    (3) `_sdpa_kv_chunked` against `_sdpa`.  Prints the NCCL start-up
-    seconds, each step's peak HBM and the phase's seconds."""
+    (3) `_sdpa_kv_chunked` against `_sdpa`; (4) xlstm-1.3b at full width,
+    4 of its 48 layers, with Adafactor: the train step (4 x 1024, bf16,
+    remat) against the mesh-less one, the loss and every gradient leaf bit
+    for bit, every updated leaf within one step of its dtype at each
+    element; tok/s of both; (5) zamba2-2.7b at full width, one superblock
+    (5 Mamba2 layers and the shared block), `make_prefill_step` (1 x 256)
+    and 16 `make_decode_step`s at B = 1, and (6) llama-3.2-vision-11b at
+    full width, one superblock (4 GQA layers and its cross layer), prefill
+    (4 x 32 over 1,600 patch embeddings) and 16 decodes: the bf16 kernel
+    route against the plain route, each within 1.5 x the plain route's
+    distance from the f32 run of the same weights + 5e-3 (zamba2's
+    recurrence carries either route's bf16 rounding far enough from f32
+    that no fixed bound on the two routes' difference holds), f32 logits
+    against the plain route and the mesh-less steps, gpp_matmul
+    (tensor-core and FMA) and RMSNorm launches counted on each run.  At
+    1x1 every collective is a group of one rank and the model axis takes
+    no tensor-parallel form: the MLA / Mamba2 /
+    mLSTM / sLSTM / cross / shared-attention forms across ranks, and
+    Adafactor's all-reduced means, are held on gloo CPU ranks only
+    (tests/test_torch_dist_mixers.py, test_torch_dist_steps.py).  Prints
+    the NCCL start-up seconds, each step's peak HBM and the phase's
+    seconds."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_rank, make_cuda_mesh
@@ -4987,6 +5207,11 @@ def check_sharded_steps(report):
         _sharded_deepseek(out, mesh, card, launches)
         _sharded_qwen_train(out, mesh, card, launches)
         _kv_chunked(out, card)
+        _sharded_xlstm_train(out, mesh, card, launches)
+        _sharded_serve_model(out, mesh, card, launches, "zamba2-2.7b",
+                             *SHARDED_Z, "zamba2")
+        _sharded_serve_model(out, mesh, card, launches,
+                             "llama-3.2-vision-11b", *SHARDED_LV, "vision")
     finally:
         dist.destroy_process_group()
         store.cleanup()
@@ -5092,15 +5317,17 @@ def main(argv=None) -> int:
     # since slice 13, to leave the script room for its phases: qwen2-7b
     # in f32 at 14 of its 28 layers, gemma3-12b in bf16 at 24 of its 48
     # (four 5:1 superblocks); since slice 16, when a slow host took the
-    # script to 1,106 s of its 1,200, qwen2-7b in bf16 at 14 too
+    # script to 1,106 s of its 1,200, qwen2-7b in bf16 at 14 too; since
+    # slice 17 (a slow host: 1,048 s), qwen2-7b at 8 in both dtypes and
+    # gemma3-12b in bf16 at 12 (two superblocks)
     ph("serve qwen2", check_serving, report, "qwen2-7b", gqa_path, gqa_f32,
-       f32_layers=14, bf16_layers=14, repeat=True,
+       f32_layers=8, bf16_layers=8, repeat=True,
        hooks={"draft": draft_run})
     ph("serve danube", check_serving, report, "h2o-danube-1.8b",
        ("gpp_matmul_tc", "gpp_matmul", "paged_attention_bf16",
         "paged_attention_merge", "rmsnorm"), gqa_f32, repeat=True)
     ph("serve gemma3", check_serving, report, "gemma3-12b", gqa_path,
-       gqa_f32, f32_layers=12, bf16_layers=24,
+       gqa_f32, f32_layers=12, bf16_layers=12,
        hooks={"long": window_long_run, "prefix": prefix_serving,
               "prefix_long": prefix_long_run}, repeat=True)
     ph("serve kimi", check_serving, report, "kimi-k2-1t-a32b",
@@ -5113,14 +5340,16 @@ def main(argv=None) -> int:
                            "test_torch_serving.py)")
     # slice 13: the dense-cache engine (zamba2, xlstm, and qwen1.5 under
     # --engine dense) and the step functions of the two embedding archs,
-    # all at full width and depth; since slice 16, for the script's time,
-    # zamba2-2.7b at 30 of its 54 layers (5 of its 9 6-layer superblocks)
-    # and xlstm-1.3b at 24 of its 48
-    for arch, layers in (("zamba2-2.7b", 30), ("xlstm-1.3b", 24)):
+    # all at full width and depth; for the script's time, zamba2-2.7b at
+    # 18 of its 54 layers (3 of its 9 6-layer superblocks; 30 in slice 16)
+    # and xlstm-1.3b at 16 of its 48 (24 in slice 16), and qwen1.5-0.5b
+    # under --engine dense at 12 of its 24, to make room for slice 17's
+    # sharded runs
+    for arch, layers in (("zamba2-2.7b", 18), ("xlstm-1.3b", 16)):
         ph(f"dense {arch}", check_dense_serving, report, arch,
            num_layers=layers)
     ph("dense qwen", check_dense_serving, report, "qwen1.5-0.5b",
-       label="qwen1.5-0.5b --engine dense")
+       label="qwen1.5-0.5b --engine dense", num_layers=12)
     for arch in ("llama-3.2-vision-11b", "musicgen-large"):
         ph(f"steps {arch}", check_step_model, report, arch)
     # slice 14: training, its kernels at the training shapes, then qwen1.5

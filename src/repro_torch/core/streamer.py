@@ -32,9 +32,11 @@ the rank's piece, and only the FSDP dim is gathered.
                  ring
   FSDP shards    `shard_specs` names the mesh's `fsdp_axis` on a dim that
                  `full_specs` keeps whole: the layer's shards are gathered
-                 over that axis's process group (`torch.distributed.
-                 all_gather`), and the gradient goes back by a
-                 reduce-scatter (sum), ZeRO-3 as in the reference
+                 over the process group of each axis of that dim's entry
+                 ("data", or the kimi-scale ("pod", "data"), innermost
+                 first: `torch.distributed.all_gather`), and the gradient
+                 goes back by a reduce-scatter (sum) over each, ZeRO-3 as
+                 in the reference
   host memory    the stacked leaves rest on the CPU (pinned) and the carry
                  is on a CUDA device: a host-to-device copy on a side CUDA
                  stream; the gradient comes back to the host
@@ -166,47 +168,73 @@ def _names(entry) -> tuple:
 @dataclasses.dataclass
 class _Leaf:
     src: torch.Tensor            # stacked (L, ...), the local shard
-    fsdp_dim: "int | None"       # dim of one layer sharded over the group
-    n: int                       # ranks of the FSDP group (1: not sharded)
-    group: object                # the FSDP process group
+    fsdp_dim: "int | None"       # dim of one layer sharded over the groups
+    n: int                       # ranks over the FSDP axes (1: not sharded)
+    groups: list                 # (process group, ranks) an FSDP axis,
+    #                              the first axis outermost
     full: "tuple[int, ...]"      # one layer, gathered
 
     def whole_here(self, dev: torch.device) -> bool:
         return self.fsdp_dim is None and self.src.device == dev
 
+    def gather(self, piece: torch.Tensor) -> "list[torch.Tensor]":
+        """Every rank's piece over the FSDP axes, in the order the axes cut
+        the dim (the first outermost): one gather an axis, innermost
+        first."""
+        parts = [piece]
+        for group, n in reversed(self.groups):
+            got = all_gather(torch.stack(parts), group, n)
+            parts = [p for g in got for p in g.unbind(0)]
+        return parts
+
+    def scatter(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sum of `g` over the FSDP axes."""
+        for group, n in self.groups:
+            g = reduce_scatter(g, self.fsdp_dim, group, n)
+        return g
+
 
 def _leaves(stacked_ws, settings, mesh, shard_specs, full_specs):
+    """The FSDP dim of a leaf is the dim whose spec entry holds
+    `settings.fsdp_axis` where `full_specs` keeps it whole; it is gathered
+    over every axis of that entry (one, or the kimi-scale ("pod",
+    "data")).  Any other split dim must be the model axis alone."""
     sizes = axis_sizes(mesh)
-    n = sizes.get(settings.fsdp_axis, 1)
     out = []
     for path, w in _flatten(stacked_ws):
         shard, full = _at(shard_specs, path), _at(full_specs, path)
-        dim = None
-        if n > 1 and shard is not None:
-            for d, entry in enumerate(shard):
-                kept = () if full is None else _names(full[d])
-                if (settings.fsdp_axis in _names(entry)
-                        and settings.fsdp_axis not in kept):
-                    dim = d
-                    break
+        dim, axes = None, ()
+        for d, entry in enumerate(shard or ()):
+            kept = () if full is None else _names(full[d])
+            names = _names(entry)
+            if settings.fsdp_axis in names and settings.fsdp_axis not in kept:
+                dim = d
+                axes = tuple(a for a in names
+                             if a not in kept and sizes.get(a, 1) > 1)
+            elif names and names != (TP_AXIS,):
+                raise ValueError(
+                    f"{path}: a dim sharded over {entry}: the streamer "
+                    f"gathers the FSDP entry (one holding "
+                    f"{settings.fsdp_axis!r}) and keeps the model axis")
+        if TP_AXIS in axes:
+            raise ValueError(f"{path}: the FSDP dim also holds the model "
+                             f"axis")
         shape = list(w.shape[1:])
-        group = None
-        for entry in (shard or ()):
-            axes = set(_names(entry))
-            if not axes <= {settings.fsdp_axis, TP_AXIS} or len(axes) > 1:
-                raise NotImplementedError(
-                    f"{path}: a dim sharded over {entry} (other than the "
-                    f"FSDP axis or the model axis alone) comes with "
-                    f"ROADMAP §1.8b-2")
-        if dim is not None:
+        groups = []
+        if dim is not None and axes:
             if not hasattr(mesh, "get_group"):
                 raise ValueError(
-                    f"{path}: FSDP shards over {settings.fsdp_axis!r} need "
-                    f"a DeviceMesh (launch.mesh) to gather over")
-            group = mesh.get_group(settings.fsdp_axis)
+                    f"{path}: FSDP shards over {axes} need a DeviceMesh "
+                    f"(launch.mesh) to gather over")
+            groups = [(mesh.get_group(a), sizes[a]) for a in axes]
+        else:
+            dim = None
+        n = 1
+        for _, k in groups:
+            n *= k
+        if dim is not None:
             shape[dim] *= n
-        out.append(_Leaf(w, dim, n if dim is not None else 1, group,
-                         tuple(shape)))
+        out.append(_Leaf(w, dim, n, groups, tuple(shape)))
     return out
 
 
@@ -289,10 +317,7 @@ class _Fetcher:
                     continue
                 piece = _take_chunk(lf.src[layer], self.cd, chunks, c)
                 regions = _regions(lf, buf, self.cd, chunks, c)
-                if lf.fsdp_dim is None:
-                    parts = [piece]
-                else:
-                    parts = all_gather(piece, lf.group, lf.n)
+                parts = [piece] if lf.fsdp_dim is None else lf.gather(piece)
                 for dst, part in zip(regions, parts):
                     dst.copy_(part, non_blocking=self.cuda)
                     nbytes += dst.numel() * dst.element_size()
@@ -337,7 +362,7 @@ class _Gathered(torch.autograd.Function):
                 continue
             g = g.to(lf.src.device)
             if lf.fsdp_dim is not None:
-                g = reduce_scatter(g, lf.fsdp_dim, lf.group, lf.n)
+                g = lf.scatter(g)
             out.append(g)
         return (None, None, *([None] * len(ctx.leaves)), *out)
 

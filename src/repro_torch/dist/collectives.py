@@ -31,6 +31,11 @@ The autograd pairs keep that:
                  of a resident layer, the MoE shard maps' expert weights,
                  a projection stored on one dim and computed on another)
 
+Each pair takes one axis or a spec entry of several (the kimi-scale
+("pod", "data") dp and FSDP entry): a reduce runs over each of its axes,
+and a gather over each in turn, innermost first, so that the pieces come
+back in the order `sharding.piece` cuts them.
+
 `take` moves a local piece from the layout one spec names to the one
 another names, with these.  If a pair were wrong, gradients would come out
 a whole number of times too large or too small on a mesh; the multi-rank
@@ -44,13 +49,14 @@ import torch
 
 from repro_torch.dist.sharding import ShardRules, axis_sizes, entry_axes
 
-NEXT = "ROADMAP §1.8b-2"
-
 
 class Par:
     """What the layers read of the ambient mesh: axis sizes, this rank's
     coordinate on each axis and the axis's process group, the sharding
-    rules, and whether the batch is split over the dp axes."""
+    rules, and whether the batch is split over the dp axes.  `size` and
+    `rank` also take a spec entry of several axes: their product, and the
+    rank's block index over them (the first axis outermost, as
+    `sharding.piece` cuts)."""
 
     def __init__(self, mesh, rules: "ShardRules | None" = None,
                  batch_split: bool = True):
@@ -61,11 +67,18 @@ class Par:
         self.sizes = axis_sizes(mesh)
         self.batch_split = batch_split
 
-    def size(self, axis: str) -> int:
-        return self.sizes.get(axis, 1)
+    def size(self, axis) -> int:
+        n = 1
+        for a in entry_axes(axis):
+            n *= self.sizes.get(a, 1)
+        return n
 
-    def rank(self, axis: str) -> int:
-        return self.mesh.get_local_rank(axis) if axis in self.sizes else 0
+    def rank(self, axis) -> int:
+        r = 0
+        for a in entry_axes(axis):
+            r = r * self.sizes.get(a, 1) + (
+                self.mesh.get_local_rank(a) if a in self.sizes else 0)
+        return r
 
     def group(self, axis: str):
         if axis not in self.sizes:
@@ -77,14 +90,13 @@ class Par:
         return self.size("model")
 
     @property
-    def dp_axis(self) -> str:
-        """The one dp axis (a ("pod", "data") batch comes with the
-        kimi-scale rule, ROADMAP §1.8b-2)."""
+    def dp_axis(self):
+        """The dp axes as one spec entry: "data", or ("pod", "data") on a
+        multi-pod mesh (the collectives below take either)."""
         axes = tuple(a for a in self.rules.dp_axes if a in self.sizes)
-        if len(axes) > 1:
-            raise NotImplementedError(
-                f"a batch over {axes} comes with {NEXT}")
-        return axes[0] if axes else "data"
+        if not axes:
+            return "data"
+        return axes if len(axes) > 1 else axes[0]
 
     @property
     def dp(self) -> int:
@@ -150,12 +162,13 @@ def _slice(x: torch.Tensor, dim: int, r: int, n: int) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, par: Par, axes, op: str = "sum"):
-    """A copy of `t` reduced over each axis in `axes` (sum or max)."""
+    """A copy of `t` reduced over each axis in `axes` (a tuple of axes or
+    a spec entry; sum or max)."""
     import torch.distributed as dist
     # NCCL takes contiguous tensors only (a gradient may be a strided view)
     out = t.clone(memory_format=torch.contiguous_format)
     red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
-    for a in axes:
+    for a in entry_axes(axes):
         dist.all_reduce(out, op=red, group=par.group(a))
     return out
 
@@ -172,13 +185,13 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.par, (ctx.axis,)), None, None
+        return all_reduce(g, ctx.par, ctx.axis), None, None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, par, axis):
-        return all_reduce(x, par, (axis,))
+        return all_reduce(x, par, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -204,20 +217,35 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None, None
 
 
-def copy_to(x, par: Par, axis: str = "model"):
+def copy_to(x, par: Par, axis="model"):
     return _Copy.apply(x, par, axis)
 
 
-def reduce_from(x, par: Par, axis: str = "model"):
+def reduce_from(x, par: Par, axis="model"):
     return _Reduce.apply(x, par, axis)
 
 
-def gather_from(x, dim: int, par: Par, axis: str = "model"):
-    return _Gather.apply(x, dim % x.ndim, par, axis, False)
+def _gathers(x, dim: int, par: Par, axis, partial: bool):
+    # over a spec entry of several axes, innermost first: the pieces come
+    # back in the order `sharding.piece` cuts them (the first axis
+    # outermost), and each backward takes its axis's block in turn
+    for a in reversed(entry_axes(axis)):
+        if par.size(a) > 1:
+            x = _Gather.apply(x, dim % x.ndim, par, a, partial)
+    return x
 
 
-def gather_partial(x, dim: int, par: Par, axis: str = "model"):
-    return _Gather.apply(x, dim % x.ndim, par, axis, True)
+def gather_from(x, dim: int, par: Par, axis="model"):
+    return _gathers(x, dim, par, axis, False)
+
+
+def gather_partial(x, dim: int, par: Par, axis="model"):
+    return _gathers(x, dim, par, axis, True)
+
+
+def local_block(x, dim: int, par: Par, axis="model"):
+    """The rank's block of `x` along `dim` over `axis` (an entry)."""
+    return _slice(x, dim, par.rank(axis), par.size(axis))
 
 
 def take(w, have, want, par: Par, *, partial: bool = True):
@@ -257,6 +285,46 @@ def take(w, have, want, par: Par, *, partial: bool = True):
         # whole on every model rank, used by a rank's part of the work
         w = copy_to(w, par)
     return w
+
+
+class LocalLayer:
+    """One rank's view of a recurrent layer under the model axis: its
+    leaves and config, the entry and exit of its region (a copy and a
+    reduce in a heads form, else nothing), and the cut / join of a state
+    that rests whole on every model rank (`dims`: each state leaf's heads
+    dim)."""
+
+    def __init__(self, p, c, par=None, heads: bool = False,
+                 dims: "dict | None" = None):
+        self.p, self.c, self.par, self.heads = p, c, par, heads
+        self.dims = dims or {}
+
+    def enter(self, x):
+        return copy_to(x, self.par) if self.heads else x
+
+    def leave(self, y):
+        return reduce_from(y, self.par) if self.heads else y
+
+    def cut(self, state):
+        """The rank's heads of a state whole on the model axis."""
+        if not self.heads:
+            return state
+        return {n: local_block(t, self.dims[n], self.par)
+                for n, t in state.items()}
+
+    def join(self, state):
+        """A state of the rank's heads, gathered whole over "model"."""
+        if not self.heads:
+            return state
+        return {n: gather_from(t, self.dims[n], self.par)
+                for n, t in state.items()}
+
+
+def whole_layer(p, spec, par) -> dict:
+    """Every leaf made whole on every model rank, for work each model rank
+    does whole (the whole form)."""
+    return {n: take(t, spec[n], None, par, partial=False)
+            for n, t in p.items()}
 
 
 def spec_dim(spec, axis: str = "model") -> "int | None":

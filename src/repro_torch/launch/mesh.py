@@ -9,7 +9,8 @@ The caller starts the process group first (`init_rank`, or
 rank): nothing on a machine tells a program of a cluster.
 
   make_cuda_mesh   one rank a card over NCCL; on one H100 it is 1x1
-  make_host_mesh   CPU ranks over gloo (tests, the CLI's --device cpu)
+  make_host_mesh   CPU ranks over gloo (tests, the CLI's --device cpu),
+                   with a "pod" axis too when asked
   spawn_ranks      start N ranks that meet at a file store, each running
                    fn(rank, world, *args) inside its process group
 
@@ -64,9 +65,12 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh("cuda", shape, names)
 
 
-def make_host_mesh(data: int = 2, model: int = 2):
+def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0):
     """A small ("data", "model") mesh over CPU ranks (gloo), for tests and
-    examples."""
+    examples; with `pod`, a ("pod", "data", "model") one, the multi-pod
+    mesh's layout."""
+    if pod:
+        return _mesh("cpu", (pod, data, model), ("pod", "data", "model"))
     return _mesh("cpu", (data, model), ("data", "model"))
 
 

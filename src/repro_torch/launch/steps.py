@@ -12,10 +12,12 @@ name (`dist.sharding.shard_tree` cuts them from whole trees, `gather_tree`
 puts them back), and the step runs inside the ambient mesh
 (`dist.collectives.on_mesh`) with the collectives written out: ZeRO-3
 gathers of the layers, the tensor-parallel forms of the blocks, the MoE
-shard maps, and, in the train step, the gradients of leaves whole over
-the dp axis all-reduced over it (the loss of a rank's rows over dp, so
-the sum is the mean), while an FSDP leaf's gradient comes back
-reduce-scattered by its gather's backward.  `mesh` is a DeviceMesh
+shard maps, and, in the train step, the gradients all-reduced over each
+dp axis a leaf is whole on (the loss of a rank's rows over dp, so the sum
+is the mean), while an FSDP leaf's gradient comes back reduce-scattered
+over its FSDP axes by its gather's backward.  The dp axes are "data", or
+("pod", "data") on a multi-pod mesh, which also carries the kimi-scale
+FSDP rule over both (`_rules_for`).  `mesh` is a DeviceMesh
 (`launch.mesh`); `mesh=None` gives the mesh-less train step at world size
 1, with no collectives at all.
 
@@ -23,8 +25,9 @@ The train step computes the loss and its gradient (`transformer.loss_fn`,
 block remat as `cfg.remat` says), the learning rate `cosine_lr(step,
 peak=optc.lr, warmup=200, total=10_000)`, and one AdamW step (its global
 norm over the mesh, `optim.adamw.global_norm`), or one Adafactor step at
-`AdafactorConfig(lr=optc.lr)` when `cfg.optimizer == "adafactor"` (on one
-rank only: Adafactor on a mesh comes with ROADMAP §1.8b-2).  `batch`
+`AdafactorConfig(lr=optc.lr)` when `cfg.optimizer == "adafactor"` (on a
+mesh its factors whole on every rank, as the reference's specs keep them,
+and its means taken over the whole leaves, `optim.adafactor`).  `batch`
 holds tensors on the parameters' device ("tokens" or "embeds", "labels",
 and "enc" for cross layers); `metrics` holds 0-d tensors "loss" (the mean
 over every rank's rows), "grad_norm" and "lr".  Like the reference's
@@ -42,7 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.collectives import NEXT, all_reduce, on_mesh, take
+from repro_torch.dist.collectives import all_reduce, on_mesh, take
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import map_specs, tree_leaves, tree_map
@@ -134,15 +137,15 @@ def _batch_pspecs(batch_specs: dict, bdim) -> dict:
 
 def make_train_step(cfg: ModelConfig, mesh=None,
                     shape: "ShapeConfig | None" = None,
-                    optc: "opt.AdamWConfig | None" = None) -> StepBundle:
+                    optc: "opt.AdamWConfig | None" = None,
+                    rules: "shd.ShardRules | None" = None) -> StepBundle:
+    """The train step; `rules` (default `_rules_for`) places the leaves on
+    the mesh."""
     optc = optc or opt.AdamWConfig()
     adafactor = cfg.optimizer == "adafactor"
     if mesh is None:
         return _train_step_one(cfg, optc, adafactor)
-    sizes = shd.axis_sizes(mesh)
-    if adafactor and max(sizes.values(), default=1) > 1:
-        raise NotImplementedError(f"Adafactor on a mesh comes with {NEXT}")
-    rules = _rules_for(cfg, mesh)
+    rules = rules or _rules_for(cfg, mesh)
     pspecs = tf.param_specs(cfg)
     p_psp = shd.param_pspecs(pspecs, mesh, rules)
     if adafactor:
@@ -162,16 +165,19 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         """(the mean loss over every rank's rows, the rank's pieces of the
         gradient), as the step computes them."""
         with on_mesh(mesh, rules) as par:
-            axis = par.dp_axis
+            axes = shd.entry_axes(par.dp_axis)
             loss, grads = value_and_grad(
                 cfg, params, batch, mesh, *specs, specs=p_psp,
                 scale=1.0 / par.dp)
-            # a leaf whole over dp: its rank-rows gradients summed; an FSDP
-            # leaf's came back reduce-scattered
-            grads = tree_map(
-                lambda g, s: g if axis in shd.leaf_axes(s)
-                else all_reduce(g, par, (axis,)), grads, p_psp)
-            loss = all_reduce(loss, par, (axis,))
+
+            def dp_sum(g, s):
+                # the rank-rows gradients summed over each dp axis the leaf
+                # is whole on; over its FSDP axes they came back
+                # reduce-scattered
+                rest = tuple(a for a in axes if a not in shd.leaf_axes(s))
+                return all_reduce(g, par, rest) if rest else g
+            grads = tree_map(dp_sum, grads, p_psp)
+            loss = all_reduce(loss, par, axes)
             return (loss / par.dp if par.dp > 1 else loss), grads
 
     def train_step(params, opt_state, batch, step):
@@ -181,7 +187,7 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             if adafactor:
                 params, opt_state, metrics = adaf.adafactor_update(
                     adaf.AdafactorConfig(lr=optc.lr), grads, opt_state,
-                    params, lr=lr)
+                    params, lr=lr, specs=p_psp)
             else:
                 params, opt_state, metrics = opt.adamw_update(
                     optc, grads, opt_state, params, lr=lr, specs=p_psp)

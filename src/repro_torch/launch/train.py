@@ -161,10 +161,12 @@ def _train(args, rank: int, world: int, mesh):
         specs = {"params": bundle.arg_specs[0], "opt": bundle.arg_specs[1]}
     params = tf.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    if specs is not None:
-        params = shard_tree(params, specs["params"], mesh)
+    # from the whole leaves: Adafactor's factors are whole on every rank
     opt_state = (adaf.adafactor_init(params) if cfg.optimizer == "adafactor"
                  else adam.adamw_init(params))
+    if specs is not None:
+        params = shard_tree(params, specs["params"], mesh)
+        opt_state = shard_tree(opt_state, specs["opt"], mesh)
 
     start_step = 0
     mgr = None

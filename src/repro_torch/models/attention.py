@@ -39,12 +39,15 @@ chosen from the layer's specs (`_tp_form`):
           them through w_o, and the rows are gathered back
   whole   otherwise (a decode step of heads that do not divide): every
           model rank computes the layer whole
-Dense caches keep every kv head on every model rank, as `cache_pspecs`
-places them.  A decode whose cache is split on its sequence dim over the dp
+MLA (`_mla_tp`) and cross attention take a heads form when their heads
+divide the model axis, else the whole form.  Dense caches keep every kv
+head (and MLA's latent) on every model rank, as `cache_pspecs` places
+them.  A decode whose cache is split on its sequence dim over the dp
 axis (`cache_pspecs`' long-context case, B < dp) attends over the rank's
 positions, returns (max, sum, acc) and merges the ranks' parts with a
-log-sum-exp all-reduce; the write at `pos` lands on the rank that holds
-that slot.  The reference gets this from GSPMD; here it is written out.
+log-sum-exp all-reduce over its axes (one, or ("pod", "data")); the
+write at `pos` lands on the rank that holds that slot.  MLA's latent cache
+takes the same merge.  The reference gets this from GSPMD; here it is written out.
 """
 from __future__ import annotations
 
@@ -56,7 +59,6 @@ import torch
 from repro_torch.dist.collectives import (all_reduce, copy_to, current,
                                           gather_from, reduce_from,
                                           spec_dim, take, tp_par)
-from repro_torch.dist.sharding import entry_axes
 from repro_torch.kernels.ops import dense, paged_attn, resolve_paged_attn_mode
 from repro_torch.models.layers import Spec, rmsnorm, rope
 
@@ -500,14 +502,22 @@ def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int, spec=None):
 
 
 def _seq_axis(cache_spec):
-    """The axis a dense cache's sequence dim is split over (None: whole)."""
+    """The axes a dense cache's sequence dim is split over, as a spec entry
+    (None: whole)."""
     if cache_spec is None:
         return None
-    axes = entry_axes(next(iter(cache_spec.values()))[1])
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"a cache sequence over {axes} comes with ROADMAP §1.8b-2")
-    return axes[0] if axes else None
+    return next(iter(cache_spec.values()))[1]
+
+
+def _seq_parts(cache_spec, n_loc: int):
+    """(the ambient mesh or None, the cache's sequence entry, this rank's
+    block index along it, the whole length) of a dense cache holding
+    `n_loc` positions here."""
+    axis = _seq_axis(cache_spec)
+    seq = current() if axis is not None else None
+    if seq is None:
+        return None, None, 0, n_loc
+    return seq, axis, seq.rank(axis), n_loc * seq.size(axis)
 
 
 def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
@@ -527,18 +537,11 @@ def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
         q, k, v = _tp_qkv(p, c, x, positions, spec, par, form)
     else:
         q, k, v = gqa_project_qkv(p, c, x, positions)
-    axis = _seq_axis(cache_spec)
-    seq = current() if axis is not None else None
     n_loc = cache["k"].shape[1]
-    parts = seq.size(axis) if seq is not None else 1
-    span = n_loc * parts
+    seq, axis, r, span = _seq_parts(cache_spec, n_loc)
     slot = min(max(pos % span if c.window else pos, 0), span - 1)
-    r = seq.rank(axis) if seq is not None else 0
-    if slot // n_loc == r:
-        kc = _write_at(cache["k"], slot - r * n_loc, k)
-        vc = _write_at(cache["v"], slot - r * n_loc, v)
-    else:
-        kc, vc = cache["k"].clone(), cache["v"].clone()
+    kc, vc = (_write_local(cache[n], slot, r, t)
+              for n, t in (("k", k), ("v", v)))
     kpos = r * n_loc + torch.arange(n_loc, device=x.device)
     if c.window:
         kpos = pos - ((pos - kpos) % span)
@@ -565,16 +568,25 @@ def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
     return y, {"k": kc, "v": vc}
 
 
-def _merge_parts(m, l, acc, par, axis: str, qshape, dtype):
+def _write_local(cache, slot: int, r: int, vals):
+    """`_write_at` of the whole cache's `slot` on the rank whose block
+    (`r`, of cache.shape[1] positions) holds it; a copy elsewhere."""
+    n_loc = cache.shape[1]
+    if slot // n_loc == r:
+        return _write_at(cache, slot - r * n_loc, vals)
+    return cache.clone()
+
+
+def _merge_parts(m, l, acc, par, axis, qshape, dtype):
     """Attention over every rank's keys from the ranks' (m, l, acc): the
-    log-sum-exp merge, all-reduced over `axis`."""
+    log-sum-exp merge, all-reduced over `axis` (a spec entry)."""
     zero = torch.zeros((), device=m.device)
-    m_g = all_reduce(m, par, (axis,), op="max")
+    m_g = all_reduce(m, par, axis, op="max")
     m_safe = torch.where(torch.isfinite(m_g), m_g, zero)
     corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
-    l_g = all_reduce(l * corr, par, (axis,))
+    l_g = all_reduce(l * corr, par, axis)
     acc_g = all_reduce(acc * corr.permute(0, 3, 1, 2)[..., None], par,
-                       (axis,))
+                       axis)
     out = acc_g / torch.clamp(l_g, min=1e-30).permute(0, 3, 1, 2)[..., None]
     B, S, H, _ = qshape
     return out.reshape(B, S, H, acc.shape[-1]).to(dtype)
@@ -627,38 +639,77 @@ def _mla_latent(p, c: AttnConfig, x, positions):
     return c_kv, k_rope
 
 
-def _mla_attend(p, c: AttnConfig, q, c_kv, k_rope, mask):
-    """The plain MLA read: up-project the latent sequence to per-head K/V,
-    then `_sdpa` and the output projection."""
-    nope = c.head_dim
+def _mla_kv(p, c: AttnConfig, c_kv, k_rope):
+    """The latent sequence up-projected to per-head K (nope + shared rope)
+    and V (nope)."""
     k_nope = dense(c_kv, p["w_uk"], mode=c.dense_mode)
     v = dense(c_kv, p["w_uv"], mode=c.dense_mode)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], c.rope_head_dim)], dim=-1)
+    return k, v
+
+
+def _mla_attend(p, c: AttnConfig, q, c_kv, k_rope, mask):
+    """The plain MLA read: up-project the latent sequence to per-head K/V,
+    then `_sdpa` and the output projection."""
+    nope = c.head_dim
+    k, v = _mla_kv(p, c, c_kv, k_rope)
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(nope + c.rope_head_dim))
     return dense(out[..., :nope], p["w_o"], mode=c.dense_mode,
                  contract_dims=2)
 
 
-def mla_forward(p, c: AttnConfig, x, positions):
-    """Full-sequence MLA self-attention: the latent up-projected to
-    per-head K/V, then `_sdpa_chunked` (causal)."""
+def _same(x):
+    return x
+
+
+def _mla_tp(p, c: AttnConfig, spec):
+    """(the rank's MLA leaves, their config, the entry, the exit) on the
+    ambient mesh: the heads form when the heads divide the model axis —
+    w_q / w_uq / w_uk / w_uv (stored split on their last dim) taken to the
+    rank's heads, w_dq / w_dkv and the norms whole, the latent computed for
+    every row on every model rank (the dense latent cache keeps it whole
+    there), w_o row-parallel, a copy at the entry and a reduce at the exit
+    — else the whole form (every model rank computes the layer whole).  No
+    mesh: (p, c, identity, identity)."""
+    par = tp_par()
+    if par is None or spec is None:
+        return p, c, _same, _same
+    if c.num_heads % par.tp:
+        return ({n: take(w, spec[n], None, par, partial=False)
+                 for n, w in p.items()}, c, _same, _same)
+    heads = (None, "model", None)
+    want = {"w_q": heads, "w_uq": heads, "w_uk": heads, "w_uv": heads,
+            "w_o": ("model", None, None)}
+    w = {n: take(t, spec[n], want.get(n), par) for n, t in p.items()}
+    return (w, dataclasses.replace(c, num_heads=c.num_heads // par.tp),
+            lambda x: copy_to(x, par), lambda y: reduce_from(y, par))
+
+
+def _mla_full(p, c: AttnConfig, x, positions):
+    """Full-sequence MLA: (out, c_kv, k_rope)."""
     q = _mla_q(p, c, x, positions)
     c_kv, k_rope = _mla_latent(p, c, x, positions)
-    nope = c.head_dim
-    k_nope = dense(c_kv, p["w_uk"], mode=c.dense_mode)
-    v = dense(c_kv, p["w_uv"], mode=c.dense_mode)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        *k_nope.shape[:3], c.rope_head_dim)], dim=-1)
-    out = _sdpa_chunked(q, k, v, 1.0 / math.sqrt(nope + c.rope_head_dim))
-    return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)
+    k, v = _mla_kv(p, c, c_kv, k_rope)
+    out = _sdpa_chunked(q, k, v,
+                        1.0 / math.sqrt(c.head_dim + c.rope_head_dim))
+    return (dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2), c_kv,
+            k_rope)
 
 
-def mla_prefill(p, c: AttnConfig, x, positions, max_len: int):
+def mla_forward(p, c: AttnConfig, x, positions, spec=None):
+    """Full-sequence MLA self-attention: the latent up-projected to
+    per-head K/V, then `_sdpa_chunked` (causal).  Under the model axis,
+    `_mla_tp`'s form."""
+    w, cl, enter, leave = _mla_tp(p, c, spec)
+    return leave(_mla_full(w, cl, enter(x), positions)[0])
+
+
+def mla_prefill(p, c: AttnConfig, x, positions, max_len: int, spec=None):
     """MLA prefill over a dense latent cache (B, max_len, ...)."""
     B = x.shape[0]
-    out = mla_forward(p, c, x, positions)
-    c_kv, k_rope = _mla_latent(p, c, x, positions)
+    w, cl, enter, leave = _mla_tp(p, c, spec)
+    out, c_kv, k_rope = _mla_full(w, cl, enter(x), positions)
     ckv = torch.zeros((B, max_len, c.kv_lora_rank), dtype=c_kv.dtype,
                       device=x.device)
     kr = torch.zeros((B, max_len, c.rope_head_dim), dtype=k_rope.dtype,
@@ -666,22 +717,38 @@ def mla_prefill(p, c: AttnConfig, x, positions, max_len: int):
     n = min(c_kv.shape[1], max_len)
     ckv[:, :n] = c_kv[:, :n]
     kr[:, :n] = k_rope[:, :n]
-    return out, {"c_kv": ckv, "k_rope": kr}
+    return leave(out), {"c_kv": ckv, "k_rope": kr}
 
 
-def mla_decode(p, c: AttnConfig, x, cache, pos: int):
+def mla_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
+               cache_spec=None):
     """One-token MLA decode over a dense latent cache at position `pos`
-    of every row: the plain read (`_mla_attend`)."""
+    of every row: the plain read (`_mla_attend`).  Under a mesh:
+    `_mla_tp`'s form, and a latent cache split on its sequence dim
+    (`cache_spec`) attended in parts merged across its axes, as
+    `gqa_decode` does."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = _mla_q(p, c, x, positions)
-    c_kv, k_rope = _mla_latent(p, c, x, positions)
-    ckv = _write_at(cache["c_kv"], pos, c_kv)
-    kr = _write_at(cache["k_rope"], pos, k_rope)
-    T = ckv.shape[1]
-    mask = (torch.arange(T, device=x.device) <= pos)[None, None, :].expand(
-        B, 1, T)
-    return _mla_attend(p, c, q, ckv, kr, mask), {"c_kv": ckv, "k_rope": kr}
+    w, cl, enter, leave = _mla_tp(p, c, spec)
+    xin = enter(x)
+    q = _mla_q(w, cl, xin, positions)
+    c_kv, k_rope = _mla_latent(w, cl, xin, positions)
+    n_loc = cache["c_kv"].shape[1]
+    seq, axis, r, T = _seq_parts(cache_spec, n_loc)
+    slot = min(max(pos, 0), T - 1)
+    ckv = _write_local(cache["c_kv"], slot, r, c_kv)
+    kr = _write_local(cache["k_rope"], slot, r, k_rope)
+    kpos = r * n_loc + torch.arange(n_loc, device=x.device)
+    mask = (kpos <= pos)[None, None, :].expand(B, 1, n_loc)
+    if seq is None:
+        y = _mla_attend(w, cl, q, ckv, kr, mask)
+    else:
+        k, v = _mla_kv(w, cl, ckv, kr)
+        out = _merge_parts(*_sdpa_parts(
+            q, k, v, mask, 1.0 / math.sqrt(c.head_dim + c.rope_head_dim)),
+            seq, axis, q.shape, q.dtype)
+        y = dense(out, w["w_o"], mode=c.dense_mode, contract_dims=2)
+    return leave(y), {"c_kv": ckv, "k_rope": kr}
 
 
 def _mla_absorbed_attend(p, c: AttnConfig, q, ckv, kr, tables, positions,
@@ -770,17 +837,40 @@ def mla_verify_paged(p, c: AttnConfig, x, cache, tables, positions, active,
 # cross attention (text queries over encoder embeddings)
 # ---------------------------------------------------------------------------
 
-def cross_attn_forward(p, c: AttnConfig, x, enc):
+def cross_attn_forward(p, c: AttnConfig, x, enc, spec=None):
     """x: (B, S, D) text; enc: (B, T, D) patch / frame embeddings.  q and k
     get a per-head RMSNorm (rows of head_dim, through the RMSNorm kernel on
     the card); no mask, and nothing is cached: K/V are projected from
-    `enc` every call, as the reference does."""
-    q = dense(x, p["w_q"], mode=c.dense_mode)
-    k = dense(enc, p["w_k"], mode=c.dense_mode)
-    v = dense(enc, p["w_v"], mode=c.dense_mode)
-    q = rmsnorm({"scale": p["q_norm"]}, q, mode=c.dense_mode)
-    k = rmsnorm({"scale": p["k_norm"]}, k, mode=c.dense_mode)
+    `enc` every call, as the reference does.  Under the model axis: the
+    heads form when the q heads divide it (a copy of x and enc at the
+    entry, the rank's q heads, k / v for every kv head as `_tp_qkv`
+    computes them, the norms replicated, w_o row-parallel, then a reduce),
+    else the whole form."""
+    par = tp_par()
+    form = None
+    if par is not None and spec is not None:
+        form = "heads" if c.num_heads % par.tp == 0 else "whole"
+        partial = form == "heads"
+        qwant = (None, "model", None) if partial else None
+        w = {n: take(t, spec[n], qwant if n == "w_q" else None, par,
+                     partial=partial)
+             for n, t in p.items() if n != "w_o"}
+        if partial:
+            x, enc = copy_to(x, par), copy_to(enc, par)
+    else:
+        w = p
+    q = dense(x, w["w_q"], mode=c.dense_mode)
+    k = dense(enc, w["w_k"], mode=c.dense_mode)
+    v = dense(enc, w["w_v"], mode=c.dense_mode)
+    q = rmsnorm({"scale": w["q_norm"]}, q, mode=c.dense_mode)
+    k = rmsnorm({"scale": w["k_norm"]}, k, mode=c.dense_mode)
+    if form == "heads":
+        Hl, rk = q.shape[2], par.rank("model")
+        rep = c.num_heads // c.num_kv_heads
+        k, v = _kv_heads(k, rk, Hl, rep), _kv_heads(v, rk, Hl, rep)
     mask = torch.ones((x.shape[1], enc.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(c.head_dim))
+    if form is not None:
+        return _tp_out(p, c, out, spec, par, form)
     return dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2)

@@ -213,10 +213,11 @@ def _moe_shard_map(p, c: MoeConfig, x: torch.Tensor, par, spec):
 
 def _moe_shard_map_serve(p, c: MoeConfig, x: torch.Tensor, par, spec):
     """Decode-time routed experts with RESIDENT weights: E over "model",
-    d_ff over the dp axis, no weight gathered; every token of the batch
-    (tiny at decode) on every rank, each computing its (E_local x d_ff
-    slice) partial, summed over "model" and the dp axis, never "pod"
-    (the weights are whole across pods)."""
+    d_ff over "data", no weight gathered; every token of the batch (tiny
+    at decode, gathered over the dp axes when they split it) on every
+    rank, each computing its (E_local x d_ff slice) partial, summed over
+    "model" and "data", never "pod" (the weights are whole across
+    pods)."""
     B, S, D = x.shape
     dp_ax = par.dp_axis
     split = par.batch_split and par.dp > 1
@@ -224,17 +225,18 @@ def _moe_shard_map_serve(p, c: MoeConfig, x: torch.Tensor, par, spec):
     T = xs.shape[0] * S
     C = capacity(c, T)
     n_local = c.num_experts // par.tp
-    # each dp rank's work on the router is a part too (its d_ff slice)
+    ff = "data"
+    # each data rank's work on the router is a part too (its d_ff slice)
     w = {"router": copy_to(take(p["router"], spec["router"], None, par),
-                           par, dp_ax),
+                           par, ff),
          "w_gate": take(p["w_gate"], spec["w_gate"],
-                        ("model", None, dp_ax), par),
-         "w_up": take(p["w_up"], spec["w_up"], ("model", None, dp_ax), par),
+                        ("model", None, ff), par),
+         "w_up": take(p["w_up"], spec["w_up"], ("model", None, ff), par),
          "w_down": take(p["w_down"], spec["w_down"],
-                        ("model", dp_ax, None), par)}
-    out = _routed_local(w, c, copy_to(copy_to(xs, par), par, dp_ax)
+                        ("model", ff, None), par)}
+    out = _routed_local(w, c, copy_to(copy_to(xs, par), par, ff)
                         .reshape(T, D), C, n_local, par.rank("model"))
-    out = reduce_from(reduce_from(out, par), par, dp_ax).reshape(-1, S, D)
+    out = reduce_from(reduce_from(out, par), par, ff).reshape(-1, S, D)
     if split:
         # each dp rank keeps its rows: their gradients sum over dp again
         out = copy_to(out, par, dp_ax).narrow(0, par.rank(dp_ax) * B, B)

@@ -10,6 +10,17 @@ scans); decode is one recurrence step on the carried state (`s`, f32) and
 the conv's last CONV_K - 1 inputs (`conv`).  The projections run
 `kernels.ops.dense` (the CUDA gpp_matmul on the card); the rest is plain
 torch in f32, as the reference's is jnp.
+
+Under a mesh whose model axis is larger than one rank (`dist.collectives.
+tp_par`), given the layer's specs (`_ssm_tp`): the heads form when the
+heads divide the axis — a copy of u at the entry; the rank's heads of x
+and of z cut from the whole w_in (stored split on its last dim, which
+mixes x and z); w_dt / conv_w / A_log / D / dt_bias cut to the rank's
+heads or channels; w_bc (B and C, shared by every head) whole; w_out
+row-parallel, then a reduce.  The state the step returns stays whole on
+every model rank (`cache_pspecs` places it so): a rank's heads are cut
+from it and gathered back.  Otherwise the whole form: every model rank
+computes the layer whole.
 """
 from __future__ import annotations
 
@@ -18,6 +29,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import (LocalLayer, take, tp_par,
+                                          whole_layer)
 from repro_torch.kernels.ops import dense
 from repro_torch.models.layers import Spec
 
@@ -128,25 +141,58 @@ def _ssd_chunked(p, c: SsmConfig, u: torch.Tensor):
     return dense(y, p["w_out"], mode=c.dense_mode), s, x_raw
 
 
-def ssm_forward(p, c: SsmConfig, u: torch.Tensor) -> torch.Tensor:
+# the dim of each state leaf that holds the heads (conv: the channels, in
+# head order)
+STATE_HEAD_DIMS = {"s": 1, "conv": 2}
+
+
+def _ssm_tp(p, c: SsmConfig, spec) -> LocalLayer:
+    """The rank's view of one Mamba2 layer on the ambient mesh (module
+    docstring); no mesh or no spec: the layer as it is."""
+    par = tp_par()
+    if par is None or spec is None:
+        return LocalLayer(p, c)
+    if c.n_heads % par.tp:
+        return LocalLayer(whole_layer(p, spec, par), c)
+    tp, r = par.tp, par.rank("model")
+    Dl = c.d_inner // tp
+    w_in = take(p["w_in"], spec["w_in"], None, par)
+    w = {"w_in": torch.cat([w_in.narrow(1, r * Dl, Dl),
+                            w_in.narrow(1, c.d_inner + r * Dl, Dl)], 1),
+         "w_bc": take(p["w_bc"], spec["w_bc"], None, par),
+         "w_dt": take(p["w_dt"], spec["w_dt"], (None, "model"), par),
+         "conv_w": take(p["conv_w"], spec["conv_w"], (None, "model"), par),
+         "w_out": take(p["w_out"], spec["w_out"], ("model", None), par)}
+    for n in ("A_log", "D", "dt_bias"):
+        w[n] = take(p[n], spec[n], ("model",), par)
+    cl = dataclasses.replace(c, d_inner=Dl, n_heads=c.n_heads // tp)
+    return LocalLayer(w, cl, par, True, STATE_HEAD_DIMS)
+
+
+def ssm_forward(p, c: SsmConfig, u: torch.Tensor, spec=None) -> torch.Tensor:
     """Full-sequence SSD (chunked).  u: (B, S, D)."""
-    return _ssd_chunked(p, c, u)[0]
+    lo = _ssm_tp(p, c, spec)
+    return lo.leave(_ssd_chunked(lo.p, lo.c, lo.enter(u))[0])
 
 
-def ssm_prefill(p, c: SsmConfig, u: torch.Tensor):
+def ssm_prefill(p, c: SsmConfig, u: torch.Tensor, spec=None):
     """Returns (y, state): the final SSD state and the conv's last
     CONV_K - 1 inputs (zeros in front of a shorter prompt)."""
     S = u.shape[1]
-    y, s, x_raw = _ssd_chunked(p, c, u)
+    lo = _ssm_tp(p, c, spec)
+    y, s, x_raw = _ssd_chunked(lo.p, lo.c, lo.enter(u))
     if S < CONV_K - 1:
         tail = F.pad(x_raw, (0, 0, CONV_K - 1 - S, 0))
     else:
         tail = x_raw[:, S - (CONV_K - 1):]
-    return y, {"s": s, "conv": tail}
+    return lo.leave(y), lo.join({"s": s, "conv": tail})
 
 
-def ssm_decode(p, c: SsmConfig, u: torch.Tensor, state):
+def ssm_decode(p, c: SsmConfig, u: torch.Tensor, state, spec=None):
     """One recurrence step.  u: (B, 1, D).  Returns (y, new state)."""
+    lo = _ssm_tp(p, c, spec)
+    p, c, state = lo.p, lo.c, lo.cut(state)
+    u = lo.enter(u)
     B_ = u.shape[0]
     H, P = c.n_heads, c.head_dim
     x_raw, z = dense(u, p["w_in"], mode=c.dense_mode).split(c.d_inner,
@@ -160,5 +206,5 @@ def ssm_decode(p, c: SsmConfig, u: torch.Tensor, state):
     y = torch.einsum("bhpn,bn->bhp", s_new, Cm[:, 0].float())
     y = y + p["D"][None, :, None] * xh[:, 0]
     y = y.reshape(B_, 1, H * P).to(u.dtype) * F.silu(z)
-    return (dense(y, p["w_out"], mode=c.dense_mode),
-            {"s": s_new, "conv": window[:, 1:]})
+    return (lo.leave(dense(y, p["w_out"], mode=c.dense_mode)),
+            lo.join({"s": s_new, "conv": window[:, 1:]}))

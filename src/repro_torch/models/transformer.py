@@ -37,11 +37,15 @@ the ambient mesh of `dist.collectives.on_mesh`, which the step builders of
 `launch.steps` enter): a layer that is not streamed has its FSDP dims
 gathered one layer at a time before it computes (ZeRO-3, `dist.
 collectives.take`, again in a block's remat), and the blocks run the
-tensor-parallel forms of `layers`, `attention` and `moe` when the model
-axis is larger than one rank.  This slice brings those forms for the GQA /
-window attention, MLP, MoE, embedding and head; MLA, Mamba2, xLSTM, cross
-and shared attention raise at a model axis above one (ROADMAP §1.8b-2) and
-run data parallel at one.
+tensor-parallel forms of `layers`, `attention`, `moe`, `ssm` and `xlstm`
+when the model axis is larger than one rank: every block kind has one (the
+shared block takes GQA's, on its one parameter set).  A layer that is not
+streamed is gathered over the FSDP axes first (`_zero`: "data", or the
+kimi-scale ("pod", "data")).  A decode whose recurrent state is split over
+the dp axes on a dim other than the batch (`cache_pspecs` at B < dp)
+gathers the state, steps it, and cuts the new one back
+(`_state_decode`); the attention caches are read in parts
+(`attention.gqa_decode` / `mla_decode`).
 """
 from __future__ import annotations
 
@@ -53,8 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.streamer import stream_layers
 from repro_torch.device import resolve_device
-from repro_torch.dist.collectives import NEXT, current, on_mesh, take, tp_par
-from repro_torch.dist.sharding import drop_axes
+from repro_torch.dist.collectives import current, on_mesh, take
+from repro_torch.dist.sharding import drop_axes, leaf_axes, piece, whole
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -321,31 +325,15 @@ def _block(cfg: ModelConfig, kind: str, p, x, attend, spec=None):
     return _ffn(cfg, kind, p, x + h, spec), cache
 
 
-def _check_tp(cfg: ModelConfig, kind: str) -> None:
-    """The block kinds whose tensor-parallel forms this port has (GQA /
-    window attention with an MLP or a MoE); the others raise at a model
-    axis above one rank."""
-    base = kind.split(":")[0]
-    if tp_par() is not None and (base not in ("dense", "moe")
-                                 or cfg.kv_lora_rank):
-        what = "MLA" if base in ("dense", "moe") else base
-        raise NotImplementedError(
-            f"{cfg.name}: the tensor-parallel form of a {what} block comes "
-            f"with {NEXT}")
-
-
 def _zero(p, spec):
-    """(p with its FSDP dims gathered over the ambient mesh's FSDP axis,
-    the spec it then has): ZeRO-3 for a layer that is not streamed.  No
-    mesh or no spec: (p, spec) as they are."""
+    """(p with its FSDP dims gathered over the ambient mesh's FSDP axes,
+    the spec it then has): ZeRO-3 for a layer that is not streamed; over
+    ("pod", "data") a gather over each axis in turn (`take`).  No mesh or
+    no spec: (p, spec) as they are."""
     par = current()
     if par is None or spec is None:
         return p, spec
-    axes = par.rules.fsdp_axes
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"FSDP over {axes} (the kimi-scale rule) comes with {NEXT}")
-    full = drop_axes(spec, axes)
+    full = drop_axes(spec, par.rules.fsdp_axes)
     # a gather whose backward reduce-scatters; no copy over "model", as
     # each model rank's work on a leaf whole there is the whole work
     return tree_map(lambda w, s, f: take(w, s, f, par, partial=False),
@@ -387,37 +375,40 @@ def _logits_head(params, cfg: ModelConfig, x, spec=None):
 # :162-261, :288-400, :730-801)
 # ---------------------------------------------------------------------------
 
-def _mix(cfg: ModelConfig, kind: str, p: dict, step: str, h, *state):
+def _mix(cfg: ModelConfig, kind: str, p: dict, step: str, h, *state,
+         spec=None):
     """The Mamba2 or xLSTM mixer of `kind` at `step` (forward / prefill /
     decode) on the normed input h."""
     base = kind.split(":")[0]
     if base == "mamba":
-        return getattr(ssm_mod, f"ssm_{step}")(p["ssm"], _ssm_cfg(cfg), h,
-                                               *state)
-    return getattr(xlstm_mod, f"{base}_{step}")(p["mix"], _xlstm_cfg(cfg),
-                                                h, *state)
+        return getattr(ssm_mod, f"ssm_{step}")(
+            p["ssm"], _ssm_cfg(cfg), h, *state, spec=_sub(spec, "ssm"))
+    return getattr(xlstm_mod, f"{base}_{step}")(
+        p["mix"], _xlstm_cfg(cfg), h, *state, spec=_sub(spec, "mix"))
 
 
 def _mixer_block(cfg: ModelConfig, kind: str, p: dict, x, step: str,
-                 *state):
+                 *state, spec=None):
     """A recurrent block: the mixer on the normed input, the residual, and
     for xLSTM the MLP when d_ff.  Returns (x, state) (None at forward)."""
     mamba = kind.split(":")[0] == "mamba"
     out = _mix(cfg, kind, p, step, rmsnorm(p["ln" if mamba else "ln1"], x,
-                                           mode=cfg.dense_kernel), *state)
+                                           mode=cfg.dense_kernel), *state,
+               spec=spec)
     y, st = (out, None) if step == "forward" else out
     x = x + y
     if not mamba and cfg.d_ff:
         x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, mode=cfg.dense_kernel),
-                    cfg.act, dense_mode=cfg.dense_kernel)
+                    cfg.act, dense_mode=cfg.dense_kernel,
+                    spec=_sub(spec, "mlp"))
     return x, st
 
 
-def _cross_block(cfg: ModelConfig, kind: str, p: dict, x, enc):
+def _cross_block(cfg: ModelConfig, kind: str, p: dict, x, enc, spec=None):
     h = attn.cross_attn_forward(p["attn"], _attn_cfg(cfg, kind),
                                 rmsnorm(p["ln1"], x, mode=cfg.dense_kernel),
-                                enc)
-    return _ffn(cfg, kind, p, x + h)
+                                enc, _sub(spec, "attn"))
+    return _ffn(cfg, kind, p, x + h, spec)
 
 
 def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions,
@@ -427,16 +418,13 @@ def apply_block(cfg: ModelConfig, kind: str, p: dict, x, positions,
     attention over `enc` then the MLP.  `spec`: the block's specs on a
     mesh (module docstring)."""
     base = kind.split(":")[0]
-    if spec is not None:
-        _check_tp(cfg, kind)
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            attn.mla_forward(pa, ac, h, positions) if ac.is_mla else
-            attn.gqa_forward(pa, ac, h, positions, _sub(spec, "attn")),
-            None), spec)[0]
+            (attn.mla_forward if ac.is_mla else attn.gqa_forward)(
+                pa, ac, h, positions, _sub(spec, "attn")), None), spec)[0]
     if base == "cross":
-        return _cross_block(cfg, kind, p, x, enc)
-    return _mixer_block(cfg, kind, p, x, "forward")[0]
+        return _cross_block(cfg, kind, p, x, enc, spec)
+    return _mixer_block(cfg, kind, p, x, "forward", spec=spec)[0]
 
 
 def _inputs(params, cfg: ModelConfig, batch: dict, specs=None):
@@ -604,40 +592,49 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
     """One block over the prompt.  Returns (x, cache or None)."""
     base = kind.split(":")[0]
     if spec is not None:
-        _check_tp(cfg, kind)
         p, spec = _zero(p, spec)
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            attn.mla_prefill(pa, ac, h, positions, max_len) if ac.is_mla
-            else attn.gqa_prefill(pa, ac, h, positions, max_len,
-                                  _sub(spec, "attn"))), spec)
+            attn.mla_prefill if ac.is_mla else attn.gqa_prefill)(
+                pa, ac, h, positions, max_len, _sub(spec, "attn")), spec)
     if base == "cross":
-        return _cross_block(cfg, kind, p, x, enc), None
-    return _mixer_block(cfg, kind, p, x, "prefill")
+        return _cross_block(cfg, kind, p, x, enc, spec), None
+    return _mixer_block(cfg, kind, p, x, "prefill", spec=spec)
+
+
+def _state_decode(cfg: ModelConfig, kind: str, p: dict, x, cache,
+                  spec, cache_spec):
+    """A recurrent block's decode.  A state split over the dp axes on a
+    dim other than its batch (`cache_pspecs` at B < dp: the heads of `s`,
+    `M`, `c`, ...) is gathered whole first and the new state cut back to
+    the rank's piece (the state is O(1) in the sequence); a state split on
+    its batch is the rank's rows, stepped as it is."""
+    par = current()
+    split = {n: (None, *sp[1:]) for n, sp in (cache_spec or {}).items()}
+    if par is None or not any(map(leaf_axes, split.values())):
+        return _mixer_block(cfg, kind, p, x, "decode", cache, spec=spec)
+    cache = {n: whole(t, split[n], par.mesh) for n, t in cache.items()}
+    x, new = _mixer_block(cfg, kind, p, x, "decode", cache, spec=spec)
+    return x, {n: piece(t, split[n], par.mesh) for n, t in new.items()}
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int,
                   enc, spec=None, cache_spec=None):
     """One block at one position.  Returns (x, new cache or None).  A
-    cache split on its sequence dim (`cache_spec`) is read by the GQA /
-    window decode only."""
+    cache split on its sequence dim (`cache_spec`) is read in parts by the
+    attention decodes; a recurrent state split on its heads is gathered
+    (`_state_decode`)."""
     base = kind.split(":")[0]
     if spec is not None:
-        _check_tp(cfg, kind)
         p, spec = _zero(p, spec)
-    if cache_spec is not None and attn._seq_axis(cache_spec) is not None \
-            and (base not in ("dense", "moe") or cfg.kv_lora_rank):
-        raise NotImplementedError(
-            f"{cfg.name}: a {kind} cache split on its sequence dim comes "
-            f"with {NEXT}")
     if base in ("dense", "shared_attn", "moe"):
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
-            attn.mla_decode(pa, ac, h, cache, pos) if ac.is_mla else
-            attn.gqa_decode(pa, ac, h, cache, pos, _sub(spec, "attn"),
-                            cache_spec)), spec)
+            attn.mla_decode if ac.is_mla else attn.gqa_decode)(
+                pa, ac, h, cache, pos, _sub(spec, "attn"), cache_spec),
+            spec)
     if base == "cross":
-        return _cross_block(cfg, kind, p, x, enc), None
-    return _mixer_block(cfg, kind, p, x, "decode", cache)
+        return _cross_block(cfg, kind, p, x, enc, spec), None
+    return _state_decode(cfg, kind, p, x, cache, spec, cache_spec)
 
 
 def _stack(trees: list):

@@ -11,14 +11,30 @@ sequence runs one token at a time (the reference's `lax.scan`).
 The projections run `kernels.ops.dense` (the CUDA gpp_matmul on the card;
 the output gates with the sigmoid fused into its epilogue); the gate maths
 is plain torch in f32, as the reference's is jnp.
+
+Under a mesh whose model axis is larger than one rank (`dist.collectives.
+tp_par`), given the layer's specs: the heads form when the heads divide
+the axis, a copy of x at the entry and a reduce after the row-parallel
+output projection —
+  mLSTM  w_q / w_k / w_v (stored split on head_dim) taken to the rank's
+         heads, w_i / w_f and the gate biases cut to them, w_o
+         row-parallel, reduced before the output gate; the output gate
+         (`ogate`) computed whole on every model rank from the replicated x
+  sLSTM  w_z / w_og / w_i / w_f (stored in head order) and the biases cut
+         to the rank's heads, w_out row-parallel
+The state the step returns stays whole on every model rank
+(`cache_pspecs` places it so): a rank's heads are cut from it and gathered
+back.  Otherwise the whole form: every model rank computes the layer
+whole (xlstm-1.3b's 4 heads at the production mesh's 16 model ranks).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.dist.collectives import (LocalLayer, take, tp_par,
+                                          whole_layer)
 from repro_torch.kernels.ops import dense
 from repro_torch.models.layers import Spec
 
@@ -136,24 +152,66 @@ def _mlstm_chunk_scan(p, c: XlstmConfig, x):
     return torch.cat(hids, dim=1), st
 
 
-def mlstm_prefill(p, c: XlstmConfig, x: torch.Tensor):
+# the heads dim of each state leaf
+MLSTM_HEAD_DIMS = {"M": 1, "n": 1, "m": 1}
+SLSTM_HEAD_DIMS = {"c": 1, "n": 1, "m": 1}
+
+
+def _tp(p, c: XlstmConfig, spec, wants: dict, dims: dict,
+        whole=()) -> LocalLayer:
+    """The rank's view of one xLSTM layer on the ambient mesh (module
+    docstring): each leaf taken to `wants` in the heads form (the leaves
+    in `whole` made whole for replicated work), or every leaf whole; no
+    mesh or no spec: the layer as it is."""
+    par = tp_par()
+    if par is None or spec is None:
+        return LocalLayer(p, c)
+    if c.n_heads % par.tp:
+        return LocalLayer(whole_layer(p, spec, par), c)
+    w = {n: take(t, spec[n], None, par, partial=False) if n in whole
+         else take(t, spec[n], wants[n], par) for n, t in p.items()}
+    cl = dataclasses.replace(c, d_model=c.d_model // par.tp,
+                             n_heads=c.n_heads // par.tp)
+    return LocalLayer(w, cl, par, True, dims)
+
+
+_HEADS3 = (None, "model", None)
+_COLS = (None, "model")
+_MLSTM_WANTS = {"w_q": _HEADS3, "w_k": _HEADS3, "w_v": _HEADS3,
+                "w_i": _COLS, "w_f": _COLS, "b_i": ("model",),
+                "b_f": ("model",), "w_o": ("model", None, None)}
+_SLSTM_WANTS = {"w_z": _COLS, "w_og": _COLS, "w_i": _COLS, "w_f": _COLS,
+                "b_i": ("model",), "b_f": ("model",),
+                "w_out": ("model", None)}
+
+
+def _mlstm_tp(p, c: XlstmConfig, spec) -> LocalLayer:
+    return _tp(p, c, spec, _MLSTM_WANTS, MLSTM_HEAD_DIMS, whole=("ogate",))
+
+
+def mlstm_prefill(p, c: XlstmConfig, x: torch.Tensor, spec=None):
     """Returns (y, final state).  x: (B, S, D)."""
-    hid, state = _mlstm_chunk_scan(p, c, x)
-    o = dense(x, p["ogate"], activation="sigmoid", mode=c.dense_mode)
-    y = dense(hid.to(x.dtype), p["w_o"], mode=c.dense_mode,
-              contract_dims=2) * o
-    return y, state
+    lo = _mlstm_tp(p, c, spec)
+    hid, state = _mlstm_chunk_scan(lo.p, lo.c, lo.enter(x))
+    o = dense(x, lo.p["ogate"], activation="sigmoid", mode=c.dense_mode)
+    y = lo.leave(dense(hid.to(x.dtype), lo.p["w_o"], mode=c.dense_mode,
+                       contract_dims=2)) * o
+    return y, lo.join(state)
 
 
-def mlstm_forward(p, c: XlstmConfig, x: torch.Tensor) -> torch.Tensor:
-    return mlstm_prefill(p, c, x)[0]
+def mlstm_forward(p, c: XlstmConfig, x: torch.Tensor,
+                  spec=None) -> torch.Tensor:
+    return mlstm_prefill(p, c, x, spec)[0]
 
 
-def mlstm_decode(p, c: XlstmConfig, x: torch.Tensor, state):
+def mlstm_decode(p, c: XlstmConfig, x: torch.Tensor, state, spec=None):
     """One recurrence step.  x: (B, 1, D).  Returns (y, new state)."""
+    lo = _mlstm_tp(p, c, spec)
+    state = lo.cut(state)
     x0 = x[:, 0]
-    q, k, v = _mlstm_qkv(p, c, x0)
-    i, logf = _mlstm_gates(p, c, x0)
+    xin = lo.enter(x0)
+    q, k, v = _mlstm_qkv(lo.p, lo.c, xin)
+    i, logf = _mlstm_gates(lo.p, lo.c, xin)
     m_new = torch.maximum(logf + state["m"], i)
     fw = torch.exp(logf + state["m"] - m_new)[..., None]
     iw = torch.exp(i - m_new)[..., None]
@@ -164,9 +222,10 @@ def mlstm_decode(p, c: XlstmConfig, x: torch.Tensor, state):
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(),
                         torch.exp(-m_new))
     out = (num / den[..., None]).to(x.dtype)
-    o = dense(x0, p["ogate"], activation="sigmoid", mode=c.dense_mode)
-    y = dense(out, p["w_o"], mode=c.dense_mode, contract_dims=2) * o
-    return y[:, None], {"M": M, "n": n, "m": m_new}
+    o = dense(x0, lo.p["ogate"], activation="sigmoid", mode=c.dense_mode)
+    y = lo.leave(dense(out, lo.p["w_o"], mode=c.dense_mode,
+                       contract_dims=2)) * o
+    return y[:, None], lo.join({"M": M, "n": n, "m": m_new})
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +268,16 @@ def _slstm_inputs(p, c: XlstmConfig, x):
     return z, i, _log_sigmoid(f), og
 
 
-def slstm_prefill(p, c: XlstmConfig, x: torch.Tensor):
+def _slstm_tp(p, c: XlstmConfig, spec) -> LocalLayer:
+    return _tp(p, c, spec, _SLSTM_WANTS, SLSTM_HEAD_DIMS)
+
+
+def slstm_prefill(p, c: XlstmConfig, x: torch.Tensor, spec=None):
     """Returns (y, final state): the recurrence one token at a time."""
-    B, S, D = x.shape
-    z, i, logf, og = _slstm_inputs(p, c, x)
+    lo = _slstm_tp(p, c, spec)
+    p, c = lo.p, lo.c
+    B, S, _ = x.shape
+    z, i, logf, og = _slstm_inputs(p, c, lo.enter(x))
     st = {"c": torch.zeros((B, c.n_heads, c.head_dim), device=x.device),
           "n": torch.zeros((B, c.n_heads), device=x.device),
           "m": torch.full((B, c.n_heads), -1e30, device=x.device)}
@@ -220,19 +285,22 @@ def slstm_prefill(p, c: XlstmConfig, x: torch.Tensor):
     for t in range(S):
         st, h = _slstm_step(st, z[:, t], i[:, t], logf[:, t])
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
-    return dense(h * og, p["w_out"], mode=c.dense_mode), st
+    h = torch.stack(hs, dim=1).reshape(B, S, c.d_model).to(x.dtype)
+    return (lo.leave(dense(h * og, p["w_out"], mode=c.dense_mode)),
+            lo.join(st))
 
 
-def slstm_forward(p, c: XlstmConfig, x: torch.Tensor) -> torch.Tensor:
-    return slstm_prefill(p, c, x)[0]
+def slstm_forward(p, c: XlstmConfig, x: torch.Tensor,
+                  spec=None) -> torch.Tensor:
+    return slstm_prefill(p, c, x, spec)[0]
 
 
-def slstm_decode(p, c: XlstmConfig, x: torch.Tensor, state):
+def slstm_decode(p, c: XlstmConfig, x: torch.Tensor, state, spec=None):
     """One recurrence step.  x: (B, 1, D).  Returns (y, new state)."""
-    z, i, logf, og = _slstm_inputs(p, c, x)
-    new_state, h = _slstm_step(state, z[:, 0], i[:, 0], logf[:, 0])
-    B, D = x.shape[0], x.shape[2]
-    y = dense(h.reshape(B, D).to(x.dtype) * og[:, 0], p["w_out"],
-              mode=c.dense_mode)
-    return y[:, None], new_state
+    lo = _slstm_tp(p, c, spec)
+    p, c = lo.p, lo.c
+    z, i, logf, og = _slstm_inputs(p, c, lo.enter(x))
+    new_state, h = _slstm_step(lo.cut(state), z[:, 0], i[:, 0], logf[:, 0])
+    y = dense(h.reshape(x.shape[0], c.d_model).to(x.dtype) * og[:, 0],
+              p["w_out"], mode=c.dense_mode)
+    return lo.leave(y)[:, None], lo.join(new_state)

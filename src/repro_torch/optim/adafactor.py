@@ -5,6 +5,16 @@ an unfactored one for 1-D leaves, no first moment, update clipping
 (RMS(u) <= clip_threshold) and the RMS parameter scale.  State per
 factored leaf is (r + c) f32 numbers against AdamW's 2 r c.  The update is
 functional, as `adamw_update`'s.
+
+On a mesh (the ambient one of `dist.collectives`, with the leaves' specs)
+each rank holds its piece of every parameter and gradient, and the factors
+whole, as the reference's specs keep them (replicated).  Every mean is
+over the whole leaf: a mean along a dim that the leaf splits is the
+all-reduced sum of the pieces' sums over the whole length, the new row and
+column factors are gathered whole from the pieces, and a rank scales its
+piece by its block of them.  A dim split over no axis of more than one rank
+takes `torch.mean` as the mesh-less update does, so a 1x1 mesh gives its
+numbers bit for bit.
 """
 from __future__ import annotations
 
@@ -12,7 +22,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.collectives import all_reduce, current
 from repro_torch.models.layers import Spec, map_specs, tree_leaves, tree_map
+from repro_torch.optim.adamw import global_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,42 +66,95 @@ def adafactor_state_specs(param_specs):
             "count": Spec((), torch.int32)}
 
 
+class _Leaf:
+    """The whole-leaf means and the factor pieces of one leaf's piece on
+    the ambient mesh `par` under `spec` (no mesh: the leaf is whole)."""
+
+    def __init__(self, spec, par, shape):
+        self.par = par
+        self.spec = tuple(spec) if (spec and par) else (None,) * len(shape)
+        self.axes = [tuple(a for a in shd.entry_axes(e) if par.size(a) > 1)
+                     if par else () for e in self.spec]
+
+    def _sub(self, dims):
+        return tuple(None if d is None else self.spec[d] for d in dims)
+
+    def mean(self, x, dim: int):
+        """The mean of the whole leaf's dim `dim` from the piece x."""
+        axes = self.axes[dim]
+        if not axes:
+            return torch.mean(x, dim=dim)
+        n = x.shape[dim] * self.par.size(axes)
+        return all_reduce(torch.sum(x, dim=dim), self.par, axes) / n
+
+    def mean_all(self, x):
+        axes = tuple(a for ax in self.axes for a in ax)
+        if not axes:
+            return torch.mean(x)
+        return all_reduce(torch.sum(x), self.par, axes) / (
+            x.numel() * self.par.size(axes))
+
+    def whole(self, t, dims):
+        """t whole, its dims laid out as the leaf's `dims` (a gather)."""
+        return shd.whole(t, self._sub(dims), self.par.mesh) if self.par \
+            else t
+
+    def piece(self, t, dims):
+        """The rank's block of a whole t laid out as the leaf's `dims`."""
+        return shd.piece(t, self._sub(dims), self.par.mesh) if self.par \
+            else t
+
+
 @torch.no_grad()
-def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr=None):
-    """Returns (new_params, new_state, metrics {"lr", "grad_norm"})."""
+def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr=None,
+                     specs=None):
+    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}).
+    `specs`: the leaves' pieces on the ambient mesh (module docstring)."""
     count = state["count"] + 1
     t = count.float()
     beta2 = 1.0 - torch.pow(t, -cfg.decay)
     lr_t = torch.as_tensor(cfg.lr if lr is None else lr,
                            dtype=torch.float32, device=count.device)
+    par = current() if specs is not None else None
 
-    def upd(p, g, st):
+    def upd(p, g, st, spec=None):
+        lf = _Leaf(spec, par, p.shape)
+        nd = p.ndim
         g = g.float()
         g2 = g * g + cfg.eps1
         if _factored(p.shape):
-            vr = beta2 * st["vr"] + (1 - beta2) * torch.mean(g2, dim=-1)
-            vc = beta2 * st["vc"] + (1 - beta2) * torch.mean(g2, dim=-2)
+            rows, cols = range(nd - 1), (*range(nd - 2), nd - 1)
+            vr = beta2 * st["vr"] + (1 - beta2) * lf.whole(
+                lf.mean(g2, -1), rows)
+            vc = beta2 * st["vc"] + (1 - beta2) * lf.whole(
+                lf.mean(g2, -2), cols)
             # v_hat ~ vr vc / mean(vr)
             denom = torch.mean(vr, dim=-1, keepdim=True)
-            vhat = (vr[..., None] * vc[..., None, :]
-                    / torch.clamp(denom[..., None], min=cfg.eps1))
+            vr_l, vc_l = lf.piece(vr, rows), lf.piece(vc, cols)
+            denom_l = lf.piece(denom, (*range(nd - 2), None))
+            vhat = (vr_l[..., None] * vc_l[..., None, :]
+                    / torch.clamp(denom_l[..., None], min=cfg.eps1))
             u = g * torch.rsqrt(torch.clamp(vhat, min=cfg.eps1))
             new_st = {"vr": vr, "vc": vc}
         else:
-            v = beta2 * st["v"] + (1 - beta2) * g2
-            u = g * torch.rsqrt(torch.clamp(v, min=cfg.eps1))
+            v = beta2 * st["v"] + (1 - beta2) * lf.whole(g2, range(nd))
+            u = g * torch.rsqrt(torch.clamp(lf.piece(v, range(nd)),
+                                            min=cfg.eps1))
             new_st = {"v": v}
-        rms = torch.sqrt(torch.mean(u * u))
+        rms = torch.sqrt(lf.mean_all(u * u))
         u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
         pf = p.float()
-        scale = torch.clamp(torch.sqrt(torch.mean(pf ** 2)), min=cfg.eps2)
+        scale = torch.clamp(torch.sqrt(lf.mean_all(pf ** 2)), min=cfg.eps2)
         newp = pf - lr_t * scale * u - lr_t * cfg.weight_decay * pf
         return newp.to(p.dtype), new_st
 
-    outs = tree_map(upd, params, grads, state["factors"])
+    if par is None:
+        outs = tree_map(upd, params, grads, state["factors"])
+    else:
+        outs = shd.map_spec_tree(lambda s, p, g, st: upd(p, g, st, s), specs,
+                                 params, grads, state["factors"])
     new_params, new_factors = _unzip(outs, 0), _unzip(outs, 1)
-    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2)
-                           for g in tree_leaves(grads)))
+    gnorm = global_norm(grads, specs if par is not None else None)
     return new_params, {"factors": new_factors, "count": count}, {
         "lr": lr_t, "grad_norm": gnorm}
 

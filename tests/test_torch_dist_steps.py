@@ -1,5 +1,6 @@
-"""The sharded step builders (`launch.steps`) on a 2x2 mesh of 4 ranks,
-mirroring `tests/test_distributed.py::TestStepsOnHostMesh`.
+"""The sharded step builders (`launch.steps`) on a 2x2 mesh of 4 ranks (and
+one (2, 2, 1) multi-pod mesh), mirroring `tests/test_distributed.py::
+TestStepsOnHostMesh`.
 
 More than one rank runs on gloo only, as CPU processes: this file runs
 itself as a script (`python tests/test_torch_dist_steps.py OUT`) that
@@ -25,6 +26,30 @@ are the port's mesh-less steps (held to the JAX package's by
   qwen2    `make_train_step` with `StreamSettings(mode="gpp",
            ring_depth=3)`: the loss and the parameters equal the resident
            step's on the same mesh within 1e-5
+  deepseek, zamba2 (Adafactor), vision_train (Adafactor)
+           `make_train_step` on 2x2 through the MLA, Mamba2 + shared
+           attention and cross heads forms: as gemma3, and Adafactor's
+           factors too
+  xlstm_train
+           `make_train_step` on 2x2 through the mLSTM / sLSTM heads
+           forms: the loss, the grad norm and every gradient leaf as
+           gemma3 (the test says why not the update)
+  zamba2_ckpt
+           one Adafactor step on 2x2, then the rank's params and state
+           saved with their specs (`checkpoint.manager`) and restored onto
+           the mesh: every piece bit for bit, the factors whole
+  kimi     `make_train_step` (Adafactor, MoE, gpp-streamed) on a (pod 2,
+           data 2, model 1) mesh under the ("pod", "data") FSDP rule,
+           given explicitly (SMOKE widths never reach `_rules_for`'s
+           condition): as gemma3, against the mesh-less streamed step
+  deepseek_decode, zamba2_decode, xlstm (B = 1), vision (B = 2)
+           `make_prefill_step` and 6 greedy `make_decode_step`s: at
+           B = 1 < dp the MLA latent cache is split on its sequence and
+           the recurrent states on their heads (`cache_pspecs`); tokens
+           equal, logits within 1e-4 of a row's largest |logit|
+The MoE cases route with capacity factor 8, room for every token: the
+mesh forms dispatch one group of a rank's tokens where the mesh-less path
+dispatches several, so dropped tokens would differ (as in the reference).
 """
 import json
 import os
@@ -56,34 +81,120 @@ def _scaled_err(got, want) -> float:
 TRAIN_STEP = 200
 
 
-def _train(cfg, mesh, B, S, seed, with_mesh: bool, grads: bool = False):
+def _opt_init(cfg, params):
+    from repro_torch.optim import adafactor, adamw
+    return (adafactor.adafactor_init(params) if cfg.optimizer == "adafactor"
+            else adamw.adamw_init(params))
+
+
+def _train(cfg, mesh, B, S, seed, with_mesh: bool, grads: bool = False,
+           rules=None):
     """(params, opt state, metrics) after one train step from seeded whole
     parameters, put back together on a mesh; with `grads`, also the
     step's gradients (`meta["loss_and_grads"]` on the mesh, put back
-    together; `value_and_grad` without one)."""
+    together; `value_and_grad` without one).  The optimizer state starts
+    from the whole leaves, cut to the rank's pieces by its specs (AdamW's
+    moments split as the leaves, Adafactor's factors whole)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.models import transformer as tf
-    from repro_torch.optim import adamw
     params = tf.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
              for k in ("tokens", "labels")}
+    if cfg.encoder_tokens:
+        batch["enc"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_tokens, cfg.d_model)).astype(np.float32))
     if not with_mesh:
         b = make_train_step(cfg)
-        out = b.fn(params, adamw.adamw_init(params), batch, TRAIN_STEP)
+        out = b.fn(params, _opt_init(cfg, params), batch, TRAIN_STEP)
         return out + ((value_and_grad(cfg, params, batch)[1],)
                       if grads else ())
-    b = make_train_step(cfg, mesh, ShapeConfig("t", S, B, "train"))
-    p_psp, _, b_psp, _ = b.arg_specs
+    b = make_train_step(cfg, mesh, ShapeConfig("t", S, B, "train"),
+                        rules=rules)
+    p_psp, o_psp, b_psp, _ = b.arg_specs
     mine = shd.shard_tree(params, p_psp, mesh)
     rows = shd.shard_tree(batch, b_psp, mesh)
     g = (shd.gather_tree(b.meta["loss_and_grads"](mine, rows)[1], p_psp,
                          mesh),) if grads else ()
-    p, o, m = b.fn(mine, adamw.adamw_init(mine), rows, TRAIN_STEP)
+    opt = shd.shard_tree(_opt_init(cfg, params), o_psp, mesh)
+    p, o, m = b.fn(mine, opt, rows, TRAIN_STEP)
     return (shd.gather_tree(p, p_psp, mesh), o, m) + g
+
+
+def _train_case(rank, mesh, cfg, B, S, seed, rules=None):
+    """The train step on the mesh against the mesh-less one (rank 0)."""
+    p, o, m, g = _train(cfg, mesh, B, S, seed, True, grads=True,
+                        rules=rules)
+    if rank:
+        return None
+    wp, wo, wm, wg = _train(cfg, mesh, B, S, seed, False, grads=True)
+    out = {"loss": float(m["loss"]), "want_loss": float(wm["loss"]),
+           "gnorm": float(m["grad_norm"]),
+           "want_gnorm": float(wm["grad_norm"]),
+           "grads_err": _scaled_err(g, wg),
+           "params_err": _scaled_err(p, wp)}
+    if "factors" in o:
+        out["factors_err"] = _scaled_err(o["factors"], wo["factors"])
+    return out
+
+
+def _serve_case(rank, mesh, cfg, B, P, T, N, seed):
+    """`make_prefill_step` over a P-token prompt of B rows, then N greedy
+    `make_decode_step`s with a T-position cache, against the mesh-less
+    `prefill` / `decode_step` (rank 0): the tokens, the largest logit
+    difference over a row's largest |logit|, and where the caches rest."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (B, P)))}
+    if cfg.encoder_tokens:
+        batch["enc"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_tokens, cfg.d_model)).astype(np.float32))
+    pre = make_prefill_step(cfg, mesh, ShapeConfig("s", T, B, "prefill"))
+    dec = make_decode_step(cfg, mesh, ShapeConfig("s", T, B, "decode"))
+    rows = dec.arg_specs[1][0]
+    logits, caches = pre.fn(shd.shard_tree(params, pre.arg_specs[0], mesh),
+                            shd.shard_tree(batch, pre.arg_specs[1], mesh))
+    mine = shd.shard_tree(params, dec.arg_specs[0], mesh)
+    enc = (shd.piece(batch["enc"], dec.arg_specs[4], mesh)
+           if cfg.encoder_tokens else None)
+
+    def whole(t):
+        return shd.whole(t, (rows, None, None), mesh)
+    got_logits = [whole(logits)]
+    tok = logits[:, -1].argmax(-1)[:, None]
+    got_tok = []
+    for i in range(N):
+        got_tok.append(whole(tok[..., None])[:, 0, 0].tolist())
+        logits, caches = dec.fn(mine, tok, caches, P + i, enc)
+        got_logits.append(whole(logits))
+        tok = logits[:, -1].argmax(-1)[:, None]
+    if rank:
+        return None
+    with torch.no_grad():
+        wl, wc = tf.prefill(params, cfg, batch, T)
+        want_tok, want_logits = [], [wl]
+        tok = wl[:, -1].argmax(-1)[:, None]
+        for i in range(N):
+            want_tok.append(tok[:, 0].tolist())
+            wl, wc = tf.decode_step(params, cfg, tok, wc, P + i,
+                                    enc=batch.get("enc"))
+            want_logits.append(wl)
+            tok = wl[:, -1].argmax(-1)[:, None]
+    err = max(float(((g - w).abs().amax(-1)
+                     / w.abs().amax(-1)).max())
+              for g, w in zip(got_logits, want_logits))
+    first = next(iter(dec.meta["cache_pspecs"]["blocks"].values()))
+    return {"tokens": got_tok, "want_tokens": want_tok, "logits_err": err,
+            "cache_pspecs": {k: list(v) for k, v in first.items()}}
 
 
 def _case_gemma3(rank, mesh):
@@ -160,14 +271,126 @@ def _case_danube(rank, mesh):
                   "logits_err": err}
 
 
+def _smoke(name, **kw):
+    from repro_torch.models import registry
+    return registry.get_config(name, smoke=True).with_(dtype="float32",
+                                                       **kw)
+
+
+# the MoE cases route with room for every token (module docstring)
+def _case_deepseek(rank, mesh):
+    return _train_case(rank, mesh, _smoke("deepseek-v2-lite-16b",
+                                          moe_capacity_factor=8.0),
+                       8, 32, 3)
+
+
+def _case_deepseek_decode(rank, mesh):
+    return _serve_case(rank, mesh, _smoke("deepseek-v2-lite-16b",
+                                          moe_capacity_factor=8.0),
+                       1, 24, 32, 6, 4)
+
+
+def _case_zamba2(rank, mesh):
+    return _train_case(rank, mesh, _smoke("zamba2-2.7b",
+                                          optimizer="adafactor"), 4, 32, 5)
+
+
+def _case_zamba2_decode(rank, mesh):
+    return _serve_case(rank, mesh, _smoke("zamba2-2.7b"), 1, 16, 32, 6, 6)
+
+
+def _case_xlstm(rank, mesh):
+    return _serve_case(rank, mesh, _smoke("xlstm-1.3b"), 1, 16, 32, 6, 7)
+
+
+def _case_xlstm_train(rank, mesh):
+    return _train_case(rank, mesh, _smoke("xlstm-1.3b"), 4, 32, 10)
+
+
+def _case_vision_train(rank, mesh):
+    # Adafactor: its update's error follows the gradient's (AdamW's first
+    # step carries a near-zero gradient's round-off, see the xlstm test)
+    return _train_case(rank, mesh, _smoke("llama-3.2-vision-11b",
+                                          optimizer="adafactor"), 4, 32, 11)
+
+
+def _case_vision(rank, mesh):
+    return _serve_case(rank, mesh, _smoke("llama-3.2-vision-11b"), 2, 16,
+                       32, 6, 8)
+
+
+def _case_kimi(rank, mesh):
+    import dataclasses
+    from repro_torch.core.streamer import StreamSettings
+    from repro_torch.launch.steps import _rules_for
+    cfg = _smoke("kimi-k2-1t-a32b", moe_capacity_factor=8.0,
+                 stream=StreamSettings(mode="gpp", ring_depth=3))
+    # SMOKE widths never reach `_rules_for`'s 4e9-byte condition
+    rules = dataclasses.replace(_rules_for(cfg, mesh),
+                                fsdp_axes=("pod", "data"))
+    out = _train_case(rank, mesh, cfg, 8, 32, 9, rules=rules)
+    if out is not None:
+        from repro_torch.dist import sharding as shd
+        from repro_torch.models import transformer as tf
+        psp = shd.param_pspecs(tf.param_specs(cfg), mesh, rules)
+        out["w_q_spec"] = list(psp["blocks"]["b0"]["attn"]["w_q"])
+        out["dp_axes"] = list(rules.dp_axes)
+    return out
+
+
+def _case_ckpt(rank, mesh, directory):
+    """zamba2 (Adafactor) on 2x2: one step, the ranks' params and optimizer
+    state saved with their specs (rank 0 writes whole leaves) and restored
+    onto the mesh; whether every piece came back bit for bit, and the
+    whole factors' shapes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_leaves
+    cfg = _smoke("zamba2-2.7b", optimizer="adafactor")
+    b = make_train_step(cfg, mesh, ShapeConfig("t", 32, 4, "train"))
+    p_psp, o_psp, b_psp, _ = b.arg_specs
+    params = tf.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)))
+             for k in ("tokens", "labels")}
+    p, o, _ = b.fn(shd.shard_tree(params, p_psp, mesh),
+                   shd.shard_tree(_opt_init(cfg, params), o_psp, mesh),
+                   shd.shard_tree(batch, b_psp, mesh), TRAIN_STEP)
+    specs = {"params": p_psp, "opt": o_psp}
+    mgr = CheckpointManager(str(directory))
+    mgr.save(1, {"params": p, "opt": o}, specs=specs, mesh=mesh)
+    dist.barrier()
+    back, step = mgr.restore({"params": p, "opt": o}, shardings=specs,
+                             mesh=mesh)
+    same = all(torch.equal(a, c) for a, c in zip(
+        tree_leaves({"params": p, "opt": o}), tree_leaves(back)))
+    ok = torch.tensor([1.0 if same else 0.0])
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    vr = back["opt"]["factors"]["blocks"]["b0"]["ssm"]["w_in"]["vr"]
+    return None if rank else {"step": step, "same": bool(ok.item()),
+                              "vr_shape": list(vr.shape)}
+
+
 CASES = {"gemma3": _case_gemma3, "danube": _case_danube,
-         "qwen2": _case_qwen2}
+         "qwen2": _case_qwen2, "deepseek": _case_deepseek,
+         "deepseek_decode": _case_deepseek_decode, "zamba2": _case_zamba2,
+         "zamba2_decode": _case_zamba2_decode, "xlstm": _case_xlstm,
+         "xlstm_train": _case_xlstm_train, "vision": _case_vision,
+         "vision_train": _case_vision_train}
 
 
 def _rank(rank, world, out_path):
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh(2, 2)
     out = {name: fn(rank, mesh) for name, fn in CASES.items()}
+    out["zamba2_ckpt"] = _case_ckpt(rank, mesh,
+                                    Path(out_path).parent / "ckpt")
+    out["kimi"] = _case_kimi(rank, make_host_mesh(2, 1, pod=2))
     if rank == 0:
         Path(out_path).write_text(json.dumps(out))
 
@@ -208,6 +431,65 @@ def test_qwen2_gpp_streamed_train_step_on_2x2(ranks):
     q = ranks["qwen2"]
     assert abs(q["loss"] - q["want_loss"]) <= 1e-5 * abs(q["want_loss"])
     assert q["params_err"] <= 1e-5
+
+
+def _check_loss_and_grads(r):
+    assert abs(r["loss"] - r["want_loss"]) <= 1e-4 * abs(r["want_loss"])
+    assert abs(r["gnorm"] - r["want_gnorm"]) <= 1e-4 * abs(r["want_gnorm"])
+    assert r["grads_err"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", ("deepseek", "zamba2", "vision_train",
+                                  "kimi"))
+def test_train_step_matches_the_mesh_less_step(ranks, name):
+    """deepseek (MLA heads form, both MoE maps), zamba2 (Adafactor, the
+    Mamba2 heads form, the shared block's GQA heads form) and
+    llama-3.2-vision (the cross layer's heads form) on 2x2; kimi
+    (Adafactor, MoE, gpp-streamed) on (pod 2, data 2, model 1) under the
+    ("pod", "data") FSDP rule."""
+    r = ranks[name]
+    _check_loss_and_grads(r)
+    assert r["params_err"] <= 1e-4
+    if "factors_err" in r:
+        assert r["factors_err"] <= 1e-4
+
+
+def test_xlstm_train_step_loss_and_gradients(ranks):
+    """The mLSTM / sLSTM heads forms on 2x2: the loss and every gradient
+    leaf.  The AdamW update is not held to 1e-4 here: the sLSTM input-gate
+    bias's gradient is round-off (~2e-10, as the max-stabilised
+    exponential gate cancels a shift of the gate), and AdamW's first step,
+    lr x g / (|g| + 1e-8), carries that round-off into the update (2.6e-4
+    of the leaf's scale between the two summation orders)."""
+    _check_loss_and_grads(ranks["xlstm_train"])
+
+
+def test_adafactor_state_checkpoints_on_a_mesh(ranks):
+    c = ranks["zamba2_ckpt"]
+    assert c["step"] == 1 and c["same"]
+    assert c["vr_shape"] == [2, 64]      # whole: (superblocks, d_model)
+
+
+def test_kimi_shards_over_pod_and_data(ranks):
+    k = ranks["kimi"]
+    assert k["w_q_spec"] == [None, ["pod", "data"], None, None]
+    assert k["dp_axes"] == ["pod", "data"]
+
+
+@pytest.mark.parametrize("name,split", (
+    ("deepseek_decode", {"c_kv": 2, "k_rope": 2}),
+    ("zamba2_decode", {"s": 2}),
+    ("xlstm", {"M": 2, "n": 2, "m": 2}),
+    ("vision", {"k": 1, "v": 1})))
+def test_prefill_and_decode_match_the_mesh_less_steps(ranks, name, split):
+    """B = 1 < dp: deepseek's latent cache split on its sequence, zamba2's
+    and xlstm's states on their heads; llama-3.2-vision at B = 2 over
+    "data", its cross layer through every decode."""
+    r = ranks[name]
+    assert r["tokens"] == r["want_tokens"]
+    assert r["logits_err"] <= 1e-4
+    for leaf, dim in split.items():
+        assert r["cache_pspecs"][leaf][dim] == "data", r["cache_pspecs"]
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ process (no spawn).
           the reference's `PartitionSpec`s, read as tuples, for every arch
           on mesh shapes (2, 2), (16, 16) and (2, 16, 16).  Pure functions:
           the reference reads a mesh through `.shape` / `.axis_names`, so a
-          namespace stands in for it.
+          namespace stands in for it.  Adafactor's state specs: the
+          factors' shapes equal the reference's, and `make_train_step`
+          keeps every factor whole, as the reference's does.
   1x1     a gloo process group of one rank (a `HashStore`, destroyed at the
           module's end so the other files of the same worker see no group)
           and a 1x1 ("data", "model") `DeviceMesh`, against the JAX package
@@ -42,6 +44,7 @@ from repro.models import moe as JM
 from repro.models import registry as jregistry
 from repro.models import transformer as jtf
 from repro.models.layers import init_from_specs as jinit
+from repro.optim import adafactor as jadafactor
 from repro.optim import adamw as jadamw
 from repro_torch.bridge import config_from_reference
 from repro_torch.configs.base import ShapeConfig
@@ -51,7 +54,7 @@ from repro_torch.launch import steps
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as tf
 from repro_torch.models.registry import ARCH_NAMES
-from repro_torch.optim import adamw
+from repro_torch.optim import adafactor, adamw
 
 from _torch_parity import np32, tree_to_torch
 
@@ -101,6 +104,20 @@ def test_spec_trees_match_reference(arch, mesh):
             got = _flat(shd.cache_pspecs(tf.cache_specs(cfg, batch, 64),
                                          sizes, r, batch))
             assert got == want, (serve, batch)
+    # Adafactor's state: the reference's make_train_step keeps every factor
+    # whole (src/repro/launch/steps.py:93-100); the shapes are its own
+    jfac = jax.tree_util.tree_flatten_with_path(
+        jadafactor.adafactor_state_specs(jtf.param_specs(jcfg))["factors"])[0]
+    jfac = {tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path):
+            tuple(s.shape) for path, s in jfac}
+    fac = _flat(adafactor.adafactor_state_specs(tf.param_specs(cfg))
+                ["factors"])
+    assert {k: tuple(v.shape) for k, v in fac.items()} == jfac
+    opt = steps.make_train_step(cfg.with_(optimizer="adafactor"), sizes,
+                                ShapeConfig("t", 64, 8, "train")).arg_specs[1]
+    assert _flat(opt["factors"]) == {k: (None,) * len(v)
+                                     for k, v in jfac.items()}
+    assert opt["count"] == ()
 
 
 # ---------------------------------------------------------------------------
