@@ -210,7 +210,17 @@ In order, it:
      the mesh-less one, zamba2-2.7b (one superblock, B = 1) and
      llama-3.2-vision-11b (one superblock, its cross layer) through the
      prefill and decode steps (`check_sharded_steps`);
- 12. prints {"kernels": [...]} and, last, the device line.  Each phase's
+ 12. (slice 18) the roofline (`check_roofline`): `python -m
+     repro_torch.launch.dryrun` for qwen1.5-0.5b train_4k on the 16x16
+     mesh (a fake process group of 256 ranks, in a process of its own,
+     within 90 s) and `repro_torch.launch.report` on its JSON, the cell ok
+     and fitting the card; meanwhile step 11's qwen train step and
+     deepseek decode steps counted on meta (`roofline.count`) as that
+     phase built them: the three terms on `repro_torch.launch.roofline`'s
+     H100 constants, the roofline step time against the time the card
+     took (the share, at most 1.05), the MFU, and the predicted peak
+     beside `torch.cuda.max_memory_allocated`;
+ 13. prints {"kernels": [...]} and, last, the device line.  Each phase's
      seconds are printed as it ends (`phase ...: N s`).
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
@@ -233,8 +243,11 @@ ROOT = Path(__file__).resolve().parent
 REPORT_DIR = None          # --json-out's directory: the obs trace goes there
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
+# the bounds' yardstick: `main` sets HBM_BW and the bf16 peak from
+# `repro_torch.launch.roofline` once it has found the checkout, so the kernel
+# table's bounds and the step's roofline share read one set of constants
+H100_HBM_BYTES_PER_S = None
+PEAK_OPS = {"bfloat16": None, "float32": 67e12}   # dense, per type
 L2_BYTES = 50 * 1024 * 1024
 TOL = {"float32": (2e-4, 2e-4), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 
@@ -4596,7 +4609,8 @@ def _sharded_serve(mesh, cfg, params, prompt, nxt, enc=None):
     """`make_prefill_step` over `prompt` (B, S) then `make_decode_step`
     len(nxt) times on the mesh, the given tokens fed (no sampling), `enc`
     the encoder embeddings of a cross layer: the logits of every step,
-    (B, 1 + N, vocab), and the peak HBM of each step kind."""
+    (B, 1 + N, vocab), and a dict of the peak HBM of each step kind and
+    the decode steps' mean ms (CUDA events around the N calls)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
@@ -4616,11 +4630,16 @@ def _sharded_serve(mesh, cfg, params, prompt, nxt, enc=None):
     peak["prefill_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     torch.cuda.reset_peak_memory_stats()
     out = [logits]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
     for i in range(len(nxt)):
         logits, caches = dec.fn(params, nxt[i], caches, S + i, enc)
         out.append(logits)
+    ev[1].record()
     torch.cuda.synchronize()
     peak["decode_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    peak["decode_max_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    peak["decode_ms"] = ev[0].elapsed_time(ev[1]) / len(nxt)
     if cfg.num_experts:
         check(dec.meta["cfg"].moe_serve_resident,
               "the decode step keeps the experts resident")
@@ -4806,6 +4825,7 @@ def _sharded_deepseek(out, mesh, card, launches):
           f"{err.numel()} logits past 2e-2 + 2e-2 x |plain| (at most 1e-5 "
           f"of them)")
     res.update(bf16_launches=counts, bf16_peak=peak,
+               bf16_decode_ms=peak["decode_ms"],
                bf16_max_abs_err=float(err.max()),
                bf16_plain_topk_moved=forced.moved,
                bf16_topk_choices=forced.choices)
@@ -4881,7 +4901,7 @@ def _sharded_qwen_train(out, mesh, card, launches):
         check(same_bits(g1[k], g2[k]), f"sharded qwen gradient {k}")
     del g1, g2
     # one AdamW step each: the loss, grad norm and every updated leaf
-    steps_s, peaks, news = {}, {}, {}
+    steps_s, peaks, news, allocated = {}, {}, {}, {}
     for name, b in (("meshless", one), ("mesh", on)):
         for i in range(2):                   # the second is timed
             torch.cuda.synchronize()
@@ -4892,6 +4912,7 @@ def _sharded_qwen_train(out, mesh, card, launches):
                                    batch, 0)
             steps_s[name] = time.perf_counter() - t
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            allocated[name] = torch.cuda.max_memory_allocated() / 1e9
             if name == "mesh":
                 check_path_launches("sharded qwen train step", c,
                                     TRAIN_PATH)
@@ -4909,7 +4930,7 @@ def _sharded_qwen_train(out, mesh, card, launches):
     res.update(loss=float(m2["loss"]), grad_norm=float(m2["grad_norm"]),
                leaves=len(p1), launches=counts,
                tok_s={k: tok / v for k, v in steps_s.items()},
-               step_s=steps_s, peak_gb=peaks)
+               step_s=steps_s, peak_gb=peaks, max_allocated_gb=allocated)
     del params, news, p1, p2
     torch.cuda.empty_cache()
     print(f"sharded steps [{card}]: {arch} train step ({cfg.num_layers} "
@@ -5160,10 +5181,12 @@ def check_sharded_steps(report):
     launches of the path's kernels and the logits against the same steps
     on the plain route (which takes the kernel run's expert choices: bf16
     rounding moves the top-k of near-uniform random-weight routers), f32
-    logits against the plain route and the mesh-less prefill / decode;
+    logits against the plain route and the mesh-less prefill / decode; the
+    bf16 kernel run's decode steps timed by CUDA events over the 16 calls;
     (2) qwen1.5-0.5b's full-width train step (`make_step`,
     4 x 1024, bf16, AdamW, remat) bit for bit the mesh-less step's: loss,
-    every gradient leaf, grad norm, every updated leaf; tok/s of both;
+    every gradient leaf, grad norm, every updated leaf; tok/s and
+    torch.cuda.max_memory_allocated of both;
     (3) `_sdpa_kv_chunked` against `_sdpa`; (4) xlstm-1.3b at full width,
     4 of its 48 layers, with Adafactor: the train step (4 x 1024, bf16,
     remat) against the mesh-less one, the loss and every gradient leaf bit
@@ -5221,8 +5244,148 @@ def check_sharded_steps(report):
     return out
 
 
+ROOFLINE_DRYRUN_S = 90         # the dry run's subprocess, from its start
+ROOFLINE_MAX_SHARE = 1.05      # a step faster than its bound: a wrong count
+
+
+def _roofline_of(arch, cfg, shape):
+    """`cfg`'s step at `shape` counted on meta on a fake 1x1 mesh (the
+    builder and code path the measured steps ran on the 1x1 NCCL mesh;
+    a collective over one rank counts no bytes): the dry-run record and
+    its roofline on `repro_torch.launch.roofline`'s H100 constants."""
+    from repro_torch.launch import dryrun, roofline
+    rec = dryrun.run_cell(arch, shape.name, False, cfg=cfg, shape=shape,
+                          layout=((1, 1), ("data", "model")), verbose=False)
+    check(rec["ok"], f"roofline: {arch} {shape.name} on meta: "
+          f"{rec.get('error')}")
+    return rec, roofline.analyze_record(rec, cfg, shape)
+
+
+def _roofline_row(card, what, rec, r, measured_s, peak_gb) -> dict:
+    """Print and gate one measured step against its roofline."""
+    from repro_torch.launch import roofline
+    share = r.step_time_s / measured_s
+    mfu = r.model_flops / (measured_s * roofline.PEAK_FLOPS)
+    row = {"compute_s": r.compute_s, "memory_s": r.memory_s,
+           "memory_dot_s": rec["dot_bytes_per_device_loop_aware"]
+           / roofline.HBM_BW,
+           "collective_s": r.collective_s, "bottleneck": r.bottleneck,
+           "roofline_s": r.step_time_s, "measured_s": measured_s,
+           "share": share, "mfu": mfu, "flops": rec["flops_per_device"],
+           "model_flops": r.model_flops,
+           "predicted_peak_gb": rec["hbm_bytes"] / 1e9,
+           "max_allocated_gb": peak_gb, "count_s": rec["count_s"]}
+    print(f"roofline [{card}]: {what}: counted on meta {row['flops']:.4e} "
+          f"FLOPs (model_flops {row['model_flops']:.4e}); terms (H100 SXM5 "
+          f"spec constants, not measured) compute {r.compute_s * 1e3:.3f} "
+          f"ms, memory {r.memory_s * 1e3:.3f} ms (dot bytes "
+          f"{row['memory_dot_s'] * 1e3:.3f}), collective "
+          f"{r.collective_s * 1e3:.3f} ms -> roofline "
+          f"{r.step_time_s * 1e3:.3f} ms ({r.bottleneck}); measured "
+          f"{measured_s * 1e3:.3f} ms; share {share:.4f}, MFU {mfu:.4f}; "
+          f"peak predicted {row['predicted_peak_gb']:.2f} GB, "
+          f"torch.cuda.max_memory_allocated {peak_gb:.2f} GB; counted in "
+          f"{rec['count_s']:.1f} s", flush=True)
+    check(share <= ROOFLINE_MAX_SHARE, f"roofline {what}: the step ran in "
+          f"{measured_s} s, under its bound {r.step_time_s} s (share "
+          f"{share} > {ROOFLINE_MAX_SHARE}: the count is wrong)")
+    return row
+
+
+def check_roofline(report):
+    """The dry run and the roofline on the card's host and against steps
+    the card timed (after `check_sharded_steps`, whose times it reads):
+    (1) `python -m repro_torch.launch.dryrun` for qwen1.5-0.5b train_4k on
+    the 16x16 mesh in a process of its own (its fake process group must
+    meet no other), within ROOFLINE_DRYRUN_S, then
+    `repro_torch.launch.report` on its JSON: the cell ok and fitting, its
+    row in the table; (2) meanwhile, here, qwen1.5-0.5b's full-width train
+    step (4 x 1024, bf16, AdamW, remat) and deepseek-v2-lite-16b's decode
+    step (4 layers, B = 4, a 48-position cache, capacity E / k, bf16)
+    counted on meta, as the sharded-steps phase built and timed them: the
+    three terms, the roofline step time against the measured one (the
+    share, at most ROOFLINE_MAX_SHARE), the MFU (model_flops / (measured x
+    PEAK_FLOPS)) and the predicted peak beside
+    torch.cuda.max_memory_allocated (printed, not gated).  Launches no
+    kernel."""
+    import os
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import report as rep
+    from repro_torch.models import registry
+    card = report["card"]
+    out = report["roofline"] = {"card": card}
+    sharded = report["sharded_steps"]
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "dryrun.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen1.5-0.5b", "--shape", "train_4k", "--single-pod-only", "--out",
+         str(path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        cfg = registry.get_config("qwen1.5-0.5b").with_(dtype="bfloat16")
+        shape = ShapeConfig(f"train {TRAIN_B}x{TRAIN_S}", TRAIN_S, TRAIN_B,
+                            "train")
+        rec, r = _roofline_of("qwen1.5-0.5b", cfg, shape)
+        q = sharded["qwen_train"]
+        out["qwen_train"] = _roofline_row(
+            card, f"qwen1.5-0.5b train step ({cfg.num_layers} layers, "
+            f"{TRAIN_B}x{TRAIN_S}, bf16, AdamW, remat)", rec, r,
+            q["step_s"]["mesh"], q["max_allocated_gb"]["mesh"])
+        arch = "deepseek-v2-lite-16b"
+        cfg = registry.get_config(arch).with_(dtype="bfloat16",
+                                              num_layers=SHARDED_LAYERS)
+        cfg = cfg.with_(moe_capacity_factor=cfg.num_experts
+                        / cfg.experts_per_token)
+        T = SHARDED_S + SHARDED_N
+        shape = ShapeConfig(f"decode {SHARDED_B}x{T}", T, SHARDED_B,
+                            "decode")
+        rec, r = _roofline_of(arch, cfg, shape)
+        d = sharded["deepseek"]
+        out["deepseek_decode"] = _roofline_row(
+            card, f"{arch} decode step ({SHARDED_LAYERS} layers, B "
+            f"{SHARDED_B}, a {T}-position cache at its last position, bf16; "
+            f"measured: the mean of {SHARDED_N} steps)", rec, r,
+            d["bf16_decode_ms"] / 1e3,
+            d["bf16_peak"]["decode_max_allocated_gb"])
+        left = ROOFLINE_DRYRUN_S - (time.perf_counter() - t0)
+        log, _ = proc.communicate(timeout=max(1.0, left))
+        dry_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"roofline: the dry run exited "
+              f"{proc.returncode}:\n{log[-2000:]}")
+        with open(path) as f:
+            (cell,) = json.load(f)
+        check(cell["ok"] and cell["fits"], f"roofline: the dry-run cell "
+              f"{cell.get('error')} fits={cell.get('fits')}")
+        rows = rep.rows_from(str(path))
+        table = rep.markdown_table(rows)
+        line = next((ln for ln in table.splitlines()
+                     if ln.startswith("| qwen1.5-0.5b | train_4k | 16x16 |")),
+                    None)
+        check(line is not None and "FAILED" not in line,
+              f"roofline: the report has no row for the cell:\n{table}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        tmp.cleanup()
+    out["dryrun"] = {"seconds": dry_s, "count_s": cell["count_s"],
+                     "hbm_gib": cell["hbm_bytes"] / 2**30,
+                     "row": rows[0]}
+    print(f"roofline [{card}]: python -m repro_torch.launch.dryrun --arch "
+          f"qwen1.5-0.5b --shape train_4k --single-pod-only: ok, fits "
+          f"({out['dryrun']['hbm_gib']:.2f} GiB a card), counted in "
+          f"{cell['count_s']:.1f} s, {dry_s:.1f} s with its start; report "
+          f"row (H100 SXM5 spec constants, not measured):\n{line}",
+          flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
-    global REPORT_DIR
+    global REPORT_DIR, H100_HBM_BYTES_PER_S
     ap = argparse.ArgumentParser()
     ap.add_argument("--json-out", default=None,
                     help="also write every measurement to this JSON file")
@@ -5237,6 +5400,10 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
+    from repro_torch.launch import roofline
+
+    H100_HBM_BYTES_PER_S = roofline.HBM_BW
+    PEAK_OPS["bfloat16"] = roofline.PEAK_FLOPS
 
     resolve_device("cuda")                  # also turns TF32 off
     smi = subprocess.run(
@@ -5363,6 +5530,8 @@ def main(argv=None) -> int:
     streaming = ph("layer streaming", check_layer_streaming, report)
     # slice 16: the sharded steps on a 1x1 NCCL mesh
     sharded = ph("sharded steps", check_sharded_steps, report)
+    # slice 18: the dry run and the roofline against the steps just timed
+    ph("roofline", check_roofline, report)
     shard_key = "sharded steps (1x1 NCCL mesh)"
     shard_n = sharded["launches"]
 

@@ -11,6 +11,8 @@ rank): nothing on a machine tells a program of a cluster.
   make_cuda_mesh   one rank a card over NCCL; on one H100 it is 1x1
   make_host_mesh   CPU ranks over gloo (tests, the CLI's --device cpu),
                    with a "pod" axis too when asked
+  fake_mesh        any shape over a fake process group, this process its
+                   rank 0: the dry run's 256- and 512-card meshes, on meta
   spawn_ranks      start N ranks that meet at a file store, each running
                    fn(rank, world, *args) inside its process group
 
@@ -19,6 +21,8 @@ so does NCCL without CUDA.  The reference's `make_mesh_compat` /
 `mesh_context` paper over JAX versions and have no counterpart.
 """
 from __future__ import annotations
+
+import contextlib
 
 
 def _mesh(device_type: str, shape: "tuple[int, ...]",
@@ -57,12 +61,42 @@ def make_cuda_mesh(data: int = 1, model: int = 1):
     return _mesh("cuda", (data, model), ("data", "model"))
 
 
+def production_layout(multi_pod: bool = False):
+    """(shape, dim names) of the production meshes: single pod (16, 16)
+    ("data", "model") = 256 cards, multi-pod (2, 16, 16) ("pod", "data",
+    "model") = 512."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """Single pod: (16, 16) ("data", "model") = 256 cards.  Multi-pod:
-    (2, 16, 16) ("pod", "data", "model") = 512.  On CUDA (NCCL)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh("cuda", shape, names)
+    """The production mesh (`production_layout`) on CUDA (NCCL)."""
+    return _mesh("cuda", *production_layout(multi_pod))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: "tuple[int, ...]", names: "tuple[str, ...]"):
+    """A CPU DeviceMesh of `shape` over a fake process group in which this
+    process is rank 0 of prod(shape): the dry run's stand-in for the
+    reference's `--xla_force_host_platform_device_count=512`.  The fake
+    group's collectives return at once and leave their outputs unfilled,
+    so run only meta tensors through it (shapes are all it gives).  It
+    becomes this process's default group for the block: raises if a
+    process group is up already, and destroys its own on the way out."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up already; the fake mesh "
+                           "needs a process of its own")
+    n = 1
+    for s in shape:
+        n *= s
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield _mesh("cpu", tuple(shape), tuple(names))
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(data: int = 2, model: int = 2, pod: int = 0):
