@@ -209,7 +209,14 @@ In order, it:
      (slice 17) xlstm-1.3b's Adafactor train step (4 of 48 layers) against
      the mesh-less one, zamba2-2.7b (one superblock, B = 1) and
      llama-3.2-vision-11b (one superblock, its cross layer) through the
-     prefill and decode steps (`check_sharded_steps`);
+     prefill and decode steps (`check_sharded_steps`); (slice 19) on the
+     same mesh, the steps' buffer donation (`check_donation`):
+     qwen1.5-0.5b at full width and depth, `make_decode_step` at B = 12
+     over a 32,768-position bf16 cache (38.65 GB), written in place (the
+     step allocates under a quarter of the cache and returns the leaves it
+     was given; at 16,384 positions bit for bit the functional
+     `decode_step`), and its train step's peak with donation beside the
+     mesh-less functional route's;
  12. (slice 18) the roofline (`check_roofline`): `python -m
      repro_torch.launch.dryrun` for qwen1.5-0.5b train_4k on the 16x16
      mesh (a fake process group of 256 ranks, in a process of its own,
@@ -4603,6 +4610,8 @@ SHARDED_XL_LAYERS = 4          # xlstm: 2 mLSTM + 2 sLSTM of 48
 SHARDED_Z = (6, 1, 256)        # zamba2: one superblock; prefill 1 x 256
 SHARDED_LV = (5, 4, 32)        # llama-vision: one superblock; prefill 4 x 32
 KV_CHUNK_CASE = (28, 4, 128, 4096)            # qwen2-7b's heads, T
+DONATION_B, DONATION_T = 12, 32768            # qwen1.5-0.5b: 38.65 GB bf16
+DONATION_STEPS = 3             # timed decode steps after the gated one
 
 
 def _sharded_serve(mesh, cfg, params, prompt, nxt, enc=None):
@@ -4880,6 +4889,7 @@ def _sharded_qwen_train(out, mesh, card, launches):
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
     from repro_torch.optim import adamw
     arch = "qwen1.5-0.5b"
     cfg, params = _model(arch, "bfloat16")
@@ -4900,16 +4910,19 @@ def _sharded_qwen_train(out, mesh, card, launches):
     for k in g1:
         check(same_bits(g1[k], g2[k]), f"sharded qwen gradient {k}")
     del g1, g2
-    # one AdamW step each: the loss, grad norm and every updated leaf
+    # one AdamW step each: the loss, grad norm and every updated leaf; a
+    # step updates the parameters and state it is given in place, so each
+    # gets copies (made before its peak is read)
     steps_s, peaks, news, allocated = {}, {}, {}, {}
     for name, b in (("meshless", one), ("mesh", on)):
         for i in range(2):                   # the second is timed
+            mine = tree_map(torch.clone, params)
+            state = adamw.adamw_init(params)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
-            (p, _, m), c = counted(b.fn, params, adamw.adamw_init(params),
-                                   batch, 0)
+            (p, _, m), c = counted(b.fn, mine, state, batch, 0)
             steps_s[name] = time.perf_counter() - t
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
             allocated[name] = torch.cuda.max_memory_allocated() / 1e9
@@ -4920,6 +4933,7 @@ def _sharded_qwen_train(out, mesh, card, launches):
                     for k in TRAIN_PATH:
                         launches[k] = launches.get(k, 0) + c[k]
             news[name] = (named_leaves(p), m)
+            del mine, state
     (p1, m1), (p2, m2) = news["meshless"], news["mesh"]
     for k in ("loss", "grad_norm"):
         check(same_bits(m1[k], m2[k]), f"sharded qwen step {k}: "
@@ -4963,6 +4977,7 @@ def _sharded_xlstm_train(out, mesh, card, launches):
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_map
     from repro_torch.optim import adafactor
     arch = "xlstm-1.3b"
     t = time.perf_counter()
@@ -4990,13 +5005,14 @@ def _sharded_xlstm_train(out, mesh, card, launches):
         # are timed
         for name, b in (("meshless", one), ("mesh", on),
                         ("meshless again", one)):
+            # the step updates what it is given in place: copies
+            mine = tree_map(torch.clone, params)
+            state = adafactor.adafactor_init(params)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
-            (p, _, m), c = counted(b.fn, params,
-                                   adafactor.adafactor_init(params), batch,
-                                   0)
+            (p, _, m), c = counted(b.fn, mine, state, batch, 0)
             steps_s[name] = time.perf_counter() - t1
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
             check_path_launches(f"sharded xlstm train step ({name})", c,
@@ -5007,7 +5023,7 @@ def _sharded_xlstm_train(out, mesh, card, launches):
                     launches[k] = launches.get(k, 0) + c[k]
             if name != "meshless again":
                 news[name] = (named_leaves(p), m)
-            del p
+            del p, mine, state
     finally:
         adafactor.adafactor_update = inner
     steps_s["meshless"] = steps_s.pop("meshless again")
@@ -5170,6 +5186,188 @@ def _kv_chunked(out, card):
                       f"{r['max_abs_err']:.2e}" for r in rows), flush=True)
 
 
+def check_donation(report, mesh, launches):
+    """The steps' buffer donation (slice 19) on the 1x1 NCCL mesh, at
+    qwen1.5-0.5b's full width and depth in bf16, B = DONATION_B rows.  (1)
+    `make_decode_step` over a DONATION_T / 2-position cache, where a copy
+    fits beside it, against the functional `transformer.decode_step` (the
+    same code on a copy of the cache) under the same mesh: logits and the
+    K / V written at the position bit for bit, the functional step's input
+    left as it was.  (2) `make_decode_step` over a DONATION_T-position
+    cache (random bf16, 38.65 GB, which the card cannot hold twice beside
+    the step), at its last position: the step allocates less than a
+    quarter of the cache's bytes above `torch.cuda.memory_allocated()`
+    before it (room for `_sdpa`'s f32 copies of one layer's K / V),
+    returns the tree it was given (every leaf's `data_ptr`), launches the
+    path's kernels, finite logits; then DONATION_STEPS more steps timed by
+    CUDA events.  (3) the train step (4 x 1024, AdamW, remat, step 200) on
+    the mesh, which updates the parameters and the state in place, beside
+    the mesh-less functional route (`value_and_grad`, then `adamw_update`
+    copying the parameters and the state): the updated parameters bit for
+    bit, and the peak above the arguments and
+    `torch.cuda.max_memory_allocated` of each, printed."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.collectives import on_mesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import map_specs, tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    card = report["card"]
+    out = report["donation"] = {"card": card}
+    t0 = time.perf_counter()
+    arch, B = "qwen1.5-0.5b", DONATION_B
+    cfg, params = _model(arch, "bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device="cuda")
+
+    def random_caches(T):
+        caches = map_specs(lambda _, sp: torch.empty(
+            sp.shape, dtype=sp.dtype, device="cuda"),
+            tf.cache_specs(cfg, B, T))
+        for leaf in tree_leaves(caches):
+            for layer in leaf:               # (L, B, T, KVH, hd)
+                layer.normal_(generator=gen)
+        return caches
+
+    def slot(caches, pos):
+        return {n: t[:, :, pos].clone()
+                for n, t in caches["blocks"]["b0"].items()}
+
+    # (1) bits against the functional decode, at half the positions
+    T = DONATION_T // 2
+    dec = steps.make_decode_step(cfg, mesh,
+                                 ShapeConfig("donation", T, B, "decode"))
+    caches, pos = random_caches(T), T - 1
+    before = slot(caches, pos)
+    with torch.no_grad(), on_mesh(mesh, dec.meta["rules"],
+                                  batch_split=True):
+        want, wc = tf.decode_step(
+            params, dec.meta["cfg"], tok, caches, pos, mesh=mesh,
+            specs=dec.meta["param_pspecs"],
+            cache_specs=dec.meta["cache_pspecs"])
+    want_slot = slot(wc, pos)
+    del wc
+    check(all(same_bits(t, before[n]) for n, t in slot(caches, pos).items()),
+          f"donation {arch}: the functional decode wrote its input")
+    logits, got = dec.fn(params, tok, caches, pos)
+    check(got is caches and same_bits(logits, want)
+          and all(same_bits(t, want_slot[n])
+                  for n, t in slot(got, pos).items()),
+          f"donation {arch}: the in-place decode at {T} positions is not "
+          f"the functional decode bit for bit")
+    out["bits_positions"] = T
+    del caches, got, logits, want, want_slot, before
+    torch.cuda.empty_cache()
+
+    # (2) the whole cache, which only the in-place decode holds
+    T = DONATION_T
+    dec = steps.make_decode_step(cfg, mesh,
+                                 ShapeConfig("donation", T, B, "decode"))
+    caches, pos = random_caches(T), T - 1
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, got), counts = counted(dec.fn, params, tok, caches, pos)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_path_launches(f"donation {arch} decode", counts, TRAIN_PATH)
+    for k in TRAIN_PATH:
+        launches[k] = launches.get(k, 0) + counts[k]
+    check(got is caches and [t.data_ptr() for t in tree_leaves(got)]
+          == ptrs, f"donation {arch}: the decode step returned other "
+          f"cache storage than it was given")
+    check(peak < cache_bytes / 4, f"donation {arch}: the decode step "
+          f"allocated {peak} B over a {cache_bytes} B cache (at most a "
+          f"quarter)")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(logits.isfinite().all()), f"donation {arch}: logits "
+          f"{tuple(logits.shape)} finite {bool(logits.isfinite().all())}")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(DONATION_STEPS):
+        logits, caches = dec.fn(params, tok, caches, pos)
+    ev[1].record()
+    torch.cuda.synchronize()
+    out["decode"] = {"rows": B, "positions": T, "layers": cfg.num_layers,
+                     "cache_bytes": cache_bytes, "peak_bytes": peak,
+                     "peak_share_of_cache": peak / cache_bytes,
+                     "arguments_bytes": base,
+                     "max_allocated_gb":
+                         torch.cuda.max_memory_allocated() / 1e9,
+                     "ms": ev[0].elapsed_time(ev[1]) / DONATION_STEPS,
+                     "launches": counts}
+    d = out["decode"]
+    print(f"donation [{card}]: {arch} decode step ({cfg.num_layers} "
+          f"layers, B {B}, bf16) on the 1x1 NCCL mesh: at "
+          f"{out['bits_positions']} positions bit for bit the functional "
+          f"decode (logits, the K / V written); at {T} positions (a "
+          f"{cache_bytes / 1e9:.2f} GB cache, at its last position) "
+          f"{peak / 1e9:.3f} GB allocated above {base / 1e9:.2f} GB of "
+          f"arguments ({d['peak_share_of_cache']:.4f} of the cache, at "
+          f"most 0.25), max_memory_allocated {d['max_allocated_gb']:.2f} "
+          f"GB, {d['ms']:.3f} ms a step (mean of {DONATION_STEPS}, CUDA "
+          f"events), the leaves given returned; launches {counts}",
+          flush=True)
+    del caches, got, logits
+    torch.cuda.empty_cache()
+
+    # (3) the train step's peak, donated and functional
+    batch = train_batch(cfg, TRAIN_B, TRAIN_S)
+    on = steps.make_step(cfg, mesh, ShapeConfig("t", TRAIN_S, TRAIN_B,
+                                                "train"))
+    optc = adamw.AdamWConfig()
+    step = 200                               # past the warm-up
+
+    def functional(p, s):
+        _, g = steps.value_and_grad(cfg, p, batch)
+        return adamw.adamw_update(optc, g, s, p, lr=adamw.cosine_lr(
+            step, peak=optc.lr, warmup=200, total=10_000))
+    train, updated = {}, {}
+    for name, fn in (("donated", lambda p, s: on.fn(p, s, batch, step)),
+                     ("functional", functional)):
+        mine, state = tree_map(torch.clone, params), adamw.adamw_init(params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        p, o, _ = fn(mine, state)
+        torch.cuda.synchronize()
+        train[name] = {"step_s": time.perf_counter() - t,
+                       "arguments_gb": base / 1e9,
+                       "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                       / 1e9,
+                       "max_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+        if name == "donated":
+            check(p is mine and o is state, f"donation {arch}: the train "
+                  f"step returned other trees than it was given")
+        updated[name] = named_leaves(p)
+        del mine, state, p, o
+        torch.cuda.empty_cache()
+    for k, w in updated["functional"].items():
+        check(same_bits(updated["donated"][k], w),
+              f"donation {arch}: updated {k} differs from the functional "
+              f"route's")
+    out["train"] = train
+    del updated, params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    report.setdefault("phase_s", {})["donation"] = out["seconds"]
+    print(f"donation [{card}]: {arch} train step ({cfg.num_layers} layers, "
+          f"{TRAIN_B}x{TRAIN_S}, bf16, AdamW, remat) on the mesh with "
+          f"donation == the mesh-less functional route bit for bit; "
+          + "; ".join(f"{k}: peak {v['peak_gb']:.3f} GB above "
+                      f"{v['arguments_gb']:.3f} GB of arguments, "
+                      f"max_memory_allocated {v['max_allocated_gb']:.3f} GB, "
+                      f"{v['step_s']:.3f} s" for k, v in train.items())
+          + f"; phase donation: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def check_sharded_steps(report):
     """The sharded step builders on a 1x1 ("data", "model") NCCL mesh (one
     card, so every collective runs over a group of one rank; parity across
@@ -5206,9 +5404,9 @@ def check_sharded_steps(report):
     no tensor-parallel form: the MLA / Mamba2 /
     mLSTM / sLSTM / cross / shared-attention forms across ranks, and
     Adafactor's all-reduced means, are held on gloo CPU ranks only
-    (tests/test_torch_dist_mixers.py, test_torch_dist_steps.py).  Prints
-    the NCCL start-up seconds, each step's peak HBM and the phase's
-    seconds."""
+    (tests/test_torch_dist_mixers.py, test_torch_dist_steps.py).  Then, on
+    the same mesh, `check_donation`.  Prints the NCCL start-up seconds,
+    each step's peak HBM and the phase's seconds."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import init_rank, make_cuda_mesh
@@ -5235,6 +5433,7 @@ def check_sharded_steps(report):
                              *SHARDED_Z, "zamba2")
         _sharded_serve_model(out, mesh, card, launches,
                              "llama-3.2-vision-11b", *SHARDED_LV, "vision")
+        check_donation(report, mesh, launches)
     finally:
         dist.destroy_process_group()
         store.cleanup()

@@ -30,10 +30,16 @@ mesh its factors whole on every rank, as the reference's specs keep them,
 and its means taken over the whole leaves, `optim.adafactor`).  `batch`
 holds tensors on the parameters' device ("tokens" or "embeds", "labels",
 and "enc" for cross layers); `metrics` holds 0-d tensors "loss" (the mean
-over every rank's rows), "grad_norm" and "lr".  Like the reference's
-jitted steps they return new trees; the caller drops the old ones.  The
-prefill and decode steps return the logits of the rank's rows and its
-pieces of the caches (`cache_pspecs`).
+over every rank's rows), "grad_norm" and "lr".  The prefill and decode
+steps return the logits of the rank's rows and its pieces of the caches
+(`cache_pspecs`).
+
+A step consumes what the reference's jitted step donates
+(`donate_argnums`): the train step updates the parameters and the
+optimizer state in their own storage, and the decode step writes the
+caches in theirs; each returns the trees it was given.  A caller that
+still needs the old values keeps a copy (`layers.tree_map(torch.clone,
+...)`) before the call.
 """
 from __future__ import annotations
 
@@ -55,6 +61,10 @@ from repro_torch.optim import adamw as opt
 
 @dataclasses.dataclass
 class StepBundle:
+    """A step function, the spec trees of its arguments and what else the
+    builder knows.  `fn` consumes the arguments the reference donates (the
+    train step's parameters and optimizer state, the decode step's
+    caches): it updates them in place and returns them."""
     fn: Any                      # the step function
     arg_specs: tuple = ()        # spec trees of its arguments, in order
     meta: dict = dataclasses.field(default_factory=dict)
@@ -187,10 +197,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
             if adafactor:
                 params, opt_state, metrics = adaf.adafactor_update(
                     adaf.AdafactorConfig(lr=optc.lr), grads, opt_state,
-                    params, lr=lr, specs=p_psp)
+                    params, lr=lr, specs=p_psp, donate=True)
             else:
                 params, opt_state, metrics = opt.adamw_update(
-                    optc, grads, opt_state, params, lr=lr, specs=p_psp)
+                    optc, grads, opt_state, params, lr=lr, specs=p_psp,
+                    donate=True)
             metrics["loss"] = loss
             return params, opt_state, metrics
 
@@ -211,10 +222,10 @@ def _train_step_one(cfg: ModelConfig, optc, adafactor: bool) -> StepBundle:
         if adafactor:
             params, opt_state, metrics = adaf.adafactor_update(
                 adaf.AdafactorConfig(lr=optc.lr), grads, opt_state, params,
-                lr=lr)
+                lr=lr, donate=True)
         else:
             params, opt_state, metrics = opt.adamw_update(
-                optc, grads, opt_state, params, lr=lr)
+                optc, grads, opt_state, params, lr=lr, donate=True)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -268,7 +279,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeConfig) -> StepBundle:
 
 def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig) -> StepBundle:
     """One-token decode with a seq_len cache (the decode_* cells):
-    (logits of the rank's rows, the rank's new cache pieces)."""
+    (logits of the rank's rows, the rank's cache pieces), the caches
+    written in place (`transformer.decode_step(..., donate=True)`), as the
+    reference's step donates them."""
     tp = shd.axis_sizes(mesh).get("model", 1)
     if cfg.num_experts and cfg.num_experts % tp == 0:
         # decode token counts are tiny: keep experts RESIDENT (E:model x
@@ -289,7 +302,7 @@ def make_decode_step(cfg: ModelConfig, mesh, shape: ShapeConfig) -> StepBundle:
                                       batch_split=bdim is not None):
             return tf.decode_step(params, cfg, toks, caches, pos, enc=enc,
                                   mesh=mesh, specs=p_psp,
-                                  cache_specs=cache_psp)
+                                  cache_specs=cache_psp, donate=True)
 
     arg_specs = (p_psp, tok_psp, cache_psp, ())
     if cfg.encoder_tokens:

@@ -15,9 +15,11 @@ Three cache forms:
   * dense per-lane caches (the dense-cache engine's, :101-117, :322-380,
     :644-670) — GQA k / v (B, span, KVH, hd), span = max_len, or on a
     window layer min(max_len, window) used as a ring (slot pos % span); MLA
-    c_kv / k_rope (B, max_len, ...).  As in the reference these functions
-    return new caches and leave their inputs as they were: a decode writes
-    position `pos` of every row, and the engine keeps only its group's rows.
+    c_kv / k_rope (B, max_len, ...).  Prefill returns new caches; a decode
+    writes position `pos` of every row into the cache it was given, in
+    place, as the reference's decode step does under `donate_argnums`
+    (`transformer.decode_step` copies first for a caller that keeps the
+    old cache: the dense-cache engine keeps only its group's rows).
   * none — full-sequence `gqa_forward` / `mla_forward`, and cross
     attention over encoder embeddings (:672-685), whose K/V are recomputed
     from `enc` every call.
@@ -463,12 +465,12 @@ def gqa_forward(p, c: AttnConfig, x, positions, spec=None):
 
 
 def _write_at(cache, slot: int, vals):
-    """A copy of `cache` (B, T, ...) with vals (B, 1, ...) at `slot`, the
-    start clamped into range as `lax.dynamic_update_slice` clamps it."""
-    out = cache.clone()
+    """vals (B, 1, ...) written into `cache` (B, T, ...) at `slot`, in
+    place, the start clamped into range as `lax.dynamic_update_slice`
+    clamps it.  Returns `cache`."""
     slot = min(max(slot, 0), cache.shape[1] - 1)
-    out[:, slot] = vals[:, 0]
-    return out
+    cache[:, slot] = vals[:, 0]
+    return cache
 
 
 def gqa_prefill(p, c: AttnConfig, x, positions, max_len: int, spec=None):
@@ -527,7 +529,8 @@ def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
     position p' = pos - ((pos - j) % span), visible while p' >= 0 and
     within the window.  Under a mesh: the model axis's form (module
     docstring), and a cache split on its sequence dim (`cache_spec`)
-    attended in parts merged across its axis."""
+    attended in parts merged across its axis.  Returns (y, the cache's
+    leaves), the new K / V written into them in place (`_write_local`)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     par = tp_par()
@@ -570,11 +573,12 @@ def gqa_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
 
 def _write_local(cache, slot: int, r: int, vals):
     """`_write_at` of the whole cache's `slot` on the rank whose block
-    (`r`, of cache.shape[1] positions) holds it; a copy elsewhere."""
+    (`r`, of cache.shape[1] positions) holds it; no write elsewhere.
+    Returns `cache`."""
     n_loc = cache.shape[1]
     if slot // n_loc == r:
         return _write_at(cache, slot - r * n_loc, vals)
-    return cache.clone()
+    return cache
 
 
 def _merge_parts(m, l, acc, par, axis, qshape, dtype):
@@ -726,7 +730,7 @@ def mla_decode(p, c: AttnConfig, x, cache, pos: int, spec=None,
     of every row: the plain read (`_mla_attend`).  Under a mesh:
     `_mla_tp`'s form, and a latent cache split on its sequence dim
     (`cache_spec`) attended in parts merged across its axes, as
-    `gqa_decode` does."""
+    `gqa_decode` does; the latent written into the cache in place."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     w, cl, enter, leave = _mla_tp(p, c, spec)

@@ -26,11 +26,14 @@ Entry points:
                                        the paged step functions
                                        (attention-cache token models)
 The paged pools are updated in place (the reference returns new ones);
-`prefill` and `decode_step` return new caches as the reference does, and
-leave the caches they were given as they were.  `forward` streams the
-superblocks through `core.streamer.stream_layers` when `cfg.stream.mode`
-is not "resident" and per-superblock specs are given (`launch.steps.
-stream_specs`), as the reference does; otherwise the layers run resident.
+`prefill` returns new caches.  `decode_step(..., donate=True)` writes
+every cache leaf in the storage it was given and returns the same tree, as
+the reference's decode step does under `donate_argnums`; without `donate`
+it writes into a copy and leaves the caches it was given as they were.
+`forward` streams the superblocks through `core.streamer.stream_layers`
+when `cfg.stream.mode` is not "resident" and per-superblock specs are
+given (`launch.steps.stream_specs`), as the reference does; otherwise the
+layers run resident.
 
 On a mesh (`specs`, the parameter spec tree the rank's pieces follow, and
 the ambient mesh of `dist.collectives.on_mesh`, which the step builders of
@@ -43,13 +46,14 @@ shared block takes GQA's, on its one parameter set).  A layer that is not
 streamed is gathered over the FSDP axes first (`_zero`: "data", or the
 kimi-scale ("pod", "data")).  A decode whose recurrent state is split over
 the dp axes on a dim other than the batch (`cache_pspecs` at B < dp)
-gathers the state, steps it, and cuts the new one back
-(`_state_decode`); the attention caches are read in parts
+gathers the state, steps it, and copies the rank's piece of the new one
+back (`_state_decode`); the attention caches are read in parts
 (`attention.gqa_decode` / `mla_decode`).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -604,26 +608,32 @@ def _block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
 
 def _state_decode(cfg: ModelConfig, kind: str, p: dict, x, cache,
                   spec, cache_spec):
-    """A recurrent block's decode.  A state split over the dp axes on a
-    dim other than its batch (`cache_pspecs` at B < dp: the heads of `s`,
-    `M`, `c`, ...) is gathered whole first and the new state cut back to
-    the rank's piece (the state is O(1) in the sequence); a state split on
-    its batch is the rank's rows, stepped as it is."""
+    """A recurrent block's decode: the new state is copied into `cache`'s
+    leaves.  Returns x.  A state split over the dp axes on a dim other
+    than its batch (`cache_pspecs` at B < dp: the heads of `s`, `M`, `c`,
+    ...) is gathered whole first and the rank's piece of the new state
+    copied back (the state is O(1) in the sequence); a state split on its
+    batch is the rank's rows, stepped as it is."""
     par = current()
     split = {n: (None, *sp[1:]) for n, sp in (cache_spec or {}).items()}
     if par is None or not any(map(leaf_axes, split.values())):
-        return _mixer_block(cfg, kind, p, x, "decode", cache, spec=spec)
-    cache = {n: whole(t, split[n], par.mesh) for n, t in cache.items()}
-    x, new = _mixer_block(cfg, kind, p, x, "decode", cache, spec=spec)
-    return x, {n: piece(t, split[n], par.mesh) for n, t in new.items()}
+        x, new = _mixer_block(cfg, kind, p, x, "decode", cache, spec=spec)
+    else:
+        x, new = _mixer_block(cfg, kind, p, x, "decode", {
+            n: whole(t, split[n], par.mesh) for n, t in cache.items()},
+            spec=spec)
+        new = {n: piece(t, split[n], par.mesh) for n, t in new.items()}
+    for n, t in new.items():
+        cache[n].copy_(t)
+    return x
 
 
 def _block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int,
                   enc, spec=None, cache_spec=None):
-    """One block at one position.  Returns (x, new cache or None).  A
-    cache split on its sequence dim (`cache_spec`) is read in parts by the
-    attention decodes; a recurrent state split on its heads is gathered
-    (`_state_decode`)."""
+    """One block at one position, its cache (None for cross) written in
+    place.  Returns x.  A cache split on its sequence dim (`cache_spec`)
+    is read in parts by the attention decodes; a recurrent state split on
+    its heads is gathered (`_state_decode`)."""
     base = kind.split(":")[0]
     if spec is not None:
         p, spec = _zero(p, spec)
@@ -631,9 +641,9 @@ def _block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache, pos: int,
         return _block(cfg, kind, p, x, lambda ac, pa, h: (
             attn.mla_decode if ac.is_mla else attn.gqa_decode)(
                 pa, ac, h, cache, pos, _sub(spec, "attn"), cache_spec),
-            spec)
+            spec)[0]
     if base == "cross":
-        return _cross_block(cfg, kind, p, x, enc, spec), None
+        return _cross_block(cfg, kind, p, x, enc, spec)
     return _state_decode(cfg, kind, p, x, cache, spec, cache_spec)
 
 
@@ -688,31 +698,32 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int,
 
 def decode_step(params: dict, cfg: ModelConfig, tokens_or_embeds, caches,
                 pos: int, enc=None, mesh=None, specs=None,
-                cache_specs=None):
+                cache_specs=None, donate: bool = False):
     """One decode step at the one absolute position `pos` of every row.
     tokens: (B, 1) ints, or (B, 1, D) embeddings for an embedding-input
     model; enc: (B, T, D) for cross layers.  Every row's KV is written at
     `pos` and every row's recurrent state advances: a caller whose rows sit
     at other positions keeps only the rows at `pos` (the dense-cache
-    engine).  Returns (logits (B, 1, vocab) f32, new caches); `caches` is
-    left as it was.  `specs` / `cache_specs`: the rank's pieces of the
-    parameters and of the caches on the mesh (module docstring)."""
+    engine).  Returns (logits (B, 1, vocab) f32, caches).  With `donate`
+    the caches are consumed, as the reference's `donate_argnums` consumes
+    them: every leaf is written in the storage it was given (a stacked
+    leaf through its layers' views) and `caches` itself comes back, so the
+    step holds the cache once.  Without, the leaves are copied first and
+    `caches` is left as it was.  `specs` / `cache_specs`: the rank's pieces
+    of the parameters and of the caches on the mesh (module docstring)."""
+    if not donate:
+        caches = tree_map(lambda t: None if t is None else t.clone(), caches)
     with _ambient(mesh, specs):
         x, enc = _inputs(params, cfg, (
             {"tokens": tokens_or_embeds} if cfg.input_mode == "tokens"
             else {"embeds": tokens_or_embeds}) | (
             {} if enc is None else {"enc": enc}), specs)
         items = _with_specs(_layers(params, caches, cfg), specs, cfg)
-        if cache_specs is not None:
-            items = ((*it, csp) for it, (_, csp) in zip(
-                items, _tree_layers(cache_specs, cfg)))
-        else:
-            items = ((*it, None) for it in items)
-        x, new = _run_layers(
-            cfg, x, items,
-            lambda kind, p, c, sp, csp, x: _block_decode(
-                cfg, kind, p, x, c, pos, enc, sp, csp))
-        return _logits_head(params, cfg, x, specs), new
+        csps = (_tree_layers(cache_specs, cfg) if cache_specs is not None
+                else itertools.repeat((None, None)))
+        for (kind, p, c, sp), (_, csp) in zip(items, csps):
+            x = _block_decode(cfg, kind, p, x, c, pos, enc, sp, csp)
+        return _logits_head(params, cfg, x, specs), caches
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, tokens, caches, table_row,

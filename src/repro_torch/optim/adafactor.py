@@ -3,8 +3,9 @@
 (a row factor over the leading dims and a column factor over the last),
 an unfactored one for 1-D leaves, no first moment, update clipping
 (RMS(u) <= clip_threshold) and the RMS parameter scale.  State per
-factored leaf is (r + c) f32 numbers against AdamW's 2 r c.  The update is
-functional, as `adamw_update`'s.
+factored leaf is (r + c) f32 numbers against AdamW's 2 r c.  The train
+steps donate the parameters and the state (`donate=True`: updated in
+place), as `adamw_update`'s.
 
 On a mesh (the ambient one of `dist.collectives`, with the leaves' specs)
 each rank holds its piece of every parameter and gradient, and the factors
@@ -107,15 +108,24 @@ class _Leaf:
 
 @torch.no_grad()
 def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr=None,
-                     specs=None):
-    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}).
-    `specs`: the leaves' pieces on the ambient mesh (module docstring)."""
-    count = state["count"] + 1
+                     specs=None, donate: bool = False):
+    """Returns (params, state, metrics {"lr", "grad_norm"}).  With `donate`
+    the parameters and the state are updated in their own storage, one
+    leaf at a time, and the trees given come back (`adamw_update`'s
+    contract; the reference's arithmetic op for op).  `specs`: the leaves'
+    pieces on the ambient mesh (module docstring)."""
+    if not donate:
+        params, state = tree_map(torch.clone, (params, state))
+    count = state["count"].add_(1)
     t = count.float()
     beta2 = 1.0 - torch.pow(t, -cfg.decay)
     lr_t = torch.as_tensor(cfg.lr if lr is None else lr,
                            dtype=torch.float32, device=count.device)
     par = current() if specs is not None else None
+
+    def ema(v, new):
+        """v <- beta2 v + (1 - beta2) new, in v."""
+        v.mul_(beta2).add_((1 - beta2) * new)
 
     def upd(p, g, st, spec=None):
         lf = _Leaf(spec, par, p.shape)
@@ -124,10 +134,9 @@ def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr=None,
         g2 = g * g + cfg.eps1
         if _factored(p.shape):
             rows, cols = range(nd - 1), (*range(nd - 2), nd - 1)
-            vr = beta2 * st["vr"] + (1 - beta2) * lf.whole(
-                lf.mean(g2, -1), rows)
-            vc = beta2 * st["vc"] + (1 - beta2) * lf.whole(
-                lf.mean(g2, -2), cols)
+            vr, vc = st["vr"], st["vc"]
+            ema(vr, lf.whole(lf.mean(g2, -1), rows))
+            ema(vc, lf.whole(lf.mean(g2, -2), cols))
             # v_hat ~ vr vc / mean(vr)
             denom = torch.mean(vr, dim=-1, keepdim=True)
             vr_l, vc_l = lf.piece(vr, rows), lf.piece(vc, cols)
@@ -135,35 +144,20 @@ def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr=None,
             vhat = (vr_l[..., None] * vc_l[..., None, :]
                     / torch.clamp(denom_l[..., None], min=cfg.eps1))
             u = g * torch.rsqrt(torch.clamp(vhat, min=cfg.eps1))
-            new_st = {"vr": vr, "vc": vc}
         else:
-            v = beta2 * st["v"] + (1 - beta2) * lf.whole(g2, range(nd))
-            u = g * torch.rsqrt(torch.clamp(lf.piece(v, range(nd)),
+            ema(st["v"], lf.whole(g2, range(nd)))
+            u = g * torch.rsqrt(torch.clamp(lf.piece(st["v"], range(nd)),
                                             min=cfg.eps1))
-            new_st = {"v": v}
         rms = torch.sqrt(lf.mean_all(u * u))
         u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
         pf = p.float()
         scale = torch.clamp(torch.sqrt(lf.mean_all(pf ** 2)), min=cfg.eps2)
-        newp = pf - lr_t * scale * u - lr_t * cfg.weight_decay * pf
-        return newp.to(p.dtype), new_st
+        p.copy_(pf - lr_t * scale * u - lr_t * cfg.weight_decay * pf)
 
     if par is None:
-        outs = tree_map(upd, params, grads, state["factors"])
+        tree_map(upd, params, grads, state["factors"])
     else:
-        outs = shd.map_spec_tree(lambda s, p, g, st: upd(p, g, st, s), specs,
-                                 params, grads, state["factors"])
-    new_params, new_factors = _unzip(outs, 0), _unzip(outs, 1)
+        shd.map_spec_tree(lambda s, p, g, st: upd(p, g, st, s), specs,
+                          params, grads, state["factors"])
     gnorm = global_norm(grads, specs if par is not None else None)
-    return new_params, {"factors": new_factors, "count": count}, {
-        "lr": lr_t, "grad_norm": gnorm}
-
-
-def _unzip(tree, i: int):
-    """Element i of every (new param, new state) pair of `tree` (`tree_map`
-    makes lists of sequences, so its only tuples are the pairs)."""
-    if isinstance(tree, tuple):
-        return tree[i]
-    if isinstance(tree, dict):
-        return {k: _unzip(v, i) for k, v in tree.items()}
-    return [_unzip(v, i) for v in tree]
+    return params, state, {"lr": lr_t, "grad_norm": gnorm}

@@ -7,8 +7,9 @@ the parameter's dtype, and weight decay applies to every leaf, norms and
 biases included.  `compress="bf16"` rounds the gradients to bf16 first
 (the reference does so before its gradient all-reduce; the port's steps
 all-reduce after the update's input is made, so only the rounding
-remains).  The update is functional: it returns new
-trees and leaves the ones it was given as they were.
+remains).  The train steps donate the parameters and the state to the
+update (`donate=True`), which writes them in place; by default it copies
+them first and leaves the ones it was given as they were.
 """
 from __future__ import annotations
 
@@ -72,37 +73,40 @@ def global_norm(tree, specs=None) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state, params, lr=None,
-                 specs=None):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
-    `specs`: the leaves' pieces on the ambient mesh (`global_norm`)."""
+                 specs=None, donate: bool = False):
+    """Returns (params, state, metrics {"grad_norm", "lr"}).  With `donate`
+    the parameters and the state are consumed, as the reference's train
+    step's `donate_argnums` consumes them: each leaf is updated in its own
+    storage, one leaf at a time, and the trees given come back.  Without,
+    they are copied first and left as they were.  The arithmetic is the
+    reference's, written into the leaves op for op (no fused form), so both
+    give the same bits.  `specs`: the leaves' pieces on the ambient mesh
+    (`global_norm`)."""
+    if not donate:
+        params, state = tree_map(torch.clone, (params, state))
     if cfg.compress == "bf16":
         grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
-    grads = tree_map(lambda g: g.float(), grads)
 
     gnorm = global_norm(grads, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    grads = tree_map(lambda g: g * scale, grads)
 
-    count = state["count"] + 1
+    count = state["count"].add_(1)
     b1c = 1.0 - torch.pow(cfg.b1, count.float())
     b2c = 1.0 - torch.pow(cfg.b2, count.float())
     lr_t = torch.as_tensor(cfg.lr if lr is None else lr,
                            dtype=torch.float32, device=count.device)
 
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g,
-                  state["mu"], grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g,
-                  state["nu"], grads)
-
-    def upd(p, m, v):
+    def upd(p, m, v, g):
+        g = g.float() * scale
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)          # b1 m + (1 - b1) g
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)      # b2 v + (1 - b2) g g
         pf = p.float()
         step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
             + cfg.weight_decay * pf
-        return (pf - lr_t * step).to(p.dtype)
+        p.copy_(pf - lr_t * step)
 
-    new_params = tree_map(upd, params, mu, nu)
-    return new_params, {"mu": mu, "nu": nu, "count": count}, {
-        "grad_norm": gnorm, "lr": lr_t}
+    tree_map(upd, params, state["mu"], state["nu"], grads)
+    return params, state, {"grad_norm": gnorm, "lr": lr_t}
 
 
 def cosine_lr(step, *, peak: float, warmup: int, total: int,

@@ -47,6 +47,9 @@ are the port's mesh-less steps (held to the JAX package's by
            B = 1 < dp the MLA latent cache is split on its sequence and
            the recurrent states on their heads (`cache_pspecs`); tokens
            equal, logits within 1e-4 of a row's largest |logit|
+  donation danube and xlstm at B = 1: `make_decode_step`, which writes
+           its caches in place, bit for bit the functional
+           `decode_step` under the same mesh, in the storages it was given
 The MoE cases route with capacity factor 8, room for every token: the
 mesh forms dispatch one group of a rank's tokens where the mesh-less path
 dispatches several, so dropped tokens would differ (as in the reference).
@@ -100,6 +103,7 @@ def _train(cfg, mesh, B, S, seed, with_mesh: bool, grads: bool = False,
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
     params = tf.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed)
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
@@ -109,7 +113,9 @@ def _train(cfg, mesh, B, S, seed, with_mesh: bool, grads: bool = False,
             (B, cfg.encoder_tokens, cfg.d_model)).astype(np.float32))
     if not with_mesh:
         b = make_train_step(cfg)
-        out = b.fn(params, _opt_init(cfg, params), batch, TRAIN_STEP)
+        # the step consumes its parameters; the gradients below read them
+        out = b.fn(tree_map(torch.clone, params), _opt_init(cfg, params),
+                   batch, TRAIN_STEP)
         return out + ((value_and_grad(cfg, params, batch)[1],)
                       if grads else ())
     b = make_train_step(cfg, mesh, ShapeConfig("t", S, B, "train"),
@@ -338,6 +344,60 @@ def _case_kimi(rank, mesh):
     return out
 
 
+def _case_donation(rank, mesh):
+    """danube at B = 1 (the cache split on its sequence over "data") and
+    xlstm at B = 1 (the states split on their heads): 3 greedy steps of
+    `make_decode_step`, which writes the caches in place, each against the
+    functional `transformer.decode_step` under the same ambient mesh on
+    the same caches: the logits and every cache piece bit for bit on every
+    rank, and the step's leaves the storages it was given."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.collectives import on_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_leaves
+
+    def bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+    out = {}
+    for name, T, P in (("h2o-danube-1.8b", 64, 48), ("xlstm-1.3b", 32, 16)):
+        cfg = _smoke(name)
+        params = tf.init_params(cfg, torch.Generator().manual_seed(12),
+                                "cpu")
+        prompt = torch.from_numpy(np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (1, P)))
+        pre = make_prefill_step(cfg, mesh, ShapeConfig("p", T, 1, "prefill"))
+        dec = make_decode_step(cfg, mesh, ShapeConfig("d", T, 1, "decode"))
+        mine = shd.shard_tree(params, dec.arg_specs[0], mesh)
+        logits, caches = pre.fn(shd.shard_tree(params, pre.arg_specs[0],
+                                               mesh), {"tokens": prompt})
+        ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+        same = True
+        for i in range(3):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            with torch.no_grad(), on_mesh(mesh, dec.meta["rules"],
+                                          batch_split=False):
+                fl, fc = tf.decode_step(
+                    mine, dec.meta["cfg"], tok, caches, P + i, mesh=mesh,
+                    specs=dec.meta["param_pspecs"],
+                    cache_specs=dec.meta["cache_pspecs"])
+            logits, got = dec.fn(mine, tok, caches, P + i)
+            same &= (got is caches
+                     and [t.data_ptr() for t in tree_leaves(got)] == ptrs
+                     and bits(logits, fl)
+                     and all(map(bits, tree_leaves(got), tree_leaves(fc))))
+        ok = torch.tensor([1.0 if same else 0.0])
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        first = next(iter(dec.meta["cache_pspecs"]["blocks"].values()))
+        out[name] = {"same": bool(ok.item()),
+                     "cache_pspecs": {k: list(v) for k, v in first.items()}}
+    return None if rank else out
+
+
 def _case_ckpt(rank, mesh, directory):
     """zamba2 (Adafactor) on 2x2: one step, the ranks' params and optimizer
     state saved with their specs (rank 0 writes whole leaves) and restored
@@ -381,7 +441,7 @@ CASES = {"gemma3": _case_gemma3, "danube": _case_danube,
          "deepseek_decode": _case_deepseek_decode, "zamba2": _case_zamba2,
          "zamba2_decode": _case_zamba2_decode, "xlstm": _case_xlstm,
          "xlstm_train": _case_xlstm_train, "vision": _case_vision,
-         "vision_train": _case_vision_train}
+         "vision_train": _case_vision_train, "donation": _case_donation}
 
 
 def _rank(rank, world, out_path):
@@ -490,6 +550,18 @@ def test_prefill_and_decode_match_the_mesh_less_steps(ranks, name, split):
     assert r["logits_err"] <= 1e-4
     for leaf, dim in split.items():
         assert r["cache_pspecs"][leaf][dim] == "data", r["cache_pspecs"]
+
+
+@pytest.mark.parametrize("name,split", (("h2o-danube-1.8b", ("k", 2)),
+                                        ("xlstm-1.3b", ("M", 2))))
+def test_donated_decode_is_the_functional_decode_on_2x2(ranks, name, split):
+    """The decode step's in-place writes on a sequence-split cache and on
+    head-split recurrent states (gathered, stepped, the rank's piece
+    copied back) give the functional decode's bits."""
+    r = ranks["donation"][name]
+    assert r["same"]
+    leaf, dim = split
+    assert r["cache_pspecs"][leaf][dim] == "data", r["cache_pspecs"]
 
 
 if __name__ == "__main__":

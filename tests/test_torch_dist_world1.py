@@ -53,6 +53,7 @@ from repro_torch.dist.collectives import on_mesh
 from repro_torch.launch import steps
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import tree_map
 from repro_torch.models.registry import ARCH_NAMES
 from repro_torch.optim import adafactor, adamw
 
@@ -262,7 +263,9 @@ def test_train_step_matches_reference(meshes, model):
     wloss, wgrads = steps.value_and_grad(gcfg, params, tb)
     _close(loss, wloss)
     _leafwise(shd.gather_tree(grads, gb.arg_specs[0], mesh), wgrads)
-    p, _, m = b.fn(params, adamw.adamw_init(params), tb, TRAIN_STEP)
+    # the step consumes its parameters: give it a copy, as for JAX's
+    p, _, m = b.fn(tree_map(torch.clone, params), adamw.adamw_init(params),
+                   tb, TRAIN_STEP)
     _close(m["loss"], jm["loss"])
     _close(m["grad_norm"], jm["grad_norm"])
     assert abs(float(m["lr"]) - 3e-4) <= 1e-9
@@ -291,10 +294,11 @@ def test_prefill_and_decode_steps_match_reference(meshes, model):
                                                          "prefill"))
     dec = steps.make_step(cfg, mesh, ShapeConfig("d", T, B, "decode"))
     gl, gc = pre.fn(params, {"tokens": torch.from_numpy(toks).long()})
-    got = [(gl, gc)]
+    # the decode step writes its caches in place: keep copies
+    got = [(gl, tree_map(torch.clone, gc))]
     for i in range(3):
         gl, gc = dec.fn(params, torch.from_numpy(nxt[i]).long(), gc, S + i)
-        got.append((gl, gc))
+        got.append((gl, tree_map(torch.clone, gc)))
     for (gl, gc), (jl, jc) in zip(got, want):
         _close(gl, jl)
         _same(gc, jc)

@@ -118,7 +118,8 @@ def test_train_step_matches_the_reference_composition(optimizer):
             optc, g, jadam.adamw_init(p), p, lr=lr))(g, jparams, lr)
         state = adamw.adamw_init(params)
     bundle = make_train_step(cfg, optc=adamw.AdamWConfig(lr=2e-3))
-    new, new_state, m = bundle.fn(params, state, {
+    # the step consumes its parameters; `reference` keeps them for others
+    new, new_state, m = bundle.fn(tree_map(torch.clone, params), state, {
         k: torch.from_numpy(v) for k, v in batch.items()}, step)
     assert ("factors" in new_state) == (optimizer == "adafactor")
     assert abs(float(m["loss"]) - float(loss)) <= 1e-5 * float(loss)
