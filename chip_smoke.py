@@ -26,9 +26,11 @@ In order, it:
      of bytes / 3.35e12 B/s and operations / the peak rate of their type);
      it checks that the gpp_matmul repeats bit for bit on both routes and
      the grouped FMA kernel too, that a tensor-core row is the same bits
-     at 4, 20 and 32 rows at every bf16 projection, the router's at 1, 4,
-     20 and 32 rows, a logits row at 1, 4, 20 and 32 rows on both models'
-     tables and a grouped FMA row at 8, 32 and 128 rows an expert, reads
+     at 1, 2, 4, 12, 16, 20 and 32 rows at every bf16 projection, the
+     router's at 1, 4, 20 and 32 rows, a logits row at 1, 2, 4, 12, 16, 20
+     and 32 rows on every model's table (since slice 20 also at 2 and 12
+     rows, the batches of a B = 2 and a B = 12 `transformer.decode_step`)
+     and a grouped FMA row at 8, 32 and 128 rows an expert, reads
      the issue-order records of gpp_matmul (the FMA route's CTA 0 across a
      tile boundary and a k-split; the tensor-core route's rank 0 over a
      k-slice of several steps), gpp_matmul_grouped (the tensor-core route
@@ -227,8 +229,31 @@ In order, it:
      H100 constants, the roofline step time against the time the card
      took (the share, at most 1.05), the MFU, and the predicted peak
      beside `torch.cuda.max_memory_allocated`;
- 13. prints {"kernels": [...]} and, last, the device line.  Each phase's
-     seconds are printed as it ends (`phase ...: N s`).
+ 13. (slice 20) the examples (`check_examples`), each in a process of its
+     own in a temporary working directory, the kernels already built:
+     `examples/torch_gpp_design_space.py`, its printout the JAX example's
+     text (`DESIGN_SPACE_TEXT`) character for character;
+     `torch_quickstart.py` at world size 1 (qwen1.5-0.5b SMOKE, 10 train
+     steps, 8 greedy tokens); `torch_serve_batched.py`, its asserts holding
+     (prefix hits, speculation == plain), its trace and metrics files
+     written, at most three step shapes; `torch_train_e2e.py` at its
+     default batch (16 x 256 tokens on the ~106M model, resident) for 100
+     of its 300 default steps (the script's time; the full run is in
+     PERF.md), its loss falling, its seconds and tok/s, then
+     `--stream-mode gpp` for 20 steps (its layers in pinned host memory)
+     with resident's losses bit for bit, then a run saved at 10 steps and
+     resumed to 12 with the uninterrupted run's losses bit for bit; each
+     run launching its path's kernels only.  The kernels at the examples'
+     own shapes: every launch of the quickstart, of a second pass of the
+     serve example (its streams the first pass's) and of train_e2e's two
+     resumed steps is held against its plain version on the same inputs
+     at the kernel gates' tolerances (`held_to_plain`), and the ~106M
+     model's loss and gradient on its first batch on the kernel route
+     against the plain route (`check_example_routes`, gated as step 9's
+     bf16 routes);
+ 14. prints {"kernels": [...]} (launches by path, the examples' too) and,
+     last, the device line.  Each phase's seconds are printed as it ends
+     (`phase ...: N s`), the examples' too.
 
 Any failed check raises, so the exit code is not 0.  Without CUDA, or
 outside a checkout of the repo (no `src/repro_torch` beside it), it exits
@@ -240,6 +265,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -486,6 +512,11 @@ def gpp_time(M, K, N, dtype):
 HEADS = {"qwen1.5-0.5b": (D, 151936), "deepseek-v2-lite-16b": (DS_D, 102400),
          **{arch: (w[0], w[5]) for arch, w in NEW_ARCHS.items()}}
 HEAD_M = {"prefill": 1, "decode": SLOTS, "verify": SLOTS * (DRAFT + 1)}
+# rows a decode step brings beside the engine's step shapes: one request,
+# the B = 2 and B = 12 decodes of `transformer.decode_step` (the donation
+# phase's B), held by the row-invariance gates of the tensor-core
+# gpp_matmul and the f32 heads
+DECODE_ROWS = (1, 2, 12)
 
 
 def head_time(M, K, N):
@@ -519,7 +550,7 @@ def head_time(M, K, N):
 
 def check_head(report):
     """The f32 logits head of both models on the FMA route: a row's bits
-    equal at 1, 4, 16, 20 and 32 rows (and against the f32 table), within 2e-4
+    equal at 1, 2, 4, 12, 16, 20 and 32 rows (and against the f32 table), within 2e-4
     of the plain version; timed at the three step shapes beside the
     `torch.matmul` it replaced."""
     import torch
@@ -543,7 +574,7 @@ def check_head(report):
               and bool(((y - ref).abs() <= 2e-4 + 2e-4 * ref.abs()).all()),
               f"{arch} head: max err {err}")
         by_m = {M: ops.dense(x[:M], table_t) for M in (
-            1, SLOTS, DRAFT_WINDOW, HEAD_M["verify"])}
+            *DECODE_ROWS, SLOTS, DRAFT_WINDOW, HEAD_M["verify"])}
         check(all(torch.equal(v, y[:M]) for M, v in by_m.items()),
               f"{arch} head: a logits row's bits depend on the batch")
         check(torch.equal(ops.dense(x[:SLOTS], table.float().t()
@@ -691,26 +722,27 @@ def check_gpp(report):
           f"{SLOTS}x{F}x{D} and {CHUNK}x{DS_F0}x{DS_D} (bf16, tensor cores), "
           f"{SLOTS}x{DS_D}x{DS_E} and {CHUNK}x{DS_F0}x{DS_D} (f32, FMA)")
     # a row's bits do not depend on the batch it rides in: a tensor-core
-    # row at 4 (decode), 20 (verify) and 32 (prefill) rows at every bf16
-    # projection of both paths (the k-slices and k-groups come from K and
+    # row at 1, 2 and 12 (`decode_step`'s batches), 4 (decode), 16 (the
+    # draft window), 20 (verify) and 32 (prefill) rows at every bf16
+    # projection of every path (the k-slices and k-groups come from K and
     # N alone), then the router at 1,
     # 4 (decode), 20 (verify) and 32 (prefill) rows, its weight as stored
     # (bf16, widened in the kernel) and as its f32 copy, which must agree
     tc_proj = sorted({(K, N) for shapes in GPP_SHAPES.values()
                       for K, N, dtypes in shapes.values()
                       if "bfloat16" in dtypes})
+    tc_rows = sorted({*DECODE_ROWS, SLOTS, DRAFT_WINDOW, PHASE_M["verify"]})
     for K, N in tc_proj:
         x = torch.randn(CHUNK, K, generator=g, device="cuda").bfloat16()
         w = (torch.randn(K, N, generator=g, device="cuda")
              * 0.02).bfloat16()
         y = gm.gpp_matmul(x, w, activation="silu")
         check(all(torch.equal(gm.gpp_matmul(x[:M], w, activation="silu"),
-                              y[:M]) for M in (SLOTS, DRAFT_WINDOW,
-                                               PHASE_M["verify"])),
+                              y[:M]) for M in tc_rows),
               f"gpp_matmul_tc {K}x{N}: a row's bits depend on the batch")
-    print(f"gpp_matmul_tc: a row's bits equal at {SLOTS} / {DRAFT_WINDOW} / "
-          f"{PHASE_M['verify']} / {CHUNK} rows at all {len(tc_proj)} bf16 "
-          "projections")
+    print(f"gpp_matmul_tc: a row's bits equal at "
+          f"{' / '.join(map(str, tc_rows))} / {CHUNK} rows at all "
+          f"{len(tc_proj)} bf16 projections")
     for K, N in ((DS_D, DS_E), (7168, KIMI_E)):     # deepseek's, kimi's
         x = torch.randn(CHUNK, K, generator=g, device="cuda")
         w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).bfloat16()
@@ -3525,6 +3557,7 @@ def dense_serve(cfg, params, prompts, *, mode: str, profile=False,
 
 
 def check_path_launches(what: str, counts: dict, path) -> None:
+    """Every kernel of `path` launched, none outside it."""
     for k, n in counts.items():
         check((n > 0) == (k in path), f"{k} launched {n} times on {what}")
 
@@ -5582,6 +5615,407 @@ def check_roofline(report):
     out["seconds"] = time.perf_counter() - t0
     return out
 
+# ---------------------------------------------------------------------------
+# the examples (slice 20)
+# ---------------------------------------------------------------------------
+
+# the JAX example's printout (`PYTHONPATH=src python
+# examples/gpp_design_space.py`), which its port must print character for
+# character
+DESIGN_SPACE_TEXT = (
+    '=== design phase: band=128 B/cycle, macro 1 KiB, OU 32 B, s=4 ===\n'
+    '\n'
+    '  t_rw:t_pim = 0.143  (n_in=56)\n'
+    '    insitu    macros=  32 latency/round=    64.0cy (x7.86) peakBW= 128.0 util=1.00\n'
+    '    naive_pp  macros=  64 latency/round=    56.0cy (x6.88) peakBW= 128.0 util=0.57\n'
+    '    gpp       macros= 256 latency/round=     8.1cy (x1.00) peakBW= 128.0 util=0.98\n'
+    '\n'
+    '  t_rw:t_pim = 1.000  (n_in=8)\n'
+    '    insitu    macros=  32 latency/round=    16.0cy (x1.98) peakBW= 128.0 util=1.00\n'
+    '    naive_pp  macros=  64 latency/round=     8.1cy (x1.00) peakBW= 128.0 util=0.99\n'
+    '    gpp       macros=  64 latency/round=     8.1cy (x1.00) peakBW= 128.0 util=0.99\n'
+    '\n'
+    '  t_rw:t_pim = 4.000  (n_in=2)\n'
+    '    insitu    macros=  32 latency/round=    10.0cy (x1.24) peakBW= 128.0 util=1.00\n'
+    '    naive_pp  macros=  64 latency/round=     8.0cy (x1.00) peakBW= 128.0 util=0.62\n'
+    '    gpp       macros=  40 latency/round=     9.3cy (x1.15) peakBW= 128.0 util=0.99\n'
+    '\n'
+    '=== runtime phase: bandwidth cut to band/n (design @ t_rw==t_pim) ===\n'
+    '     n      gpp    naive   insitu   (remaining perf, DES)\n'
+    '     2   0.7047   0.5000   0.6667   gpp keeps 1.4x naive, 1.1x insitu\n'
+    '     8   0.4114   0.1250   0.2222   gpp keeps 3.3x naive, 1.9x insitu\n'
+    '    32   0.2239   0.0312   0.0606   gpp keeps 7.2x naive, 3.7x insitu\n'
+    '    64   0.1647   0.0156   0.0308   gpp keeps 10.5x naive, 5.4x insitu\n'
+    '\n'
+    'paper headline at n=64: 5.38x over in-situ — reproduced above.\n')
+# torch_train_e2e.py's resident run: 100 of its 300 default steps, for the
+# script's time (its loss falls from 10.58 to ~4.73 by step 99; the full
+# 300-step run is recorded in PERF.md)
+EXAMPLE_STEPS = 100
+EXAMPLE_GPP_STEPS = 20         # its --stream-mode gpp run, against resident
+EXAMPLE_RESUME = (10, 12)      # saved at 10 steps, then resumed to 12
+EXAMPLE_BATCH = (16, 256)      # its default --batch and --seq
+EXAMPLE_TIMEOUT_S = {"torch_quickstart": 120, "torch_serve_batched": 180,
+                     "torch_train_e2e": 420}
+
+
+@contextlib.contextmanager
+def held_to_plain(held: dict):
+    """Inside the block, every call of a kernel wrapper made through
+    `kernels.ops` (`gpp_matmul`, `paged_attention` with its merge,
+    `rmsnorm`) is held against its plain version on the same inputs, at
+    the kernel gates' tolerances: gpp_matmul TOL's atol + rtol x |plain|
+    (`gpp_case`, `check_head`), paged attention TOL's atol (`pa_case`),
+    RMSNorm `rms_err`.  `held` gathers, by kernel launched, the launches
+    held, their shapes and the largest error.  The plain versions launch
+    none of the port's kernels, so the counts stay the path's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels.ref import (dense_ref, paged_attn_ref,
+                                         rmsnorm_ref)
+
+    def dt(t):
+        return str(t.dtype).split(".")[-1]
+
+    def gpp_plain(x, w, *, bias=None, w_scale=None, activation=None, **_):
+        return dense_ref(x, w, bias=bias, w_scale=w_scale,
+                         activation=activation)
+
+    def gpp_err(y, ref, x, *_):
+        atol, rtol = TOL["float32" if x.dtype == torch.float32
+                         else "bfloat16"]
+        d = (y.float() - ref.float()).abs()
+        return float(d.max()), bool((d <= atol + rtol * ref.float().abs())
+                                    .all())
+
+    def pa_plain(q, a, b, tables, pos, *, num_kv_heads, scale, window=None,
+                 mla=False, **_):
+        return paged_attn_ref(q, a, b, tables, pos, num_kv_heads=num_kv_heads,
+                              scale=scale, window=window, mla=mla)
+
+    def pa_err(y, ref, q, *_):
+        err = float((y.float() - ref.float()).abs().max())
+        return err, err <= TOL[dt(q)][0]
+
+    def rms_plain(x, scale, eps=1e-6):
+        return rmsnorm_ref(x, scale, eps)
+
+    def hold(fn, plain, err_ok, shape):
+        def call(*a, **kw):
+            before = {k: c.n for k, c in counters().items()}
+            y = fn(*a, **kw)
+            ran = {k: c.n - before[k] for k, c in counters().items()
+                   if c.n > before[k]}
+            err, ok = err_ok(y, plain(*a, **kw), *a)
+            what = shape(*a)
+            check(bool(torch.isfinite(y.float()).all()) and ok,
+                  f"{fn.__name__} {what} ({sorted(ran)}) against its plain "
+                  f"version: max err {err}")
+            for k, n in ran.items():
+                h = held.setdefault(k, {"launches": 0, "shapes": set(),
+                                        "max_abs_err": 0.0})
+                h["launches"] += n
+                h["shapes"].add(what)
+                h["max_abs_err"] = max(h["max_abs_err"], err)
+            return y
+        return call
+
+    wraps = [
+        (ops, "gpp_matmul", gpp_plain, gpp_err,
+         lambda x, w, *_: f"{x.shape[0]}x{x.shape[1]}x{w.shape[1]} x "
+                          f"{dt(x)} W {dt(w)}"),
+        (ops, "paged_attention", pa_plain, pa_err,
+         lambda q, a, *_: f"q {tuple(q.shape)} {dt(q)} pool "
+                          f"{tuple(a.shape)}"),
+        (rk, "rmsnorm", rms_plain, lambda y, ref, x, *_: rms_err(
+            y, ref, dt(x)), lambda x, *_: f"{tuple(x.shape)} {dt(x)}")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, *_ in wraps]
+    try:
+        for mod, name, plain, err_ok, shape in wraps:
+            setattr(mod, name, hold(getattr(mod, name), plain, err_ok,
+                                    shape))
+        yield held
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def held_json(held: dict) -> dict:
+    return {k: {**v, "shapes": sorted(v["shapes"])} for k, v in held.items()}
+
+
+def check_held(what: str, run: dict) -> None:
+    """Every launch of a run made under `held_to_plain` was held."""
+    held = run["held"]
+    check(all(held.get(k, {}).get("launches", 0) == n
+              for k, n in run["launches"].items()),
+          f"{what}: launches {run['launches']}, held "
+          f"{ {k: v['launches'] for k, v in held.items()} }")
+    print(f"{what}: every launch held against its plain version: "
+          + "; ".join(f"{k} {v['launches']} launches at {len(v['shapes'])} "
+                      f"shapes, max_abs_err {v['max_abs_err']:.3g}"
+                      for k, v in sorted(held.items())), flush=True)
+
+
+# run in a subprocess: one example's calls, the kernels' launch counts set
+# to 0 before each and read after, a call with "held" under
+# `held_to_plain`, one JSON line at the end
+EXAMPLE_RUNNER = """
+import contextlib, json, sys
+sys.path[:0] = sys.argv[1:3]
+import chip_smoke as cs
+name, calls = sys.argv[3], json.loads(sys.argv[4])
+ex = __import__(name)
+out = []
+for call in calls:
+    counts = cs.counters()
+    for c in counts.values():
+        c.n = 0
+    held = {}
+    with (cs.held_to_plain(held) if call.get("held")
+          else contextlib.nullcontext()):
+        if name == "torch_train_e2e":
+            res = ex.run(ex.parse_args(call["args"]))
+        else:
+            res = ex.run(**call["args"])
+    out.append({"result": res, "held": cs.held_json(held),
+                "launches": {k: c.n for k, c in counts.items()}})
+print(json.dumps(out))
+"""
+
+
+def run_example(name: str, calls: list, cwd: str) -> list:
+    """`examples/<name>.py`'s run() once a call ({"args": argv or keyword
+    arguments, "held": whether under `held_to_plain`}), in a process of its
+    own with `cwd` its working directory; its printout passed on, prefixed.
+    Returns [{"result", "launches", "held"}] a call."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "examples")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT),
+         str(ROOT / "examples"), name, json.dumps(calls)],
+        capture_output=True, text=True, cwd=cwd, env=env,
+        timeout=EXAMPLE_TIMEOUT_S[name])
+    lines = proc.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(f"  {name}: {ln}", flush=True)
+    check(proc.returncode == 0, f"examples/{name}.py exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def _example_module(name: str):
+    """`examples/<name>.py` imported in this process."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example_routes(what: str, cfg, batch_size, seq):
+    """The training example's model (random weights from seed 0, as the
+    example draws them) on the first batch of its pipeline: one loss and
+    gradient on the kernel route against the plain route, gated as
+    `check_train_qwen` gates its bf16 routes (BF16_LOSS_RTOL, GRAD_COS)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    pipe = TokenPipeline(cfg, DataConfig(batch=batch_size, seq_len=seq))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in pipe.batch_at(0).items()}
+    ker, plain, counts = grad_routes(what, cfg, params, batch, TRAIN_PATH)
+    res = compare_bf16_grads(what, ker, plain)
+    res.update(launches=counts, loss=float(ker[0]),
+               plain_loss=float(plain[0]))
+    del ker, plain, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_examples(report):
+    """The four examples of `examples/torch_*.py` on the card, each in a
+    process of its own in a temporary working directory, the kernels built:
+    the design space's printout equal to the JAX example's text; the
+    quickstart (world size 1: 10 train steps on qwen1.5-0.5b SMOKE, 8 greedy
+    tokens) with every launch held against its plain version
+    (`held_to_plain`); the serve example's four rounds, its asserts holding
+    (prefix hits, speculation == plain), its two obs files written, at most
+    the three step shapes, and the paged engine on the kernels only; then
+    the same four rounds again with every launch held, their streams the
+    first run's; the training example at its default batch for
+    EXAMPLE_STEPS of its 300 default steps (16 x 256 on the ~106M model,
+    resident), its loss falling (its own assert), its seconds and tok/s;
+    then `--stream-mode gpp` for EXAMPLE_GPP_STEPS steps, its 10 layers in
+    pinned host memory, its losses resident's bit for bit; then a run
+    saved at EXAMPLE_RESUME[0] steps and resumed to EXAMPLE_RESUME[1] (the
+    resumed steps held), its losses the uninterrupted run's bit for bit;
+    and, in this process, the ~106M model's loss and gradient on its first
+    batch on the kernel route against the plain route
+    (`check_example_routes`), the kernel route's loss the example's first.
+    Each run's launches: the path's kernels only."""
+    import torch
+    from repro_torch.kernels.paged_attention import attention_route
+    from repro_torch.models import registry
+    card = report["card"]
+    out = report["examples"] = {"card": card}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" /
+                                 "torch_gpp_design_space.py")],
+            capture_output=True, text=True, cwd=d, env=env, timeout=60)
+        check(proc.returncode == 0 and proc.stdout == DESIGN_SPACE_TEXT,
+              f"torch_gpp_design_space.py printed other text than the JAX "
+              f"example (exit {proc.returncode}):\n{proc.stdout}"
+              f"{proc.stderr[-2000:]}")
+        out["design_space_s"] = time.perf_counter() - t
+        print(f"examples [{card}]: torch_gpp_design_space.py == the JAX "
+              f"example's text ({len(DESIGN_SPACE_TEXT.splitlines())} lines, "
+              f"{out['design_space_s']:.1f} s)", flush=True)
+
+        t = time.perf_counter()
+        (qs,) = run_example("torch_quickstart",
+                            [{"args": {"device": "cuda"}, "held": True}], d)
+        r = qs["result"]
+        vocab = registry.get_config("qwen1.5-0.5b", smoke=True).vocab_size
+        check(len(r["losses"]) == 10 and all(math.isfinite(x)
+                                             for x in r["losses"])
+              and len(r["generated"]) == 9
+              and all(0 <= x < vocab for x in r["generated"]),
+              f"torch_quickstart.py: {r}")
+        check_path_launches("torch_quickstart.py", qs["launches"],
+                            TRAIN_PATH)
+        check_held("torch_quickstart.py", qs)
+        out["quickstart"] = {**r, "launches": qs["launches"],
+                             "held": qs["held"],
+                             "seconds": time.perf_counter() - t}
+
+        t = time.perf_counter()
+        sv, sv_held = run_example(
+            "torch_serve_batched",
+            [{"args": {"device": "cuda", "out_dir": d}},
+             {"args": {"device": "cuda", "out_dir": d}, "held": True}], d)
+        r = sv["result"]
+        cfg = registry.get_config("qwen1.5-0.5b", smoke=True)
+        attn = {"gqa_tc": "paged_attention_tc",
+                "gqa": "paged_attention_bf16"}[attention_route(
+                    torch.bfloat16, False, cfg.serve_block_size,
+                    cfg.resolved_head_dim, 0)]
+        path = ("gpp_matmul_tc", "gpp_matmul", attn, "paged_attention_merge",
+                "rmsnorm")
+        for what, x in (("", sv), (" (held)", sv_held)):
+            check_path_launches(f"torch_serve_batched.py{what}",
+                                x["launches"], path)
+        check_held("torch_serve_batched.py", sv_held)
+        check(sv_held["result"]["results"] == r["results"]
+              and sv_held["result"]["spec"]["streams"]
+              == r["spec"]["streams"],
+              "torch_serve_batched.py: the held run's streams are not the "
+              "first run's")
+        check(all(set(c) <= {"prefill_chunk", "decode", "verify"}
+                  and max(c.values()) <= 1
+                  for c in r["trace_counts"].values()),
+              f"torch_serve_batched.py: step shapes {r['trace_counts']}")
+        check((Path(d) / "serve_trace.json").is_file()
+              and (Path(d) / "serve_metrics.jsonl").is_file(),
+              "torch_serve_batched.py wrote no trace or metrics file")
+        out["serve"] = {**{k: r[k] for k in ("tokens", "seconds", "tok_s",
+                                             "prefix", "obs",
+                                             "trace_counts")},
+                        "spec": {k: v for k, v in r["spec"].items()
+                                 if k != "streams"},
+                        "launches": sv["launches"], "held": sv_held["held"],
+                        "wall_s": time.perf_counter() - t}
+        print(f"examples [{card}]: torch_serve_batched.py (qwen1.5-0.5b "
+              f"SMOKE widths): its asserts hold "
+              f"(prefix hit_rate {r['prefix']['hit_rate']:.2f}, hit_tokens "
+              f"{r['prefix']['hit_tokens']}; speculation == plain, "
+              f"acceptance {r['spec']['acceptance_rate']:.2f}); batched "
+              f"round {r['tokens']} tokens in {r['seconds']:.3f} s = "
+              f"{r['tok_s']:.1f} tok/s; obs ttft_p50 "
+              f"{r['obs']['ttft_p50_s'] * 1e3:.1f} ms, bw_utilization "
+              f"measured {r['obs']['measured_bw_utilization']:.2f} vs "
+              f"predicted {r['obs']['predicted_bw_utilization']:.2f}; "
+              f"launches {sv['launches']}", flush=True)
+
+        t = time.perf_counter()
+        ck = Path(d) / "ckpt"
+        a, b = EXAMPLE_RESUME
+        runs = run_example("torch_train_e2e", [
+            {"args": ["--steps", str(EXAMPLE_STEPS), "--ckpt-dir",
+                      str(ck / "full")]},
+            {"args": ["--steps", str(EXAMPLE_GPP_STEPS), "--stream-mode",
+                      "gpp", "--ckpt-dir", str(ck / "gpp")]},
+            {"args": ["--steps", str(a), "--ckpt-dir", str(ck / "resume")]},
+            {"args": ["--steps", str(b), "--ckpt-dir", str(ck / "resume")],
+             "held": True}], d)
+        full, gpp, first, resumed = (x["result"] for x in runs)
+        for what, x in zip(("resident", "gpp", "first", "resumed"), runs):
+            check_path_launches(f"torch_train_e2e.py {what}",
+                                x["launches"], TRAIN_PATH)
+        check_held("torch_train_e2e.py resumed", runs[3])
+        losses = full["losses"]
+        check(len(losses) == EXAMPLE_STEPS and losses[-1] < losses[0]
+              and full["checkpoint"] == EXAMPLE_STEPS,
+              f"torch_train_e2e.py: {len(losses)} losses, "
+              f"{losses[0]} -> {losses[-1]}, last checkpoint "
+              f"{full['checkpoint']}")
+        check(gpp["losses"] == losses[:EXAMPLE_GPP_STEPS],
+              f"torch_train_e2e.py --stream-mode gpp: losses "
+              f"{gpp['losses']} are not resident's "
+              f"{losses[:EXAMPLE_GPP_STEPS]}")
+        check(first["checkpoint"] == a and resumed["start"] == a
+              and resumed["losses"] == losses[a:b],
+              f"torch_train_e2e.py resumed at {resumed['start']}: losses "
+              f"{resumed['losses']} against the straight run's "
+              f"{losses[a:b]}")
+        te = _example_module("torch_train_e2e")
+        routes = check_example_routes("torch_train_e2e.py CONFIG_100M",
+                                      te.CONFIG_100M, *EXAMPLE_BATCH)
+        check(routes["loss"] == losses[0],
+              f"torch_train_e2e.py: the kernel route's loss "
+              f"{routes['loss']} on the first batch is not the example's "
+              f"first {losses[0]}")
+        out["train_e2e"] = {
+            "params": full["params"], "steps": EXAMPLE_STEPS,
+            "tokens_a_step": EXAMPLE_BATCH[0] * EXAMPLE_BATCH[1],
+            "resident": {k: full[k] for k in ("seconds", "tok_s")},
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses,
+            "gpp": {k: gpp[k] for k in ("seconds", "tok_s")},
+            "gpp_steps": EXAMPLE_GPP_STEPS,
+            "resume": {"saved_at": a, "resumed_to": b,
+                       "losses": resumed["losses"]},
+            "launches": {w: x["launches"] for w, x in
+                         zip(("resident", "gpp", "first", "resumed"),
+                             runs)},
+            "held": runs[3]["held"], "routes": routes,
+            "wall_s": time.perf_counter() - t}
+        mparams = full["params"] / 1e6
+        print(f"examples [{card}]: torch_train_e2e.py ({mparams:.1f}M "
+              f"params, 16 x 256 tokens a step): resident "
+              f"{EXAMPLE_STEPS} steps, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}, {full['seconds']:.2f} s, "
+              f"{full['tok_s']:.1f} tok/s; --stream-mode gpp (layers in "
+              f"pinned host memory) {EXAMPLE_GPP_STEPS} steps bit for bit "
+              f"resident's, {gpp['seconds']:.2f} s, {gpp['tok_s']:.1f} tok/s;"
+              f" saved at {a} steps and resumed to {b}: losses bit for bit "
+              f"the straight run's; kernel route vs plain on the first "
+              f"batch: loss {routes['loss']:.6f} vs "
+              f"{routes['plain_loss']:.6f}; launches (resident) "
+              f"{runs[0]['launches']}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 
 def main(argv=None) -> int:
     global REPORT_DIR, H100_HBM_BYTES_PER_S
@@ -5731,6 +6165,8 @@ def main(argv=None) -> int:
     sharded = ph("sharded steps", check_sharded_steps, report)
     # slice 18: the dry run and the roofline against the steps just timed
     ph("roofline", check_roofline, report)
+    # slice 20: the four examples, each in a process of its own
+    examples = ph("examples", check_examples, report)
     shard_key = "sharded steps (1x1 NCCL mesh)"
     shard_n = sharded["launches"]
 
@@ -5784,6 +6220,12 @@ def main(argv=None) -> int:
               f"({r['bound_by']}) wall_ms={r['wall_ms']:.4f}")
     numbers = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     serving = report["serving"]
+    example_launches = {
+        "examples/torch_quickstart.py": examples["quickstart"]["launches"],
+        "examples/torch_serve_batched.py": examples["serve"]["launches"],
+        "examples/torch_train_e2e.py": {
+            k: sum(r[k] for r in examples["train_e2e"]["launches"].values())
+            for k in examples["quickstart"]["launches"]}}
 
     def by_path(counter, f32=False):
         """{path: launches of `counter`} over every served path that ran
@@ -5803,6 +6245,10 @@ def main(argv=None) -> int:
                     layers = runs.get("f32_kernel", runs["bf16"])[
                         "num_layers"]
                     out[arch + label.format(layers)] = n
+        if not f32:                  # the examples run in bf16
+            for what, n in example_launches.items():
+                if n.get(counter):
+                    out[what] = n[counter]
         return out
 
     def train_by(kernel):

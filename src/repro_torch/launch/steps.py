@@ -39,7 +39,9 @@ A step consumes what the reference's jitted step donates
 optimizer state in their own storage, and the decode step writes the
 caches in theirs; each returns the trees it was given.  A caller that
 still needs the old values keeps a copy (`layers.tree_map(torch.clone,
-...)`) before the call.
+...)`) before the call.  The mesh-less train step with a streamed mode on
+a CUDA device also moves the superblocks to pinned host memory and returns
+them there (`streams_from_host`).
 """
 from __future__ import annotations
 
@@ -211,13 +213,42 @@ def make_train_step(cfg: ModelConfig, mesh=None,
                             "loss_and_grads": loss_and_grads})
 
 
+def streams_from_host(cfg: ModelConfig, device) -> bool:
+    """Whether the mesh-less train step keeps the superblocks' stacked
+    leaves in pinned host memory: a streamed mode on a CUDA device."""
+    return (cfg.stream.mode != "resident"
+            and torch.device(device).type == "cuda")
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
 def _train_step_one(cfg: ModelConfig, optc, adafactor: bool) -> StepBundle:
-    """The mesh-less train step (world size 1, no collectives)."""
-    specs = (stream_specs(cfg) if cfg.stream.mode != "resident"
-             else (None, None))
+    """The mesh-less train step (world size 1, no collectives).  With a
+    streamed mode on a CUDA device (`streams_from_host`) the superblocks'
+    stacked leaves rest in pinned host memory, moved there the first time
+    the step is handed them on the card: the streamer fetches each layer
+    from there (`core.streamer`, "host memory"), and the optimizer updates
+    them, with their gradients, on the card and writes them back, so the
+    step gives resident's bits.  The optimizer state stays on the card."""
+    streamed = cfg.stream.mode != "resident"
+    specs = stream_specs(cfg) if streamed else (None, None)
 
     def train_step(params, opt_state, batch, step):
+        dev = opt_state["count"].device
+        host = None
+        if streamed and streams_from_host(cfg, dev):
+            if tree_leaves(params["blocks"])[0].is_cuda:
+                params = {**params,
+                          "blocks": tree_map(_pinned, params["blocks"])}
+            host = params["blocks"]
         loss, grads = value_and_grad(cfg, params, batch, None, *specs)
+        if host is not None:
+            params = {**params, "blocks": tree_map(
+                lambda t: t.to(dev, non_blocking=True), host)}
+            grads = {**grads, "blocks": tree_map(lambda g: g.to(dev),
+                                                 grads["blocks"])}
         lr = opt.cosine_lr(step, peak=optc.lr, warmup=200, total=10_000)
         if adafactor:
             params, opt_state, metrics = adaf.adafactor_update(
@@ -226,6 +257,9 @@ def _train_step_one(cfg: ModelConfig, optc, adafactor: bool) -> StepBundle:
         else:
             params, opt_state, metrics = opt.adamw_update(
                 optc, grads, opt_state, params, lr=lr, donate=True)
+        if host is not None:
+            tree_map(lambda h, t: h.copy_(t), host, params["blocks"])
+            params = {**params, "blocks": host}
         metrics["loss"] = loss
         return params, opt_state, metrics
 

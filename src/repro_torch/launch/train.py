@@ -8,7 +8,9 @@
 runs on CUDA; `--device cpu` runs the plain PyTorch path on the CPU.
 Without CUDA and without `--device cpu` it raises.  Flags are the
 reference CLI's plus `--device`; `--stream-mode` takes the four modes of
-the layer streamer (`core.streamer`).  `--devices N` with `--mesh DxM`
+the layer streamer (`core.streamer`); at world size 1 on CUDA a streamed
+mode keeps the layers in pinned host memory
+(`launch.steps.streams_from_host`).  `--devices N` with `--mesh DxM`
 (or `auto`: D = N // 2, as the reference) trains on a ("data", "model")
 mesh of N ranks (`launch.steps.make_train_step` on the mesh): with
 `--device cpu` N gloo ranks in new processes, with CUDA one rank a card
@@ -24,10 +26,11 @@ Fault tolerance in the loop, as in the reference: deterministic data
 from the latest committed step, a straggler watchdog on step wall times.
 A checkpoint is labelled with the number of steps it has taken, so a
 resumed run starts at the first step not yet taken (the reference labels
-its mid-run checkpoints one step early; ROADMAP §3.6).  `--lr` is the
-peak of the cosine schedule (the reference parses it and runs its
-default, the same 3e-4).  `main(argv)` returns the losses (of rank 0, in
-this process; a run of spawned ranks prints them and returns None).
+its mid-run checkpoints one step early: ROADMAP §3, known fault 3).
+`--lr` is the peak of the cosine schedule (the reference parses it and
+runs its default, the same 3e-4).  `main(argv)` returns the losses (of
+rank 0, in this process; a run of spawned ranks prints them and returns
+None).
 """
 from __future__ import annotations
 

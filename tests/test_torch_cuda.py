@@ -1378,3 +1378,50 @@ def test_streamer_gradients_come_back_to_the_host(cuda, mode):
     for a, r in zip(got, want):
         assert a.device.type == "cpu"
         assert torch.equal(a, r.cpu())
+
+
+@pytest.mark.parametrize("optimizer", ("adamw", "adafactor"))
+@pytest.mark.parametrize("mode", ("insitu", "gpp"))
+def test_train_step_keeps_streamed_layers_on_the_host(cuda, mode, optimizer):
+    # the mesh-less train step with a streamed mode on the card: the blocks
+    # go to pinned host memory on the first call and stay there, the
+    # optimizer state stays on the card, and three steps give resident's
+    # losses and parameters bit for bit
+    from repro_torch.core.streamer import StreamSettings
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step, streams_from_host
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adafactor as adaf
+    from repro_torch.optim import adamw
+
+    cfg = registry.get_config("qwen1.5-0.5b", smoke=True).with_(
+        optimizer=optimizer)
+    pipe = TokenPipeline(cfg, DataConfig(batch=2, seq_len=32))
+    init = adaf.adafactor_init if optimizer == "adafactor" \
+        else adamw.adamw_init
+
+    def train(c):
+        bundle = make_train_step(c)
+        p = tf.init_params(c, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+        o = init(p)
+        losses = []
+        for step in range(3):
+            batch = {k: torch.from_numpy(v).to(cuda)
+                     for k, v in pipe.batch_at(step).items()}
+            p, o, m = bundle.fn(p, o, batch, step)
+            losses.append(float(m["loss"]))
+        return losses, p, o
+
+    want, p_res, _ = train(cfg)
+    streamed = cfg.with_(stream=StreamSettings(mode=mode, ring_depth=3))
+    assert streams_from_host(streamed, cuda)
+    got, p_str, o_str = train(streamed)
+    assert got == want
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in tree_leaves(p_str["blocks"]))
+    assert all(t.is_cuda for t in tree_leaves(o_str))
+    for a, r in zip(tree_leaves(p_str), tree_leaves(p_res)):
+        assert torch.equal(a.to(cuda), r)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `src/repro_torch` and not
-`chip_smoke.py` imports jax, ml_dtypes or anything of the JAX package."""
+"""The port stands alone: no module of `src/repro_torch`, not
+`chip_smoke.py` and none of the port's examples (`examples/torch_*.py`)
+imports jax, ml_dtypes or anything of the JAX package."""
 import ast
 from pathlib import Path
 
@@ -13,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported(path: Path):
@@ -27,7 +29,9 @@ def _imported(path: Path):
 def test_port_files_found():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "gpp_matmul.py", "paged_attention.py",
-            "chip_smoke.py", "train.py", "adamw.py", "manager.py"} <= names
+            "chip_smoke.py", "train.py", "adamw.py", "manager.py",
+            "torch_quickstart.py", "torch_serve_batched.py",
+            "torch_train_e2e.py", "torch_gpp_design_space.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
